@@ -7,20 +7,36 @@ them.  Phases, in order, one line each; the first failure ends the run:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``emspec_torch/csrc`` and time the build.
-2. kernels: each kernel (B1 deposits, B2 histogram, B3 colormap lookup)
-   against its plain PyTorch version on the card at the main path's
-   shapes (16 s of 48 kHz audio, N = 8192, hop 2048, 512 rows), with
-   both times from CUDA events.
-3. batch: ``Pipeline.process`` on 16 s of mono audio — the kernel launch
-   counters must rise; the result must match the port's CPU path.
+2. kernels: each kernel against its plain PyTorch version on the card, at
+   the main paths' shapes (16 s of 48 kHz audio), with its time, the
+   plain version's, one equivalent library call's where there is one
+   (all CUDA events) and its roofline bound: B1 deposits, B2 histogram,
+   B3 colormap lookup (enhanced 8192, hop 2048, 512 rows); B4 four-step
+   steps 1–3 at n = 256, 1024, 4096, 8192, 32768, each at b = 1 and a
+   full batch; B5 triple windowing at the direct path's frames.
+3. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
+   (stencil) — the kernel launch counters must rise; the result must
+   match the port's CPU path.
 4. batch16: the same on a 16-channel batch.
 5. live: ``Stream`` fed in 1024-sample chunks (375 hops) then flushed; it
    must match the batch result; per-hop latency p50/p99.
-6. breakdown: per-stage device times of the batch path (CUDA events) and
-   the device's idle share of a batch call and of a live hop
-   (torch.profiler busy time over the unprofiled wall time).
+6. natural: P-natural batch — ``Settings(mode="natural",
+   fft_impl="fourstep")``, the multires banks 8192/2048/512, hop 128,
+   512 rows — on 16 s mono; B4 and B3 must launch; matches the CPU path.
+7. natural_live: P-natural through ``Stream`` in 1024-sample pushes
+   (5,937 hops of 128); must match its batch; p50/p99 per hop.
+8. direct: P-direct batch — enhanced, one bank of 8192, hop 2048,
+   ``fft_method="direct"``, ``fft_impl="fourstep"`` — on 16 s mono; B5,
+   B4, B2 and B3 must launch; matches the CPU path.
+9. direct_live: P-direct through ``Stream``; must match its batch.
+10. breakdown: per-stage device times of the enhanced batch path (CUDA
+   events), the device's busy time per kernel and idle share of every
+   batch cell and of a live hop of each path (torch.profiler busy time
+   over the unprofiled wall time).
 
-Then one JSON line of per-kernel results, and as the last line
+Every path is driven once with the launch counters set to 0 just before
+and read just after; those counts are the ``launches`` of the per-kernel
+JSON line.  Then that line, and as the last line
 ``{"ok": true, "device": {...}}``.
 
 Tolerances (``emspec_torch.validate``): quantized power grids — total
@@ -28,14 +44,18 @@ energy ≤ 1e-4 relative, 3×3 max-filters within 1e-3·peak on all but 1e-4
 of the cells (a float32 rounding flip moves a whole deposit one cell);
 B1 additionally ≥ 99.99% equal ids, every other valid deposit moved by
 one cell only, bins 0 and N/2 exact, and contrib within 1e-5·peak
-wherever both are valid; B2 ≤ 1e-5 relative per nonzero bin; B3 bit-equal; ``vis`` 3×3
-max-filters within 2/255 on all but 1e-4 of the cells; live vs batch
-within 1e-5 in ``vis`` (float32 atomics reorder sums only).
+wherever both are valid; B2 ≤ 1e-5 relative per nonzero bin; B3 and B5
+bit-equal; B4 within 2e-5·max|X| (the JAX package's four-step bound);
+natural power grids within 1e-4·peak per cell (not quantized; float32
+FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
+of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
+FFT batch shapes reorder sums only).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,10 +64,15 @@ import numpy as np
 import torch
 
 from emspec_torch import Settings, kernels_build
+from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
 from emspec_torch.dsp.kernels.deposits import deposits_ids, deposits_ids_plain
+from emspec_torch.dsp.kernels.fourstep import (
+    device_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
+from emspec_torch.dsp.kernels.window import (
+    w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.pipeline import Pipeline
 from emspec_torch.post.chain import PostState, postprocess_batch
 from emspec_torch.post.colormap import apply_lut
@@ -57,8 +82,15 @@ from emspec_torch.validate import compare_grids, compare_vis
 SR = 48_000
 SECONDS = 16.0
 SETTINGS = Settings(mode="enhanced", multires=False, fft_size=8192)
+NATURAL = Settings(mode="natural", fft_impl="fourstep")
+DIRECT = Settings(mode="enhanced", multires=False, fft_size=8192,
+                  fft_method="direct", fft_impl="fourstep")
 CHANNELS = 16
-STREAM_VIS_ATOL = 1e-5           # atomics reorder float32 sums only
+STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
+B4_TOL = 2e-5                    # · max|X|
+NATURAL_POWER_TOL = 1e-4         # · peak
+PEAK_BYTES_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_S = 67e12              # H100 SXM float32 outside the tensor cores
 KERNELS = (
     ("deposits_ids", deposits_ids, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:404"),
@@ -66,7 +98,22 @@ KERNELS = (
      "emspec/dsp/pallas/scatter.py:135"),
     ("lut_lookup", lut_lookup, "emspec_torch/csrc/lut.cu",
      "emspec/dsp/pallas/lut.py:43"),
+    ("fft4_steps123", fft4_steps123, "emspec_torch/csrc/fourstep.cu",
+     "emspec/dsp/pallas/fft4.py:130"),
+    ("windowed_frames", windowed_frames, "emspec_torch/csrc/window.cu",
+     "emspec/dsp/pallas/window.py:41"),
 )
+PATH_KERNELS = {        # kernels each path must launch
+    "batch": ("deposits_ids", "histogram", "lut_lookup"),
+    "batch16": ("deposits_ids", "histogram", "lut_lookup"),
+    "live": ("deposits_ids", "histogram", "lut_lookup"),
+    "natural": ("fft4_steps123", "lut_lookup"),
+    "natural_live": ("fft4_steps123", "lut_lookup"),
+    "direct": ("windowed_frames", "fft4_steps123", "histogram", "lut_lookup"),
+    "direct_live": ("windowed_frames", "fft4_steps123", "histogram",
+                    "lut_lookup"),
+}
+LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 
 
 def fail(msg: str):
@@ -109,6 +156,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """Roofline bound: the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def dft_ops(n: int) -> float:
+    """A complex n-point DFT counted as 5·n·log2 n, however it runs."""
+    return 5.0 * n * math.log2(n)
+
+
 def reset_counters() -> None:
     for _, wrapper, _, _ in KERNELS:
         wrapper.launches = 0
@@ -116,6 +176,19 @@ def reset_counters() -> None:
 
 def counters() -> dict:
     return {name: wrapper.launches for name, wrapper, _, _ in KERNELS}
+
+
+def drive(path: str, fn):
+    """Run one path once with the counters set to 0 just before and read
+    just after; fail unless each of the path's kernels launched."""
+    reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    LAUNCHES[path] = counters()
+    missing = [k for k in PATH_KERNELS[path] if LAUNCHES[path][k] == 0]
+    check(not missing, f"{path}: kernels of the path did not launch: "
+          f"{missing} ({LAUNCHES[path]})")
+    return out
 
 
 def phase_device():
@@ -128,17 +201,19 @@ def phase_device():
     t0 = time.perf_counter()
     kernels_build.library()
     build_s = time.perf_counter() - t0
+    print(smi, flush=True)
     print(f"device: {smi}  torch {torch.__version__} cuda "
           f"{torch.version.cuda}; kernels built in {build_s:.2f} s "
           f"({kernels_build.library_path().name})", flush=True)
     return torch.device("cuda")
 
 
-def phase_kernels(dev, pipe: Pipeline, p) -> dict:
+def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     n, hop, rows, R = pipe.n_max, pipe.hop, pipe.rows, pipe.reach
     S = (2 * R + 1) * rows
     x = torch.from_numpy(signal(SECONDS, seed=1)).to(dev)
     frames = frame_signal(x, n, hop)                       # (372, 8192)
+    b = frames.shape[0]
     kw = dict(n=n, hop=hop, sr=float(SR), rows=rows, reach=R)
     scal = (p.logmap_a, p.logmap_b, p.power_floor)
     res = {}
@@ -166,10 +241,16 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
           f"B1 deposits vs plain: {g}, id agreement {id_agree}, moves of "
           f"one cell only {one_cell}, bins 0 and N/2 exact {edges_exact}, "
           f"contrib err {err_b1} vs peak {peak}")
+    k = n // 2 + 1
+    # two real n-point DFTs (half a complex one each), the t·h window and
+    # ~40 operations a bin for stencils, corrections and quantization
     res["deposits_ids"] = dict(
-        max_abs_err=err_b1,
+        at=f"frames ({b}, {n})", max_abs_err=err_b1,
         ms=cuda_ms(lambda: deposits_ids(frames, *scal, **kw)),
-        plain_ms=cuda_ms(lambda: deposits_ids_plain(frames, *scal, **kw)))
+        plain_ms=cuda_ms(lambda: deposits_ids_plain(frames, *scal, **kw)),
+        library_ms=None,
+        **bound(4 * b * n + 8 * b * k + 4 * n + 4 * n + 12,
+                b * (dft_ops(n) + n + 40 * k)))
 
     # B2 on those ids: ≤ 1e-5 relative per nonzero bin; a NaN value behind
     # a dropped id must not reach the histogram
@@ -184,99 +265,185 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     vals_nan[:, ::7] = float("nan")
     check(bool(torch.isfinite(histogram(ids_nan, vals_nan, S)).all()),
           "B2: a NaN behind a dropped id reached the histogram")
+    ok_ids = (ik >= 0) & (ik < S)
+    flat = (torch.where(ok_ids, ik, S).long()
+            + (torch.arange(b, device=dev) * (S + 1))[:, None]).reshape(-1)
+    vals0 = torch.where(ok_ids, ck, 0.0).reshape(-1)
     res["histogram"] = dict(
-        max_abs_err=float((hk - hp).abs().max()),
+        at=f"ids ({b}, {k}) → {S} bins", max_abs_err=float((hk - hp).abs().max()),
         ms=cuda_ms(lambda: histogram(ik, ck, S)),
-        plain_ms=cuda_ms(lambda: histogram_plain(ik, ck, S)))
+        plain_ms=cuda_ms(lambda: histogram_plain(ik, ck, S)),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            b * (S + 1), device=dev).index_add_(0, flat, vals0)),
+        **bound(8 * b * k + 4 * b * S, float(ok_ids.sum())))
 
     # B3 at the batch raster (t, rows): bit-equal
     idx = torch.from_numpy(np.random.default_rng(2).integers(
-        0, 256, (frames.shape[0], rows)).astype(np.int32)).to(dev)
+        0, 256, (b, rows)).astype(np.int32)).to(dev)
     lk, lp = lut_lookup(idx, p.lut), lut_lookup_plain(idx, p.lut)
     check(torch.equal(lk, lp), "B3 lut_lookup differs from table[idx]")
+    flat_idx = idx.reshape(-1)
     res["lut_lookup"] = dict(
+        at=f"idx ({b}, {rows})",
         max_abs_err=float((lk.int() - lp.int()).abs().max()),
         ms=cuda_ms(lambda: lut_lookup(idx, p.lut)),
-        plain_ms=cuda_ms(lambda: lut_lookup_plain(idx, p.lut)))
-    torch.cuda.synchronize()
-    print("kernels: " + "; ".join(
-        f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, max abs err "
-        f"{v['max_abs_err']:.3g})" for k, v in res.items())
-        + f"; B1 grid {g.energy_rel:.2e} energy, {g.maxf_rel:.2e} maxf, "
-        f"id agreement {id_agree:.6f}", flush=True)
+        plain_ms=cuda_ms(lambda: lut_lookup_plain(idx, p.lut)),
+        library_ms=cuda_ms(lambda: torch.index_select(p.lut, 0, flat_idx)),
+        **bound(4 * idx.numel() + 1024 + 4 * idx.numel(), 0.0))
     return res
 
 
-def batch_phase(name: str, dev, x: np.ndarray, iters: int):
-    """Drive Pipeline.process on the card, check the counters rose and the
-    result matches the port's CPU path; → (vis, frames/s)."""
-    s = SETTINGS.replace(channels=1 if x.ndim == 1 else x.shape[0])
+# B4 sizes: the complex transform size n = N/2 of each path's real frames
+# and the batch one 16 s call gives it (natural banks 8192/2048/512 at
+# hop 128: 5,937 frames; direct 8192 at hop 2048: 3 × 372 windowed
+# frames), plus 8192 and 32768 (the north star's frame size, halved and
+# whole) at 16 s of their hop N/4.
+B4_CASES = ((256, 5937), (1024, 5937), (4096, 5937), (4096, 1116),
+            (8192, 372), (32768, 93))
+B4_REPORTED = (4096, 5937)         # the natural 8192-bank call
+
+
+def kernels_b45(dev, rng) -> dict:
+    res, lines = {}, []
+    for n, full in B4_CASES:
+        n1, n2 = fourstep._FACTORS[n]
+        for b in (1, full):
+            zr, zi = (torch.from_numpy(rng.standard_normal(
+                (b, n1, n2)).astype(np.float32)).to(dev) for _ in range(2))
+            kr, ki = fft4_steps123(zr, zi)
+            pr, pi = fft4_steps123_plain(zr, zi)
+            scale = float(torch.complex(pr, pi).abs().max())
+            err = float(torch.maximum((kr - pr).abs().max(),
+                                      (ki - pi).abs().max()))
+            check(err <= B4_TOL * scale, f"B4 n={n} b={b}: max err {err} vs "
+                  f"{B4_TOL}·max|X| = {B4_TOL * scale}")
+            if b == 1:
+                continue
+            z = torch.complex(zr, zi).reshape(b, n)
+            tab = sum(t.numel() for t in device_tables(n1, n2, dev))
+            row = dict(
+                at=f"(b, n1, n2) = ({b}, {n1}, {n2})", max_abs_err=err,
+                rel_err=err / scale,
+                ms=cuda_ms(lambda: fft4_steps123(zr, zi)),
+                plain_ms=cuda_ms(lambda: fft4_steps123_plain(zr, zi)),
+                library_ms=cuda_ms(lambda: torch.fft.fft(z)),
+                **bound(16 * b * n + 4 * tab, b * dft_ops(n)))
+            lines.append(f"n={n} b={b} {row['ms']:.4f} ms (plain "
+                         f"{row['plain_ms']:.4f}, torch.fft.fft "
+                         f"{row['library_ms']:.4f}, bound "
+                         f"{row['bound_ms']:.4f} {row['bound_by']}, err "
+                         f"{err / scale:.2e}·max|X|)")
+            if (n, full) == B4_REPORTED:
+                res["fft4_steps123"] = row
+    # B5 at the direct path's frames: bit-equal, also on a 1-D window
+    x = torch.from_numpy(signal(SECONDS, seed=5)).to(dev)
+    frames = frame_signal(x, DIRECT.fft_size, DIRECT.hop_samples)
+    wk, wp = windowed_frames(frames), windowed_frames_plain(frames)
+    check(torch.equal(wk, wp), "B5 windowed_frames differs from frames·w3")
+    check(torch.equal(windowed_frames(frames[3]),
+                      windowed_frames_plain(frames[3])),
+          "B5 windowed_frames differs on a single (N,) window")
+    r, n = frames.shape
+    w3 = w3_table(n, dev).reshape(3, 1, n)
+    res["windowed_frames"] = dict(
+        at=f"frames ({r}, {n})", max_abs_err=float((wk - wp).abs().max()),
+        ms=cuda_ms(lambda: windowed_frames(frames)),
+        plain_ms=cuda_ms(lambda: windowed_frames_plain(frames)),
+        library_ms=cuda_ms(lambda: frames[None] * w3),
+        **bound(4 * r * n + 12 * r * n + 12 * n, 3.0 * r * n))
+    print("kernels B4: " + "; ".join(lines) + "; all sizes also at b = 1",
+          flush=True)
+    return res
+
+
+def phase_kernels(dev, pipe: Pipeline, p) -> dict:
+    res = kernels_b123(dev, pipe, p)
+    res.update(kernels_b45(dev, np.random.default_rng(7)))
+    torch.cuda.synchronize()
+    print("kernels: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms at {v['at']} (plain {v['plain_ms']:.4f} ms"
+        + (f", library {v['library_ms']:.4f} ms"
+           if v['library_ms'] is not None else "")
+        + f", bound {v['bound_ms']:.4f} ms by {v['bound_by']}, max abs err "
+        f"{v['max_abs_err']:.3g})" for k, v in res.items()), flush=True)
+    return res
+
+
+def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
+                iters: int):
+    """Drive Pipeline.process on the card once (counters), check the
+    result against the port's CPU path, then time it → (vis, ms)."""
+    s = settings.replace(channels=1 if x.ndim == 1 else x.shape[0])
     gpu, cpu = Pipeline(s, dev), Pipeline(s, "cpu")
     p = gpu.params()
     xg = gpu.to_device(x)
-    before = counters()
-    vis, rgba, _ = gpu.process(xg, p)
-    torch.cuda.synchronize()
-    launched = {k: v - before[k] for k, v in counters().items()}
-    check(all(v > 0 for v in launched.values()),
-          f"{name}: a kernel of the path did not launch: {launched}")
+    vis, rgba, _ = drive(name, lambda: gpu.process(xg, p))
     vis_c, rgba_c, _ = cpu.process(x)
     check(vis.shape == vis_c.shape and rgba.shape == rgba_c.shape
           and rgba.dtype == torch.uint8, f"{name}: shapes {vis.shape}")
     check(bool(torch.isfinite(vis).all()), f"{name}: non-finite vis")
     t = gpu.num_columns(x.shape[-1])
-    g = compare_grids(cpu._enhanced_power(cpu.to_device(x), t, cpu.params()),
-                      gpu._enhanced_power(xg, t, p).cpu())
+    if s.mode == "natural":
+        want = cpu._natural_power(cpu.to_device(x), t, cpu.params())
+        got = gpu._natural_power(xg, t, p).cpu()
+        worst = float((got - want).abs().max()) / float(want.max())
+        check(worst <= NATURAL_POWER_TOL, f"{name}: GPU vs CPU power "
+              f"{worst}·peak > {NATURAL_POWER_TOL}")
+        grid = f"power max diff {worst:.2e}·peak"
+    else:
+        g = compare_grids(cpu._enhanced_power(cpu.to_device(x), t,
+                                              cpu.params()),
+                          gpu._enhanced_power(xg, t, p).cpu())
+        check(g.ok, f"{name}: GPU vs CPU grid {g}")
+        grid = f"energy {g.energy_rel:.2e}, grid maxf {g.maxf_rel:.2e}"
     vis_ok, vd, vshare = compare_vis(vis_c, vis.cpu())
-    check(g.ok and vis_ok, f"{name}: GPU vs CPU path: grid {g}, vis "
-          f"max-filter diff {vd} (share over 2/255: {vshare})")
+    check(vis_ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share "
+          f"over 2/255: {vshare})")
     ms = cuda_ms(lambda: gpu.process(xg, p), iters=iters, warmup=2)
     frames = t * (1 if x.ndim == 1 else x.shape[0])
-    fps = frames / (ms / 1e3)
     print(f"{name}: {tuple(x.shape)} samples → vis {tuple(vis.shape)}; "
-          f"{ms:.3f} ms/call, {fps:.1f} frames/s ({frames} frames/call, "
-          f"device-resident input); vs CPU path: energy {g.energy_rel:.2e}, "
-          f"grid maxf {g.maxf_rel:.2e}, vis maxf {vd:.2e} (share over "
-          f"2/255 {vshare:.2e}); launches "
-          f"{launched}", flush=True)
-    return vis, fps, ms
+          f"{ms:.3f} ms/call, {frames / (ms / 1e3):.1f} frames/s ({frames} "
+          f"frames/call, device-resident input); vs CPU path: {grid}, vis "
+          f"maxf {vd:.2e} (share over 2/255 {vshare:.2e}); launches "
+          f"{LAUNCHES[name]}", flush=True)
+    return vis, ms
 
 
-def phase_live(dev, x: np.ndarray, vis_batch: torch.Tensor):
-    st = Stream(SETTINGS, dev)
-    before = counters()
-    cols, lat = [], []
-    for i in range(0, x.shape[-1], 1024):
-        t0 = time.perf_counter()
-        got = st.push(x[i:i + 1024])
-        if got:
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) / len(got))
-        cols.extend(got)
-    cols.extend(st.flush())
-    torch.cuda.synchronize()
-    launched = {k: v - before[k] for k, v in counters().items()}
-    check(all(v > 0 for v in launched.values()),
-          f"live: a kernel of the path did not launch: {launched}")
+def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
+               vis_batch: torch.Tensor) -> None:
+    st = Stream(settings, dev)
+    lat = []
+
+    def run():
+        cols = []
+        for i in range(0, x.shape[-1], 1024):
+            t0 = time.perf_counter()
+            got = st.push(x[i:i + 1024])
+            if got:
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) / len(got))
+            cols.extend(got)
+        return cols + st.flush()
+
+    cols = drive(name, run)
     hops = len(cols) + st.reach
-    check(hops >= 300, f"live: only {hops} hops")
+    check(hops >= 300, f"{name}: only {hops} hops")
     check([c.index for c in cols] == list(range(vis_batch.shape[0])),
-          "live: column indices differ from the batch")
+          f"{name}: column indices differ from the batch")
     vis_s = torch.stack([c.vis for c in cols])
     diff = float((vis_s - vis_batch).abs().max())
-    check(diff <= STREAM_VIS_ATOL, f"live ≠ batch: max |Δvis| {diff}")
+    check(diff <= STREAM_VIS_ATOL, f"{name} ≠ batch: max |Δvis| {diff}")
     p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
-    print(f"live: {hops} hops in 1024-sample pushes, {len(cols)} columns; "
-          f"max |vis − batch| {diff:.3g}; per-hop latency p50 {p50:.3f} ms, "
-          f"p99 {p99:.3f} ms (host clock, push → synchronize); launches "
-          f"{launched}", flush=True)
-    return launched
+    print(f"{name}: {hops} hops of {st.pipe.hop} in 1024-sample pushes, "
+          f"{len(cols)} columns; max |vis − batch| {diff:.3g}; per-hop "
+          f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms (host clock, push → "
+          f"synchronize); launches {LAUNCHES[name]}", flush=True)
 
 
-def device_busy_ms(fn, reps: int) -> float:
-    """Device busy time per call of ``fn``: the sum of its kernels' and
-    copies' times in torch.profiler (one stream, so none overlap).  A
-    first, discarded profile absorbs the profiler's start-up."""
+def device_busy(fn, reps: int):
+    """Device busy time per call of ``fn`` (ms) and its split by kernel:
+    the sums of kernel and copy times in torch.profiler (one stream, so
+    none overlap).  A first, discarded profile absorbs start-up."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
@@ -287,57 +454,70 @@ def device_busy_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == cuda)
-    return busy_us / 1e3 / reps
+    by_name = {e.key: e.self_device_time_total / 1e3 / reps
+               for e in prof.key_averages() if e.device_type == cuda}
+    return sum(by_name.values()), by_name
 
 
-def phase_breakdown(dev, batches: dict, x_live: np.ndarray) -> None:
+def _top(by_name: dict, k: int = 4) -> str:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:k]
+    return ", ".join(f"{name[:40]} {ms:.4f}" for name, ms in top)
+
+
+def phase_breakdown(dev, batches: dict, lives: dict) -> None:
     """Where the time goes: per-stage device times (CUDA events) of the
-    batch path, and the device's idle share (1 − profiled busy time over
-    the unprofiled wall time) of the batch calls and of a live hop."""
-    for name, (x, wall_ms) in batches.items():
-        s = SETTINGS.replace(channels=1 if x.ndim == 1 else x.shape[0])
+    enhanced batch path; for every batch cell and a live hop of every
+    path, the device busy time, its largest kernels and the idle share
+    (1 − profiled busy time over the unprofiled wall time)."""
+    for name, (settings, x, wall_ms) in batches.items():
+        s = settings.replace(channels=1 if x.ndim == 1 else x.shape[0])
         pipe = Pipeline(s, dev)
         p, xg = pipe.params(), pipe.to_device(x)
-        t = pipe.num_columns(x.shape[-1])
-        fr = frame_signal(xg, pipe.n_max, pipe.hop)
-        ids, c = pipe._deposit_ids_rel(fr, p)
-        cols = pipe._scatter_relative(ids, c, t).movedim(-2, 0).contiguous()
-        st = PostState.init(xg.shape[:-1] + (pipe.rows,), dev)
-        def post():
-            return postprocess_batch(cols, st, p.post, s.agc_global)
-        vis, _ = post()
-        stages = {
-            "B1": cuda_ms(lambda: pipe._deposit_ids_rel(fr, p), 5, 2),
-            "B2+fold": cuda_ms(lambda: pipe._scatter_relative(ids, c, t), 5, 2),
-            "post chain": cuda_ms(post, 5, 2),
-            "colormap": cuda_ms(lambda: apply_lut(vis, p.lut), 5, 2)}
-        busy = device_busy_ms(lambda: pipe.process(xg, p), 3)
-        print(f"breakdown {name}: stages (CUDA events) " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in stages.items())
-            + f"; device busy {busy:.4f} of {wall_ms:.4f} ms/call, idle "
-            f"share {1 - busy / wall_ms:.4f}", flush=True)
+        stages = ""
+        if name.startswith("batch"):
+            t = pipe.num_columns(x.shape[-1])
+            fr = frame_signal(xg, pipe.n_max, pipe.hop)
+            ids, c = pipe._deposit_ids_rel(fr, p)
+            cols = pipe._scatter_relative(ids, c, t).movedim(-2, 0).contiguous()
+            st = PostState.init(xg.shape[:-1] + (pipe.rows,), dev)
+
+            def post():
+                return postprocess_batch(cols, st, p.post, s.agc_global)
+            vis, _ = post()
+            stages = "stages (CUDA events) " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in {
+                    "B1": cuda_ms(lambda: pipe._deposit_ids_rel(fr, p), 5, 2),
+                    "B2+fold": cuda_ms(
+                        lambda: pipe._scatter_relative(ids, c, t), 5, 2),
+                    "post chain": cuda_ms(post, 5, 2),
+                    "colormap": cuda_ms(lambda: apply_lut(vis, p.lut), 5, 2),
+                }.items()) + "; "
+        busy, by_name = device_busy(lambda: pipe.process(xg, p), 3)
+        print(f"breakdown {name}: {stages}device busy {busy:.4f} of "
+              f"{wall_ms:.4f} ms/call, idle share {1 - busy / wall_ms:.4f}; "
+              f"largest (ms/call): {_top(by_name)}", flush=True)
 
     # live: 20 hops to settle, 100 profiled, 100 on the host clock alone
-    st = Stream(SETTINGS, dev)
-    hop, pos = st.pipe.hop, st.pipe.n_max + 20 * st.pipe.hop
-    st.push(x_live[:pos])
+    for name, (settings, x) in lives.items():
+        st = Stream(settings, dev)
+        hop, pos = st.pipe.hop, st.pipe.n_max + 20 * st.pipe.hop
+        st.push(x[:pos])
 
-    def one_hop():
-        nonlocal pos
-        st.push(x_live[pos:pos + hop])
-        pos += hop
-    busy = device_busy_ms(one_hop, 100)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        one_hop()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 100
-    print(f"breakdown live: device busy {busy:.4f} of {wall_ms:.4f} ms/hop "
-          f"(host clock, 2048-sample pushes), idle share "
-          f"{1 - busy / wall_ms:.4f}", flush=True)
+        def one_hop():
+            nonlocal pos
+            st.push(x[pos:pos + hop])
+            pos += hop
+        busy, by_name = device_busy(one_hop, 100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            one_hop()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 100
+        print(f"breakdown {name}: device busy {busy:.4f} of {wall_ms:.4f} "
+              f"ms/hop (host clock, {hop}-sample pushes), idle share "
+              f"{1 - busy / wall_ms:.4f}; largest (ms/hop): {_top(by_name)}",
+              flush=True)
 
 
 def main() -> None:
@@ -345,18 +525,27 @@ def main() -> None:
     pipe = Pipeline(SETTINGS, dev)
     res = phase_kernels(dev, pipe, pipe.params())
 
-    reset_counters()                       # the main path's run starts here
     x = signal(SECONDS)
-    vis, _, ms = batch_phase("batch", dev, x, iters=10)
+    vis, ms = batch_phase("batch", dev, SETTINGS, x, iters=10)
     x16 = signal(SECONDS, CHANNELS, seed=3)
-    _, _, ms16 = batch_phase("batch16", dev, x16, iters=5)
-    phase_live(dev, x, vis)
-    launches = counters()
-    phase_breakdown(dev, {"batch": (x, ms), "batch16": (x16, ms16)}, x)
+    _, ms16 = batch_phase("batch16", dev, SETTINGS, x16, iters=5)
+    live_phase("live", dev, SETTINGS, x, vis)
+    vis_n, ms_n = batch_phase("natural", dev, NATURAL, x, iters=3)
+    live_phase("natural_live", dev, NATURAL, x, vis_n)
+    vis_d, ms_d = batch_phase("direct", dev, DIRECT, x, iters=10)
+    live_phase("direct_live", dev, DIRECT, x, vis_d)
+    phase_breakdown(
+        dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
+              "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d)},
+        {"live": (SETTINGS, x), "natural_live": (NATURAL, x),
+         "direct_live": (DIRECT, x)})
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **res[name])
+             launches=sum(run[name] for run in LAUNCHES.values()),
+             launches_by_path={path: run[name]
+                               for path, run in LAUNCHES.items()},
+             **res[name])
         for name, _, src, rep in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

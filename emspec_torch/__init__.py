@@ -2,22 +2,25 @@
 
 The JAX package ``emspec`` stays the reference; this package mirrors its
 module names (``emspec_torch.pipeline`` ↔ ``emspec.pipeline`` …) so each
-counterpart is easy to find.  It imports ``torch`` and never ``jax``:
-host-only helpers come from the jax-free ``emspec`` modules
-(``emspec.config``, ``emspec.dsp.windows``, ``emspec.io.*``,
-``emspec.post._cmap_data``) and the numpy table functions that live in
-jax-importing modules are copied into :mod:`emspec_torch.tables`.
+counterpart is easy to find.  It imports ``torch`` and never ``jax``, and
+nothing of the JAX package: the host-only code it needs is copied
+(``config``, ``dsp.windows``, ``io.ring``, ``post._cmap_data``, the numpy
+table functions in ``tables``), each copy pinned to its original by the
+tests.
 
-The slice ported so far is the main path: enhanced (reassigned) mode, one
-bank, batch (``Pipeline.process``) and live (``Stream``), with three hand-
-written CUDA kernels (``emspec_torch/csrc``).  ROADMAP.md lists the rest.
+Ported so far: enhanced mode with one bank (stencil and direct methods),
+and natural mode with one bank or the multires banks, each in batch
+(``Pipeline.process``) and live (``Stream``), with the ``xla``
+(``torch.fft``) and ``fourstep`` FFT engines, through five hand-written
+CUDA kernels (``emspec_torch/csrc``).  ROADMAP.md lists the rest.  Entry
+points run on the card unless the caller passes ``device="cpu"``.
 
 >>> from emspec_torch import Settings, get_pipeline, Stream
->>> pipe = get_pipeline(Settings(multires=False, fft_size=8192), "cuda")
+>>> pipe = get_pipeline(Settings(multires=False, fft_size=8192))
 >>> vis, rgba, state = pipe.process(samples)
 """
 
-from emspec.config import Settings  # noqa: F401  (jax-free)
+from emspec_torch.config import Settings  # noqa: F401
 from emspec_torch.device import apply_precision_policy
 
 apply_precision_policy()

@@ -29,14 +29,20 @@ def post_state_from_jax(state, device) -> PostState:
 
 
 def params_from_jax(params, device) -> PipelineParams:
-    """``emspec.pipeline.PipelineParams`` → the port's (the natural-mode
-    merge tables and band weights have no counterpart in the slice)."""
+    """``emspec.pipeline.PipelineParams`` → the port's, merge tables and
+    band weights included (one tensor per bank each)."""
+    per_bank = lambda leaves, dtype: tuple(_t(v, device, dtype)
+                                           for v in leaves)
     return PipelineParams(
         post=post_params_from_jax(params.post, device),
         lut=_t(params.lut, device, np.uint8),
         logmap_a=_t(params.logmap_a, device, np.float32),
         logmap_b=_t(params.logmap_b, device, np.float32),
         power_floor=_t(params.power_floor, device, np.float32),
+        i0=per_bank(params.i0, np.int32),
+        w0=per_bank(params.w0, np.float32),
+        band_rows=per_bank(params.band_rows, np.float32),
+        band_bins=per_bank(params.band_bins, np.float32),
     )
 
 

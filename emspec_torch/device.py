@@ -4,8 +4,9 @@
 * No TF32 anywhere: a float32 matmul or convolution silently run in TF32
   keeps ~3 decimal digits, the torch twin of the bf16 truncation the JAX
   package hit on the TPU (ROADMAP.md fault-watch (a)).
-* No implicit device choice: every entry point takes the ``device`` the
-  caller passes, and nothing moves work to the CPU when CUDA is missing.
+* Entry points (``Pipeline``, ``get_pipeline``, ``Stream``,
+  ``stream_signal``) run on the card unless the caller passes
+  ``device="cpu"``; nothing moves work to the CPU when CUDA is missing.
 """
 
 from __future__ import annotations

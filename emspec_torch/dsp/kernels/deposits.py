@@ -2,9 +2,10 @@
 (counterpart of ``emspec/dsp/pallas/fft4.py::fft4_deposits(reach=R)``;
 source ``emspec_torch/csrc/deposits.cu``).
 
-``deposits_plain`` is the single definition of the quantization contract
-(``emspec.pipeline.Pipeline._deposits``, ``pipeline.py:409-423``): the
-pipeline's unfused path and the kernel's reference both call it.
+``quantize_deposits`` is the single definition of the quantization
+contract (``emspec.pipeline.Pipeline._deposits_banked``,
+``pipeline.py:409-423``): the pipeline's unfused paths and the kernel's
+reference ``deposits_plain`` both call it.
 """
 
 from __future__ import annotations
@@ -28,24 +29,34 @@ def supported(n: int) -> bool:
     return MIN_N <= n <= MAX_N and (n & (n - 1)) == 0
 
 
-def deposits_plain(frames, logmap_a, logmap_b, power_floor, *, n: int,
-                   hop: int, sr: float, rows: int):
-    """frames (..., n) → (row, delta, contrib), each (..., n//2+1).
+def quantize_deposits(power, dt, dw, logmap_a, logmap_b, power_floor, *,
+                      n: int, hop: int, sr: float, rows: int, band=None):
+    """Reassignment corrections (..., n//2+1) → (row, delta, contrib).
 
     ``delta = round(Δt/hop)`` (a true division, half to even) is the
     relative column offset; contrib is zero for every invalid deposit
-    (sub-floor power, row off the axis, f̂ ≤ 0, |Δt| > N/2)."""
-    power, dt, dw = reassignment_corrections(*stft_triple_stencil(frames))
-    k_idx = torch.arange(n // 2 + 1, dtype=torch.float32, device=frames.device)
+    (sub-floor power, row off the axis, f̂ ≤ 0, |Δt| > N/2).  ``band`` is
+    the bank's band weight per bin (identically 1 for one bank)."""
+    k_idx = torch.arange(n // 2 + 1, dtype=torch.float32, device=power.device)
     f_hat = (k_idx + dw * (n / (2.0 * np.pi))) * (sr / n)           # Hz
     delta = torch.round(dt / float(hop)).to(torch.int32)
     row_f = (torch.log2(torch.clamp(f_hat, min=1e-6)) - logmap_a) * logmap_b
     row = torch.round(row_f).to(torch.int32)
     valid = ((power > power_floor) & (row >= 0) & (row < rows)
              & (f_hat > 0) & (torch.abs(dt) <= float(n) / 2.0))
-    contrib = torch.where(valid, power * (1.0 / float(n * n)),
+    weighted = power if band is None else power * band
+    contrib = torch.where(valid, weighted * (1.0 / float(n * n)),
                           torch.zeros_like(power))
     return torch.clamp(row, 0, rows - 1), delta, contrib
+
+
+def deposits_plain(frames, logmap_a, logmap_b, power_floor, *, n: int,
+                   hop: int, sr: float, rows: int):
+    """frames (..., n) → (row, delta, contrib), each (..., n//2+1): the
+    stencil spectra (two ``torch.fft.rfft``), corrections, quantization."""
+    return quantize_deposits(
+        *reassignment_corrections(*stft_triple_stencil(frames)), logmap_a,
+        logmap_b, power_floor, n=n, hop=hop, sr=sr, rows=rows)
 
 
 def deposits_ids_plain(frames, logmap_a, logmap_b, power_floor, *, n: int,

@@ -1,14 +1,16 @@
 """Stencil-method reassignment spectra, plain PyTorch (``emspec.dsp.stft``).
 
 Two real transforms per frame — raw and time-weighted (t·h) — as two
-``torch.fft.rfft`` calls (the JAX package's ``fft_impl="xla"`` branch,
-``stft.py:213-215``), never packed into one complex transform: at
-N = 8192 the t·h spectrum carries ~N/7 times the raw one's energy and a
-naive pack costs the raw spectrum ~10 bits.  ``X_h`` and ``X_dh`` then
-follow exactly from 3-point periodic-Hann stencils on the raw spectrum.
+``torch.fft.rfft`` calls on the ``xla`` engine (``stft.py:213-215``).  The
+``fourstep`` engine packs them into one complex four-step FFT, as the JAX
+package does (``stft.py:210-212``): at N = 8192 the t·h spectrum carries
+~N/7 times the raw one's energy, so that pack costs the raw spectrum
+~10 bits — it is the reference's numeric spec of that engine, kept.
+``X_h`` and ``X_dh`` then follow exactly from 3-point periodic-Hann
+stencils on the raw spectrum.
 
-These are the plain versions: they feed the deposits kernel's plain
-reference (``emspec_torch.dsp.kernels.deposits``) and the CPU path.
+The ``xla`` branch feeds the deposits kernel's plain reference
+(``emspec_torch.dsp.kernels.deposits``) and the CPU path.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import math
 import numpy as np
 import torch
 
-from emspec.dsp.windows import time_weighted_hann
+from emspec_torch.dsp.fourstep import packed_pair_fft
+from emspec_torch.dsp.windows import time_weighted_hann
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,10 +35,15 @@ def th_window(n: int, device) -> torch.Tensor:
     return _th_table(n, str(torch.device(device)))
 
 
-def stft_raw_pair(frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(raw spectrum X, t·h spectrum X_th), each (..., n//2+1) complex64."""
+def stft_raw_pair(frames: torch.Tensor, fft_impl: str = "xla"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(raw spectrum X, t·h spectrum X_th), each (..., n//2+1) complex64.
+    ``fft_impl="fourstep"``: one packed complex four-step FFT of the pair
+    (``emspec.dsp.stft.stft_raw_pair``'s fourstep branch)."""
     n = frames.shape[-1]
     th = th_window(n, frames.device)
+    if fft_impl == "fourstep":
+        return packed_pair_fft(frames, frames * th)
     F = torch.fft.rfft(torch.stack([frames, frames * th]), dim=-1)
     return F[0], F[1]
 
@@ -53,8 +61,8 @@ def stencil_from_raw(X: torch.Tensor, X_th: torch.Tensor, n: int):
     return X_h, X_th, X_dh
 
 
-def stft_triple_stencil(frames: torch.Tensor):
+def stft_triple_stencil(frames: torch.Tensor, fft_impl: str = "xla"):
     """Pre-cut frames (..., n) → (X_h, X_th, X_dh) (..., n//2+1)."""
     n = frames.shape[-1]
-    X, X_th = stft_raw_pair(frames)
+    X, X_th = stft_raw_pair(frames, fft_impl)
     return stencil_from_raw(X, X_th, n)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``emspec_torch/csrc/*.cu``).
 
-All kernels compile with one ``nvcc`` call into one shared library with a
-plain C interface, loaded with ``ctypes`` — no PyTorch headers, so the
-build takes seconds.  It happens at first use, never at import (importing
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links the objects into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so the build
+takes seconds.  It happens at first use, never at import (importing
 the kernel modules must work on a machine without ``nvcc`` or a GPU).
 The library lands in ``emspec_torch/_build/`` keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -25,7 +26,7 @@ _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: each returns its cudaError_t (0 = launched)
@@ -34,6 +35,8 @@ _SIGNATURES = {
                         _I, _I, _F, _F, _F, _F, _I, _I, _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _P],
     "emspec_lut": [_P, _P, _P, _LL, _P],
+    "emspec_fourstep": [_P] * 12 + [_LL, _I, _I, _P],
+    "emspec_window": [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P],
 }
 
 
@@ -61,23 +64,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = Path(tmp) / f"{src.stem}.o"
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        lib = Path(tmp) / out.name
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                            *map(str, objs)], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, out)                 # atomic: no half-written library
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(lib, out)                 # atomic: no half-written library
     return out
 
 

@@ -1,20 +1,33 @@
 """Pipeline: settings → hop→raster functions (``emspec.pipeline``).
 
-The ported slice is the main path: enhanced (reassigned) mode, one bank,
-the stencil method.  Its chain, in batch and per hop:
+Ported paths, in batch (``process``) and per hop (``_stream_step``):
 
-  frames → deposits (kernel B1, ``dsp.kernels.deposits``)
-         → relative histogram (kernel B2, ``dsp.kernels.scatter``)
-         → static shift-add fold (batch) / roll into the pending ring
-           (stream) → post chain (``post.chain``) → colormap (kernel B3).
+* **enhanced, one bank, stencil method** (the main path):
+  frames → deposits (kernel B1, ``dsp.kernels.deposits``) → relative
+  histogram (kernel B2, ``dsp.kernels.scatter``) → static shift-add fold
+  (batch) / roll into the pending ring (stream) → post chain
+  (``post.chain``) → colormap (kernel B3).
+* **enhanced, one bank, direct method**: frames → triple windowing
+  (kernel B5, ``dsp.kernels.window``) → three real FFTs (``torch.fft`` or
+  the four-step engine, kernel B4) → corrections → quantize → B2 → fold →
+  post → B3.
+* **natural, one bank or the multires banks**: per-bank Hann |X|² with
+  the non-finite scrub (``torch.fft`` or the four-step engine, B4) →
+  gather/lerp merge onto the log rows (``dsp.multires``) → post → B3.
 
-``scatter="auto"`` takes that chain on CUDA and the absolute-grid
-``segment_sum`` (``index_add_``) on the CPU; both stay selectable
-(``"pallas"`` is the JAX package's name for the relative-histogram
-route).  Kernel wrappers route by tensor device: on the CPU the same
-calls run their plain PyTorch versions.
+``fft_impl="auto"`` resolves to ``"xla"`` (``torch.fft``) on every device
+(see ``Pipeline.fft_impl``).  ``scatter="auto"`` takes the relative
+histogram (B2) on CUDA and the absolute-grid ``segment_sum``
+(``index_add_``) on the CPU; both stay selectable (``"pallas"`` is the
+JAX package's name for the relative-histogram route).  Kernel wrappers
+route by tensor device: on the CPU the same calls run their plain
+PyTorch versions.  With the stencil method the card always takes the
+fused kernel B1, whatever ``fft_impl`` says, as the JAX package's
+``_use_fused_deposits`` does on its accelerator; the CPU runs the
+engine's unfused chain, as the JAX package does on its CPU.
 
-Settings outside the slice raise ``NotImplementedError`` on every device.
+Enhanced multires and the stencil method outside B1's sizes raise
+``NotImplementedError`` on every device.
 """
 
 from __future__ import annotations
@@ -26,17 +39,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from emspec.config import MODE_ENHANCED, STRUCTURAL_FIELDS, Settings
+from emspec_torch.config import MODE_ENHANCED, STRUCTURAL_FIELDS, Settings
 from emspec_torch.device import DTYPE, as_device
+from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels.deposits import (
-    MAX_N, MIN_N, deposits_ids, deposits_plain, supported)
+    MAX_N, MIN_N, deposits_ids, quantize_deposits, supported)
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
+from emspec_torch.dsp.kernels.window import windowed_frames
+from emspec_torch.dsp.multires import (
+    MergeTables, band_support_hz, band_weight_at, bank_offsets,
+    build_merge_tables, merge_columns)
+from emspec_torch.dsp.reassign import reassignment_corrections
+from emspec_torch.dsp.stft import stft_triple_stencil
+from emspec_torch.dsp.windows import hann
 from emspec_torch.post.chain import (
     PostParams, PostState, postprocess_batch, postprocess_column)
 from emspec_torch.post.colormap import apply_lut
-from emspec_torch.tables import (
-    band_weight_at, log_freq_axis, lut, row_map_consts)
+from emspec_torch.tables import lut, row_map_consts
 
 
 class PipelineParams(NamedTuple):
@@ -48,6 +68,11 @@ class PipelineParams(NamedTuple):
     logmap_a: torch.Tensor     # 0-d: row = (log2 f − a)·b
     logmap_b: torch.Tensor     # 0-d
     power_floor: torch.Tensor  # 0-d: drop |X_h|² at or below this
+    # natural-mode merge tables and enhanced band weights, per bank
+    i0: tuple                  # (rows,) int32 lower bin index
+    w0: tuple                  # (rows,) float32 lower bin weight
+    band_rows: tuple           # (rows,) float32 band weight per row
+    band_bins: tuple           # (K_b,) float32 band weight per source bin
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -57,38 +82,83 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 class Pipeline:
-    """The single-bank enhanced pipeline on one device."""
+    """Analysis + display pipeline for one structural configuration on one
+    device (``"cuda"`` unless the caller asks for the CPU)."""
 
-    def __init__(self, settings: Settings, device):
+    def __init__(self, settings: Settings, device="cuda"):
         s = settings
-        if s.multires:
-            raise _not_ported("multires=True")
-        if s.mode != MODE_ENHANCED:
-            raise _not_ported(f"mode={s.mode!r}")
-        if s.fft_method != "stencil":
-            raise _not_ported(f"fft_method={s.fft_method!r}")
-        if s.fft_impl == "fourstep":
-            raise _not_ported("fft_impl='fourstep'")
-        if not supported(s.fft_size):
-            raise _not_ported(f"fft_size={s.fft_size} (kernel B1 holds "
-                              f"{MIN_N}..{MAX_N})")
+        enhanced = s.mode == MODE_ENHANCED
+        if enhanced and s.multires:
+            raise _not_ported("enhanced multires (mode='enhanced', "
+                              "multires=True)")
+        if enhanced and s.fft_method == "stencil" and not supported(s.fft_size):
+            raise _not_ported(f"fft_size={s.fft_size} with the stencil "
+                              f"method (kernel B1 holds {MIN_N}..{MAX_N})")
         self.settings = s
         self.device = as_device(device)
-        self.n_max = s.fft_size
+        self.sizes = s.active_fft_sizes
         self.hop = s.hop_samples
+        self.offsets = bank_offsets(self.sizes)
+        self.n_max = max(self.sizes)
         self.rows = s.raster_height
-        self.row_freqs = log_freq_axis(self.rows, s.freq_min,
-                                       s.sample_rate / 2.0, s.freq_scale)
-        # deposits carry no band weight: the single-bank weight must be 1
-        probe = band_weight_at(np.linspace(1.0, s.sample_rate / 2.0, 64), 0,
-                               1, s.crossover_low, s.crossover_high)
-        if not np.all(probe == 1.0):
-            raise AssertionError("single-bank band weight != 1")
+        self.tables = build_merge_tables(
+            self.sizes, s.sample_rate, self.rows, s.freq_min, s.freq_scale,
+            s.crossover_low, s.crossover_high)
+        self.row_freqs = self.tables.row_freqs
+        # per-bank bin range with nonzero band weight (the enhanced
+        # deposits' band weights are evaluated on it)
+        self.k_slices = []
+        n_banks = len(self.sizes)
+        for b, n in enumerate(self.sizes):
+            k_count = n // 2 + 1
+            if n_banks == 1:
+                self.k_slices.append((0, k_count))
+                continue
+            lo_hz, hi_hz = band_support_hz(
+                b, n_banks, s.crossover_low, s.crossover_high,
+                s.sample_rate / 2.0)
+            bin_hz = s.sample_rate / n
+            self.k_slices.append(
+                (max(int(np.floor(lo_hz / bin_hz)) - 1, 0),
+                 min(int(np.ceil(hi_hz / bin_hz)) + 2, k_count)))
+        if n_banks == 1:
+            # kernel B1 carries no band weight: the single-bank weight is 1
+            probe = band_weight_at(np.linspace(1.0, s.sample_rate / 2.0, 64),
+                                   0, 1, s.crossover_low, s.crossover_high)
+            if not np.all(probe == 1.0):
+                raise AssertionError("single-bank band weight != 1")
+        self.fft_impl                      # raises on an unsupported size
+
+    @property
+    def fft_impl(self) -> str:
+        """Resolved FFT engine, ``"fourstep"`` or ``"xla"`` (``torch.fft``).
+
+        ``"auto"`` resolves to ``"xla"`` on every device: the JAX
+        package's auto policy (four-step for enhanced single-bank on its
+        accelerator, ``pipeline.py:195-223``) is a TPU measurement and is
+        not carried over.  So kernel B4 runs where the caller selects
+        ``fft_impl="fourstep"``, as on the TPU."""
+        s = self.settings.fft_impl
+        if s == "auto":
+            return "xla"
+        if s == "fourstep" and not all(fourstep.supported(n)
+                                       for n in self.sizes):
+            raise ValueError(
+                f"fourstep FFT unsupported for sizes {self.sizes}")
+        return s
+
+    @property
+    def use_fused_deposits(self) -> bool:
+        """Kernel B1 for the stencil method's deposits: on the card, for
+        either engine (the JAX package fuses on its accelerator); the CPU
+        runs the engine's unfused chain."""
+        return (self.settings.fft_method == "stencil"
+                and self.device.type == "cuda")
 
     @property
     def use_relative_scatter(self) -> bool:
-        """B1 → B2 → fold (``"auto"`` on CUDA, or ``"pallas"``); else the
-        plain deposits and the absolute-grid segment sum."""
+        """Deposit ids → B2 → fold (``"auto"`` on CUDA, or ``"pallas"``);
+        else the absolute-grid segment sum."""
         s = self.settings.scatter
         if s == "auto":
             return self.device.type == "cuda"
@@ -97,42 +167,105 @@ class Pipeline:
     @property
     def reach(self) -> int:
         """R: the most columns time reassignment can move energy
-        (|Δt| ≤ N/2 ⇒ |δ| ≤ round(N/(2·hop)))."""
-        return int(np.round(self.n_max / (2.0 * self.hop)))
+        (|Δt| ≤ N/2 ⇒ |δ| ≤ round(N/(2·hop))); natural mode moves none."""
+        if self.settings.mode != MODE_ENHANCED:
+            return 0
+        return max(int(np.round(n / (2.0 * self.hop))) for n in self.sizes)
 
     # ---------------- params ----------------
     def params(self, settings: Settings | None = None) -> PipelineParams:
         """The continuous-param tuple (cheap; call on slider moves)."""
         s = settings or self.settings
-        row_freqs = self.row_freqs
+        tables = self.tables
         if s.freq_scale != self.settings.freq_scale:
-            row_freqs = log_freq_axis(self.rows, s.freq_min,
-                                      s.sample_rate / 2.0, s.freq_scale)
-        a, b = row_map_consts(row_freqs, self.rows)
+            tables = build_merge_tables(
+                self.sizes, s.sample_rate, self.rows, s.freq_min,
+                s.freq_scale, s.crossover_low, s.crossover_high)
+        a, b = row_map_consts(tables.row_freqs, self.rows)
         dev = self.device
         scalar = lambda v: torch.tensor(np.float32(v), device=dev)
+        per_bank = lambda arrays: tuple(torch.from_numpy(v).to(dev)
+                                        for v in arrays)
+        n_banks = len(self.sizes)
+        band_bins = [band_weight_at(
+            np.arange(k_lo, k_hi) * (s.sample_rate / n), bank, n_banks,
+            s.crossover_low, s.crossover_high).astype(np.float32)
+            for bank, (n, (k_lo, k_hi)) in enumerate(zip(self.sizes,
+                                                          self.k_slices))]
         return PipelineParams(
-            post=PostParams.from_settings(s, row_freqs, dev),
+            post=PostParams.from_settings(s, tables.row_freqs, dev),
             lut=torch.from_numpy(lut(s.colormap).copy()).to(dev),
             logmap_a=scalar(a), logmap_b=scalar(b),
             power_floor=scalar(10.0 ** (s.reassign_floor_db / 10.0)),
+            i0=per_bank(tables.i0), w0=per_bank(tables.w0),
+            band_rows=per_bank(tables.band_w), band_bins=per_bank(band_bins),
         )
 
     # ---------------- analysis ----------------
+    def _bank_frames(self, x, t_count: int) -> list:
+        """Center-aligned per-bank frames: bank b frame t covers
+        [offset_b + t·hop, … + N_b), so all banks share column centers."""
+        out = []
+        for n, off in zip(self.sizes, self.offsets):
+            end = off + (t_count - 1) * self.hop + n
+            out.append(frame_signal(x[..., off:end], n, self.hop))
+        return out
+
+    def _bank_windows(self, window) -> list:
+        """One analysis window (..., N_max) → per-bank slices (..., N_b)."""
+        return [window[..., off:off + n]
+                for n, off in zip(self.sizes, self.offsets)]
+
+    def _rfft(self, x):
+        if self.fft_impl == "fourstep":
+            return fourstep.rfft_fourstep(x)
+        return torch.fft.rfft(x, dim=-1)
+
+    def _bank_power(self, frames, n: int):
+        """Hann |X|² of one bank's frames or window — shared by the batch
+        and streaming natural paths.  Non-finite power is zeroed: one
+        NaN/Inf sample would otherwise NaN its frame's spectrum and, via
+        ``peak_db``, poison the AGC reference for good; for finite input
+        the ``where`` is an exact identity (``pipeline.py:288-313``)."""
+        X = self._rfft(frames * _hann(n, str(frames.device)))
+        power = X.real * X.real + X.imag * X.imag
+        return torch.where(torch.isfinite(power), power,
+                           torch.zeros_like(power))
+
+    def _merge(self, specs, p: PipelineParams):
+        return merge_columns(specs, MergeTables(
+            self.row_freqs, p.i0, p.w0, p.band_rows))
+
+    def _natural_power(self, x, t_count: int, p: PipelineParams):
+        specs = [self._bank_power(frames, n) for frames, n in
+                 zip(self._bank_frames(x, t_count), self.sizes)]
+        return self._merge(specs, p)                          # (..., t, rows)
+
+    def _spectra(self, frames):
+        """(X_h, X_th, X_dh) of one bank's frames by the chosen method."""
+        if self.settings.fft_method == "stencil":
+            return stft_triple_stencil(frames, self.fft_impl)
+        Xs = self._rfft(windowed_frames(frames))    # B5 on the card
+        return Xs[0], Xs[1], Xs[2]
+
     def _deposits(self, frames, p: PipelineParams):
-        """Plain deposits (row, δ, contrib), each (..., N/2+1)."""
-        return deposits_plain(frames, p.logmap_a, p.logmap_b, p.power_floor,
-                              n=self.n_max, hop=self.hop,
-                              sr=float(self.settings.sample_rate),
-                              rows=self.rows)
+        """Unfused single-bank deposits (row, δ, contrib), (..., N/2+1)."""
+        return quantize_deposits(
+            *reassignment_corrections(*self._spectra(frames)), p.logmap_a,
+            p.logmap_b, p.power_floor, n=self.n_max, hop=self.hop,
+            sr=float(self.settings.sample_rate), rows=self.rows,
+            band=p.band_bins[0])
 
     def _deposit_ids_rel(self, frames, p: PipelineParams):
         """Relative-histogram inputs (ids = (δ+R)·rows + row, contrib):
-        kernel B1 for a CUDA tensor, its plain version on the CPU."""
-        return deposits_ids(frames, p.logmap_a, p.logmap_b, p.power_floor,
-                            n=self.n_max, hop=self.hop,
-                            sr=float(self.settings.sample_rate),
-                            rows=self.rows, reach=self.reach)
+        kernel B1 where ``use_fused_deposits``, else the unfused chain."""
+        if self.use_fused_deposits:
+            return deposits_ids(frames, p.logmap_a, p.logmap_b,
+                                p.power_floor, n=self.n_max, hop=self.hop,
+                                sr=float(self.settings.sample_rate),
+                                rows=self.rows, reach=self.reach)
+        rows_i, delta, contrib = self._deposits(frames, p)
+        return (delta + self.reach) * self.rows + rows_i, contrib
 
     def _scatter_segment_sum(self, rows_i, delta, contrib, t_count, lead):
         """Absolute (t, rows) grid, one flattened segment sum per lead row;
@@ -178,7 +311,9 @@ class Pipeline:
     # ---------------- full batch path ----------------
     def _batch_vis(self, x, p: PipelineParams, state: PostState,
                    t_count: int):
-        power = self._enhanced_power(x, t_count, p)          # (..., t, rows)
+        power = (self._enhanced_power(x, t_count, p)
+                 if self.settings.mode == MODE_ENHANCED
+                 else self._natural_power(x, t_count, p))    # (..., t, rows)
         cols_first = power.movedim(-2, 0).contiguous()       # (t, ..., rows)
         vis, state = postprocess_batch(cols_first, state, p.post,
                                        self.settings.agc_global)
@@ -210,15 +345,20 @@ class Pipeline:
 
     # ---------------- streaming path ----------------
     def _stream_step(self, carry, window, p: PipelineParams):
-        """One hop: add this frame's deposits to the pending ring of
-        P = 2R+1 columns, then emit column t−R (no later frame can reach
-        it).  ``t`` is a host int.  The carry's ring is updated in place
-        on the segment-sum route: pass each carry to one step only."""
+        """One hop: add this frame's deposits (enhanced) or its merged
+        column (natural, R = 0) to the pending ring of P = 2R+1 columns,
+        then emit column t−R (no later frame can reach it).  ``t`` is a
+        host int.  The carry's ring is updated in place: pass each carry
+        to one step only."""
         t, acc, post = carry                     # acc: (P, ..., rows)
         R, rows = self.reach, self.rows
         P = 2 * R + 1
         lead = window.shape[:-1]
-        if self.use_relative_scatter:
+        if self.settings.mode != MODE_ENHANCED:
+            specs = [self._bank_power(win, n) for win, n in
+                     zip(self._bank_windows(window), self.sizes)]
+            acc[t % P] += self._merge(specs, p)
+        elif self.use_relative_scatter:
             ids_rel, contrib = self._deposit_ids_rel(window, p)
             if t < R:
                 # t + δ ≥ 0 ⟺ id ≥ (R − t)·rows (row < rows): drop the rest
@@ -265,10 +405,17 @@ class Pipeline:
                 PostState.init(lead + (self.rows,), self.device))
 
     def init_roll_carry(self, lead: tuple = ()):
-        """Carry for :meth:`_stream_step_rolling`: (window, inner)."""
+        """Carry for :meth:`_stream_step_rolling`: (window of ``n_max``
+        samples, the largest bank's, inner)."""
         return (torch.zeros(lead + (self.n_max,), dtype=DTYPE,
                             device=self.device),
                 self.init_stream_carry(lead))
+
+
+@functools.lru_cache(maxsize=None)
+def _hann(n: int, device: str) -> torch.Tensor:
+    """float32 periodic Hann (``emspec.dsp.windows.hann``)."""
+    return torch.from_numpy(hann(n)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -285,7 +432,7 @@ def _structural_projection(s: Settings) -> Settings:
     return s.replace(**cont)
 
 
-def get_pipeline(settings: Settings, device) -> Pipeline:
+def get_pipeline(settings: Settings, device="cuda") -> Pipeline:
     """Pipeline cache keyed by the structural projection and the device.
     The returned ``.settings`` carries default continuous values: build
     params from YOUR settings (``pipe.params(settings)``)."""

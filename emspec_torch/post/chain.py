@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from emspec.config import Settings
+from emspec_torch.config import Settings
 from emspec_torch.tables import low_end_ramp
 
 DB_EPS = 1e-12

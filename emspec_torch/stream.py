@@ -1,9 +1,11 @@
 """Streaming: the live hop→raster loop (``emspec.stream``).
 
-Samples arrive in a host ring (``emspec.io.ring.make_ring``); each hop
-stages only the ``hop`` new samples to the device (the analysis window is
-device carry state, ``Pipeline._stream_step_rolling``), one step adds the
-frame's deposits to the pending ring and emits one display column.
+Samples arrive in a host ring (``emspec_torch.io.ring.RingBuffer``); each
+hop stages only the ``hop`` new samples to the device (the analysis
+window of ``n_max`` samples — the largest bank's — is device carry state,
+``Pipeline._stream_step_rolling``), one step adds the frame's deposits
+(enhanced) or merged column (natural) to the pending ring and emits one
+display column.
 Staging is a plain synchronous ``.to(device)`` copy of one hop at a time;
 pinned buffers, a copy stream that overlaps hop t+1's copy with step t,
 and CUDA graphs are later work (ROADMAP.md).
@@ -16,9 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from emspec.config import Settings
-from emspec.io.ring import make_ring
+from emspec_torch.config import Settings
 from emspec_torch.device import as_device
+from emspec_torch.io.ring import RingBuffer
 from emspec_torch.pipeline import Pipeline, PipelineParams, get_pipeline
 from emspec_torch.post.chain import PostState
 
@@ -37,16 +39,17 @@ def _host(a: torch.Tensor) -> np.ndarray:
 
 
 class Stream:
-    """Stateful stream over one Pipeline on ``device``.
+    """Stateful stream over one Pipeline on ``device`` (the card unless
+    the caller asks for the CPU).
 
-    >>> stream = Stream(Settings(multires=False, fft_size=8192), "cuda")
+    >>> stream = Stream(Settings(multires=False, fft_size=8192))
     >>> cols = stream.push(samples)     # list[Column] ready so far
     >>> cols += stream.flush()          # drain the pending ring
     """
 
-    def __init__(self, settings: Settings, device,
+    def __init__(self, settings: Settings, device="cuda",
                  params: PipelineParams | None = None,
-                 ring_seconds: float = 4.0, native_ring: bool = True):
+                 ring_seconds: float = 4.0):
         self.device = as_device(device)
         self.pipe: Pipeline = get_pipeline(settings, self.device)
         self.settings = settings
@@ -58,7 +61,7 @@ class Stream:
         self.params = params or self.pipe.params(settings)
         capacity = max(int(ring_seconds * s.sample_rate),
                        self.pipe.n_max + 8 * self.pipe.hop)
-        self.ring = make_ring(capacity, s.channels, prefer_native=native_ring)
+        self.ring = RingBuffer(capacity, s.channels)
         self.dropped_frames = 0
         self._carry = self.pipe.init_roll_carry(self._lead)
         self._window_ready = False  # device window primed for _next_frame?
@@ -197,7 +200,7 @@ class Stream:
         self._window_ready = self._t > 0
 
 
-def stream_signal(x: np.ndarray, settings: Settings, device,
+def stream_signal(x: np.ndarray, settings: Settings, device="cuda",
                   chunk: int = 1024) -> tuple[np.ndarray, np.ndarray]:
     """Push a whole signal through a Stream in ``chunk``-sample pushes →
     (vis (T, ..., rows), rgba (T, ..., rows, 4)) host arrays."""

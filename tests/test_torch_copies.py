@@ -1,0 +1,210 @@
+"""The port keeps its own copies of the host-only code it needs from the
+JAX package (``emspec_torch.config``, ``dsp.windows``, ``io.ring``,
+``post._cmap_data``, ``dsp.multires``'s tables): each is held here to its
+original, and the port is held to importing nothing of the JAX package —
+not JAX, not ``emspec`` nor any ``emspec.*`` module."""
+
+import ast
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from emspec import config as jax_config
+from emspec.dsp import multires as jax_multires
+from emspec.dsp import windows as jax_windows
+from emspec.io.ring import RingBuffer as JaxRing
+from emspec.post import _cmap_data as jax_cmap
+from emspec_torch import config
+from emspec_torch.dsp import multires, windows
+from emspec_torch.io.ring import RingBuffer
+from emspec_torch.post import _cmap_data
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+# ------------------------------------------------------------ config
+def test_settings_fields_and_defaults_equal():
+    want = {f.name: f.default for f in dataclasses.fields(jax_config.Settings)}
+    got = {f.name: f.default for f in dataclasses.fields(config.Settings)}
+    assert got == want
+    assert config.Settings().to_dict() == jax_config.Settings().to_dict()
+
+
+def test_constants_and_structural_fields_equal():
+    assert config.STRUCTURAL_FIELDS == jax_config.STRUCTURAL_FIELDS
+    assert config.FFT_SIZES == jax_config.FFT_SIZES
+    assert config.COLORMAPS == jax_config.COLORMAPS
+    assert (config.MODE_ENHANCED, config.MODE_NATURAL) == (
+        jax_config.MODE_ENHANCED, jax_config.MODE_NATURAL)
+
+
+HOSTILE = [
+    {"gain": "x"}, {"gain": None}, {"gain": float("nan")},
+    {"db_range": float("inf")}, {"db_range": 1e308}, {"db_range": 0},
+    {"freq_scale": 0.0}, {"freq_scale": 1e300}, {"raster_height": 3.5},
+    {"raster_width": 0}, {"hop": -1}, {"sample_rate": 0},
+    {"freq_min": 0.0}, {"crossover_low": -1.0}, {"fft_size": 1000},
+    {"mode": "fancy"}, {"colormap": "jet"}, {"channels": 0},
+    {"display_channel": 3}, {"smoothing": 1.0}, {"scatter": "x"},
+    {"scatter_passes": 4}, {"fft_method": "fast"}, {"fft_impl": "cufft"},
+    {"multires_sizes": (8192, 1000)}, {"gain": np.float32("nan")},
+]
+
+
+@pytest.mark.parametrize("kw", HOSTILE, ids=lambda kw: "-".join(map(str, kw)))
+def test_hostile_values_raise_the_same_error(kw):
+    with pytest.raises(ValueError) as want:
+        jax_config.Settings().replace(**kw)
+    with pytest.raises(ValueError) as got:
+        config.Settings().replace(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_derived_quantities_and_structural_change_equal():
+    for kw in [{}, {"multires": False, "fft_size": 8192}, {"hop": 300},
+               {"multires_sizes": (4096, 1024)}]:
+        a, b = config.Settings(**kw), jax_config.Settings(**kw)
+        assert (a.active_fft_sizes, a.hop_samples, a.freq_max) == (
+            b.active_fft_sizes, b.hop_samples, b.freq_max)
+        assert config.Settings.from_dict(b.to_dict()) == a
+    base_t, base_j = config.Settings(), jax_config.Settings()
+    for kw in [{"gain": 7.0}, {"fft_size": 8192}, {"mode": "natural"},
+               {"freq_scale": 2.0}, {"crossover_low": 150.0}]:
+        assert config.is_structural_change(base_t, base_t.replace(**kw)) \
+            == jax_config.is_structural_change(base_j, base_j.replace(**kw))
+
+
+# ------------------------------------------------------------ windows
+@pytest.mark.parametrize("n", [256, 512, 2048, 8192, 32768])
+def test_windows_bit_equal(n):
+    for name in ("hann", "time_weighted_hann", "hann_derivative",
+                 "window_triple"):
+        got = getattr(windows, name)(n)
+        want = getattr(jax_windows, name)(n)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------ ring
+@pytest.mark.parametrize("channels,capacity,seed", [(1, 1000, 0), (2, 777, 1),
+                                                    (3, 64, 2)])
+def test_ring_matches_original_on_random_pushes(channels, capacity, seed):
+    """The same random push sequence into both rings gives the same
+    ``window_at`` reads and the same overrun/future errors."""
+    rng = np.random.default_rng(seed)
+    a, b = RingBuffer(capacity, channels), JaxRing(capacity, channels)
+    for _ in range(200):
+        k = int(rng.integers(0, 2 * capacity if rng.uniform() < 0.1 else 300))
+        x = rng.standard_normal((channels, k)).astype(np.float32)
+        a.push(x[0] if channels == 1 and rng.uniform() < 0.5 else x)
+        b.push(x)
+        assert a.total_written == b.total_written
+        for _ in range(3):
+            start = int(rng.integers(-50, a.total_written + 50))
+            n = int(rng.integers(1, capacity + 20))
+            try:
+                want = b.window_at(start, n)
+            except ValueError as e:
+                with pytest.raises(ValueError, match=re.escape(str(e))):
+                    a.window_at(start, n)
+                continue
+            np.testing.assert_array_equal(a.window_at(start, n), want)
+        np.testing.assert_array_equal(a.latest(min(50, capacity)),
+                                      b.latest(min(50, capacity)))
+
+
+# ------------------------------------------------------------ colormaps
+def test_cmap_data_equal():
+    assert _cmap_data._B64 == jax_cmap._B64
+    for name in jax_cmap._B64:
+        np.testing.assert_array_equal(_cmap_data.rgb_table(name),
+                                      jax_cmap.rgb_table(name))
+
+
+# ------------------------------------------------------------ multires
+@pytest.mark.parametrize("sizes,rows,zoom", [((8192, 2048, 512), 512, 1.0),
+                                             ((4096,), 128, 2.5),
+                                             ((2048, 512), 64, 0.02)])
+def test_merge_tables_bit_equal(sizes, rows, zoom):
+    got = multires.build_merge_tables(sizes, 48000, rows, 20.0, zoom,
+                                      200.0, 2000.0)
+    want = jax_multires.build_merge_tables(sizes, 48000, rows, 20.0, zoom,
+                                           200.0, 2000.0)
+    np.testing.assert_array_equal(got.row_freqs, want.row_freqs)
+    for field in ("i0", "w0", "band_w"):
+        for g, w in zip(getattr(got, field), getattr(want, field)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    for bank in range(len(sizes)):
+        assert multires.band_support_hz(bank, len(sizes), 200.0, 2000.0,
+                                        24000.0) == \
+            jax_multires.band_support_hz(bank, len(sizes), 200.0, 2000.0,
+                                         24000.0)
+
+
+def test_merge_columns_matches_jax():
+    """Gather + lerp + band weight + 1/N² per bank, bit-equal on the CPU
+    (the same float32 operations in the same order)."""
+    sizes = (8192, 2048, 512)
+    t = multires.build_merge_tables(sizes, 48000, 256, 20.0, 1.0, 200.0,
+                                    2000.0)
+    rng = np.random.default_rng(5)
+    specs = [rng.uniform(0, 10, (3, n // 2 + 1)).astype(np.float32)
+             for n in sizes]
+    want = np.asarray(jax_multires.merge_columns(
+        tuple(jnp.asarray(s) for s in specs), t))
+    tt = multires.MergeTables(t.row_freqs,
+                              *(tuple(torch.from_numpy(v) for v in f)
+                                for f in (t.i0, t.w0, t.band_w)))
+    got = multires.merge_columns([torch.from_numpy(s) for s in specs], tt)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ imports
+def _port_files():
+    """The port, and what runs on the card machine (which has no JAX)."""
+    return sorted((ROOT / "emspec_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+
+
+def _imported(path: Path) -> set:
+    nodes = list(ast.walk(ast.parse(path.read_text())))
+    names = {a.name for n in nodes if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in nodes
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_nothing_of_the_jax_package(path):
+    bad = {m for m in _imported(path)
+           if m.split(".")[0] in ("emspec", "jax", "jaxlib")}
+    assert not bad, bad
+
+
+def test_importing_every_port_module_loads_no_emspec_or_jax():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (ROOT / "emspec_torch").rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'emspec' "
+        "or m.startswith('emspec.') or m.startswith('jax')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert len(mods) >= 25

@@ -1,6 +1,6 @@
 """The port's kernel modules: plain versions against the JAX package on
-the CPU, device routing of the wrappers, and (on a card only, marker
-``cuda``) each CUDA kernel against its plain version.
+the CPU and device routing of the wrappers (each CUDA kernel against its
+plain version, on a card only: ``tests/test_torch_cuda.py``).
 
 Quantized deposits are compared as histograms (DESIGN.md §9): total
 energy ≤ 1e-4 relative and 3×3 max-filters within 1e-3·peak on all but
@@ -24,7 +24,7 @@ from emspec_torch import kernels_build
 from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels.deposits import (
     deposits_ids, deposits_ids_plain, supported)
-from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
+from emspec_torch.dsp.kernels.lut import lut_lookup
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
 from emspec_torch.validate import compare_grids
 
@@ -179,44 +179,3 @@ def test_library_path_keyed_by_sources(tmp_path, monkeypatch):
     assert kernels_build.library_path() != before
     assert before.parent == kernels_build.BUILD_DIR
     assert "--use_fast_math" not in kernels_build.NVCC_FLAGS
-
-
-# ------------------------------------------------- on the card (marker cuda)
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_deposits_kernel_matches_plain(cuda):
-    n, hop, rows, R = 8192, 2048, 512, 2
-    x = torch.from_numpy(_frames(n, hop, 40, seed=9)).to(cuda)
-    fr = frame_signal(x, n, hop)
-    sc = [torch.tensor(np.float32(v), device=cuda)
-          for v in (np.log2(20.0), 511 / (np.log2(24000.0) - np.log2(20.0)),
-                    1e-12)]
-    ik, ck = deposits_ids(fr, *sc, n=n, hop=hop, sr=48000.0, rows=rows,
-                          reach=R)
-    ip, cp = deposits_ids_plain(fr, *sc, n=n, hop=hop, sr=48000.0, rows=rows,
-                                reach=R)
-    S = (2 * R + 1) * rows
-    cmp = compare_grids(histogram_plain(ip, cp, S).cpu(),
-                        histogram_plain(ik, ck, S).cpu())
-    assert cmp.ok, cmp
-
-
-@pytest.mark.cuda
-def test_cuda_histogram_and_lut_kernels_match_plain(cuda):
-    rng = np.random.default_rng(4)
-    ids = torch.from_numpy(rng.integers(-2, 2562, (37, 4097)).astype(np.int32)).to(cuda)
-    vals = torch.from_numpy(rng.uniform(0, 1, (37, 4097)).astype(np.float32)).to(cuda)
-    vals[ids < 0] = float("nan")
-    got = histogram(ids, vals, 2560)
-    want = histogram_plain(ids, vals, 2560)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    idx = torch.from_numpy(rng.integers(0, 256, (99, 512)).astype(np.int32)).to(cuda)
-    table = torch.from_numpy(rng.integers(0, 256, (256, 4)).astype(np.uint8)).to(cuda)
-    assert torch.equal(lut_lookup(idx, table), lut_lookup_plain(idx, table))

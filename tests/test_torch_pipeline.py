@@ -168,10 +168,13 @@ def test_nan_sample_leaves_no_nan():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(multires=True), dict(mode="natural"), dict(fft_method="direct"),
-    dict(fft_impl="fourstep"), dict(fft_size=32768), dict(fft_size=65536),
+    dict(multires=True), dict(multires=True, multires_sizes=(4096, 1024)),
+    dict(fft_size=131072), dict(fft_size=262144, fft_impl="fourstep"),
+    dict(fft_size=32768), dict(fft_size=65536),
 ])
 def test_unsupported_settings_raise(kw):
+    """Enhanced multires, and the stencil method past kernel B1's sizes
+    (whatever the engine), are not ported: they raise on every device."""
     base = dict(mode="enhanced", multires=False, fft_size=8192)
     base.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -209,3 +212,10 @@ def test_pause_resume_and_overrun_skip():
     idx = [c.index for c in cols]
     assert idx == sorted(idx) and st.last_column() is cols[-1]
     assert all(torch.isfinite(c.vis).all() for c in cols)
+
+
+def test_entry_points_default_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    import inspect
+    for fn in (Pipeline, get_pipeline, Stream, stream_signal):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -1,6 +1,7 @@
-"""emspec_torch.tables: the numpy copies of table functions that live in
-jax-importing emspec modules must stay bit-equal to their originals, and
-the port must import no jax."""
+"""emspec_torch.tables and the table functions of emspec_torch.dsp.multires:
+the numpy copies of table functions that live in jax-importing emspec
+modules must stay bit-equal to their originals, and the port must import
+no jax."""
 
 import ast
 import subprocess
@@ -15,6 +16,7 @@ from emspec.dsp import multires
 from emspec.pipeline import _row_map_consts
 from emspec.post import chain, colormap
 from emspec_torch import tables
+from emspec_torch.dsp import multires as port_multires
 
 
 @pytest.mark.parametrize("name", COLORMAPS)
@@ -27,7 +29,7 @@ def test_lut_bit_equal(name):
                                              (7, 20.0, 0.02)])
 def test_log_freq_axis_bit_equal(rows, f_min, zoom):
     np.testing.assert_array_equal(
-        tables.log_freq_axis(rows, f_min, 24000.0, zoom),
+        port_multires.log_freq_axis(rows, f_min, 24000.0, zoom),
         multires.log_freq_axis(rows, f_min, 24000.0, zoom))
 
 
@@ -36,13 +38,13 @@ def test_band_weight_at_bit_equal(n_banks):
     f = np.linspace(1.0, 24000.0, 301)
     for bank in range(n_banks):
         np.testing.assert_array_equal(
-            tables.band_weight_at(f, bank, n_banks, 200.0, 2000.0),
+            port_multires.band_weight_at(f, bank, n_banks, 200.0, 2000.0),
             multires.band_weight_at(f, bank, n_banks, 200.0, 2000.0))
 
 
 def test_bank_offsets_and_row_map_bit_equal():
     for sizes in [(8192,), (8192, 2048, 512), (1024, 512)]:
-        assert tables.bank_offsets(sizes) == multires.bank_offsets(sizes)
+        assert port_multires.bank_offsets(sizes) == multires.bank_offsets(sizes)
     f = multires.log_freq_axis(512, 20.0, 24000.0, 1.3)
     tables_ab = tables.row_map_consts(f, 512)
     jax_ab = _row_map_consts(multires.MergeTables(f, (), (), ()), 512)
