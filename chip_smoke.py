@@ -13,7 +13,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
    (all CUDA events) and its roofline bound: B1 deposits, B2 histogram,
    B3 colormap lookup (enhanced 8192, hop 2048, 512 rows); B4 four-step
    steps 1–3 at n = 256, 1024, 4096, 8192, 32768, each at b = 1 and a
-   full batch; B5 triple windowing at the direct path's frames.
+   full batch; B5 triple windowing at the direct path's frames; B1's
+   large-frame route at 32768 (the stress call's 688 frames), 65536,
+   131072 and 262144 (8 frames), each also at b = 1; B6, the fused
+   deposits histogram, against its plain version and against B1 → B2
+   composed, at the batch shape (372 × 8192) and the stress shape
+   (688 × 32768), with and without the streaming mask; the probe's B2
+   variants at the probe's shape (688 × 16512 → 2560, half the ids −1)
+   and at the batch path's ids.
 3. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise; the result must
    match the port's CPU path.
@@ -29,10 +36,23 @@ them.  Phases, in order, one line each; the first failure ends the run:
    ``fft_method="direct"``, ``fft_impl="fourstep"`` — on 16 s mono; B5,
    B4, B2 and B3 must launch; matches the CPU path.
 9. direct_live: P-direct through ``Stream``; must match its batch.
-10. breakdown: per-stage device times of the enhanced batch path (CUDA
-   events), the device's busy time per kernel and idle share of every
-   batch cell and of a live hop of each path (torch.profiler busy time
-   over the unprofiled wall time).
+10. stress: ``BASELINE.json`` config 5 — enhanced 32768 at 96 kHz, hop
+   8192, 16 channels, 4 s (688 frames a call) — batch; B1's large route
+   (with B4 inside it), B2 and B3 must launch; matches the CPU path.
+11. stress_live: the same settings through ``Stream``, 16 s of 16
+   channels (186 hops); must match its batch (phase stress_live_batch,
+   itself held to the CPU path).
+12. north: the north star — enhanced 32768 at 48 kHz, hop 800 (60
+   columns a second, R = 20) — batch on 16 s mono; matches the CPU path.
+13. north_live: the same through ``Stream`` in 800-sample pushes (940
+   hops); must match its batch; p50/p99 beside the 10 ms budget and the
+   16.7 ms hop.
+14. ext262144: enhanced 262144 at 96 kHz, hop 65536, 8 s mono (8
+   frames) — batch; matches the CPU path.
+15. breakdown: per-stage device times of the enhanced stencil batch
+   paths (batch, batch16, stress; CUDA events), the device's busy time
+   per kernel and idle share of every batch cell and of a live hop of
+   each path (torch.profiler busy time over the unprofiled wall time).
 
 Every path is driven once with the launch counters set to 0 just before
 and read just after; those counts are the ``launches`` of the per-kernel
@@ -42,11 +62,13 @@ JSON line.  Then that line, and as the last line
 Tolerances (``emspec_torch.validate``): quantized power grids — total
 energy ≤ 1e-4 relative, 3×3 max-filters within 1e-3·peak on all but 1e-4
 of the cells (a float32 rounding flip moves a whole deposit one cell);
-B1 additionally ≥ 99.99% equal ids, every other valid deposit moved by
-one cell only, bins 0 and N/2 exact, and contrib within 1e-5·peak
-wherever both are valid; B2 ≤ 1e-5 relative per nonzero bin; B3 and B5
-bit-equal; B4 within 2e-5·max|X| (the JAX package's four-step bound);
-natural power grids within 1e-4·peak per cell (not quantized; float32
+B1 (both routes) additionally ≥ 99.99% equal ids, every other valid
+deposit moved by one cell only, bins 0 and N/2 exact, and contrib within
+1e-5·peak wherever both are valid; B2, B6 (against B1 → B2 composed, with
+exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
+relative per nonzero bin; the other probe variants within 1e-5 of their
+own plain versions; B3 and B5 bit-equal; B4 within 2e-5·max|X| (the JAX
+package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
 of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
 FFT batch shapes reorder sums only).
@@ -66,7 +88,9 @@ import torch
 from emspec_torch import Settings, kernels_build
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
-from emspec_torch.dsp.kernels.deposits import deposits_ids, deposits_ids_plain
+from emspec_torch.dsp.kernels.deposits import (
+    deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_large,
+    deposits_ids_plain)
 from emspec_torch.dsp.kernels.fourstep import (
     device_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
@@ -76,6 +100,8 @@ from emspec_torch.dsp.kernels.window import (
 from emspec_torch.pipeline import Pipeline
 from emspec_torch.post.chain import PostState, postprocess_batch
 from emspec_torch.post.colormap import apply_lut
+from emspec_torch.probes.scatter_ablation import (
+    VARIANTS, hist_variant, hist_variant_plain)
 from emspec_torch.stream import Stream
 from emspec_torch.validate import compare_grids, compare_vis
 
@@ -85,6 +111,11 @@ SETTINGS = Settings(mode="enhanced", multires=False, fft_size=8192)
 NATURAL = Settings(mode="natural", fft_impl="fourstep")
 DIRECT = Settings(mode="enhanced", multires=False, fft_size=8192,
                   fft_method="direct", fft_impl="fourstep")
+STRESS = Settings(mode="enhanced", multires=False, fft_size=32768,
+                  sample_rate=96000, channels=16)
+NORTH = Settings(mode="enhanced", multires=False, fft_size=32768, hop=800)
+EXT = Settings(mode="enhanced", multires=False, fft_size=262144,
+               sample_rate=96000)
 CHANNELS = 16
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
@@ -102,7 +133,15 @@ KERNELS = (
      "emspec/dsp/pallas/fft4.py:130"),
     ("windowed_frames", windowed_frames, "emspec_torch/csrc/window.cu",
      "emspec/dsp/pallas/window.py:41"),
+    ("deposits_ids_large", deposits_ids_large,
+     "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
+    ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
+     "emspec/dsp/pallas/fft4.py:616"),
+    ("hist_variant", hist_variant, "emspec_torch/csrc/scatter_ablation.cu",
+     "bench_probes/scatter_ablation.py:93"),
 )
+LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
+              "lut_lookup")
 PATH_KERNELS = {        # kernels each path must launch
     "batch": ("deposits_ids", "histogram", "lut_lookup"),
     "batch16": ("deposits_ids", "histogram", "lut_lookup"),
@@ -112,6 +151,12 @@ PATH_KERNELS = {        # kernels each path must launch
     "direct": ("windowed_frames", "fft4_steps123", "histogram", "lut_lookup"),
     "direct_live": ("windowed_frames", "fft4_steps123", "histogram",
                     "lut_lookup"),
+    "stress": LARGE_PATH,
+    "stress_live_batch": LARGE_PATH,
+    "stress_live": LARGE_PATH,
+    "north": LARGE_PATH,
+    "north_live": LARGE_PATH,
+    "ext262144": LARGE_PATH,
 }
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 
@@ -125,11 +170,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def signal(seconds: float, channels: int = 1, seed: int = 0) -> np.ndarray:
+def signal(seconds: float, channels: int = 1, seed: int = 0,
+           sr: int = SR) -> np.ndarray:
     """Linear chirp to 9 kHz (channel c starts at 100 + c·150 Hz), three
-    tones of 0.1 and 1% Gaussian noise from ``seed``."""
+    tones of 0.1 and 1% Gaussian noise from ``seed``, at ``sr`` Hz."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(round(seconds * SR))) / SR
+    t = np.arange(int(round(seconds * sr))) / sr
     tones = sum(0.1 * np.sin(2 * np.pi * f * t) for f in (440.0, 880.0, 1320.0))
     out = []
     for c in range(channels):
@@ -208,6 +254,48 @@ def phase_device():
     return torch.device("cuda")
 
 
+def check_b1(label: str, ik, ck, ip, cp, *, n: int, rows: int, R: int,
+             ) -> float:
+    """B1 (either route) against its plain version → the largest contrib
+    error.  Compared as histograms (DESIGN.md §9) and per deposit.
+    Invalid deposits carry contrib 0 (the kernel's id is −1, the plain
+    one's a clamped row).  A float32 rounding flip may move a valid
+    deposit one row or one column; its contrib = |X_h|²/N² must agree
+    regardless."""
+    S = (2 * R + 1) * rows
+    g = compare_grids(histogram_plain(ip, cp, S).reshape(-1, 2 * R + 1, rows),
+                      histogram_plain(ik, ck, S).reshape(-1, 2 * R + 1, rows))
+    vk, vp = ck > 0, cp > 0
+    both = vk & vp
+    agree = (both & (ik == ip)) | (~vk & ~vp)
+    id_agree = float(agree.float().mean())
+    moved = (ik - ip).abs()[both & (ik != ip)]
+    one_cell = bool(torch.isin(moved, torch.tensor(
+        [1, rows - 1, rows, rows + 1], device=ik.device)).all())
+    edges_exact = bool(agree[..., [0, n // 2]].all())   # Hermitian stencils
+    err = float((ck - cp)[both].abs().max())
+    peak = float(cp.max())
+    check(g.ok and id_agree >= 0.9999 and one_cell and edges_exact
+          and bool((ik[~vk] == -1).all()) and err <= 1e-5 * peak,
+          f"{label} deposits vs plain: {g}, id agreement {id_agree}, moves "
+          f"of one cell only {one_cell}, bins 0 and N/2 exact {edges_exact}, "
+          f"contrib err {err} vs peak {peak}")
+    print(f"{label}: ids equal {id_agree:.6f}, energy {g.energy_rel:.2e}, "
+          f"maxf {g.maxf_rel:.2e}, contrib err {err / peak:.2e}·peak",
+          flush=True)
+    return err
+
+
+def b1_bound(b: int, n: int) -> dict:
+    """B1's roofline bound for b frames of n: the frames read, ids and
+    contrib written, the t·h and twiddle tables; two real n-point DFTs
+    (half a complex one each), the t·h window and ~40 operations a bin
+    for stencils, corrections and quantization."""
+    k = n // 2 + 1
+    return bound(4 * b * n + 8 * b * k + 4 * n + 4 * n + 12,
+                 b * (dft_ops(n) + n + 40 * k))
+
+
 def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     n, hop, rows, R = pipe.n_max, pipe.hop, pipe.rows, pipe.reach
     S = (2 * R + 1) * rows
@@ -218,39 +306,15 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     scal = (p.logmap_a, p.logmap_b, p.power_floor)
     res = {}
 
-    # B1: compared as histograms (DESIGN.md §9) and per deposit.  Invalid
-    # deposits carry contrib 0 (the kernel's id is -1, the plain one's a
-    # clamped row).  A float32 rounding flip may move a valid deposit one
-    # row or one column; its contrib = |X_h|²/N² must agree regardless.
     ik, ck = deposits_ids(frames, *scal, **kw)
     ip, cp = deposits_ids_plain(frames, *scal, **kw)
-    g = compare_grids(histogram_plain(ip, cp, S).reshape(-1, 2 * R + 1, rows),
-                      histogram_plain(ik, ck, S).reshape(-1, 2 * R + 1, rows))
-    vk, vp = ck > 0, cp > 0
-    both = vk & vp
-    agree = (both & (ik == ip)) | (~vk & ~vp)
-    id_agree = float(agree.float().mean())
-    moved = (ik - ip).abs()[both & (ik != ip)]
-    one_cell = bool(torch.isin(moved, torch.tensor(
-        [1, rows - 1, rows, rows + 1], device=dev)).all())
-    edges_exact = bool(agree[:, [0, n // 2]].all())   # Hermitian stencils
-    err_b1 = float((ck - cp)[both].abs().max())
-    peak = float(cp.max())
-    check(g.ok and id_agree >= 0.9999 and one_cell and edges_exact
-          and err_b1 <= 1e-5 * peak,
-          f"B1 deposits vs plain: {g}, id agreement {id_agree}, moves of "
-          f"one cell only {one_cell}, bins 0 and N/2 exact {edges_exact}, "
-          f"contrib err {err_b1} vs peak {peak}")
+    err_b1 = check_b1("B1", ik, ck, ip, cp, n=n, rows=rows, R=R)
     k = n // 2 + 1
-    # two real n-point DFTs (half a complex one each), the t·h window and
-    # ~40 operations a bin for stencils, corrections and quantization
     res["deposits_ids"] = dict(
         at=f"frames ({b}, {n})", max_abs_err=err_b1,
         ms=cuda_ms(lambda: deposits_ids(frames, *scal, **kw)),
         plain_ms=cuda_ms(lambda: deposits_ids_plain(frames, *scal, **kw)),
-        library_ms=None,
-        **bound(4 * b * n + 8 * b * k + 4 * n + 4 * n + 12,
-                b * (dft_ops(n) + n + 40 * k)))
+        library_ms=None, **b1_bound(b, n))
 
     # B2 on those ids: ≤ 1e-5 relative per nonzero bin; a NaN value behind
     # a dropped id must not reach the histogram
@@ -356,9 +420,170 @@ def kernels_b45(dev, rng) -> dict:
     return res
 
 
+# B1's large route: 32768 at the stress call (4 s of 16 channels at
+# 96 kHz, hop 8192: 688 frames), 65536–262144 at 8 frames of hop N/4
+LARGE_CASES = ((32768, None), (65536, 8), (131072, 8), (262144, 8))
+
+
+def stress_frames(dev, n: int = 32768, seconds: float = 4.0):
+    pipe = Pipeline(STRESS.replace(channels=1, fft_size=n), dev)
+    x = torch.from_numpy(signal(seconds, CHANNELS, seed=11, sr=96000)).to(dev)
+    return pipe, frame_signal(x, n, pipe.hop)                # (16, 43, n)
+
+
+def kernels_large(dev) -> dict:
+    res, lines = {}, []
+    for n, b in LARGE_CASES:
+        if b is None:
+            pipe, frames = stress_frames(dev, n)
+        else:
+            pipe = Pipeline(EXT.replace(fft_size=n), dev)
+            x = torch.from_numpy(signal((b - 1) * (n // 4) / 96000 + n / 96000,
+                                        seed=n % 97, sr=96000)).to(dev)
+            frames = frame_signal(x, n, pipe.hop)
+        p = pipe.params()
+        scal = (p.logmap_a, p.logmap_b, p.power_floor)
+        kw = dict(n=n, hop=pipe.hop, sr=96000.0, rows=pipe.rows,
+                  reach=pipe.reach)
+        flat = frames.reshape(-1, n)
+        bf = flat.shape[0]
+        ik, ck = deposits_ids(frames, *scal, **kw)
+        ip, cp = deposits_ids_plain(frames, *scal, **kw)
+        err = check_b1(f"B1 large n={n} b={bf}", ik, ck, ip, cp, n=n,
+                       rows=pipe.rows, R=pipe.reach)
+        # b = 1 (a live mono hop): a frame's arithmetic does not depend on
+        # the batch, so frame 0 must come out bit for bit
+        i1, c1 = deposits_ids(flat[:1], *scal, **kw)
+        check(torch.equal(i1, ik.reshape(-1, n // 2 + 1)[:1])
+              and torch.equal(c1, ck.reshape(-1, n // 2 + 1)[:1]),
+              f"B1 large n={n}: b = 1 differs from frame 0 of the batch")
+        row = dict(at=f"frames ({bf}, {n})", max_abs_err=err,
+                   ms=cuda_ms(lambda: deposits_ids(frames, *scal, **kw), 5, 2),
+                   plain_ms=cuda_ms(lambda: deposits_ids_plain(
+                       frames, *scal, **kw), 5, 2),
+                   library_ms=None, **b1_bound(bf, n),
+                   ms_b1=cuda_ms(lambda: deposits_ids(flat[:1], *scal, **kw),
+                                 10, 2))
+        lines.append(f"n={n} b={bf} {row['ms']:.4f} ms (b=1 "
+                     f"{row['ms_b1']:.4f}, plain {row['plain_ms']:.4f}, bound "
+                     f"{row['bound_ms']:.4f} {row['bound_by']})")
+        if n == 32768:
+            res["deposits_ids_large"] = row
+    print("kernels B1 large: " + "; ".join(lines), flush=True)
+    return res
+
+
+def kernels_fused(dev, pipe: Pipeline, p) -> dict:
+    """B6 against plain and B1 → B2 composed at the batch shape and the
+    stress shape; the probe's variants at the probe's shape and at the
+    batch path's ids."""
+    res, lines, rows_b6 = {}, [], {}
+    x = torch.from_numpy(signal(SECONDS, seed=1)).to(dev)
+    cases = [("batch", frame_signal(x, pipe.n_max, pipe.hop), p,
+              dict(n=pipe.n_max, hop=pipe.hop, sr=float(SR), rows=pipe.rows,
+                   reach=pipe.reach))]
+    spipe, sframes = stress_frames(dev)
+    cases.append(("stress", sframes, spipe.params(),
+                  dict(n=32768, hop=spipe.hop, sr=96000.0, rows=spipe.rows,
+                       reach=spipe.reach)))
+    for label, frames, pp, kw in cases:
+        scal = (pp.logmap_a, pp.logmap_b, pp.power_floor)
+        n, rows = kw["n"], kw["rows"]
+        S = (2 * kw["reach"] + 1) * rows
+        ids, contrib = deposits_ids(frames, *scal, **kw)
+        worst = 0.0
+        for min_id in (-2**30, 2 * rows):
+            got = deposits_hist(frames, *scal, min_id, **kw)
+            want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
+            nz = want > 0
+            rel = float(((got - want).abs()[nz] / want[nz]).max())
+            worst = max(worst, rel)
+            check(rel <= 1e-5 and bool((got[~nz] == 0).all())
+                  and (min_id < 0 or float(got[..., :min_id].abs().max()) == 0),
+                  f"B6 {label} min_id={min_id} vs B1 → B2: rel {rel}")
+            g = compare_grids(deposits_hist_plain(
+                frames, *scal, min_id, **kw).reshape(-1, S // rows, rows),
+                got.reshape(-1, S // rows, rows))
+            check(g.ok, f"B6 {label} min_id={min_id} vs plain: {g}")
+        b = frames.numel() // n
+        row = dict(
+            at=f"frames ({b}, {n}) → {S} bins", max_abs_err=worst,
+            ms=cuda_ms(lambda: deposits_hist(frames, *scal, -2**30, **kw), 5, 2),
+            composed_ms=cuda_ms(lambda: histogram(
+                *deposits_ids(frames, *scal, **kw), S), 5, 2),
+            plain_ms=cuda_ms(lambda: deposits_hist_plain(
+                frames, *scal, -2**30, **kw), 5, 2),
+            library_ms=None,
+            **bound(4 * b * n + 4 * b * S + 8 * n + 12,
+                    b * (dft_ops(n) + n + 40 * (n // 2 + 1))
+                    + float((contrib > 0).sum())))
+        lines.append(f"B6 {label} {row['ms']:.4f} ms vs B1 → B2 "
+                     f"{row['composed_ms']:.4f} ms (plain "
+                     f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                     f"{row['bound_by']}, rel err {worst:.2e})")
+        rows_b6[label] = row
+    res["deposits_hist"] = dict(rows_b6["stress"], at_batch=rows_b6["batch"])
+
+    # the probe: B2's stages stubbed one at a time
+    rng = np.random.default_rng(0)
+    b, m, S = 688, 16512, 2560                    # scatter_ablation.py:134-139
+    pid = rng.integers(0, S, size=(b, m)).astype(np.int32)
+    pid[rng.random((b, m)) < 0.5] = -1
+    probe_cases = [("probe", torch.from_numpy(pid).to(dev),
+                    torch.from_numpy(rng.random((b, m)).astype(
+                        np.float32)).to(dev), S)]
+    n = pipe.n_max
+    ik, ck = deposits_ids(frame_signal(x, n, pipe.hop), p.logmap_a,
+                          p.logmap_b, p.power_floor, n=n, hop=pipe.hop,
+                          sr=float(SR), rows=pipe.rows, reach=pipe.reach)
+    probe_cases.append(("batch ids", ik, ck, (2 * pipe.reach + 1) * pipe.rows))
+    for label, ids, vals, S in probe_cases:
+        times = {}
+        for variant in VARIANTS:
+            got = hist_variant(ids, vals, S, variant)
+            want = hist_variant_plain(ids, vals, S, variant)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            check(err <= 1e-5 * scale, f"probe {variant} at {label}: "
+                  f"{err} vs 1e-5·{scale}")
+            if variant == "full":
+                hb = histogram(ids, vals, S)
+                nz = hb > 0
+                rel = float(((got - hb).abs()[nz] / hb[nz]).max())
+                check(rel <= 1e-5 and bool((got[~nz] == 0).all()),
+                      f"probe full at {label} vs B2: rel {rel}")
+            times[variant] = cuda_ms(
+                lambda: hist_variant(ids, vals, S, variant))
+        lines.append(f"probe at {label} ({ids.shape[0]} × {ids.shape[1]} → "
+                     f"{S}): " + ", ".join(f"{v} {t:.4f} ms"
+                                           for v, t in times.items()))
+        if label == "probe":
+            ok_ids = (ids >= 0) & (ids < S)
+            flat = (torch.where(ok_ids, ids, S).long()
+                    + (torch.arange(ids.shape[0], device=dev)
+                       * (S + 1))[:, None]).reshape(-1)
+            vals0 = torch.where(ok_ids, vals, 0.0).reshape(-1)
+            res["hist_variant"] = dict(
+                at=f"ids ({ids.shape[0]}, {ids.shape[1]}) → {S} bins, half −1",
+                max_abs_err=rel, ms=times["full"], variants_ms=times,
+                plain_ms=cuda_ms(lambda: hist_variant_plain(
+                    ids, vals, S, "full")),
+                library_ms=cuda_ms(lambda: torch.zeros(
+                    ids.shape[0] * (S + 1), device=dev).index_add_(
+                        0, flat, vals0)),
+                **bound(8 * ids.numel() + 4 * ids.shape[0] * S,
+                        float(ok_ids.sum())))
+        else:
+            res["hist_variant"]["variants_ms_batch_ids"] = times
+    print("kernels B6 and probe: " + "; ".join(lines), flush=True)
+    return res
+
+
 def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res = kernels_b123(dev, pipe, p)
     res.update(kernels_b45(dev, np.random.default_rng(7)))
+    res.update(kernels_large(dev))
+    res.update(kernels_fused(dev, pipe, p))
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
         f"{k} {v['ms']:.4f} ms at {v['at']} (plain {v['plain_ms']:.4f} ms"
@@ -410,15 +635,20 @@ def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
 
 
 def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
-               vis_batch: torch.Tensor) -> None:
-    st = Stream(settings, dev)
+               vis_batch: torch.Tensor, min_hops: int = 300,
+               chunk: int = 1024, budget_ms: float | None = None) -> None:
+    """Drive ``Stream`` on the card once (counters) in ``chunk``-sample
+    pushes, then flush; it must match the batch result.  Per-hop latency
+    p50/p99, beside ``budget_ms`` and the hop's own audio time if given."""
+    st = Stream(settings.replace(channels=1 if x.ndim == 1 else x.shape[0]),
+                dev)
     lat = []
 
     def run():
         cols = []
-        for i in range(0, x.shape[-1], 1024):
+        for i in range(0, x.shape[-1], chunk):
             t0 = time.perf_counter()
-            got = st.push(x[i:i + 1024])
+            got = st.push(x[..., i:i + chunk])
             if got:
                 torch.cuda.synchronize()
                 lat.append((time.perf_counter() - t0) / len(got))
@@ -427,17 +657,22 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
 
     cols = drive(name, run)
     hops = len(cols) + st.reach
-    check(hops >= 300, f"{name}: only {hops} hops")
+    check(hops >= min_hops, f"{name}: only {hops} hops (want {min_hops})")
     check([c.index for c in cols] == list(range(vis_batch.shape[0])),
           f"{name}: column indices differ from the batch")
     vis_s = torch.stack([c.vis for c in cols])
     diff = float((vis_s - vis_batch).abs().max())
     check(diff <= STREAM_VIS_ATOL, f"{name} ≠ batch: max |Δvis| {diff}")
     p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
-    print(f"{name}: {hops} hops of {st.pipe.hop} in 1024-sample pushes, "
+    hop_ms = st.pipe.hop / settings.sample_rate * 1e3
+    budget = ("" if budget_ms is None else
+              f" (budget {budget_ms:.1f} ms, hop {hop_ms:.1f} ms of audio: "
+              f"p99 {'within' if p99 < budget_ms else 'OVER'} budget)")
+    print(f"{name}: {hops} hops of {st.pipe.hop} in {chunk}-sample pushes, "
           f"{len(cols)} columns; max |vis − batch| {diff:.3g}; per-hop "
-          f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms (host clock, push → "
-          f"synchronize); launches {LAUNCHES[name]}", flush=True)
+          f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms{budget} (host "
+          f"clock, push → synchronize); launches {LAUNCHES[name]}",
+          flush=True)
 
 
 def device_busy(fn, reps: int):
@@ -466,15 +701,15 @@ def _top(by_name: dict, k: int = 4) -> str:
 
 def phase_breakdown(dev, batches: dict, lives: dict) -> None:
     """Where the time goes: per-stage device times (CUDA events) of the
-    enhanced batch path; for every batch cell and a live hop of every
-    path, the device busy time, its largest kernels and the idle share
-    (1 − profiled busy time over the unprofiled wall time)."""
+    enhanced stencil batch paths; for every batch cell and a live hop of
+    every path, the device busy time, its largest kernels and the idle
+    share (1 − profiled busy time over the unprofiled wall time)."""
     for name, (settings, x, wall_ms) in batches.items():
         s = settings.replace(channels=1 if x.ndim == 1 else x.shape[0])
         pipe = Pipeline(s, dev)
         p, xg = pipe.params(), pipe.to_device(x)
         stages = ""
-        if name.startswith("batch"):
+        if s.mode == "enhanced" and s.fft_method == "stencil":
             t = pipe.num_columns(x.shape[-1])
             fr = frame_signal(xg, pipe.n_max, pipe.hop)
             ids, c = pipe._deposit_ids_rel(fr, p)
@@ -497,27 +732,30 @@ def phase_breakdown(dev, batches: dict, lives: dict) -> None:
               f"{wall_ms:.4f} ms/call, idle share {1 - busy / wall_ms:.4f}; "
               f"largest (ms/call): {_top(by_name)}", flush=True)
 
-    # live: 20 hops to settle, 100 profiled, 100 on the host clock alone
+    # live: 20 hops to settle, then up to 100 profiled and as many on the
+    # host clock alone (fewer where the signal is shorter)
     for name, (settings, x) in lives.items():
-        st = Stream(settings, dev)
+        st = Stream(settings.replace(
+            channels=1 if x.ndim == 1 else x.shape[0]), dev)
         hop, pos = st.pipe.hop, st.pipe.n_max + 20 * st.pipe.hop
-        st.push(x[:pos])
+        reps = min(100, (x.shape[-1] - pos) // (2 * hop))
+        st.push(x[..., :pos])
 
         def one_hop():
             nonlocal pos
-            st.push(x[pos:pos + hop])
+            st.push(x[..., pos:pos + hop])
             pos += hop
-        busy, by_name = device_busy(one_hop, 100)
+        busy, by_name = device_busy(one_hop, reps)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(100):
+        for _ in range(reps):
             one_hop()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 100
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
         print(f"breakdown {name}: device busy {busy:.4f} of {wall_ms:.4f} "
-              f"ms/hop (host clock, {hop}-sample pushes), idle share "
-              f"{1 - busy / wall_ms:.4f}; largest (ms/hop): {_top(by_name)}",
-              flush=True)
+              f"ms/hop (host clock, {hop}-sample pushes, {reps} hops), idle "
+              f"share {1 - busy / wall_ms:.4f}; largest (ms/hop): "
+              f"{_top(by_name)}", flush=True)
 
 
 def main() -> None:
@@ -534,11 +772,26 @@ def main() -> None:
     live_phase("natural_live", dev, NATURAL, x, vis_n)
     vis_d, ms_d = batch_phase("direct", dev, DIRECT, x, iters=10)
     live_phase("direct_live", dev, DIRECT, x, vis_d)
+
+    xs = signal(4.0, CHANNELS, seed=13, sr=96000)              # harness.py:435
+    _, ms_s = batch_phase("stress", dev, STRESS, xs, iters=5)
+    xs_live = signal(SECONDS, CHANNELS, seed=14, sr=96000)
+    vis_sl, _ = batch_phase("stress_live_batch", dev, STRESS, xs_live,
+                            iters=1)
+    live_phase("stress_live", dev, STRESS, xs_live, vis_sl, min_hops=180)
+    vis_no, ms_no = batch_phase("north", dev, NORTH, x, iters=3)
+    live_phase("north_live", dev, NORTH, x, vis_no, min_hops=900, chunk=800,
+               budget_ms=10.0)
+    xe = signal(8.0, seed=15, sr=96000)                        # harness.py:479
+    _, ms_e = batch_phase("ext262144", dev, EXT, xe, iters=3)
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
-              "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d)},
+              "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),
+              "stress": (STRESS, xs, ms_s), "north": (NORTH, x, ms_no),
+              "ext262144": (EXT, xe, ms_e)},
         {"live": (SETTINGS, x), "natural_live": (NATURAL, x),
-         "direct_live": (DIRECT, x)})
+         "direct_live": (DIRECT, x), "stress_live": (STRESS, xs_live),
+         "north_live": (NORTH, x)})
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

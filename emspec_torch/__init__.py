@@ -8,11 +8,12 @@ nothing of the JAX package: the host-only code it needs is copied
 table functions in ``tables``), each copy pinned to its original by the
 tests.
 
-Ported so far: enhanced mode with one bank (stencil and direct methods),
-and natural mode with one bank or the multires banks, each in batch
-(``Pipeline.process``) and live (``Stream``), with the ``xla``
-(``torch.fft``) and ``fourstep`` FFT engines, through five hand-written
-CUDA kernels (``emspec_torch/csrc``).  ROADMAP.md lists the rest.  Entry
+Ported so far: enhanced mode with one bank (stencil and direct methods,
+every frame size 512–262144), and natural mode with one bank or the
+multires banks, each in batch (``Pipeline.process``) and live
+(``Stream``), with the ``xla`` (``torch.fft``) and ``fourstep`` FFT
+engines, through hand-written CUDA kernels (``emspec_torch/csrc``), one
+for each Pallas kernel of the JAX package.  ROADMAP.md lists the rest.  Entry
 points run on the card unless the caller passes ``device="cpu"``.
 
 >>> from emspec_torch import Settings, get_pipeline, Stream

@@ -1,0 +1,215 @@
+// Kernel B1, large-frame route: frames → reassigned deposits (ids,
+// contrib) for N = 32768 … 262144, where a frame no longer fits one
+// block.  Also kernel B6 (the fused histogram) at those sizes.
+//
+// Replaces emspec/dsp/pallas/fft4.py::fft4_deposits (_deposits_kernel,
+// _frame_quantized with its half-spectrum route, _iota_grids) above 16384
+// points.  It computes exactly what deposits.cu computes at N <= 16384,
+// in natural bin order, id −1 and contrib 0 for every invalid deposit.
+//
+// Why a second route: deposits.cu keeps a frame's two half-size complex
+// spectra in one block's shared memory, 8·(N+2) bytes — 256 KB at 32768
+// against the 227 KB a block may have.  Design, three stages a call:
+//   1. pack (this file): each frame read once through its stride (the
+//      framing unfold view goes in uncopied), the t·h window applied, the
+//      raw and the t·h signal each even/odd-packed into an N/2-point
+//      complex sequence z[i] = s[2i] + i·s[2i+1] — never packed together
+//      (their spectra differ by ~10³ in magnitude) — as 2·b contiguous
+//      (n1, n2) planes, sequence 2f the raw and 2f+1 the t·h of frame f;
+//   2. kernel B4 (fourstep.cu, steps 1–3, float32 FMA DFT products) on
+//      those 2·b sequences at fourstep._FACTORS[N/2] (128×128 … 256×512,
+//      b = 1 included);
+//   3. finish (this file): one thread a bin.  It reads the B4 output
+//      through the step-4 map — Z[j] lies at (j mod n1)·n2 + j div n1 —
+//      unpacks X[k−1], X[k], X[k+1] and Y[k] with deposits_common.cuh's
+//      unpack_pair (the Hermitian conjugates of X[1] and X[N/2−1] at
+//      k = 0 and N/2, as in deposits.cu) and runs the shared epilogue.
+//      Thread q of a frame takes bin k = q div n2 + n1·(q mod n2), so a
+//      warp reads consecutive addresses of Z (and of its mirror
+//      Z[m−j], in reverse); the bin k = N/2 is the extra thread q = m.
+//      The writes of ids and contrib are strided by n1 and merge in L2.
+//      B6 (hist = 1): each block histograms its bins in shared memory
+//      (the streaming mask id >= min_id applied) and adds the nonzero
+//      cells atomically into the zeroed output row.
+// A thread-block cluster with distributed shared memory could keep the
+// radix-2 form of deposits.cu, but needs clusters of 2 to 16 blocks and
+// a DSMEM exchange each stage; reusing B4's products, which already
+// hold every factorization at b = 1, is the simpler design that is right.
+//
+// What bounds it on the H100: B4's dense products, 8·(N/2)·(n1 + n2)
+// flops a sequence (float32 on the CUDA cores); pack and finish move
+// ~4·N and ~8·N bytes a frame of device memory plus the planes.  The
+// scratch planes (2·b·N/2 complex, 180 MB at 688 × 32768) come from the
+// wrapper's torch.empty, so PyTorch's caching allocator serves them.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, never
+// --use_fast_math.
+
+#include <cuda_runtime.h>
+
+#include "deposits_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kHistBinsPerBlock = 4096;   // B6: bins one block histograms
+
+__global__ void __launch_bounds__(kThreads) pack_kernel(
+    const float* __restrict__ x, long long frames_per_lead,
+    long long lead_stride, long long frame_stride,
+    const float* __restrict__ th, float* __restrict__ zr,
+    float* __restrict__ zi, int m, int chunks) {
+  const long long f = blockIdx.x / chunks;
+  const int i = (blockIdx.x % chunks) * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const float* fr = x + (f / frames_per_lead) * lead_stride
+                      + (f % frames_per_lead) * frame_stride;
+  const float a0 = fr[2 * i], a1 = fr[2 * i + 1];
+  const long long raw = 2 * f * (long long)m + i;
+  const long long thw = raw + m;
+  zr[raw] = a0;
+  zi[raw] = a1;
+  zr[thw] = a0 * th[2 * i];
+  zi[thw] = a1 * th[2 * i + 1];
+}
+
+// X[j], 0 <= j <= m, of one real frame from Z (its B4 planes, (k1, k2)
+// layout): the pair (j', m − j') with j' = min(j, m − j) unpacked as in
+// deposits.cu.
+__device__ __forceinline__ float2 spectrum_at(
+    const float* __restrict__ zr, const float* __restrict__ zi,
+    const float2* __restrict__ tw, int j, int m, int n1, int n2) {
+  const bool upper = j > (m >> 1);
+  const int jl = upper ? m - j : j;
+  const int jm = jl == 0 ? 0 : m - jl;
+  const int a0 = (jl % n1) * n2 + jl / n1;
+  const int a1 = (jm % n1) * n2 + jm / n1;
+  float2 lo, hi;
+  emspec::unpack_pair(make_float2(zr[a0], zi[a0]), make_float2(zr[a1], zi[a1]),
+                      tw[jl], &lo, &hi);
+  return upper ? hi : lo;
+}
+
+template <bool kHist>
+__global__ void __launch_bounds__(kThreads) finish_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    const float2* __restrict__ tw, const float* __restrict__ logmap_a,
+    const float* __restrict__ logmap_b, const float* __restrict__ power_floor,
+    int* __restrict__ ids, float* __restrict__ out, int chunks, int per_block,
+    int n, int n1, int n2, int hop, float c_dh, float bin_scale,
+    float hz_per_bin, float inv_n2, int rows, int reach, int min_id,
+    int num_bins) {
+  extern __shared__ float hist[];                 // B6 only
+  const int m = n >> 1;
+  const long long f = blockIdx.x / chunks;
+  const int q0 = (blockIdx.x % chunks) * per_block;
+  const int q1 = min(q0 + per_block, m + 1);
+  const float* raw_r = xr + 2 * f * (long long)m;
+  const float* raw_i = xi + 2 * f * (long long)m;
+  const float* th_r = raw_r + m;
+  const float* th_i = raw_i + m;
+  const emspec::EpilogueConsts c{*logmap_a, *logmap_b, *power_floor, c_dh,
+                                 bin_scale, hz_per_bin, inv_n2, n, hop, rows,
+                                 reach};
+  if (kHist) {
+    for (int i = threadIdx.x; i < num_bins; i += blockDim.x) hist[i] = 0.0f;
+    __syncthreads();
+  }
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+    const int k = q == m ? m : q / n2 + n1 * (q % n2);
+    const float2 A = spectrum_at(raw_r, raw_i, tw, k, m, n1, n2);
+    float2 Am1, Ap1;
+    if (k == 0) {
+      const float2 x1 = spectrum_at(raw_r, raw_i, tw, 1, m, n1, n2);
+      Am1 = make_float2(x1.x, -x1.y);
+    } else {
+      Am1 = spectrum_at(raw_r, raw_i, tw, k - 1, m, n1, n2);
+    }
+    if (k == m) {
+      const float2 x1 = spectrum_at(raw_r, raw_i, tw, m - 1, m, n1, n2);
+      Ap1 = make_float2(x1.x, -x1.y);
+    } else {
+      Ap1 = spectrum_at(raw_r, raw_i, tw, k + 1, m, n1, n2);
+    }
+    const float2 B = spectrum_at(th_r, th_i, tw, k, m, n1, n2);
+    int id;
+    float contrib;
+    emspec::deposit_at(k, A, Am1, Ap1, B, c, &id, &contrib);
+    if (kHist) {
+      if (emspec::lands(id, min_id, num_bins)) atomicAdd(&hist[id], contrib);
+    } else {
+      ids[f * (m + 1) + k] = id;
+      out[f * (m + 1) + k] = contrib;
+    }
+  }
+  if (kHist) {
+    __syncthreads();
+    float* row = out + f * (long long)num_bins;
+    for (int i = threadIdx.x; i < num_bins; i += blockDim.x)
+      if (hist[i] != 0.0f) atomicAdd(&row[i], hist[i]);
+  }
+}
+
+template <bool kHist>
+int launch_finish(const float* xr, const float* xi, const void* tw,
+                  const float* logmap_a, const float* logmap_b,
+                  const float* power_floor, int* ids, float* out,
+                  long long frames, int n, int n1, int n2, int hop,
+                  float c_dh, float bin_scale, float hz_per_bin,
+                  float inv_n2, int rows, int reach, int min_id, int num_bins,
+                  cudaStream_t st) {
+  const int m = n >> 1;
+  const int per_block = kHist ? kHistBinsPerBlock : kThreads;
+  const int chunks = (m + 1 + per_block - 1) / per_block;
+  const int smem = kHist ? (int)sizeof(float) * num_bins : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      finish_kernel<kHist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  finish_kernel<kHist><<<(unsigned)(frames * chunks), kThreads, smem, st>>>(
+      xr, xi, static_cast<const float2*>(tw), logmap_a, logmap_b,
+      power_floor, ids, out, chunks, per_block, n, n1, n2, hop, c_dh,
+      bin_scale, hz_per_bin, inv_n2, rows, reach, min_id, num_bins);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Stage 1.  zr, zi: (2·frames, N/2) float32 planes, written whole.
+extern "C" int emspec_deposits_pack(
+    const float* x, long long num_lead, long long frames_per_lead,
+    long long lead_stride, long long frame_stride, const float* th,
+    float* zr, float* zi, int n, void* stream) {
+  const long long frames = num_lead * frames_per_lead;
+  if (frames == 0) return 0;
+  const int m = n >> 1;
+  const int chunks = (m + kThreads - 1) / kThreads;
+  pack_kernel<<<(unsigned)(frames * chunks), kThreads, 0,
+                (cudaStream_t)stream>>>(x, frames_per_lead, lead_stride,
+                                        frame_stride, th, zr, zi, m, chunks);
+  return (int)cudaGetLastError();
+}
+
+// Stage 3.  xr, xi: B4's output for the packed planes, (2·frames, n1, n2)
+// with n1·n2 = N/2.  hist = 0: ids, contrib (frames, N/2+1), natural
+// order.  hist = 1 (B6): out (frames, num_bins), zeroed by the caller;
+// ids unused.
+extern "C" int emspec_deposits_finish(
+    const float* xr, const float* xi, const void* tw, const float* logmap_a,
+    const float* logmap_b, const float* power_floor, int* ids, float* out,
+    long long frames, int n, int n1, int n2, int hop, float c_dh,
+    float bin_scale, float hz_per_bin, float inv_n2, int rows, int reach,
+    int min_id, int num_bins, int hist, void* stream) {
+  if (n1 * n2 != n / 2) return (int)cudaErrorInvalidValue;
+  if (frames == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return hist ? launch_finish<true>(xr, xi, tw, logmap_a, logmap_b,
+                                    power_floor, ids, out, frames, n, n1, n2,
+                                    hop, c_dh, bin_scale, hz_per_bin, inv_n2,
+                                    rows, reach, min_id, num_bins, st)
+              : launch_finish<false>(xr, xi, tw, logmap_a, logmap_b,
+                                     power_floor, ids, out, frames, n, n1,
+                                     n2, hop, c_dh, bin_scale, hz_per_bin,
+                                     inv_n2, rows, reach, min_id, num_bins,
+                                     st);
+}

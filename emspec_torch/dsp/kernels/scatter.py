@@ -11,7 +11,8 @@ import torch
 from emspec_torch import kernels_build
 from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
 
-# float32 cells one block's shared memory holds (227 KB on the H100)
+# float32 cells one block's shared memory holds (227 KB on the H100);
+# 4·MAX_BINS bytes is a block's shared-memory limit
 MAX_BINS = 232448 // 4
 
 

@@ -10,7 +10,9 @@ package does (``stft.py:210-212``): at N = 8192 the t·h spectrum carries
 stencils on the raw spectrum.
 
 The ``xla`` branch feeds the deposits kernel's plain reference
-(``emspec_torch.dsp.kernels.deposits``) and the CPU path.
+(``emspec_torch.dsp.kernels.deposits``) and the CPU path.  Its real FFT
+is ``rfft``: batch-shape stable on the CPU (see there), so streaming ≡
+batch holds bit for bit at every frame size.
 """
 
 from __future__ import annotations
@@ -35,6 +37,20 @@ def th_window(n: int, device) -> torch.Tensor:
     return _th_table(n, str(torch.device(device)))
 
 
+def rfft(x: torch.Tensor) -> torch.Tensor:
+    """``torch.fft.rfft`` over the last axis.  On the CPU each row is
+    transformed alone: MKL's batched real FFT rounds differently from its
+    one-row transform at n ≥ 16384 (the live step transforms one window,
+    the batch path a stack of frames), and a row-by-row transform gives
+    each frame the same bits in either.  A CUDA tensor is transformed in
+    one call."""
+    if x.device.type != "cpu" or x.dim() == 1 or x.numel() == 0:
+        return torch.fft.rfft(x, dim=-1)
+    rows = x.reshape(-1, x.shape[-1])
+    return torch.stack([torch.fft.rfft(r) for r in rows]).reshape(
+        x.shape[:-1] + (-1,))
+
+
 def stft_raw_pair(frames: torch.Tensor, fft_impl: str = "xla"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(raw spectrum X, t·h spectrum X_th), each (..., n//2+1) complex64.
@@ -44,7 +60,7 @@ def stft_raw_pair(frames: torch.Tensor, fft_impl: str = "xla"
     th = th_window(n, frames.device)
     if fft_impl == "fourstep":
         return packed_pair_fft(frames, frames * th)
-    F = torch.fft.rfft(torch.stack([frames, frames * th]), dim=-1)
+    F = rfft(torch.stack([frames, frames * th]))
     return F[0], F[1]
 
 

@@ -33,6 +33,12 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "emspec_deposits": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "emspec_deposits_hist": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P],
+    "emspec_deposits_pack": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P],
+    "emspec_deposits_finish": [_P] * 8 + [_LL, _I, _I, _I, _I, _F, _F, _F,
+                                          _F, _I, _I, _I, _I, _I, _P],
+    "emspec_hist_variant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _P],
     "emspec_lut": [_P, _P, _P, _LL, _P],
     "emspec_fourstep": [_P] * 12 + [_LL, _I, _I, _P],

@@ -26,7 +26,9 @@ fused kernel B1, whatever ``fft_impl`` says, as the JAX package's
 ``_use_fused_deposits`` does on its accelerator; the CPU runs the
 engine's unfused chain, as the JAX package does on its CPU.
 
-Enhanced multires and the stencil method outside B1's sizes raise
+The stencil method runs at every size of ``FFT_SIZES``: on the card B1
+takes N ≤ 16384 in one block a frame and larger frames through its
+large-frame route (pack → B4 → finish).  Enhanced multires raises
 ``NotImplementedError`` on every device.
 """
 
@@ -43,15 +45,14 @@ from emspec_torch.config import MODE_ENHANCED, STRUCTURAL_FIELDS, Settings
 from emspec_torch.device import DTYPE, as_device
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
-from emspec_torch.dsp.kernels.deposits import (
-    MAX_N, MIN_N, deposits_ids, quantize_deposits, supported)
+from emspec_torch.dsp.kernels.deposits import deposits_ids, quantize_deposits
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
     build_merge_tables, merge_columns)
 from emspec_torch.dsp.reassign import reassignment_corrections
-from emspec_torch.dsp.stft import stft_triple_stencil
+from emspec_torch.dsp.stft import rfft, stft_triple_stencil
 from emspec_torch.dsp.windows import hann
 from emspec_torch.post.chain import (
     PostParams, PostState, postprocess_batch, postprocess_column)
@@ -91,9 +92,6 @@ class Pipeline:
         if enhanced and s.multires:
             raise _not_ported("enhanced multires (mode='enhanced', "
                               "multires=True)")
-        if enhanced and s.fft_method == "stencil" and not supported(s.fft_size):
-            raise _not_ported(f"fft_size={s.fft_size} with the stencil "
-                              f"method (kernel B1 holds {MIN_N}..{MAX_N})")
         self.settings = s
         self.device = as_device(device)
         self.sizes = s.active_fft_sizes
@@ -219,7 +217,7 @@ class Pipeline:
     def _rfft(self, x):
         if self.fft_impl == "fourstep":
             return fourstep.rfft_fourstep(x)
-        return torch.fft.rfft(x, dim=-1)
+        return rfft(x)
 
     def _bank_power(self, frames, n: int):
         """Hann |X|² of one bank's frames or window — shared by the batch

@@ -7,9 +7,12 @@ machine with the card, which has no JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
-suite).  Tolerances: quantized grids through ``compare_grids``; B2 1e-5
-relative; B3 and B5 bit-equal; B4 2e-5·max|X| (the JAX package's four-step
-bound)."""
+suite).  Tolerances: quantized grids through ``compare_grids``; B1's
+large-frame route also ≥ 99.99% equal ids, other valid deposits moved one
+cell, bins 0 and N/2 exact, contrib within 1e-5·peak; B2, B6 (against
+B1 → B2 composed) and the probe's ``full`` 1e-5 relative per nonzero bin;
+the other probe variants against their own plain versions, 1e-5; B3 and
+B5 bit-equal; B4 2e-5·max|X| (the JAX package's four-step bound)."""
 
 import numpy as np
 import pytest
@@ -17,13 +20,17 @@ import torch
 
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
-from emspec_torch.dsp.kernels.deposits import deposits_ids, deposits_ids_plain
+from emspec_torch.dsp.kernels.deposits import (
+    deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_large,
+    deposits_ids_plain)
 from emspec_torch.dsp.kernels.fourstep import (
     fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
+from emspec_torch.probes.scatter_ablation import (
+    VARIANTS, hist_variant, hist_variant_plain)
 from emspec_torch.validate import compare_grids
 
 
@@ -100,3 +107,84 @@ def test_cuda_window_kernel_bit_equal(cuda, shape):
     assert torch.equal(windowed_frames(frames), windowed_frames_plain(frames))
     fr = frame_signal(frames.reshape(-1), 256, 64)
     assert torch.equal(windowed_frames(fr), windowed_frames_plain(fr))
+
+
+def _scalars(cuda, rows, sr):
+    return [torch.tensor(np.float32(v), device=cuda)
+            for v in (np.log2(20.0),
+                      (rows - 1) / (np.log2(sr / 2.0) - np.log2(20.0)), 1e-12)]
+
+
+def _b1_case(cuda, n, b, rows=512, sr=96000.0):
+    hop = n // 4
+    x = torch.from_numpy(_tone_noise((b - 1) * hop + n, n % 101)).to(cuda)
+    kw = dict(n=n, hop=hop, sr=sr, rows=rows, reach=2)
+    return frame_signal(x, n, hop), _scalars(cuda, rows, sr), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 65536, 131072, 262144])
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_deposits_large_route_matches_plain(cuda, n, b):
+    fr, sc, kw = _b1_case(cuda, n, b)
+    before = (deposits_ids.launches, deposits_ids_large.launches)
+    ik, ck = deposits_ids(fr, *sc, **kw)
+    assert (deposits_ids.launches, deposits_ids_large.launches) == (
+        before[0], before[1] + 1)
+    ip, cp = deposits_ids_plain(fr, *sc, **kw)
+    rows, S = kw["rows"], 5 * kw["rows"]
+    cmp = compare_grids(histogram_plain(ip, cp, S).cpu(),
+                        histogram_plain(ik, ck, S).cpu())
+    assert cmp.ok, cmp
+    vk, vp = ck > 0, cp > 0
+    both = vk & vp
+    agree = (both & (ik == ip)) | (~vk & ~vp)
+    assert float(agree.float().mean()) >= 0.9999
+    moved = (ik - ip).abs()[both & (ik != ip)]
+    assert bool(torch.isin(moved, torch.tensor(
+        [1, rows - 1, rows, rows + 1], device=cuda)).all())
+    assert bool(agree[:, [0, n // 2]].all())
+    assert bool((ik[~vk] == -1).all())
+    assert float((ck - cp)[both].abs().max()) <= 1e-5 * float(cp.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 16384, 32768, 262144])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_deposits_hist_matches_composed(cuda, n, masked):
+    """B6 against B1 → B2 on the same frames: 1e-5 relative per nonzero
+    bin, exact zeros below min_id."""
+    fr, sc, kw = _b1_case(cuda, n, 3)
+    S = 5 * kw["rows"]
+    min_id = 2 * kw["rows"] if masked else -2**30
+    before = deposits_hist.launches
+    got = deposits_hist(fr, *sc, min_id, **kw)
+    assert deposits_hist.launches == before + 1 and got.shape == (3, S)
+    ids, contrib = deposits_ids(fr, *sc, **kw)
+    want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
+    nz = want > 0
+    assert float(((got - want).abs()[nz] / want[nz]).max()) <= 1e-5
+    assert bool((got[~nz] == 0).all())
+    if masked:
+        assert float(got[:, :min_id].abs().max()) == 0.0
+    plain = deposits_hist_plain(fr, *sc, min_id, **kw)
+    cmp = compare_grids(plain.reshape(3, 5, -1).cpu(),
+                        got.reshape(3, 5, -1).cpu())
+    assert cmp.ok, cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_probe_variants(cuda, variant):
+    """Each variant against its own plain version; ``full`` against B2."""
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, 2560, (37, 16512)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.5] = -1
+    ids = torch.from_numpy(ids).to(cuda)
+    vals = torch.from_numpy(rng.random((37, 16512)).astype(np.float32)).to(cuda)
+    got = hist_variant(ids, vals, 2560, variant)
+    want = hist_variant_plain(ids, vals, 2560, variant)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if variant == "full":
+        torch.testing.assert_close(got, histogram(ids, vals, 2560),
+                                   rtol=1e-5, atol=1e-5)

@@ -22,8 +22,9 @@ from emspec.io import synth
 from emspec.pipeline import Pipeline as JaxPipeline
 from emspec_torch import kernels_build
 from emspec_torch.dsp.frame import frame_signal, num_frames
+from emspec_torch.dsp.fourstep import supported as fourstep_supported
 from emspec_torch.dsp.kernels.deposits import (
-    deposits_ids, deposits_ids_plain, supported)
+    SMALL_MAX_N, deposits_ids, deposits_ids_plain, supported)
 from emspec_torch.dsp.kernels.lut import lut_lookup
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
 from emspec_torch.validate import compare_grids
@@ -157,8 +158,16 @@ def test_wrappers_raise_on_other_devices():
 
 
 def test_supported_sizes():
-    assert [n for n in (256, 512, 1000, 8192, 16384, 32768) if supported(n)] \
-        == [512, 8192, 16384]
+    """B1 holds every power of two 512–262144: up to SMALL_MAX_N in one
+    block a frame, above it through the large-frame route, whose N/2 must
+    have a B4 factorization."""
+    sizes = (256, 512, 1000, 8192, 16384, 32768, 65536, 131072, 262144,
+             524288)
+    assert [n for n in sizes if supported(n)] == [
+        512, 8192, 16384, 32768, 65536, 131072, 262144]
+    assert SMALL_MAX_N == 16384
+    assert all(fourstep_supported(n // 2) for n in sizes
+               if supported(n) and n > SMALL_MAX_N)
 
 
 def test_frame_signal_view_matches_jax():

@@ -169,16 +169,50 @@ def test_nan_sample_leaves_no_nan():
 
 @pytest.mark.parametrize("kw", [
     dict(multires=True), dict(multires=True, multires_sizes=(4096, 1024)),
-    dict(fft_size=131072), dict(fft_size=262144, fft_impl="fourstep"),
-    dict(fft_size=32768), dict(fft_size=65536),
 ])
 def test_unsupported_settings_raise(kw):
-    """Enhanced multires, and the stencil method past kernel B1's sizes
-    (whatever the engine), are not ported: they raise on every device."""
+    """Enhanced multires is not ported: it raises on every device."""
     base = dict(mode="enhanced", multires=False, fft_size=8192)
     base.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Pipeline(Settings(**base), "cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fft_size=131072), dict(fft_size=262144, fft_impl="fourstep"),
+    dict(fft_size=32768), dict(fft_size=65536),
+])
+def test_large_stencil_settings_run_and_match_jax(kw):
+    """The stencil method past 16384 points (once refused, now B1's
+    large-frame route on the card) runs on the CPU, either engine, and
+    matches the JAX package: grids by ``compare_grids``, ``vis`` by
+    ``compare_vis``.  The fourstep engine packs the raw and t·h signals
+    into one complex transform in both packages (the JAX package's
+    numeric spec), so above 32768 its grids are held to the JAX
+    package's own bound for those sizes, 4e-3·peak to 131072 and
+    6e-3·peak at 262144 (``emspec/dsp/pallas/validate.py:142``)."""
+    base = dict(mode="enhanced", multires=False, raster_height=128,
+                smoothing=0.3)
+    base.update(kw)
+    s = Settings(**base)
+    tp = Pipeline(s, "cpu")
+    jp = JaxPipeline(s)
+    x = _signal(float(np.ceil((2 * tp.hop + tp.n_max) / SR)), seed=12)
+    t_count = tp.num_columns(x.shape[-1])
+    jparams = jp.params()
+    p = params_from_jax(jparams, "cpu")
+    vis_j, _, _ = jp.process(x, jparams)
+    vis_t, _, _ = tp.process(x, p)
+    assert vis_t.shape == vis_j.shape == (t_count, 128)
+    power_j = jp._enhanced_power(jnp.asarray(x), t_count, jparams)
+    power_t = tp._enhanced_power(tp.to_device(x), t_count, p)
+    n = s.fft_size
+    atol = (1e-3 if tp.fft_impl == "xla" or n <= 32768
+            else 4e-3 if n <= 131072 else 6e-3)
+    cmp = compare_grids(torch.from_numpy(np.array(power_j)), power_t,
+                        maxf_atol=atol)
+    assert cmp.ok, cmp
+    _vis_maxf_close(np.asarray(vis_j), vis_t.numpy())
 
 
 def test_get_pipeline_caches_structural_projection():
