@@ -10,10 +10,17 @@ them.  Phases, in order, one line each; the first failure ends the run:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (16 s of 48 kHz audio), with its time, the
    plain version's, one equivalent library call's where there is one
-   (all CUDA events) and its roofline bound: B1 deposits, B2 histogram,
+   (all CUDA events over back-to-back calls, host dispatch included),
+   the device's own time per call of the kernel and of the library call
+   (``device_ms``: CUDA events with the host's queueing hidden behind a
+   device-side sleep), the kernels ranked by the ratio of the two, and
+   its roofline bound: B1 deposits, B2 histogram,
    B3 colormap lookup (enhanced 8192, hop 2048, 512 rows); B4 four-step
-   steps 1–3 at n = 256, 1024, 4096, 8192, 32768, each at b = 1 and a
-   full batch; B5 triple windowing at the direct path's frames; B1's
+   steps 1–3 at n = 256, 1024, 4096, 8192, 16384 (the stress call's
+   1,376 sequences), 32768 and 131072, each at a full batch and at b = 1
+   (bit-equal to frame 0), with the kernel's and the plain version's
+   error against a complex128 FFT, and its two routes timed in turns at
+   16384; B5 triple windowing at the direct path's frames; B1's
    large-frame route at 32768 (the stress call's 688 frames), 65536,
    131072 and 262144 (8 frames), each also at b = 1; B6, the fused
    deposits histogram, against its plain version and against B1 → B2
@@ -67,8 +74,8 @@ deposit moved by one cell only, bins 0 and N/2 exact, and contrib within
 1e-5·peak wherever both are valid; B2, B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
-own plain versions; B3 and B5 bit-equal; B4 within 2e-5·max|X| (the JAX
-package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
+own plain versions; B3 and B5 bit-equal; B4 (either route) within
+2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
 of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
 FFT batch shapes reorder sums only).
@@ -92,7 +99,7 @@ from emspec_torch.dsp.kernels.deposits import (
     deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_large,
     deposits_ids_plain)
 from emspec_torch.dsp.kernels.fourstep import (
-    device_tables, fft4_steps123, fft4_steps123_plain)
+    SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
 from emspec_torch.dsp.kernels.window import (
@@ -200,6 +207,48 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The device's own time per call of ``fn`` in ms: CUDA events around
+    ``calls`` back-to-back calls queued behind a device-side sleep, so the
+    host's dispatch (ctypes, argument checks, allocation) overlaps the
+    sleep and not the calls.  Fails unless the queueing ended well inside
+    the sleep.  (torch.profiler cannot serve here: it leaves every later
+    launch slower on the host, and late in a long run it drops kernel
+    records.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 50_000_000
+    for _ in range(3):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if queued_ms < 0.5 * marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / calls
+        cycles *= 4
+    fail(f"device_ms: queueing {calls} calls took {queued_ms:.3f} ms, "
+         f"longer than the sleep in front of them")
+
+
+def times(fn, plain, library=None, iters: int = 20, warmup: int = 3) -> dict:
+    """The kernel's, its plain version's and the library call's ms by CUDA
+    events over back-to-back calls (each call's host dispatch included),
+    and the device's own time per call of the kernel and of the library
+    call (``device_ms``, ``library_device_ms``)."""
+    return dict(
+        ms=cuda_ms(fn, iters, warmup), plain_ms=cuda_ms(plain, iters, warmup),
+        library_ms=None if library is None else cuda_ms(library, iters,
+                                                        warmup),
+        device_ms=device_ms(fn),
+        library_device_ms=None if library is None else device_ms(library))
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -312,9 +361,9 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     k = n // 2 + 1
     res["deposits_ids"] = dict(
         at=f"frames ({b}, {n})", max_abs_err=err_b1,
-        ms=cuda_ms(lambda: deposits_ids(frames, *scal, **kw)),
-        plain_ms=cuda_ms(lambda: deposits_ids_plain(frames, *scal, **kw)),
-        library_ms=None, **b1_bound(b, n))
+        **times(lambda: deposits_ids(frames, *scal, **kw),
+                lambda: deposits_ids_plain(frames, *scal, **kw)),
+        **b1_bound(b, n))
 
     # B2 on those ids: ≤ 1e-5 relative per nonzero bin; a NaN value behind
     # a dropped id must not reach the histogram
@@ -335,10 +384,10 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     vals0 = torch.where(ok_ids, ck, 0.0).reshape(-1)
     res["histogram"] = dict(
         at=f"ids ({b}, {k}) → {S} bins", max_abs_err=float((hk - hp).abs().max()),
-        ms=cuda_ms(lambda: histogram(ik, ck, S)),
-        plain_ms=cuda_ms(lambda: histogram_plain(ik, ck, S)),
-        library_ms=cuda_ms(lambda: torch.zeros(
-            b * (S + 1), device=dev).index_add_(0, flat, vals0)),
+        **times(lambda: histogram(ik, ck, S),
+                lambda: histogram_plain(ik, ck, S),
+                lambda: torch.zeros(b * (S + 1), device=dev).index_add_(
+                    0, flat, vals0)),
         **bound(8 * b * k + 4 * b * S, float(ok_ids.sum())))
 
     # B3 at the batch raster (t, rows): bit-equal
@@ -350,9 +399,9 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     res["lut_lookup"] = dict(
         at=f"idx ({b}, {rows})",
         max_abs_err=float((lk.int() - lp.int()).abs().max()),
-        ms=cuda_ms(lambda: lut_lookup(idx, p.lut)),
-        plain_ms=cuda_ms(lambda: lut_lookup_plain(idx, p.lut)),
-        library_ms=cuda_ms(lambda: torch.index_select(p.lut, 0, flat_idx)),
+        **times(lambda: lut_lookup(idx, p.lut),
+                lambda: lut_lookup_plain(idx, p.lut),
+                lambda: torch.index_select(p.lut, 0, flat_idx)),
         **bound(4 * idx.numel() + 1024 + 4 * idx.numel(), 0.0))
     return res
 
@@ -360,45 +409,94 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
 # B4 sizes: the complex transform size n = N/2 of each path's real frames
 # and the batch one 16 s call gives it (natural banks 8192/2048/512 at
 # hop 128: 5,937 frames; direct 8192 at hop 2048: 3 × 372 windowed
-# frames), plus 8192 and 32768 (the north star's frame size, halved and
-# whole) at 16 s of their hop N/4.
+# frames; the stress call's 2 × 688 packed sequences of 16384), plus 8192
+# and 32768 (the north star's frame size, halved and whole) at 16 s of
+# their hop N/4, and 131072 (B1's large route at 262144) at 16.
 B4_CASES = ((256, 5937), (1024, 5937), (4096, 5937), (4096, 1116),
-            (8192, 372), (32768, 93))
+            (8192, 372), (16384, 1376), (32768, 93), (131072, 16))
 B4_REPORTED = (4096, 5937)         # the natural 8192-bank call
+B4_STRESS = (16384, 1376)          # inside B1's large route at the stress call
 
 
-def kernels_b45(dev, rng) -> dict:
+def f64_err(xr, xi, ref) -> float:
+    """max |X − ref| / max |ref| of X[k1, k2] against ref, complex128."""
+    return float(torch.maximum((xr.double() - ref.real).abs().max(),
+                               (xi.double() - ref.imag).abs().max())
+                 / ref.abs().max())
+
+
+def kernels_b4(dev, rng) -> dict:
+    """B4 at each of ``B4_CASES``, at the full batch and at b = 1 (frame 0,
+    bit for bit): against its plain version (2e-5·max|X|) and, reported,
+    both against a complex128 ``torch.fft.fft`` of the same input
+    reindexed to [k1, k2]; at 16384 the two routes in turns."""
     res, lines = {}, []
     for n, full in B4_CASES:
         n1, n2 = fourstep._FACTORS[n]
-        for b in (1, full):
-            zr, zi = (torch.from_numpy(rng.standard_normal(
-                (b, n1, n2)).astype(np.float32)).to(dev) for _ in range(2))
-            kr, ki = fft4_steps123(zr, zi)
-            pr, pi = fft4_steps123_plain(zr, zi)
-            scale = float(torch.complex(pr, pi).abs().max())
-            err = float(torch.maximum((kr - pr).abs().max(),
-                                      (ki - pi).abs().max()))
-            check(err <= B4_TOL * scale, f"B4 n={n} b={b}: max err {err} vs "
-                  f"{B4_TOL}·max|X| = {B4_TOL * scale}")
-            if b == 1:
-                continue
-            z = torch.complex(zr, zi).reshape(b, n)
-            tab = sum(t.numel() for t in device_tables(n1, n2, dev))
-            row = dict(
-                at=f"(b, n1, n2) = ({b}, {n1}, {n2})", max_abs_err=err,
-                rel_err=err / scale,
-                ms=cuda_ms(lambda: fft4_steps123(zr, zi)),
-                plain_ms=cuda_ms(lambda: fft4_steps123_plain(zr, zi)),
-                library_ms=cuda_ms(lambda: torch.fft.fft(z)),
-                **bound(16 * b * n + 4 * tab, b * dft_ops(n)))
-            lines.append(f"n={n} b={b} {row['ms']:.4f} ms (plain "
-                         f"{row['plain_ms']:.4f}, torch.fft.fft "
-                         f"{row['library_ms']:.4f}, bound "
-                         f"{row['bound_ms']:.4f} {row['bound_by']}, err "
-                         f"{err / scale:.2e}·max|X|)")
-            if (n, full) == B4_REPORTED:
-                res["fft4_steps123"] = row
+        zr, zi = (torch.from_numpy(rng.standard_normal(
+            (full, n1, n2)).astype(np.float32)).to(dev) for _ in range(2))
+        kr, ki = fft4_steps123(zr, zi)
+        pr, pi = fft4_steps123_plain(zr, zi)
+        scale = float(torch.complex(pr, pi).abs().max())
+        err = float(torch.maximum((kr - pr).abs().max(), (ki - pi).abs().max()))
+        check(err <= B4_TOL * scale, f"B4 n={n} b={full}: max err {err} vs "
+              f"{B4_TOL}·max|X| = {B4_TOL * scale}")
+        sr, si = fft4_steps123(zr[:1].clone(), zi[:1].clone())
+        p1r, p1i = fft4_steps123_plain(zr[:1], zi[:1])
+        err1 = float(torch.maximum((sr - p1r).abs().max(),
+                                   (si - p1i).abs().max()))
+        check(err1 <= B4_TOL * float(torch.complex(p1r, p1i).abs().max()),
+              f"B4 n={n} b=1: max err {err1}")
+        check(torch.equal(sr, kr[:1]) and torch.equal(si, ki[:1]),
+              f"B4 n={n}: b = 1 differs from frame 0 of the batch")
+        ref = torch.fft.fft(torch.complex(zr.double(), zi.double()).reshape(
+            full, n)).reshape(full, n2, n1).transpose(1, 2)
+        f64 = dict(kernel=f64_err(kr, ki, ref), plain=f64_err(pr, pi, ref))
+        del ref
+        z = torch.complex(zr, zi).reshape(full, n)
+        tab = sum(t.numel() for t in device_radix_tables(n1, n2, dev))
+        row = dict(
+            at=f"(b, n1, n2) = ({full}, {n1}, {n2})", max_abs_err=err,
+            rel_err=err / scale, rel_err_f64=f64,
+            **times(lambda: fft4_steps123(zr, zi),
+                    lambda: fft4_steps123_plain(zr, zi),
+                    lambda: torch.fft.fft(z)),
+            **bound(16 * full * n + 4 * tab, full * dft_ops(n)))
+        lines.append(f"n={n} b={full} {row['ms']:.4f} ms (device "
+                     f"{row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                     f"torch.fft.fft {row['library_ms']:.4f} / device "
+                     f"{row['library_device_ms']:.4f}, bound "
+                     f"{row['bound_ms']:.4f} {row['bound_by']}; err vs plain "
+                     f"{err / scale:.2e}·max|X|, vs complex128: kernel "
+                     f"{f64['kernel']:.2e}, plain {f64['plain']:.2e})")
+        if (n, full) == B4_STRESS:
+            lr, li = fft4_steps123(zr, zi, route="large")
+            err_l = float(torch.maximum((lr - pr).abs().max(),
+                                        (li - pi).abs().max()))
+            check(err_l <= B4_TOL * scale, f"B4 n={n} large route: {err_l}")
+            routes = {}
+            for r in ("small", "large", "large", "small"):      # in turns
+                routes.setdefault(r, []).append(cuda_ms(
+                    lambda: fft4_steps123(zr, zi, route=r)))
+            row["route_ms"] = routes
+            row["route_device_ms"] = {r: device_ms(
+                lambda: fft4_steps123(zr, zi, route=r))
+                for r in ("small", "large")}
+            lines.append(f"n={n} routes in turns (small, large, large, "
+                         f"small): {routes}, device {row['route_device_ms']}"
+                         f" (threshold n1·n2 <= {SMALL_MAX} takes small)")
+            res["fft4_steps123_stress"] = row
+        if (n, full) == B4_REPORTED:
+            res["fft4_steps123"] = row
+    res["fft4_steps123"] = dict(res["fft4_steps123"],
+                                at_stress=res.pop("fft4_steps123_stress"))
+    print("kernels B4: " + "; ".join(lines) + "; every size also at b = 1, "
+          "bit-equal to frame 0", flush=True)
+    return res
+
+
+def kernels_b5(dev) -> dict:
+    res = {}
     # B5 at the direct path's frames: bit-equal, also on a 1-D window
     x = torch.from_numpy(signal(SECONDS, seed=5)).to(dev)
     frames = frame_signal(x, DIRECT.fft_size, DIRECT.hop_samples)
@@ -411,12 +509,10 @@ def kernels_b45(dev, rng) -> dict:
     w3 = w3_table(n, dev).reshape(3, 1, n)
     res["windowed_frames"] = dict(
         at=f"frames ({r}, {n})", max_abs_err=float((wk - wp).abs().max()),
-        ms=cuda_ms(lambda: windowed_frames(frames)),
-        plain_ms=cuda_ms(lambda: windowed_frames_plain(frames)),
-        library_ms=cuda_ms(lambda: frames[None] * w3),
+        **times(lambda: windowed_frames(frames),
+                lambda: windowed_frames_plain(frames),
+                lambda: frames[None] * w3),
         **bound(4 * r * n + 12 * r * n + 12 * n, 3.0 * r * n))
-    print("kernels B4: " + "; ".join(lines) + "; all sizes also at b = 1",
-          flush=True)
     return res
 
 
@@ -458,13 +554,14 @@ def kernels_large(dev) -> dict:
               and torch.equal(c1, ck.reshape(-1, n // 2 + 1)[:1]),
               f"B1 large n={n}: b = 1 differs from frame 0 of the batch")
         row = dict(at=f"frames ({bf}, {n})", max_abs_err=err,
-                   ms=cuda_ms(lambda: deposits_ids(frames, *scal, **kw), 5, 2),
-                   plain_ms=cuda_ms(lambda: deposits_ids_plain(
-                       frames, *scal, **kw), 5, 2),
-                   library_ms=None, **b1_bound(bf, n),
+                   **times(lambda: deposits_ids(frames, *scal, **kw),
+                           lambda: deposits_ids_plain(frames, *scal, **kw),
+                           iters=5, warmup=2),
+                   **b1_bound(bf, n),
                    ms_b1=cuda_ms(lambda: deposits_ids(flat[:1], *scal, **kw),
                                  10, 2))
-        lines.append(f"n={n} b={bf} {row['ms']:.4f} ms (b=1 "
+        lines.append(f"n={n} b={bf} {row['ms']:.4f} ms (device "
+                     f"{row['device_ms']:.4f}, b=1 "
                      f"{row['ms_b1']:.4f}, plain {row['plain_ms']:.4f}, bound "
                      f"{row['bound_ms']:.4f} {row['bound_by']})")
         if n == 32768:
@@ -508,12 +605,11 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
         b = frames.numel() // n
         row = dict(
             at=f"frames ({b}, {n}) → {S} bins", max_abs_err=worst,
-            ms=cuda_ms(lambda: deposits_hist(frames, *scal, -2**30, **kw), 5, 2),
+            **times(lambda: deposits_hist(frames, *scal, -2**30, **kw),
+                    lambda: deposits_hist_plain(frames, *scal, -2**30, **kw),
+                    iters=5, warmup=2),
             composed_ms=cuda_ms(lambda: histogram(
                 *deposits_ids(frames, *scal, **kw), S), 5, 2),
-            plain_ms=cuda_ms(lambda: deposits_hist_plain(
-                frames, *scal, -2**30, **kw), 5, 2),
-            library_ms=None,
             **bound(4 * b * n + 4 * b * S + 8 * n + 12,
                     b * (dft_ops(n) + n + 40 * (n // 2 + 1))
                     + float((contrib > 0).sum())))
@@ -538,7 +634,7 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
                           sr=float(SR), rows=pipe.rows, reach=pipe.reach)
     probe_cases.append(("batch ids", ik, ck, (2 * pipe.reach + 1) * pipe.rows))
     for label, ids, vals, S in probe_cases:
-        times = {}
+        variant_ms = {}
         for variant in VARIANTS:
             got = hist_variant(ids, vals, S, variant)
             want = hist_variant_plain(ids, vals, S, variant)
@@ -552,11 +648,11 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
                 rel = float(((got - hb).abs()[nz] / hb[nz]).max())
                 check(rel <= 1e-5 and bool((got[~nz] == 0).all()),
                       f"probe full at {label} vs B2: rel {rel}")
-            times[variant] = cuda_ms(
+            variant_ms[variant] = cuda_ms(
                 lambda: hist_variant(ids, vals, S, variant))
         lines.append(f"probe at {label} ({ids.shape[0]} × {ids.shape[1]} → "
                      f"{S}): " + ", ".join(f"{v} {t:.4f} ms"
-                                           for v, t in times.items()))
+                                           for v, t in variant_ms.items()))
         if label == "probe":
             ok_ids = (ids >= 0) & (ids < S)
             flat = (torch.where(ok_ids, ids, S).long()
@@ -565,32 +661,41 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
             vals0 = torch.where(ok_ids, vals, 0.0).reshape(-1)
             res["hist_variant"] = dict(
                 at=f"ids ({ids.shape[0]}, {ids.shape[1]}) → {S} bins, half −1",
-                max_abs_err=rel, ms=times["full"], variants_ms=times,
-                plain_ms=cuda_ms(lambda: hist_variant_plain(
-                    ids, vals, S, "full")),
-                library_ms=cuda_ms(lambda: torch.zeros(
-                    ids.shape[0] * (S + 1), device=dev).index_add_(
-                        0, flat, vals0)),
+                max_abs_err=rel,
+                **times(lambda: hist_variant(ids, vals, S, "full"),
+                        lambda: hist_variant_plain(ids, vals, S, "full"),
+                        lambda: torch.zeros(
+                            ids.shape[0] * (S + 1), device=dev).index_add_(
+                                0, flat, vals0)),
+                variants_ms=variant_ms,
                 **bound(8 * ids.numel() + 4 * ids.shape[0] * S,
                         float(ok_ids.sum())))
         else:
-            res["hist_variant"]["variants_ms_batch_ids"] = times
+            res["hist_variant"]["variants_ms_batch_ids"] = variant_ms
     print("kernels B6 and probe: " + "; ".join(lines), flush=True)
     return res
 
 
 def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res = kernels_b123(dev, pipe, p)
-    res.update(kernels_b45(dev, np.random.default_rng(7)))
+    res.update(kernels_b4(dev, np.random.default_rng(7)))
+    res.update(kernels_b5(dev))
     res.update(kernels_large(dev))
     res.update(kernels_fused(dev, pipe, p))
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
-        f"{k} {v['ms']:.4f} ms at {v['at']} (plain {v['plain_ms']:.4f} ms"
-        + (f", library {v['library_ms']:.4f} ms"
+        f"{k} {v['ms']:.4f} ms at {v['at']} (device {v['device_ms']:.4f} ms, "
+        f"plain {v['plain_ms']:.4f} ms"
+        + (f", library {v['library_ms']:.4f} ms / device "
+           f"{v['library_device_ms']:.4f} ms"
            if v['library_ms'] is not None else "")
         + f", bound {v['bound_ms']:.4f} ms by {v['bound_by']}, max abs err "
         f"{v['max_abs_err']:.3g})" for k, v in res.items()), flush=True)
+    ranked = sorted(((v["device_ms"] / v["library_device_ms"], k)
+                     for k, v in res.items() if v["library_device_ms"]),
+                    reverse=True)
+    print("kernels against their library call, device time: "
+          + ", ".join(f"{k} {r:.3f}×" for r, k in ranked), flush=True)
     return res
 
 

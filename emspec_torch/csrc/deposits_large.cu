@@ -16,9 +16,10 @@
 //      complex sequence z[i] = s[2i] + i·s[2i+1] — never packed together
 //      (their spectra differ by ~10³ in magnitude) — as 2·b contiguous
 //      (n1, n2) planes, sequence 2f the raw and 2f+1 the t·h of frame f;
-//   2. kernel B4 (fourstep.cu, steps 1–3, float32 FMA DFT products) on
-//      those 2·b sequences at fourstep._FACTORS[N/2] (128×128 … 256×512,
-//      b = 1 included);
+//   2. kernel B4 (fourstep.cu, steps 1–3 as radix FFTs in shared memory:
+//      one launch at 128×128, two through a scratch above) on those 2·b
+//      sequences at fourstep._FACTORS[N/2] (128×128 … 256×512, b = 1
+//      included);
 //   3. finish (this file): one thread a bin.  It reads the B4 output
 //      through the step-4 map — Z[j] lies at (j mod n1)·n2 + j div n1 —
 //      unpacks X[k−1], X[k], X[k+1] and Y[k] with deposits_common.cuh's
@@ -33,12 +34,13 @@
 //      cells atomically into the zeroed output row.
 // A thread-block cluster with distributed shared memory could keep the
 // radix-2 form of deposits.cu, but needs clusters of 2 to 16 blocks and
-// a DSMEM exchange each stage; reusing B4's products, which already
-// hold every factorization at b = 1, is the simpler design that is right.
+// a DSMEM exchange each stage; reusing B4, which already holds every
+// factorization at b = 1, is the simpler design that is right.
 //
-// What bounds it on the H100: B4's dense products, 8·(N/2)·(n1 + n2)
-// flops a sequence (float32 on the CUDA cores); pack and finish move
-// ~4·N and ~8·N bytes a frame of device memory plus the planes.  The
+// What bounds it on the H100: device-memory bytes — pack reads ~4·N and
+// writes 8·N bytes a frame, B4 reads and writes the planes (16·N bytes a
+// frame, twice that above 16384 points where it goes through its
+// scratch), finish reads them and writes ids and contrib.  The
 // scratch planes (2·b·N/2 complex, 180 MB at 688 × 32768) come from the
 // wrapper's torch.empty, so PyTorch's caching allocator serves them.
 //

@@ -8,8 +8,9 @@ With x reshaped row-major to (N1, N2), n = N2·n1 + n2, k = k1 + N1·k2:
     X[k1, k2] = Σ_{n2} B[k1, n2]·W_{N2}^{n2·k2}        (product over n2)
     out[k1 + N1·k2] = X[k1, k2]
 
-Steps 1–3 go through ``fft4_steps123``: kernel B4 for a CUDA tensor, its
-plain float32 einsum/matmul version for a CPU tensor.  Step 4 is a
+Steps 1–3 go through ``fft4_steps123``: kernel B4 for a CUDA tensor
+(the two sub-DFTs as radix FFTs in shared memory), its plain float32
+einsum/matmul version for a CPU tensor.  Step 4 is a
 transpose and reshape here, as in the JAX package.  This engine runs
 where the caller selects ``fft_impl="fourstep"``; it agrees with
 ``torch.fft`` to float32 rounding, and its CPU products may round

@@ -24,7 +24,7 @@ from emspec_torch.dsp.kernels.deposits import (
     deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_large,
     deposits_ids_plain)
 from emspec_torch.dsp.kernels.fourstep import (
-    fft4_steps123, fft4_steps123_plain)
+    SMALL_MAX, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
 from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
 from emspec_torch.dsp.kernels.window import (
@@ -97,6 +97,52 @@ def test_cuda_fourstep_kernel_matches_plain(cuda, n, b):
     scale = float(torch.complex(pr, pi).abs().max())
     assert float((kr - pr).abs().max()) / scale < 2e-5
     assert float((ki - pi).abs().max()) / scale < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", sorted(fourstep._FACTORS))
+def test_cuda_fourstep_single_frame_is_frame_zero(cuda, n):
+    """A frame's arithmetic does not depend on the batch: b = 1 gives
+    frame 0 of a batch of 5 bit for bit."""
+    n1, n2 = fourstep._FACTORS[n]
+    rng = np.random.default_rng(n + 1)
+    zr, zi = (torch.from_numpy(rng.standard_normal((5, n1, n2)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    br, bi = fft4_steps123(zr, zi)
+    sr, si = fft4_steps123(zr[:1].clone(), zi[:1].clone())
+    assert torch.equal(sr, br[:1]) and torch.equal(si, bi[:1])
+
+
+@pytest.mark.cuda
+def test_cuda_fourstep_offset_view(cuda):
+    """A contiguous view 4 bytes into its storage (a live window at an odd
+    sample) is not 16-byte aligned: the wrapper copies it, same result."""
+    n1, n2 = fourstep._FACTORS[4096]
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.standard_normal((2, 1 + n1 * n2)).astype(
+        np.float32)).to(cuda)
+    zr, zi = (row[1:].view(1, n1, n2) for row in flat)
+    assert zr.data_ptr() % 16 != 0 and zr.is_contiguous()
+    got = fft4_steps123(zr, zi)
+    want = fft4_steps123(zr.clone(), zi.clone())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [n for n in sorted(fourstep._FACTORS)
+                               if n <= SMALL_MAX])
+def test_cuda_fourstep_large_route_at_small_sizes(cuda, n):
+    """The two-launch route, forced where the one-launch route is the
+    default, against the plain version (ragged b = 3)."""
+    n1, n2 = fourstep._FACTORS[n]
+    rng = np.random.default_rng(n + 2)
+    zr, zi = (torch.from_numpy(rng.standard_normal((3, n1, n2)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    kr, ki = fft4_steps123(zr, zi, route="large")
+    pr, pi = fft4_steps123_plain(zr, zi)
+    scale = float(torch.complex(pr, pi).abs().max())
+    assert float(torch.maximum((kr - pr).abs().max(),
+                               (ki - pi).abs().max())) / scale < 2e-5
 
 
 @pytest.mark.cuda
