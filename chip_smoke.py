@@ -14,15 +14,19 @@ them.  Phases, in order, one line each; the first failure ends the run:
    the device's own time per call of the kernel and of the library call
    (``device_ms``: CUDA events with the host's queueing hidden behind a
    device-side sleep), the kernels ranked by the ratio of the two, and
-   its roofline bound: B1 deposits, B2 histogram,
+   its roofline bound: B1 deposits (its block route; device time also
+   at b = 1, a live hop), B2 histogram,
    B3 colormap lookup (enhanced 8192, hop 2048, 512 rows); B4 four-step
    steps 1–3 at n = 256, 1024, 4096, 8192, 16384 (the stress call's
    1,376 sequences), 32768 and 131072, each at a full batch and at b = 1
    (bit-equal to frame 0), with the kernel's and the plain version's
    error against a complex128 FFT, and its two routes timed in turns at
-   16384; B5 triple windowing at the direct path's frames; B1's
-   large-frame route at 32768 (the stress call's 688 frames), 65536,
-   131072 and 262144 (8 frames), each also at b = 1; B6, the fused
+   16384; B5 triple windowing at the direct path's frames, from an
+   aligned and a misaligned framing view; B1's cluster route at 32768
+   (the stress call's 688 frames), with the clusters the card holds at
+   once, timed in turns against the three-launch route it replaced
+   (forced), both held to plain, both at b = 1; B1's large-frame route
+   at 65536, 131072 and 262144 (8 frames), each also at b = 1; B6, the fused
    deposits histogram, against its plain version and against B1 → B2
    composed, at the batch shape (372 × 8192) and the stress shape
    (688 × 32768), with and without the streaming mask; the probe's B2
@@ -44,8 +48,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
    B4, B2 and B3 must launch; matches the CPU path.
 9. direct_live: P-direct through ``Stream``; must match its batch.
 10. stress: ``BASELINE.json`` config 5 — enhanced 32768 at 96 kHz, hop
-   8192, 16 channels, 4 s (688 frames a call) — batch; B1's large route
-   (with B4 inside it), B2 and B3 must launch; matches the CPU path.
+   8192, 16 channels, 4 s (688 frames a call) — batch; B1's cluster
+   route, B2 and B3 must launch; matches the CPU path.
 11. stress_live: the same settings through ``Stream``, 16 s of 16
    channels (186 hops); must match its batch (phase stress_live_batch,
    itself held to the CPU path).
@@ -55,7 +59,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
    hops); must match its batch; p50/p99 beside the 10 ms budget and the
    16.7 ms hop.
 14. ext262144: enhanced 262144 at 96 kHz, hop 65536, 8 s mono (8
-   frames) — batch; matches the CPU path.
+   frames) — batch; B1's large route (with B4 inside it), B2 and B3 must
+   launch; matches the CPU path.
 15. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress; CUDA events), the device's busy time
    per kernel and idle share of every batch cell and of a live hop of
@@ -69,9 +74,10 @@ JSON line.  Then that line, and as the last line
 Tolerances (``emspec_torch.validate``): quantized power grids — total
 energy ≤ 1e-4 relative, 3×3 max-filters within 1e-3·peak on all but 1e-4
 of the cells (a float32 rounding flip moves a whole deposit one cell);
-B1 (both routes) additionally ≥ 99.99% equal ids, every other valid
+B1 (every route) additionally ≥ 99.99% equal ids, every other valid
 deposit moved by one cell only, bins 0 and N/2 exact, and contrib within
-1e-5·peak wherever both are valid; B2, B6 (against B1 → B2 composed, with
+1e-5·peak wherever both are valid, and b = 1 bit-equal to frame 0 of the
+batch; B2, B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
 own plain versions; B3 and B5 bit-equal; B4 (either route) within
@@ -96,8 +102,8 @@ from emspec_torch import Settings, kernels_build
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
 from emspec_torch.dsp.kernels.deposits import (
-    deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_large,
-    deposits_ids_plain)
+    cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
+    deposits_ids_cluster, deposits_ids_large, deposits_ids_plain)
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
@@ -140,6 +146,8 @@ KERNELS = (
      "emspec/dsp/pallas/fft4.py:130"),
     ("windowed_frames", windowed_frames, "emspec_torch/csrc/window.cu",
      "emspec/dsp/pallas/window.py:41"),
+    ("deposits_ids_cluster", deposits_ids_cluster,
+     "emspec_torch/csrc/deposits.cu", "emspec/dsp/pallas/fft4.py:404"),
     ("deposits_ids_large", deposits_ids_large,
      "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
     ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
@@ -147,6 +155,7 @@ KERNELS = (
     ("hist_variant", hist_variant, "emspec_torch/csrc/scatter_ablation.cu",
      "bench_probes/scatter_ablation.py:93"),
 )
+CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_lookup")
 LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
               "lut_lookup")
 PATH_KERNELS = {        # kernels each path must launch
@@ -158,11 +167,11 @@ PATH_KERNELS = {        # kernels each path must launch
     "direct": ("windowed_frames", "fft4_steps123", "histogram", "lut_lookup"),
     "direct_live": ("windowed_frames", "fft4_steps123", "histogram",
                     "lut_lookup"),
-    "stress": LARGE_PATH,
-    "stress_live_batch": LARGE_PATH,
-    "stress_live": LARGE_PATH,
-    "north": LARGE_PATH,
-    "north_live": LARGE_PATH,
+    "stress": CLUSTER_PATH,
+    "stress_live_batch": CLUSTER_PATH,
+    "stress_live": CLUSTER_PATH,
+    "north": CLUSTER_PATH,
+    "north_live": CLUSTER_PATH,
     "ext262144": LARGE_PATH,
 }
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
@@ -335,13 +344,35 @@ def check_b1(label: str, ik, ck, ip, cp, *, n: int, rows: int, R: int,
     return err
 
 
-def b1_bound(b: int, n: int) -> dict:
-    """B1's roofline bound for b frames of n: the frames read, ids and
-    contrib written, the t·h and twiddle tables; two real n-point DFTs
-    (half a complex one each), the t·h window and ~40 operations a bin
-    for stencils, corrections and quantization."""
-    k = n // 2 + 1
-    return bound(4 * b * n + 8 * b * k + 4 * n + 4 * n + 12,
+def check_b1_single(label: str, frames, ik, ck, scal, kw, **route) -> None:
+    """b = 1 (a live hop: the first frame as an (N,) window) must give
+    frame 0 of the batch bit for bit: a frame's arithmetic does not
+    depend on the batch."""
+    n = kw["n"]
+    i1, c1 = deposits_ids(frames.reshape(-1, n)[0], *scal, **kw, **route)
+    check(torch.equal(i1, ik.reshape(-1, n // 2 + 1)[0])
+          and torch.equal(c1, ck.reshape(-1, n // 2 + 1)[0]),
+          f"{label} n={n}: b = 1 differs from frame 0 of the batch")
+
+
+def frame_bytes(frames) -> float:
+    """Bytes of the distinct float32 samples a framing view covers: its
+    frames overlap where the hop is below N, and each input byte counts
+    once."""
+    n = frames.shape[-1]
+    f = frames.reshape((-1,) + tuple(frames.shape[-2:]) if frames.dim() > 1
+                       else (1, 1, n))
+    return 4.0 * f.shape[0] * ((f.shape[1] - 1) * min(f.stride(1), n) + n)
+
+
+def b1_bound(frames) -> dict:
+    """B1's roofline bound on these frames: their distinct samples read,
+    ids and contrib written, the t·h and twiddle tables; two real n-point
+    DFTs (half a complex one each), the t·h window and ~40 operations a
+    bin for stencils, corrections and quantization."""
+    n = frames.shape[-1]
+    b, k = frames.numel() // n, n // 2 + 1
+    return bound(frame_bytes(frames) + 8 * b * k + 4 * n + 4 * n + 12,
                  b * (dft_ops(n) + n + 40 * k))
 
 
@@ -358,12 +389,15 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     ik, ck = deposits_ids(frames, *scal, **kw)
     ip, cp = deposits_ids_plain(frames, *scal, **kw)
     err_b1 = check_b1("B1", ik, ck, ip, cp, n=n, rows=rows, R=R)
+    check_b1_single("B1", frames, ik, ck, scal, kw)
     k = n // 2 + 1
     res["deposits_ids"] = dict(
         at=f"frames ({b}, {n})", max_abs_err=err_b1,
         **times(lambda: deposits_ids(frames, *scal, **kw),
                 lambda: deposits_ids_plain(frames, *scal, **kw)),
-        **b1_bound(b, n))
+        **b1_bound(frames),
+        device_ms_b1=device_ms(lambda: deposits_ids(frames[0], *scal, **kw)),
+        bound_ms_b1=b1_bound(frames[0])["bound_ms"])
 
     # B2 on those ids: ≤ 1e-5 relative per nonzero bin; a NaN value behind
     # a dropped id must not reach the histogram
@@ -497,28 +531,45 @@ def kernels_b4(dev, rng) -> dict:
 
 def kernels_b5(dev) -> dict:
     res = {}
-    # B5 at the direct path's frames: bit-equal, also on a 1-D window
+    # B5 at the direct path's frames: bit-equal, also on a 1-D window and
+    # on the same framing 4 bytes into the signal (4-byte loads)
     x = torch.from_numpy(signal(SECONDS, seed=5)).to(dev)
     frames = frame_signal(x, DIRECT.fft_size, DIRECT.hop_samples)
+    mis = frame_signal(x[1:], DIRECT.fft_size, DIRECT.hop_samples)
+    check(frames.data_ptr() % 16 == 0 and mis.data_ptr() % 16 != 0,
+          "B5: the aligned and misaligned views are not what they claim")
     wk, wp = windowed_frames(frames), windowed_frames_plain(frames)
     check(torch.equal(wk, wp), "B5 windowed_frames differs from frames·w3")
     check(torch.equal(windowed_frames(frames[3]),
                       windowed_frames_plain(frames[3])),
           "B5 windowed_frames differs on a single (N,) window")
+    check(torch.equal(windowed_frames(mis), windowed_frames_plain(mis)),
+          "B5 windowed_frames differs on a misaligned view")
     r, n = frames.shape
     w3 = w3_table(n, dev).reshape(3, 1, n)
+    mis_t = times(lambda: windowed_frames(mis),
+                  lambda: windowed_frames_plain(mis), lambda: mis[None] * w3)
     res["windowed_frames"] = dict(
         at=f"frames ({r}, {n})", max_abs_err=float((wk - wp).abs().max()),
         **times(lambda: windowed_frames(frames),
                 lambda: windowed_frames_plain(frames),
                 lambda: frames[None] * w3),
-        **bound(4 * r * n + 12 * r * n + 12 * n, 3.0 * r * n))
+        **bound(frame_bytes(frames) + 12 * r * n + 12 * n, 3.0 * r * n),
+        misaligned={k: mis_t[k] for k in ("ms", "device_ms", "library_ms",
+                                          "library_device_ms")})
+    print(f"kernels B5: aligned device {res['windowed_frames']['device_ms']:.4f}"
+          f" ms (library {res['windowed_frames']['library_device_ms']:.4f}); "
+          f"misaligned device {mis_t['device_ms']:.4f} ms (library "
+          f"{mis_t['library_device_ms']:.4f}); bound "
+          f"{res['windowed_frames']['bound_ms']:.4f} ms", flush=True)
     return res
 
 
-# B1's large route: 32768 at the stress call (4 s of 16 channels at
-# 96 kHz, hop 8192: 688 frames), 65536–262144 at 8 frames of hop N/4
+# B1 above 16384: 32768 at the stress call (4 s of 16 channels at 96 kHz,
+# hop 8192: 688 frames) on the cluster route, 65536–262144 at 8 frames of
+# hop N/4 on the large route (262144: the ext262144 call)
 LARGE_CASES = ((32768, None), (65536, 8), (131072, 8), (262144, 8))
+CLUSTER_ROUTES = ("cluster", "large", "large", "cluster")     # in turns
 
 
 def stress_frames(dev, n: int = 32768, seconds: float = 4.0):
@@ -545,28 +596,52 @@ def kernels_large(dev) -> dict:
         bf = flat.shape[0]
         ik, ck = deposits_ids(frames, *scal, **kw)
         ip, cp = deposits_ids_plain(frames, *scal, **kw)
-        err = check_b1(f"B1 large n={n} b={bf}", ik, ck, ip, cp, n=n,
+        err = check_b1(f"B1 n={n} b={bf}", ik, ck, ip, cp, n=n,
                        rows=pipe.rows, R=pipe.reach)
-        # b = 1 (a live mono hop): a frame's arithmetic does not depend on
-        # the batch, so frame 0 must come out bit for bit
-        i1, c1 = deposits_ids(flat[:1], *scal, **kw)
-        check(torch.equal(i1, ik.reshape(-1, n // 2 + 1)[:1])
-              and torch.equal(c1, ck.reshape(-1, n // 2 + 1)[:1]),
-              f"B1 large n={n}: b = 1 differs from frame 0 of the batch")
+        check_b1_single("B1", frames, ik, ck, scal, kw)
         row = dict(at=f"frames ({bf}, {n})", max_abs_err=err,
                    **times(lambda: deposits_ids(frames, *scal, **kw),
                            lambda: deposits_ids_plain(frames, *scal, **kw),
                            iters=5, warmup=2),
-                   **b1_bound(bf, n),
-                   ms_b1=cuda_ms(lambda: deposits_ids(flat[:1], *scal, **kw),
-                                 10, 2))
+                   **b1_bound(frames),
+                   ms_b1=cuda_ms(lambda: deposits_ids(flat[0], *scal, **kw),
+                                 10, 2),
+                   device_ms_b1=device_ms(
+                       lambda: deposits_ids(flat[0], *scal, **kw)),
+                   bound_ms_b1=b1_bound(flat[0])["bound_ms"])
         lines.append(f"n={n} b={bf} {row['ms']:.4f} ms (device "
-                     f"{row['device_ms']:.4f}, b=1 "
-                     f"{row['ms_b1']:.4f}, plain {row['plain_ms']:.4f}, bound "
-                     f"{row['bound_ms']:.4f} {row['bound_by']})")
+                     f"{row['device_ms']:.4f}, b=1 {row['ms_b1']:.4f} / "
+                     f"device {row['device_ms_b1']:.4f}, plain "
+                     f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                     f"{row['bound_by']})")
         if n == 32768:
+            # the three-launch route it replaced, forced: held to plain
+            # and to b = 1, then both routes in turns
+            il, cl = deposits_ids(frames, *scal, **kw, route="large")
+            row["max_abs_err_large"] = check_b1(
+                f"B1 forced large route n={n} b={bf}", il, cl, ip, cp, n=n,
+                rows=pipe.rows, R=pipe.reach)
+            check_b1_single("B1 forced large route", frames, il, cl, scal, kw,
+                            route="large")
+            route_ms, route_dev, route_dev1 = {}, {}, {}
+            for r in CLUSTER_ROUTES:
+                route_ms.setdefault(r, []).append(cuda_ms(
+                    lambda: deposits_ids(frames, *scal, **kw, route=r), 5, 2))
+                route_dev.setdefault(r, []).append(device_ms(
+                    lambda: deposits_ids(frames, *scal, **kw, route=r)))
+                route_dev1.setdefault(r, []).append(device_ms(
+                    lambda: deposits_ids(flat[0], *scal, **kw, route=r)))
+            row.update(route_ms=route_ms, route_device_ms=route_dev,
+                       route_device_ms_b1=route_dev1,
+                       clusters_at_once=cluster_occupancy(dev))
+            lines.append(f"n={n} routes in turns {CLUSTER_ROUTES}: events "
+                         f"{route_ms}, device {route_dev}, device at b = 1 "
+                         f"{route_dev1}; {row['clusters_at_once']} two-CTA "
+                         f"clusters at once")
+            res["deposits_ids_cluster"] = row
+        if n == EXT.fft_size:
             res["deposits_ids_large"] = row
-    print("kernels B1 large: " + "; ".join(lines), flush=True)
+    print("kernels B1 above 16384: " + "; ".join(lines), flush=True)
     return res
 
 
@@ -610,7 +685,7 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
                     iters=5, warmup=2),
             composed_ms=cuda_ms(lambda: histogram(
                 *deposits_ids(frames, *scal, **kw), S), 5, 2),
-            **bound(4 * b * n + 4 * b * S + 8 * n + 12,
+            **bound(frame_bytes(frames) + 4 * b * S + 8 * n + 12,
                     b * (dft_ops(n) + n + 40 * (n // 2 + 1))
                     + float((contrib > 0).sum())))
         lines.append(f"B6 {label} {row['ms']:.4f} ms vs B1 → B2 "

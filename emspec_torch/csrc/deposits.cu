@@ -1,15 +1,16 @@
 // Kernel B1: fused single-bank enhanced analysis — frames → reassigned
-// deposits (ids, contrib), one thread block per frame, N <= 16384 (larger
-// frames: deposits_large.cu).  Also kernel B6 at these sizes: the same
-// block histograms its deposits instead of writing them.
+// deposits (ids, contrib), each frame's spectra held on chip from the read
+// of its samples to the write of its deposits, for N = 512 … 32768
+// (larger frames: deposits_large.cu).  Also kernel B6 at N <= 16384: the
+// same block histograms its deposits instead of writing them.
 //
 // Replaces emspec/dsp/pallas/fft4.py::fft4_deposits (with its
 // _deposits_kernel and _frame_quantized).  Same function, GPU formulation:
 //   * per frame: t·h window; the raw and the t·h REAL DFTs, each as an
-//     N/2-point complex FFT of the even/odd-packed samples plus the
-//     real-input unpack (the two signals are never packed together: at
-//     N = 8192 their spectra differ ~1,160× in magnitude and a joint pack
-//     costs the raw spectrum ~10 bits);
+//     m = N/2-point complex FFT of the even/odd-packed samples
+//     z[i] = s[2i] + i·s[2i+1] plus the real-input unpack (the two signals
+//     are never packed together: at N = 8192 their spectra differ ~1,160×
+//     in magnitude and a joint pack costs the raw spectrum ~10 bits);
 //   * periodic-Hann 3-point stencils → X_h, X_dh (neighbours at k = 0 and
 //     N/2 by Hermitian symmetry, as emspec/dsp/stft.py:stencil_from_raw);
 //   * Auger–Flandrin Δt, Δω; f̂; round-half-even quantization (rintf), with
@@ -19,7 +20,7 @@
 //     histogram does not depend on order).  Invalid deposits carry id −1
 //     and contrib 0, so nothing downstream reads them.
 // The unpack and the per-bin epilogue are deposits_common.cuh, shared with
-// the large-frame route.
+// the large-frame route; the FFT is kernel B4's (radix_common.cuh).
 //
 // Kernel B6 replaces emspec/dsp/pallas/fft4.py::fft4_hist (_hist_kernel,
 // _tile_hist): B1 and B2 fused.  The block's deposits go by shared-memory
@@ -28,173 +29,496 @@
 // histogram are dropped), and the row is written once: the deposits never
 // reach device memory.
 //
-// What bounds it on the H100: the FFT's shared-memory traffic and the
-// __syncthreads between its log2(N/2) radix-2 stages — the frame is read
-// from device memory once (4·N bytes) and 8·(N/2+1) bytes are written, so
-// device-memory bytes are not the limit.  Design: the whole frame's two
-// half-size complex spectra stay in dynamic shared memory, 8·(N+2) bytes
-// (64 KB at N = 8192; above 48 KB needs the MaxDynamicSharedMemorySize
-// attribute, set before every launch), which caps N at 16384.  Twiddles
-// come from a float64-built table e^{-2πij/N}, j < N/2, in device memory
-// (L1/L2-resident).  No wgmma/TMA yet: simple and right first.
+// Design.  With m = n1·n2 (n1, n2 = emspec_torch/dsp/fourstep.py
+// _FACTORS[m]), a signal's z lies in a shared tile of n1 rows padded to
+// n2 + 1 complex values, in B4's step-1 layout: z[i] at
+// (i div n2)·(n2 + 1) + i mod n2, stored there straight from the frame
+// (read once through its strides, 16 bytes a thread where the frame's
+// address and strides allow, the t·h window applied on the way).  Steps
+// 1–3 run with B4's line_fft exactly as its small_kernel runs them, which
+// leaves Z[k] at the step-4 address (k mod n1)·(n2 + 1) + k div n1.  The
+// epilogue reads the tiles and writes nothing back: a warp takes 30
+// consecutive bins, each lane unpacks X[k] and Y[k] from Z[k] and
+// Z[m − k] (the real-input unpack) and takes X[k ∓ 1] from its
+// neighbouring lanes by shuffle; the ids/contrib stores are coalesced in
+// natural order, and the strided shared reads (stride n2 + 1 ≡ 1 mod 16
+// complex values) are free of bank conflicts.
+// Routes, by N alone:
+//   * block, N <= 16384: one block a frame holding both signals' tiles,
+//     8·2·n1·(n2 + 1) bytes (66 KB at 8192, 132 KB at 16384) after the
+//     W_512 table, the two tiles run as B4 runs two frames.
+//   * cluster, N = 32768: one tile is 132 KB, so the pair takes a
+//     thread-block cluster of two CTAs: rank 0 holds the raw and rank 1
+//     the t·h spectrum.  After steps 1–3 the cluster syncs and each rank
+//     copies, through distributed shared memory, the half of the other's
+//     tile that its bins need (rank 0 bins 0 … m/4 − 1 and 3m/4 + 1 … m,
+//     rank 1 the rest) into 67 KB of its own, in whole row runs; a second
+//     cluster sync keeps each tile alive while it is copied, and the
+//     epilogue reads local shared memory only (one scattered 8-byte
+//     remote read a bin is far slower than these whole-row runs).
+// A frame's arithmetic depends on N only, never on b or on where the frame
+// sits in the batch, so b = 1 gives frame 0 of a batch bit for bit.
+//
+// What bounds it on the H100: device memory moves 4·N bytes in a frame
+// (8·N at 32768, where both ranks read it, the second mostly from L2) and
+// 8·(N/2 + 1) out, far below what the card takes; the pace is set on chip
+// by the FFT's shared-memory passes, the epilogue's arithmetic and, at
+// 32768, the copy between the ranks — one or two blocks an SM, whose
+// phases run one after another.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, never --use_fast_math (log2f and the division must
 // stay IEEE-accurate).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "deposits_common.cuh"
+#include "radix_common.cuh"
 
 namespace {
 
-using emspec::cmul;
+namespace cg = cooperative_groups;
+using namespace emspec::radix;
 
 constexpr int kThreads = 512;
+constexpr int kBatch = 2;                  // loads a thread issues before using them
+constexpr int kBinsPerWarp = 30;           // epilogue: lanes 1…30 own a bin
+constexpr int kBlockMaxLog2M = 13;         // block route: m <= 8192
+constexpr int kClusterLog2M = 14;          // cluster route: m = 16384
+constexpr int kClusterP = 32;              // ... at P points a thread
+constexpr int kStageStride = 67;           // staged columns a row (odd)
+constexpr int kCopyBatch = 4;              // remote reads in flight a thread
+constexpr int kMaxSmem = 232448;           // a block's most on the H100
+constexpr int kClusterSmem =               // table, tile, staged columns
+    (int)sizeof(float2) * (kTable + 128 * (128 + 1) + 128 * kStageStride);
 
-// kHist = false: B1, writes ids and contrib (natural order, m + 1 a frame).
-// kHist = true: B6, writes the frame's histogram row of num_bins cells.
-template <bool kHist>
-__global__ void __launch_bounds__(kThreads) deposits_kernel(
-    const float* __restrict__ x, long long frames_per_lead,
-    long long lead_stride, long long frame_stride,
-    const float* __restrict__ th, const float2* __restrict__ tw,
-    const float* __restrict__ logmap_a, const float* __restrict__ logmap_b,
-    const float* __restrict__ power_floor,
-    int* __restrict__ ids, float* __restrict__ out,
-    int n, int log2m, int hop, float c_dh, float bin_scale, float hz_per_bin,
-    float inv_n2, int rows, int reach, int min_id, int num_bins) {
-  extern __shared__ float2 sm[];
-  const int m = n >> 1;                 // half-size complex FFT length
-  float2* z[2] = {sm, sm + (m + 1)};    // raw, t·h: frame → spectrum X[0..m]
-  float* hist = reinterpret_cast<float*>(sm + 2 * (m + 1));   // B6 only
-  const long long b = blockIdx.x;
-  const float* fr = x + (b / frames_per_lead) * lead_stride
-                      + (b % frames_per_lead) * frame_stride;
+// Everything a launch reads and writes; the frame f of the batch starts at
+// x + (f div frames_per_lead)·lead_stride + (f mod frames_per_lead)·frame_stride.
+struct Args {
+  const float* x;
+  long long frames_per_lead, lead_stride, frame_stride;
+  int vec;                       // 1: 16-byte frame loads
+  const float* th;               // the t·h window, N floats
+  const float2* w512;            // B4's W_512^t table
+  const float2* tw4;             // B4's step-2 TW, (n1, n2)
+  const float2* tw;              // unpack: e^{−2πij/N}, j < N/2
+  const float *logmap_a, *logmap_b, *power_floor;
+  int* ids;                      // B1: (frames, m + 1)
+  float* out;                    // B1: contrib; B6: (frames, num_bins)
+  int n, log2n1, log2n2, hop;
+  float c_dh, bin_scale, hz_per_bin, inv_n2;
+  int rows, reach, min_id, num_bins;
+};
 
-  // 1. window and pack z[i] = s[2i] + i·s[2i+1], stored bit-reversed
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const float a0 = fr[2 * i], a1 = fr[2 * i + 1];
-    const int r = __brev(i) >> (32 - log2m);
-    z[0][r] = make_float2(a0, a1);
-    z[1][r] = make_float2(a0 * th[2 * i], a1 * th[2 * i + 1]);
+// A packed spectrum Z after steps 1–3, in shared memory: Z[k], k < m, at
+// row k mod n1, column k div n1 — in a whole tile (stride n2 + 1, c0 = 0)
+// or in a tile of staged columns c0, c0 + 1, … (mod n2) at row stride
+// kStageStride.  Both strides are odd, so 16 consecutive k (consecutive
+// rows) hit 16 distinct bank pairs.
+struct Spectrum {
+  const float2* z;
+  int stride, c0;
+  __device__ __forceinline__ int at(int k, int log2n1, int log2n2) const {
+    return (k & ((1 << log2n1) - 1)) * stride
+           + (((k >> log2n1) - c0) & ((1 << log2n2) - 1));
   }
-  if (kHist)
-    for (int i = threadIdx.x; i < num_bins; i += blockDim.x) hist[i] = 0.0f;
-  __syncthreads();
+};
 
-  // 2. radix-2 decimation-in-time, both signals per stage
-  const int half_m = m >> 1;
-  for (int s = 0; s < log2m; ++s) {
-    const int half = 1 << s;
-    const int tw_shift = log2m - s;     // e^{-2πij/(2·half)} = tw[j·N/(2·half)]
-    for (int q = threadIdx.x; q < m; q += blockDim.x) {
-      const int sig = q >= half_m;
-      const int bf = q - sig * half_m;
-      const int j = bf & (half - 1);
-      const int i0 = ((bf - j) << 1) + j;
-      const int i1 = i0 + half;
-      float2* zs = z[sig];
-      const float2 u = zs[i0];
-      const float2 v = cmul(zs[i1], tw[j << tw_shift]);
-      zs[i0] = make_float2(u.x + v.x, u.y + v.y);
-      zs[i1] = make_float2(u.x - v.x, u.y - v.y);
+// X[j], 0 <= j <= m, of a real frame from its packed spectrum Z: the pair
+// (j', m − j'), j' = min(j, m − j), unpacked as deposits_large.cu's
+// spectrum_at does, so all routes compute each X[j] from the same values
+// in the same order.
+__device__ __forceinline__ float2 spectrum_at(const Spectrum& Z,
+                                              const float2* __restrict__ tw,
+                                              int j, int log2n1, int log2n2) {
+  const int m = 1 << (log2n1 + log2n2);
+  const bool upper = j > (m >> 1);
+  const int jl = upper ? m - j : j;
+  const int jm = jl == 0 ? 0 : m - jl;
+  float2 lo, hi;
+  emspec::unpack_pair(Z.z[Z.at(jl, log2n1, log2n2)],
+                      Z.z[Z.at(jm, log2n1, log2n2)], __ldg(tw + jl), &lo,
+                      &hi);
+  return upper ? hi : lo;
+}
+
+__device__ __forceinline__ float2 shfl(float2 v, int delta, bool up) {
+  return up ? make_float2(__shfl_up_sync(0xffffffffu, v.x, delta),
+                          __shfl_up_sync(0xffffffffu, v.y, delta))
+            : make_float2(__shfl_down_sync(0xffffffffu, v.x, delta),
+                          __shfl_down_sync(0xffffffffu, v.y, delta));
+}
+
+// Frame f → the packed raw signal into `raw` and the packed t·h signal into
+// `thw` (either may be null), each in the step-1 layout.  16-byte loads
+// give z[2g], z[2g+1], which share a tile row (n2 is even).  A thread
+// issues kBatch loads before it stores any: with one or two blocks an SM,
+// a load waited for one at a time would leave the memory system idle.
+__device__ __forceinline__ void load_frame(float2* raw, float2* thw,
+                                           const Args& a, long long f) {
+  const float* fr = a.x + (f / a.frames_per_lead) * a.lead_stride
+                        + (f % a.frames_per_lead) * a.frame_stride;
+  const int m = 1 << (a.log2n1 + a.log2n2);
+  const int mask = (1 << a.log2n2) - 1;
+  const int T = blockDim.x;
+  if (a.vec) {
+    for (int g0 = threadIdx.x; g0 < m >> 1; g0 += kBatch * T) {
+      float4 s[kBatch], t[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int g = g0 + j * T;
+        if (g < m >> 1) {
+          s[j] = __ldg(reinterpret_cast<const float4*>(fr) + g);
+          if (thw != nullptr)
+            t[j] = __ldg(reinterpret_cast<const float4*>(a.th) + g);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = 2 * (g0 + j * T);
+        if (i >= m) break;
+        const int at = (i >> a.log2n2) * (mask + 2) + (i & mask);
+        if (raw != nullptr) {
+          raw[at] = make_float2(s[j].x, s[j].y);
+          raw[at + 1] = make_float2(s[j].z, s[j].w);
+        }
+        if (thw != nullptr) {
+          thw[at] = make_float2(s[j].x * t[j].x, s[j].y * t[j].y);
+          thw[at + 1] = make_float2(s[j].z * t[j].z, s[j].w * t[j].w);
+        }
+      }
     }
-    __syncthreads();
-  }
-
-  // 3. real-input unpack, in place: pair (k, m−k) owned by one thread
-  for (int q = threadIdx.x; q < 2 * (half_m + 1); q += blockDim.x) {
-    const int sig = q > half_m;
-    const int k = q - sig * (half_m + 1);
-    float2* zs = z[sig];
-    float2 lo, hi;
-    emspec::unpack_pair(zs[k], zs[(m - k) & (m - 1)], tw[k], &lo, &hi);
-    zs[k] = lo;
-    if (k != m - k) zs[m - k] = hi;
-  }
-  __syncthreads();
-
-  // 4. stencils, corrections, quantization, id packing for k = 0..N/2
-  const emspec::EpilogueConsts c{*logmap_a, *logmap_b, *power_floor, c_dh,
-                                 bin_scale, hz_per_bin, inv_n2, n, hop, rows,
-                                 reach};
-  const float2* X = z[0];
-  const float2* Y = z[1];
-  const long long out0 = b * (long long)(m + 1);
-  for (int k = threadIdx.x; k <= m; k += blockDim.x) {
-    const float2 Am1 = k == 0 ? make_float2(X[1].x, -X[1].y) : X[k - 1];
-    const float2 Ap1 = k == m ? make_float2(X[m - 1].x, -X[m - 1].y) : X[k + 1];
-    int id;
-    float contrib;
-    emspec::deposit_at(k, X[k], Am1, Ap1, Y[k], c, &id, &contrib);
-    if (kHist) {
-      if (emspec::lands(id, min_id, num_bins)) atomicAdd(&hist[id], contrib);
-    } else {
-      ids[out0 + k] = id;
-      out[out0 + k] = contrib;
+  } else {
+    for (int i0 = threadIdx.x; i0 < m; i0 += kBatch * T) {
+      float2 s[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * T;
+        if (i < m) s[j] = make_float2(__ldg(fr + 2 * i), __ldg(fr + 2 * i + 1));
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * T;
+        if (i >= m) break;
+        const int at = (i >> a.log2n2) * (mask + 2) + (i & mask);
+        if (raw != nullptr) raw[at] = s[j];
+        if (thw != nullptr)
+          thw[at] = make_float2(s[j].x * __ldg(a.th + 2 * i),
+                                s[j].y * __ldg(a.th + 2 * i + 1));
+      }
     }
-  }
-  if (kHist) {
-    __syncthreads();
-    float* row = out + b * (long long)num_bins;
-    for (int i = threadIdx.x; i < num_bins; i += blockDim.x) row[i] = hist[i];
   }
 }
 
+// Steps 1–3 of `count` (1 or 2) tiles at stride n1·(n2 + 1), as B4's
+// small_kernel runs its frames: the column FFTs with TW on their last
+// pass, then the row FFTs.
+template <int P>
+__device__ __forceinline__ void tile_fft(float2* tiles, const float2* w,
+                                         const Args& a, int log2count) {
+  const int l1 = a.log2n1, l2 = a.log2n2;
+  const int fs = (1 << l1) * ((1 << l2) + 1);
+  line_fft<P>(tiles, w, Lines{log2count + l2, l2, fs, 1, (1 << l2) + 1}, l1,
+              Step2{a.tw4, l2, 0});
+  line_fft<P>(tiles, w, Lines{log2count + l1, 0, (1 << l2) + 1, 0, 1}, l2,
+              Step2{nullptr, 0, 0});
+}
+
+// Bins k0 <= k < k1 of frame f from the packed raw spectrum Zx and the
+// packed t·h spectrum Zy: B1 writes ids and contrib, B6 adds into `hist`.
+// A warp takes 30 consecutive bins at a time: lane l unpacks X at
+// k = base − 1 + l and Y at k (each clamped to what the bins need: X on
+// k0 − 1 … k1, Y on k0 … k1 − 1, within 0…m) and lanes 1…30 take
+// X[k ∓ 1] from their neighbours by shuffle, so each bin costs two reads
+// of each spectrum (the Hermitian conjugates X[1], X[m − 1] stand in at
+// k = 0 and m).  The loop bound is warp-uniform, as the shuffles need;
+// kBatch rounds of reads go out before any is used.
 template <bool kHist>
-int launch(const float* x, long long num_lead, long long frames_per_lead,
-           long long lead_stride, long long frame_stride, const float* th,
-           const void* tw, const float* logmap_a, const float* logmap_b,
-           const float* power_floor, int* ids, float* out, int n, int hop,
-           float c_dh, float bin_scale, float hz_per_bin, float inv_n2,
-           int rows, int reach, int min_id, int num_bins, void* stream) {
-  int log2m = 0;
-  while ((2 << log2m) < n) ++log2m;
-  const int smem = (int)sizeof(float2) * (n + 2)
-                   + (kHist ? (int)sizeof(float) * num_bins : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      deposits_kernel<kHist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = num_lead * frames_per_lead;
-  if (blocks == 0) return 0;
-  deposits_kernel<kHist><<<(unsigned)blocks, kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      x, frames_per_lead, lead_stride, frame_stride, th,
-      static_cast<const float2*>(tw), logmap_a, logmap_b, power_floor, ids,
-      out, n, log2m, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows, reach,
-      min_id, num_bins);
+__device__ __forceinline__ void deposits_of(const Spectrum& Zx,
+                                            const Spectrum& Zy, int k0,
+                                            int k1, const Args& a,
+                                            long long f, float* hist) {
+  const int l1 = a.log2n1, l2 = a.log2n2;
+  const int m = 1 << (l1 + l2);
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int stride = warps * kBinsPerWarp;
+  const emspec::EpilogueConsts c{*a.logmap_a, *a.logmap_b, *a.power_floor,
+                                 a.c_dh, a.bin_scale, a.hz_per_bin, a.inv_n2,
+                                 a.n, a.hop, a.rows, a.reach};
+  const long long out0 = f * (long long)(m + 1);
+  for (int b0 = k0 + (threadIdx.x >> 5) * kBinsPerWarp - 1; b0 + 1 < k1;
+       b0 += kBatch * stride) {
+    float2 X[kBatch], Y[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int k = b0 + j * stride + lane;
+      X[j] = spectrum_at(Zx, a.tw, min(max(k, max(k0 - 1, 0)), min(k1, m)),
+                         l1, l2);
+      Y[j] = spectrum_at(Zy, a.tw, min(max(k, k0), k1 - 1), l1, l2);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int k = b0 + j * stride + lane;
+      const float2 xm = shfl(X[j], 1, true), xp = shfl(X[j], 1, false);
+      if (lane == 0 || lane == 31 || k >= k1) continue;
+      const float2 Am1 = k == 0 ? make_float2(xp.x, -xp.y) : xm;
+      const float2 Ap1 = k == m ? make_float2(xm.x, -xm.y) : xp;
+      int id;
+      float contrib;
+      emspec::deposit_at(k, X[j], Am1, Ap1, Y[j], c, &id, &contrib);
+      if (kHist) {
+        if (emspec::lands(id, a.min_id, a.num_bins))
+          atomicAdd(&hist[id], contrib);
+      } else {
+        a.ids[out0 + k] = id;
+        a.out[out0 + k] = contrib;
+      }
+    }
+  }
+}
+
+// Block route: one frame a block, 2m/P threads.  P = 16 (N < 16384) asks
+// for two blocks an SM, as B4's small_kernel does.
+template <int P, bool kHist>
+__global__ void __launch_bounds__(kThreads, P == 16 ? 2 : 1) block_kernel(
+    const Args a) {
+  extern __shared__ float2 sm[];
+  float2* w = sm;
+  float2* tiles = sm + kTable;               // raw, then t·h
+  const int m = 1 << (a.log2n1 + a.log2n2);
+  const int fs = (1 << a.log2n1) * ((1 << a.log2n2) + 1);
+  float* hist = reinterpret_cast<float*>(tiles + 2 * fs);     // B6 only
+  const long long f = blockIdx.x;
+  load_table(w, a.w512);
+  load_frame(tiles, tiles + fs, a, f);
+  if (kHist)
+    for (int i = threadIdx.x; i < a.num_bins; i += blockDim.x) hist[i] = 0.0f;
+  __syncthreads();
+  tile_fft<P>(tiles, w, a, 1);
+  const int stride = (1 << a.log2n2) + 1;
+  deposits_of<kHist>(Spectrum{tiles, stride, 0}, Spectrum{tiles + fs, stride, 0},
+                     0, m + 1, a, f, hist);
+  if (kHist) {
+    __syncthreads();
+    float* row = a.out + f * (long long)a.num_bins;
+    for (int i = threadIdx.x; i < a.num_bins; i += blockDim.x) row[i] = hist[i];
+  }
+}
+
+// Columns c0 … c0 + width − 1 (mod n2) of every row of another CTA's tile
+// → `stage`, row stride kStageStride.  Consecutive threads read
+// consecutive addresses of a row, kCopyBatch reads in flight each: the
+// remote reads go out as whole runs, not one scattered value a bin.
+__device__ __forceinline__ void copy_columns(float2* stage,
+                                             const float2* other, int c0,
+                                             int width, const Args& a) {
+  const int n2 = 1 << a.log2n2, T = blockDim.x;
+  const int total = width << a.log2n1;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kCopyBatch * T) {
+    float2 v[kCopyBatch];
+#pragma unroll
+    for (int j = 0; j < kCopyBatch; ++j) {
+      const int e = e0 + j * T, row = e / width;
+      if (e < total) v[j] = other[row * (n2 + 1) + ((c0 + e - row * width) & (n2 - 1))];
+    }
+#pragma unroll
+    for (int j = 0; j < kCopyBatch; ++j) {
+      const int e = e0 + j * T, row = e / width;
+      if (e >= total) break;
+      stage[row * kStageStride + e - row * width] = v[j];
+    }
+  }
+}
+
+// Cluster route: frame f is the cluster of blocks 2f (rank 0, raw) and
+// 2f + 1 (rank 1, t·h), each 16384 points in 512 threads.  Rank 0
+// takes bins 0 … m/4 − 1 and 3m/4 + 1 … m, rank 1 bins m/4 … 3m/4, so
+// that each reads about half of the other's tile: rank 0 the columns
+// [3q, 4q) ∪ [0, q) of the t·h spectrum, rank 1 the columns [q − 1, 3q] of
+// the raw one (q = n2/4; the ends hold X[m/4 − 1] and X[3m/4 + 1], the
+// neighbours of its edge bins).  Each copies them into its own shared
+// memory, the cluster syncs once more (after which neither tile is read
+// remotely), and the epilogue reads only local shared memory.
+__global__ void __launch_bounds__((1 << kClusterLog2M) / kClusterP, 1)
+    cluster_kernel(const Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ float2 sm[];
+  float2* w = sm;
+  float2* tile = sm + kTable;
+  const int n2 = 1 << a.log2n2, q = n2 >> 2;
+  float2* stage = tile + (n2 + 1) * (1 << a.log2n1);
+  const int m = 1 << (a.log2n1 + a.log2n2);
+  const long long f = blockIdx.x >> 1;
+  load_table(w, a.w512);
+  load_frame(rank == 0 ? tile : nullptr, rank == 0 ? nullptr : tile, a, f);
+  __syncthreads();
+  tile_fft<kClusterP>(tile, w, a, 0);
+  const int c0 = rank == 0 ? 3 * q : q - 1;
+  cluster.sync();                            // both spectra transformed
+  copy_columns(stage, cluster.map_shared_rank(tile, rank ^ 1), c0,
+               rank == 0 ? 2 * q : 2 * q + 2, a);
+  cluster.sync();                            // both copies done
+  const Spectrum own{tile, n2 + 1, 0}, staged{stage, kStageStride, c0};
+  if (rank == 0) {
+    deposits_of<false>(own, staged, 0, m / 4, a, f, nullptr);
+    deposits_of<false>(own, staged, 3 * m / 4 + 1, m + 1, a, f, nullptr);
+  } else {
+    deposits_of<false>(staged, own, m / 4, 3 * m / 4 + 1, a, f, nullptr);
+  }
+}
+
+int log2_of(int v) {
+  int l = 0;
+  while (l < 30 && (1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
+}
+
+// The C entry points' arguments → Args; the load width from the frames'
+// address and strides (never from the batch).  Returns false on a shape
+// the kernels do not take.
+bool make_args(Args* a, const float* x, long long frames_per_lead,
+               long long lead_stride, long long frame_stride, const float* th,
+               const void* w512, const void* tw4, const void* tw,
+               const float* logmap_a, const float* logmap_b,
+               const float* power_floor, int* ids, float* out, int n, int n1,
+               int n2, int hop, float c_dh, float bin_scale, float hz_per_bin,
+               float inv_n2, int rows, int reach, int min_id, int num_bins) {
+  const int l1 = log2_of(n1), l2 = log2_of(n2);
+  if (l1 < 4 || l2 < 4 || l1 > kLog2Table || l2 > kLog2Table
+      || n1 * n2 * 2 != n)
+    return false;
+  *a = Args{x, frames_per_lead, lead_stride, frame_stride,
+            (reinterpret_cast<std::uintptr_t>(x) % 16 == 0
+             && lead_stride % 4 == 0 && frame_stride % 4 == 0) ? 1 : 0,
+            th, static_cast<const float2*>(w512),
+            static_cast<const float2*>(tw4), static_cast<const float2*>(tw),
+            logmap_a, logmap_b, power_floor, ids, out, n, l1, l2, hop, c_dh,
+            bin_scale, hz_per_bin, inv_n2, rows, reach, min_id, num_bins};
+  return true;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <bool kHist>
+int launch_block(const Args& a, long long frames, cudaStream_t st) {
+  static const cudaError_t attr16 = allow_smem(block_kernel<16, kHist>, kMaxSmem);
+  static const cudaError_t attr32 = allow_smem(block_kernel<32, kHist>, kMaxSmem);
+  if (attr16 != cudaSuccess) return (int)attr16;
+  if (attr32 != cudaSuccess) return (int)attr32;
+  const int log2m = a.log2n1 + a.log2n2;
+  if (log2m > kBlockMaxLog2M) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float2)
+                   * (kTable + 2 * (1 << a.log2n1) * ((1 << a.log2n2) + 1))
+                   + (kHist ? (int)sizeof(float) * a.num_bins : 0);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (frames == 0) return 0;
+  if (log2m < kBlockMaxLog2M)
+    block_kernel<16, kHist><<<(unsigned)frames, (2 << log2m) / 16, smem, st>>>(a);
+  else
+    block_kernel<32, kHist><<<(unsigned)frames, (2 << log2m) / 32, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+cudaLaunchConfig_t cluster_config(long long frames, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(2 * frames));
+  cfg.blockDim = dim3((1 << kClusterLog2M) / kClusterP);
+  cfg.dynamicSmemBytes = kClusterSmem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
+// B1, block route (N <= 16384): ids, contrib (frames, N/2+1), natural
+// order.  n1·n2 = N/2 (fourstep._FACTORS); w512, tw4: B4's tables for
+// (n1, n2); tw: e^{−2πij/N}, j < N/2.
 extern "C" int emspec_deposits(
     const float* x, long long num_lead, long long frames_per_lead,
-    long long lead_stride, long long frame_stride,
-    const float* th, const void* tw,
+    long long lead_stride, long long frame_stride, const float* th,
+    const void* w512, const void* tw4, const void* tw,
     const float* logmap_a, const float* logmap_b, const float* power_floor,
-    int* ids, float* contrib, int n, int hop, float c_dh, float bin_scale,
-    float hz_per_bin, float inv_n2, int rows, int reach, void* stream) {
-  return launch<false>(x, num_lead, frames_per_lead, lead_stride,
-                       frame_stride, th, tw, logmap_a, logmap_b, power_floor,
-                       ids, contrib, n, hop, c_dh, bin_scale, hz_per_bin,
-                       inv_n2, rows, reach, 0, 0, stream);
+    int* ids, float* contrib, int n, int n1, int n2, int hop, float c_dh,
+    float bin_scale, float hz_per_bin, float inv_n2, int rows, int reach,
+    void* stream) {
+  Args a;
+  if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
+                 tw4, tw, logmap_a, logmap_b, power_floor, ids, contrib, n,
+                 n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
+                 reach, 0, 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_block<false>(a, num_lead * frames_per_lead,
+                             (cudaStream_t)stream);
 }
 
-// B6, one block a frame: hist (frames, num_bins) float32, every cell
-// written.
+// B1, cluster route (N = 32768): the arguments of emspec_deposits.
+extern "C" int emspec_deposits_cluster(
+    const float* x, long long num_lead, long long frames_per_lead,
+    long long lead_stride, long long frame_stride, const float* th,
+    const void* w512, const void* tw4, const void* tw,
+    const float* logmap_a, const float* logmap_b, const float* power_floor,
+    int* ids, float* contrib, int n, int n1, int n2, int hop, float c_dh,
+    float bin_scale, float hz_per_bin, float inv_n2, int rows, int reach,
+    void* stream) {
+  Args a;
+  if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
+                 tw4, tw, logmap_a, logmap_b, power_floor, ids, contrib, n,
+                 n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
+                 reach, 0, 0)
+      || a.log2n1 + a.log2n2 != kClusterLog2M)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = allow_smem(cluster_kernel, kClusterSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long frames = num_lead * frames_per_lead;
+  if (frames == 0) return 0;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(frames, (cudaStream_t)stream, &cluster);
+  return (int)cudaLaunchKernelEx(&cfg, cluster_kernel, a);
+}
+
+// How many two-CTA clusters of the cluster route the card holds at once
+// (cudaOccupancyMaxActiveClusters) → *clusters.
+extern "C" int emspec_deposits_cluster_occupancy(int* clusters) {
+  static const cudaError_t attr = allow_smem(cluster_kernel, kClusterSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(1024, nullptr, &cluster);
+  return (int)cudaOccupancyMaxActiveClusters(clusters,
+                                              cluster_kernel, &cfg);
+}
+
+// B6, block route (N <= 16384): hist (frames, num_bins) float32, every
+// cell written; the arguments of emspec_deposits, then min_id, num_bins.
 extern "C" int emspec_deposits_hist(
     const float* x, long long num_lead, long long frames_per_lead,
-    long long lead_stride, long long frame_stride,
-    const float* th, const void* tw,
+    long long lead_stride, long long frame_stride, const float* th,
+    const void* w512, const void* tw4, const void* tw,
     const float* logmap_a, const float* logmap_b, const float* power_floor,
-    float* hist, int n, int hop, float c_dh, float bin_scale,
+    float* hist, int n, int n1, int n2, int hop, float c_dh, float bin_scale,
     float hz_per_bin, float inv_n2, int rows, int reach, int min_id,
     int num_bins, void* stream) {
-  return launch<true>(x, num_lead, frames_per_lead, lead_stride,
-                      frame_stride, th, tw, logmap_a, logmap_b, power_floor,
-                      nullptr, hist, n, hop, c_dh, bin_scale, hz_per_bin,
-                      inv_n2, rows, reach, min_id, num_bins, stream);
+  Args a;
+  if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
+                 tw4, tw, logmap_a, logmap_b, power_floor, nullptr, hist, n,
+                 n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
+                 reach, min_id, num_bins))
+    return (int)cudaErrorInvalidValue;
+  return launch_block<true>(a, num_lead * frames_per_lead,
+                            (cudaStream_t)stream);
 }

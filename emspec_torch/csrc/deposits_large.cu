@@ -1,15 +1,19 @@
 // Kernel B1, large-frame route: frames → reassigned deposits (ids,
-// contrib) for N = 32768 … 262144, where a frame no longer fits one
-// block.  Also kernel B6 (the fused histogram) at those sizes.
+// contrib) for N = 65536 … 262144, where a frame's two spectra no longer
+// fit one block or a two-CTA cluster (and at 32768 when the caller forces
+// it, to time it against the cluster route).  Also kernel B6 (the fused
+// histogram) above 16384 points.
 //
 // Replaces emspec/dsp/pallas/fft4.py::fft4_deposits (_deposits_kernel,
 // _frame_quantized with its half-spectrum route, _iota_grids) above 16384
-// points.  It computes exactly what deposits.cu computes at N <= 16384,
+// points.  It computes exactly what deposits.cu computes at N <= 32768,
 // in natural bin order, id −1 and contrib 0 for every invalid deposit.
 //
 // Why a second route: deposits.cu keeps a frame's two half-size complex
-// spectra in one block's shared memory, 8·(N+2) bytes — 256 KB at 32768
-// against the 227 KB a block may have.  Design, three stages a call:
+// spectra in shared memory, 8·N bytes and more — one block's 227 KB holds
+// them to 16384 points, a two-CTA cluster's to 32768; above that a frame
+// needs clusters of 4–16 CTAs and a four-step exchange between them, not
+// built yet.  Design, three stages a call:
 //   1. pack (this file): each frame read once through its stride (the
 //      framing unfold view goes in uncopied), the t·h window applied, the
 //      raw and the t·h signal each even/odd-packed into an N/2-point
@@ -32,11 +36,6 @@
 //      B6 (hist = 1): each block histograms its bins in shared memory
 //      (the streaming mask id >= min_id applied) and adds the nonzero
 //      cells atomically into the zeroed output row.
-// A thread-block cluster with distributed shared memory could keep the
-// radix-2 form of deposits.cu, but needs clusters of 2 to 16 blocks and
-// a DSMEM exchange each stage; reusing B4, which already holds every
-// factorization at b = 1, is the simpler design that is right.
-//
 // What bounds it on the H100: device-memory bytes — pack reads ~4·N and
 // writes 8·N bytes a frame, B4 reads and writes the planes (16·N bytes a
 // frame, twice that above 16384 points where it goes through its

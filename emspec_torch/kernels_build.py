@@ -31,10 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: each returns its cudaError_t (0 = launched)
 _SIGNATURES = {
-    "emspec_deposits": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _F, _F, _F, _F, _I, _I, _P],
-    "emspec_deposits_hist": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P],
+    "emspec_deposits": [_P, _LL, _LL, _LL, _LL] + [_P] * 9
+                       + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "emspec_deposits_cluster": [_P, _LL, _LL, _LL, _LL] + [_P] * 9
+                               + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                                  _P],
+    "emspec_deposits_cluster_occupancy": [_P],
+    "emspec_deposits_hist": [_P, _LL, _LL, _LL, _LL] + [_P] * 8
+                            + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I,
+                               _I, _P],
     "emspec_deposits_pack": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P],
     "emspec_deposits_finish": [_P] * 8 + [_LL, _I, _I, _I, _I, _F, _F, _F,
                                           _F, _I, _I, _I, _I, _I, _P],

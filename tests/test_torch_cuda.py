@@ -7,9 +7,10 @@ machine with the card, which has no JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
-suite).  Tolerances: quantized grids through ``compare_grids``; B1's
-large-frame route also ≥ 99.99% equal ids, other valid deposits moved one
-cell, bins 0 and N/2 exact, contrib within 1e-5·peak; B2, B6 (against
+suite).  Tolerances: quantized grids through ``compare_grids``; B1 (each
+route) also ≥ 99.99% equal ids, other valid deposits moved one cell,
+bins 0 and N/2 exact, contrib within 1e-5·peak, and b = 1 (a live hop)
+bit-equal to frame 0 of a batch; B2, B6 (against
 B1 → B2 composed) and the probe's ``full`` 1e-5 relative per nonzero bin;
 the other probe variants against their own plain versions, 1e-5; B3 and
 B5 bit-equal; B4 2e-5·max|X| (the JAX package's four-step bound)."""
@@ -21,8 +22,8 @@ import torch
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
 from emspec_torch.dsp.kernels.deposits import (
-    deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_large,
-    deposits_ids_plain)
+    cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
+    deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
@@ -155,6 +156,21 @@ def test_cuda_window_kernel_bit_equal(cuda, shape):
     assert torch.equal(windowed_frames(fr), windowed_frames_plain(fr))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hop", [(512, 127), (8192, 2048), (8192, 2047),
+                                   (510, 100)])
+def test_cuda_window_kernel_misaligned_view(cuda, n, hop):
+    """Frames 4 bytes into the signal (4-byte loads), an odd hop, and a
+    row length that is not a multiple of 4: still bit-equal."""
+    x = torch.from_numpy(np.random.default_rng(n + hop).standard_normal(
+        20 * n).astype(np.float32)).to(cuda)
+    fr = frame_signal(x[1:], n, hop)
+    assert fr.data_ptr() % 16 != 0
+    before = windowed_frames.launches
+    assert torch.equal(windowed_frames(fr), windowed_frames_plain(fr))
+    assert windowed_frames.launches == before + 1
+
+
 def _scalars(cuda, rows, sr):
     return [torch.tensor(np.float32(v), device=cuda)
             for v in (np.log2(20.0),
@@ -168,17 +184,9 @@ def _b1_case(cuda, n, b, rows=512, sr=96000.0):
     return frame_signal(x, n, hop), _scalars(cuda, rows, sr), kw
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [32768, 65536, 131072, 262144])
-@pytest.mark.parametrize("b", [1, 3])
-def test_cuda_deposits_large_route_matches_plain(cuda, n, b):
-    fr, sc, kw = _b1_case(cuda, n, b)
-    before = (deposits_ids.launches, deposits_ids_large.launches)
-    ik, ck = deposits_ids(fr, *sc, **kw)
-    assert (deposits_ids.launches, deposits_ids_large.launches) == (
-        before[0], before[1] + 1)
-    ip, cp = deposits_ids_plain(fr, *sc, **kw)
-    rows, S = kw["rows"], 5 * kw["rows"]
+def _assert_b1(ik, ck, ip, cp, *, n, rows):
+    """The B1 criteria of the card check against plain B1."""
+    S = 5 * rows
     cmp = compare_grids(histogram_plain(ip, cp, S).cpu(),
                         histogram_plain(ik, ck, S).cpu())
     assert cmp.ok, cmp
@@ -188,10 +196,86 @@ def test_cuda_deposits_large_route_matches_plain(cuda, n, b):
     assert float(agree.float().mean()) >= 0.9999
     moved = (ik - ip).abs()[both & (ik != ip)]
     assert bool(torch.isin(moved, torch.tensor(
-        [1, rows - 1, rows, rows + 1], device=cuda)).all())
-    assert bool(agree[:, [0, n // 2]].all())
+        [1, rows - 1, rows, rows + 1], device=ik.device)).all())
+    assert bool(agree[..., [0, n // 2]].all())
     assert bool((ik[~vk] == -1).all())
     assert float((ck - cp)[both].abs().max()) <= 1e-5 * float(cp.max())
+
+
+def _counts():
+    return (deposits_ids.launches, deposits_ids_cluster.launches,
+            deposits_ids_large.launches, fft4_steps123.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 65536, 131072, 262144])
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_deposits_large_route_matches_plain(cuda, n, b):
+    """The three-launch route (the default above 32768, forced at 32768)."""
+    fr, sc, kw = _b1_case(cuda, n, b)
+    before = _counts()
+    ik, ck = deposits_ids(fr, *sc, **kw, route="large")
+    assert _counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    ip, cp = deposits_ids_plain(fr, *sc, **kw)
+    _assert_b1(ik, ck, ip, cp, n=n, rows=kw["rows"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_deposits_on_chip_routes(cuda, n, b):
+    """The block route (n <= 16384) and the cluster route (32768): one
+    launch of their own, no B4 launch; the B1 criteria; b = 1 bit-equal
+    to frame 0 of the batch, as an (n,) window too."""
+    fr, sc, kw = _b1_case(cuda, n, b)
+    route = route_of(n)
+    before = _counts()
+    ik, ck = deposits_ids(fr, *sc, **kw)
+    step = (1, 0) if route == "block" else (0, 1)
+    assert _counts() == (before[0] + step[0], before[1] + step[1],
+                         before[2], before[3])
+    assert ik.shape == ck.shape == (b, n // 2 + 1)
+    ip, cp = deposits_ids_plain(fr, *sc, **kw)
+    # where float32 plain's rounding flipped, float64 plain decides: at
+    # 8192 frame 0's Nyquist bin has Δt/hop on a half-integer tie, which
+    # float32 plain rounds up and float64 plain and the kernel round down
+    i64, c64 = deposits_ids_plain(fr.double(), *sc, **kw)
+    settled = (ik != ip) & (ik == i64) & ((ck > 0) == (c64 > 0))
+    ip = torch.where(settled, i64, ip)
+    cp = torch.where(settled, c64.float(), cp)
+    _assert_b1(ik, ck, ip, cp, n=n, rows=kw["rows"])
+    for one in (fr[:1], fr[0]):
+        i1, c1 = deposits_ids(one, *sc, **kw)
+        assert torch.equal(i1.reshape(1, -1), ik[:1])
+        assert torch.equal(c1.reshape(1, -1), ck[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hop", [(8192, 2048), (8192, 2047), (32768, 800),
+                                   (32768, 8191)])
+def test_cuda_deposits_misaligned_view(cuda, n, hop):
+    """Frames 4 bytes into the signal (and an odd hop) take 4-byte loads:
+    the same bits as the aligned copy, which takes 16-byte loads."""
+    x = torch.from_numpy(_tone_noise(5 * hop + n + 1, 7)).to(cuda)
+    fr = frame_signal(x[1:], n, hop)
+    assert fr.data_ptr() % 16 != 0
+    sc = _scalars(cuda, 512, 48000.0)
+    kw = dict(n=n, hop=hop, sr=48000.0, rows=512, reach=2)
+    got = deposits_ids(fr, *sc, **kw)
+    want = deposits_ids(fr.contiguous(), *sc, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5])
+def test_cuda_deposits_cluster_matches_large_route(cuda, b):
+    """At 32768 the cluster route against the three-launch route it
+    replaced: the B1 criteria, one against the other."""
+    fr, sc, kw = _b1_case(cuda, 32768, b)
+    ik, ck = deposits_ids_cluster(fr, *sc, **kw)
+    il, cl = deposits_ids(fr, *sc, **kw, route="large")
+    _assert_b1(ik, ck, il, cl, n=32768, rows=kw["rows"])
+    assert cluster_occupancy(cuda) >= 1
 
 
 @pytest.mark.cuda
