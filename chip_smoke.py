@@ -15,7 +15,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
    (``device_ms``: CUDA events with the host's queueing hidden behind a
    device-side sleep), the kernels ranked by the ratio of the two, and
    its roofline bound: B1 deposits (its block route; device time also
-   at b = 1, a live hop), B2 histogram,
+   at b = 1, a live hop), B2 histogram at every path's real ids (batch,
+   batch16, live, stress, stress live, north, north live, ext262144,
+   wide, wide live), by its route and by each route forced, beside the
+   parent's one-block-a-row design (the probe's ``full``), with
+   ``index_add_`` as its library call, the routes and the parent in turns
+   at the batch and north-live shapes, NaN/Inf behind dropped ids at
+   every route and hot-cell cases (runs of 32 equal ids, a row in one
+   cell, every deposit in one cell),
    B3 colormap lookup (enhanced 8192, hop 2048, 512 rows); B4 four-step
    steps 1–3 at n = 256, 1024, 4096, 8192, 16384 (the stress call's
    1,376 sequences), 32768 and 131072, each at a full batch and at b = 1
@@ -61,10 +68,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
 14. ext262144: enhanced 262144 at 96 kHz, hop 65536, 8 s mono (8
    frames) — batch; B1's large route (with B4 inside it), B2 and B3 must
    launch; matches the CPU path.
-15. breakdown: per-stage device times of the enhanced stencil batch
-   paths (batch, batch16, stress; CUDA events), the device's busy time
-   per kernel and idle share of every batch cell and of a live hop of
-   each path (torch.profiler busy time over the unprofiled wall time).
+15. wide: enhanced 8192 at hop 64 (R = 64: 66,048 relative cells, above
+   a block's shared memory), 2 s mono — batch, then through ``Stream``;
+   B1, B2 (on its global route) and B3 must launch; the batch matches
+   the CPU path and the stream matches the batch.
+16. breakdown: per-stage device times of the enhanced stencil batch
+   paths (batch, batch16, stress, wide; CUDA events), the device's busy
+   time per kernel and idle share of every batch cell and of a live hop
+   of each path (torch.profiler busy time over the unprofiled wall time).
 
 Every path is driven once with the launch counters set to 0 just before
 and read just after; those counts are the ``launches`` of the per-kernel
@@ -77,7 +88,7 @@ of the cells (a float32 rounding flip moves a whole deposit one cell);
 B1 (every route) additionally ≥ 99.99% equal ids, every other valid
 deposit moved by one cell only, bins 0 and N/2 exact, and contrib within
 1e-5·peak wherever both are valid, and b = 1 bit-equal to frame 0 of the
-batch; B2, B6 (against B1 → B2 composed, with
+batch; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
 own plain versions; B3 and B5 bit-equal; B4 (either route) within
@@ -107,7 +118,8 @@ from emspec_torch.dsp.kernels.deposits import (
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
-from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
+from emspec_torch.dsp.kernels.scatter import (
+    ROUTES, SMEM_BINS, histogram, histogram_plain, route_of)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.pipeline import Pipeline
@@ -129,6 +141,7 @@ STRESS = Settings(mode="enhanced", multires=False, fft_size=32768,
 NORTH = Settings(mode="enhanced", multires=False, fft_size=32768, hop=800)
 EXT = Settings(mode="enhanced", multires=False, fft_size=262144,
                sample_rate=96000)
+WIDE = Settings(mode="enhanced", multires=False, fft_size=8192, hop=64)
 CHANNELS = 16
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
@@ -173,8 +186,11 @@ PATH_KERNELS = {        # kernels each path must launch
     "north": CLUSTER_PATH,
     "north_live": CLUSTER_PATH,
     "ext262144": LARGE_PATH,
+    "wide": ("deposits_ids", "histogram", "lut_lookup"),
+    "wide_live": ("deposits_ids", "histogram", "lut_lookup"),
 }
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
+ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
 
 
 def fail(msg: str):
@@ -276,6 +292,7 @@ def dft_ops(n: int) -> float:
 def reset_counters() -> None:
     for _, wrapper, _, _ in KERNELS:
         wrapper.launches = 0
+    histogram.route_launches.update(dict.fromkeys(ROUTES, 0))
 
 
 def counters() -> dict:
@@ -289,6 +306,7 @@ def drive(path: str, fn):
     out = fn()
     torch.cuda.synchronize()
     LAUNCHES[path] = counters()
+    ROUTE_LAUNCHES[path] = dict(histogram.route_launches)
     missing = [k for k in PATH_KERNELS[path] if LAUNCHES[path][k] == 0]
     check(not missing, f"{path}: kernels of the path did not launch: "
           f"{missing} ({LAUNCHES[path]})")
@@ -390,7 +408,6 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     ip, cp = deposits_ids_plain(frames, *scal, **kw)
     err_b1 = check_b1("B1", ik, ck, ip, cp, n=n, rows=rows, R=R)
     check_b1_single("B1", frames, ik, ck, scal, kw)
-    k = n // 2 + 1
     res["deposits_ids"] = dict(
         at=f"frames ({b}, {n})", max_abs_err=err_b1,
         **times(lambda: deposits_ids(frames, *scal, **kw),
@@ -399,30 +416,7 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
         device_ms_b1=device_ms(lambda: deposits_ids(frames[0], *scal, **kw)),
         bound_ms_b1=b1_bound(frames[0])["bound_ms"])
 
-    # B2 on those ids: ≤ 1e-5 relative per nonzero bin; a NaN value behind
-    # a dropped id must not reach the histogram
-    hk, hp = histogram(ik, ck, S), histogram_plain(ik, ck, S)
-    nz = hp > 0
-    rel_b2 = float(((hk - hp).abs()[nz] / hp[nz]).max())
-    check(rel_b2 <= 1e-5 and bool((hk[~nz] == 0).all()),
-          f"B2 histogram vs plain: rel {rel_b2}")
-    ids_nan = ik.clone()
-    vals_nan = ck.clone()
-    ids_nan[:, ::7] = -1
-    vals_nan[:, ::7] = float("nan")
-    check(bool(torch.isfinite(histogram(ids_nan, vals_nan, S)).all()),
-          "B2: a NaN behind a dropped id reached the histogram")
-    ok_ids = (ik >= 0) & (ik < S)
-    flat = (torch.where(ok_ids, ik, S).long()
-            + (torch.arange(b, device=dev) * (S + 1))[:, None]).reshape(-1)
-    vals0 = torch.where(ok_ids, ck, 0.0).reshape(-1)
-    res["histogram"] = dict(
-        at=f"ids ({b}, {k}) → {S} bins", max_abs_err=float((hk - hp).abs().max()),
-        **times(lambda: histogram(ik, ck, S),
-                lambda: histogram_plain(ik, ck, S),
-                lambda: torch.zeros(b * (S + 1), device=dev).index_add_(
-                    0, flat, vals0)),
-        **bound(8 * b * k + 4 * b * S, float(ok_ids.sum())))
+    res["histogram"] = kernels_b2(dev, ik, ck, S)
 
     # B3 at the batch raster (t, rows): bit-equal
     idx = torch.from_numpy(np.random.default_rng(2).integers(
@@ -438,6 +432,165 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
                 lambda: torch.index_select(p.lut, 0, flat_idx)),
         **bound(4 * idx.numel() + 1024 + 4 * idx.numel(), 0.0))
     return res
+
+
+# B2 at each path's real ids (rows × m → cells): the shape and the B1
+# call that makes them.  The live hops take one frame of their batch.
+# "parent" is B2's earlier design — one block a row, an atomic a deposit,
+# no warp merging, 4-byte loads — which the probe keeps as its "full"
+# variant (scatter_ablation.cu).
+B2_IN_TURNS = ("batch", "north_live")
+B2_TURNS = ("global", "row", "parent", "parent", "row", "global")
+
+
+def relative_ids(dev, settings: Settings, x: np.ndarray):
+    """The path's B1 ids and contrib on ``x`` and its relative cells."""
+    pipe = Pipeline(settings.replace(
+        channels=1 if x.ndim == 1 else x.shape[0]), dev)
+    frames = frame_signal(pipe.to_device(x), pipe.n_max, pipe.hop)
+    ids, contrib = pipe._deposit_ids_rel(frames, pipe.params())
+    return ids, contrib, (2 * pipe.reach + 1) * pipe.rows
+
+
+def b2_cases(dev, ik, ck, S) -> list:
+    """(label, ids, vals, cells) at every path's B2 shape."""
+    mid = ik.shape[0] // 2
+    cases = [("batch", ik, ck, S),
+             ("batch16", *relative_ids(
+                 dev, SETTINGS, signal(SECONDS, CHANNELS, seed=3))),
+             ("live", ik[mid], ck[mid], S)]
+    si, sc, ss = relative_ids(dev, STRESS,
+                              signal(4.0, CHANNELS, seed=13, sr=96000))
+    mid = si.shape[1] // 2
+    cases += [("stress", si, sc, ss),
+              ("stress_live", si[:, mid].contiguous(),
+               sc[:, mid].contiguous(), ss)]
+    ni, nc, ns = relative_ids(dev, NORTH, signal(SECONDS))
+    mid = ni.shape[0] // 2
+    cases += [("north", ni, nc, ns), ("north_live", ni[mid], nc[mid], ns)]
+    cases.append(("ext262144", *relative_ids(
+        dev, EXT, signal(8.0, seed=15, sr=96000))))
+    wi, wc, ws = relative_ids(dev, WIDE, signal(2.0, seed=16))
+    mid = wi.shape[0] // 2
+    cases += [("wide", wi, wc, ws), ("wide_live", wi[mid], wc[mid], ws)]
+    return cases
+
+
+def check_b2(label: str, ids, vals, S: int, route=None) -> float:
+    """B2 (the route by shape, or ``route``) against plain: 1e-5 relative
+    per nonzero bin, exact zeros elsewhere → the largest abs error."""
+    hk, hp = histogram(ids, vals, S, route=route), histogram_plain(ids, vals, S)
+    nz = hp != 0
+    rel = float(((hk - hp).abs()[nz] / hp[nz].abs()).max()) if nz.any() else 0.0
+    check(rel <= 1e-5 and bool((hk[~nz] == 0).all())
+          and bool(torch.isfinite(hk).all()),
+          f"B2 {label} route {route or 'by shape'} vs plain: rel {rel}")
+    return float((hk - hp).abs().max())
+
+
+def check_b2_dropped(label: str, ids, vals, S: int, route) -> None:
+    """A NaN or Inf behind a dropped id (−1, or ≥ the cells) must not land:
+    the result stays finite and equal to plain."""
+    i, v = ids.clone().reshape(-1), vals.clone().reshape(-1)
+    i[::7], v[::7] = -1, float("nan")
+    i[3::7], v[3::7] = S + 5, float("inf")
+    check_b2(f"{label} dropped NaN/Inf", i.reshape(ids.shape),
+             v.reshape(ids.shape), S, route)
+
+
+def clustered_cases(dev, rows: int, m: int, S: int) -> list:
+    """Hot cells: runs of 32 equal ids; row 0 all in one cell (the rest
+    random); every deposit in one cell."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    vals = torch.rand((rows, m), generator=g, device=dev)
+    runs = torch.randint(0, S, (rows, -(-m // 32)), generator=g, device=dev,
+                         dtype=torch.int32).repeat_interleave(32, 1)[:, :m]
+    one_row = torch.randint(0, S, (rows, m), generator=g, device=dev,
+                            dtype=torch.int32)
+    one_row[0] = S // 3
+    one = torch.full((rows, m), S // 3, dtype=torch.int32, device=dev)
+    return [("runs32", runs.contiguous(), vals), ("one_cell_row", one_row,
+                                                  vals), ("one_cell", one, vals)]
+
+
+def b2_call(ids, vals, cells: int, route: str):
+    """One B2 call by ``route``; "parent" is the probe's ``full``."""
+    if route == "parent":
+        m = ids.shape[-1]
+        return hist_variant(ids.reshape(-1, m), vals.reshape(-1, m), cells,
+                            "full")
+    return histogram(ids, vals, cells, route=route)
+
+
+def kernels_b2(dev, ik, ck, S) -> dict:
+    """B2 at every path's shape, by its route and by each route forced
+    (each held to plain, and with NaN/Inf behind dropped ids), the
+    parent's one-block-a-row design beside them; times, bound and
+    ``index_add_`` per shape; the routes and the parent in turns at the
+    batch and north-live shapes; hot-cell cases at the batch shape."""
+    shapes, lines, worst = {}, [], 0.0
+    for label, ids, vals, cells in b2_cases(dev, ik, ck, S):
+        m = ids.shape[-1]
+        rows = ids.numel() // m
+        route = route_of(rows, m, cells)
+        err = check_b2(label, ids, vals, cells)
+        worst = max(worst, err)
+        route_dev = {}
+        for r in ROUTES:
+            if r == "global" or cells <= SMEM_BINS:
+                check_b2(label, ids, vals, cells, r)
+                check_b2_dropped(label, ids, vals, cells, r)
+                route_dev[r] = device_ms(
+                    lambda: histogram(ids, vals, cells, route=r))
+        if cells <= SMEM_BINS:
+            route_dev["parent"] = device_ms(
+                lambda: b2_call(ids, vals, cells, "parent"))
+        ok_ids = (ids >= 0) & (ids < cells)
+        flat = (torch.where(ok_ids, ids, cells).long().reshape(rows, m)
+                + (torch.arange(rows, device=dev) * (cells + 1))[:, None]
+                ).reshape(-1)
+        vals0 = torch.where(ok_ids, vals, 0.0).reshape(-1)
+        row = dict(
+            at=f"ids ({rows}, {m}) → {cells} bins", hist_route=route,
+            max_abs_err=err,
+            **times(lambda: histogram(ids, vals, cells),
+                    lambda: histogram_plain(ids, vals, cells),
+                    lambda: torch.zeros(rows * (cells + 1),
+                                        device=dev).index_add_(0, flat, vals0),
+                    iters=10),
+            **bound(8 * rows * m + 4 * rows * cells, float(ok_ids.sum())),
+            route_device_ms=route_dev)
+        if label in B2_IN_TURNS:
+            turns = {}
+            for r in B2_TURNS:
+                turns.setdefault(r, []).append(device_ms(
+                    lambda: b2_call(ids, vals, cells, r)))
+            row["in_turns_device_ms"] = turns
+        shapes[label] = row
+        lines.append(
+            f"{label} ({rows} × {m} → {cells}): route {route}, device "
+            f"{row['device_ms']:.4f} ms (each route: " + ", ".join(
+                f"{r} {t:.4f}" for r, t in route_dev.items())
+            + f"), bound {row['bound_ms']:.4f} {row['bound_by']}, index_add_ "
+            f"device {row['library_device_ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f} ms, events {row['ms']:.4f} ms"
+            + (f", in turns {row['in_turns_device_ms']}"
+               if label in B2_IN_TURNS else ""))
+    rows, m = ik.shape
+    clustered = {}
+    for label, ids, vals in clustered_cases(dev, rows, m, S):
+        clustered[label] = {}
+        for r in ROUTES:
+            check_b2(f"{label} at {rows} × {m}", ids, vals, S, r)
+            check_b2_dropped(label, ids, vals, S, r)
+            clustered[label][r] = device_ms(
+                lambda: histogram(ids, vals, S, route=r))
+    lines.append(f"hot cells at {rows} × {m} → {S}, device ms by route: "
+                 f"{clustered}")
+    print("kernels B2 (each shape and route held to plain, NaN/Inf behind "
+          "dropped ids at every route): " + "; ".join(lines), flush=True)
+    return dict(shapes["batch"], max_abs_err=worst, shapes=shapes,
+                clustered_device_ms=clustered)
 
 
 # B4 sizes: the complex transform size n = N/2 of each path's real frames
@@ -810,7 +963,7 @@ def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
           f"{ms:.3f} ms/call, {frames / (ms / 1e3):.1f} frames/s ({frames} "
           f"frames/call, device-resident input); vs CPU path: {grid}, vis "
           f"maxf {vd:.2e} (share over 2/255 {vshare:.2e}); launches "
-          f"{LAUNCHES[name]}", flush=True)
+          f"{LAUNCHES[name]}, B2 routes {ROUTE_LAUNCHES[name]}", flush=True)
     return vis, ms
 
 
@@ -851,8 +1004,8 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
     print(f"{name}: {hops} hops of {st.pipe.hop} in {chunk}-sample pushes, "
           f"{len(cols)} columns; max |vis − batch| {diff:.3g}; per-hop "
           f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms{budget} (host "
-          f"clock, push → synchronize); launches {LAUNCHES[name]}",
-          flush=True)
+          f"clock, push → synchronize); launches {LAUNCHES[name]}, B2 "
+          f"routes {ROUTE_LAUNCHES[name]}", flush=True)
 
 
 def device_busy(fn, reps: int):
@@ -964,20 +1117,29 @@ def main() -> None:
                budget_ms=10.0)
     xe = signal(8.0, seed=15, sr=96000)                        # harness.py:479
     _, ms_e = batch_phase("ext262144", dev, EXT, xe, iters=3)
+    xw = signal(2.0, seed=16)
+    vis_w, ms_w = batch_phase("wide", dev, WIDE, xw, iters=3)
+    live_phase("wide_live", dev, WIDE, xw, vis_w, min_hops=1400)
+    for path in ("wide", "wide_live"):
+        check(ROUTE_LAUNCHES[path]["global"] > 0,
+              f"{path}: B2 did not take its route above shared memory "
+              f"({ROUTE_LAUNCHES[path]})")
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),
               "stress": (STRESS, xs, ms_s), "north": (NORTH, x, ms_no),
-              "ext262144": (EXT, xe, ms_e)},
+              "ext262144": (EXT, xe, ms_e), "wide": (WIDE, xw, ms_w)},
         {"live": (SETTINGS, x), "natural_live": (NATURAL, x),
          "direct_live": (DIRECT, x), "stress_live": (STRESS, xs_live),
-         "north_live": (NORTH, x)})
+         "north_live": (NORTH, x), "wide_live": (WIDE, xw)})
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(run[name] for run in LAUNCHES.values()),
              launches_by_path={path: run[name]
                                for path, run in LAUNCHES.items()},
+             **({"launches_by_route_and_path": ROUTE_LAUNCHES}
+                if name == "histogram" else {}),
              **res[name])
         for name, _, src, rep in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ from emspec_torch.dsp.fourstep import _FACTORS
 from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
 from emspec_torch.dsp.kernels.fourstep import (
     device_radix_tables, fft4_steps123)
-from emspec_torch.dsp.kernels.scatter import MAX_BINS, histogram_plain
+from emspec_torch.dsp.kernels.scatter import SMEM_BINS, histogram_plain
 from emspec_torch.dsp.reassign import reassignment_corrections
 from emspec_torch.dsp.stft import stft_triple_stencil, th_window
 
@@ -316,9 +316,9 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
     num_bins = (2 * reach + 1) * rows
     small = n <= SMALL_MAX_N
     smem = block_smem(n, num_bins) if small else 4 * num_bins
-    require(num_bins <= MAX_BINS and smem <= 4 * MAX_BINS, what,
+    require(num_bins <= SMEM_BINS and smem <= 4 * SMEM_BINS, what,
             f"{num_bins} histogram cells at n={n} need {smem} B of shared "
-            f"memory, over {4 * MAX_BINS}")
+            f"memory, over {4 * SMEM_BINS}")
     frames_n = f3.shape[0] * f3.shape[1]
     lead = frames.shape[:-1]
     with torch.cuda.device(frames.device):

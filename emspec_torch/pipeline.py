@@ -27,9 +27,11 @@ fused kernel B1, whatever ``fft_impl`` says, as the JAX package's
 engine's unfused chain, as the JAX package does on its CPU.
 
 The stencil method runs at every size of ``FFT_SIZES``: on the card B1
-takes N ≤ 16384 in one block a frame and larger frames through its
-large-frame route (pack → B4 → finish).  Enhanced multires raises
-``NotImplementedError`` on every device.
+takes N ≤ 16384 in one block a frame, N = 32768 in a two-CTA cluster a
+frame, and larger frames through its large-frame route (pack → B4 →
+finish).  B2 takes every relative space (2R+1)·rows, above a block's
+shared memory too.  Enhanced multires raises ``NotImplementedError`` on
+every device.
 """
 
 from __future__ import annotations
@@ -155,8 +157,8 @@ class Pipeline:
 
     @property
     def use_relative_scatter(self) -> bool:
-        """Deposit ids → B2 → fold (``"auto"`` on CUDA, or ``"pallas"``);
-        else the absolute-grid segment sum."""
+        """Deposit ids → B2 → fold (``"auto"`` on CUDA, at every relative
+        space, or ``"pallas"``); else the absolute-grid segment sum."""
         s = self.settings.scatter
         if s == "auto":
             return self.device.type == "cuda"

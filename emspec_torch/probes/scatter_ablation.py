@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from emspec_torch import kernels_build
 from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
-from emspec_torch.dsp.kernels.scatter import MAX_BINS, histogram_plain
+from emspec_torch.dsp.kernels.scatter import SMEM_BINS, histogram_plain
 
 VARIANTS = ("full", "no_atomic", "no_zero", "io_only")
 THREADS = 512          # scatter_ablation.cu kThreads
@@ -79,8 +79,8 @@ def hist_variant(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
             and vals.is_contiguous(), what,
             "ids int32 and vals float32 must be contiguous (b, m) tensors "
             "of one shape and device")
-    require(0 < num_bins <= MAX_BINS, what,
-            f"num_bins={num_bins} outside (0, {MAX_BINS}] (shared memory)")
+    require(0 < num_bins <= SMEM_BINS, what,
+            f"num_bins={num_bins} outside (0, {SMEM_BINS}] (shared memory)")
     b, m = ids.shape
     out = torch.empty((b, num_bins), dtype=torch.float32, device=ids.device)
     with torch.cuda.device(ids.device):

@@ -13,7 +13,10 @@ bins 0 and N/2 exact, contrib within 1e-5·peak, and b = 1 (a live hop)
 bit-equal to frame 0 of a batch; B2, B6 (against
 B1 → B2 composed) and the probe's ``full`` 1e-5 relative per nonzero bin;
 the other probe variants against their own plain versions, 1e-5; B3 and
-B5 bit-equal; B4 2e-5·max|X| (the JAX package's four-step bound)."""
+B5 bit-equal; B4 2e-5·max|X| (the JAX package's four-step bound); B2's
+two routes, each forced, also exact zeros, and a path above a block's shared
+memory against the port's CPU path at PERF.md §2's tolerances, its
+stream ≡ its batch within 1e-5 in ``vis``."""
 
 import numpy as np
 import pytest
@@ -27,12 +30,17 @@ from emspec_torch.dsp.kernels.deposits import (
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
-from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
+from emspec_torch import Settings
+from emspec_torch.dsp.kernels.scatter import (
+    ROUTES, SMEM_BINS, histogram, histogram_plain)
+from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
+from emspec_torch.pipeline import Pipeline
 from emspec_torch.probes.scatter_ablation import (
     VARIANTS, hist_variant, hist_variant_plain)
-from emspec_torch.validate import compare_grids
+from emspec_torch.stream import stream_signal
+from emspec_torch.validate import compare_grids, compare_vis
 
 
 @pytest.fixture
@@ -318,3 +326,100 @@ def test_cuda_probe_variants(cuda, variant):
     if variant == "full":
         torch.testing.assert_close(got, histogram(ids, vals, 2560),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _hist_case(dev, kind, rows, m, cells, seed):
+    """ids with NaN/Inf behind every dropped id: random, or hot cells
+    (runs of 32 equal ids, row 0 all in one cell)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        ids = rng.integers(-3, cells + 3, (rows, m))
+    else:
+        ids = np.repeat(rng.integers(0, cells, (rows, -(-m // 32))), 32,
+                        axis=1)[:, :m]
+        ids[0] = cells // 3
+        ids[:, 5::11] = -1
+    vals = rng.uniform(0, 1, (rows, m)).astype(np.float32)
+    bad = (ids < 0) | (ids >= cells)
+    vals[bad] = np.where(rng.random(int(bad.sum())) < 0.5, np.nan, np.inf)
+    return (torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.from_numpy(vals).to(dev))
+
+
+def _assert_hist_close(got, want):
+    """1e-5 relative per nonzero bin, exact zeros elsewhere, all finite."""
+    nz = want != 0
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[~nz] == 0).all())
+    assert float(((got - want).abs()[nz] / want[nz].abs()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("kind", ["random", "hot"])
+@pytest.mark.parametrize("rows,m,cells", [
+    (372, 4097, 2560), (16, 16385, 2560), (1, 16385, 20992), (3, 517, 300),
+    (2, 5, 64), (5, 20000, SMEM_BINS)])
+def test_cuda_histogram_routes_match_plain(cuda, route, kind, rows, m, cells):
+    ids, vals = _hist_case(cuda, kind, rows, m, cells, seed=rows + m)
+    before = histogram.route_launches[route]
+    got = histogram(ids, vals, cells, route=route)
+    assert histogram.route_launches[route] == before + 1
+    _assert_hist_close(got, histogram_plain(ids, vals, cells))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [66048, 83968])
+@pytest.mark.parametrize("rows,m", [(1, 4097), (40, 4097), (3, 16385)])
+def test_cuda_histogram_above_shared_memory(cuda, cells, rows, m):
+    ids, vals = _hist_case(cuda, "hot", rows, m, cells, seed=cells % 97)
+    assert hist_route_of(rows, m, cells) == "global"
+    _assert_hist_close(histogram(ids, vals, cells),
+                       histogram_plain(ids, vals, cells))
+    with pytest.raises(ValueError, match=str(SMEM_BINS)):
+        histogram(ids, vals, cells, route="row")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("ids_off,vals_off", [(1, 1), (3, 3), (1, 2)])
+def test_cuda_histogram_misaligned_views(cuda, route, ids_off, vals_off):
+    """Views that start off a 16-byte boundary: the same offset (16-byte
+    loads after the head) and offsets apart (4-byte loads)."""
+    rows, m, cells = 7, 1031, 700
+    ids, _ = _hist_case(cuda, "hot", 1, rows * m + 4, cells, seed=3)
+    vals = torch.rand(rows * m + 4, device=cuda)
+    i = ids.reshape(-1)[ids_off:ids_off + rows * m].reshape(rows, m)
+    v = vals[vals_off:vals_off + rows * m].reshape(rows, m)
+    v[(i < 0) | (i >= cells)] = float("nan")       # behind the dropped ids
+    assert i.is_contiguous() and i.data_ptr() % 16 != 0
+    _assert_hist_close(histogram(i, v, cells, route=route),
+                       histogram_plain(i, v, cells))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,cells", [
+    (dict(fft_size=8192, hop=64), 66048),
+    (dict(fft_size=32768, hop=800, raster_height=2048), 83968),
+])
+def test_cuda_pipeline_above_shared_memory_matches_cpu(cuda, kw, cells):
+    """Settings whose relative space passes a block's shared memory run
+    on the card through B2's global route (``scatter="auto"``), match the
+    CPU path, and stream as they batch."""
+    s = Settings(mode="enhanced", multires=False, **kw)
+    gpu, cpu = Pipeline(s, cuda), Pipeline(s, "cpu")
+    assert (2 * gpu.reach + 1) * gpu.rows == cells and gpu.use_relative_scatter
+    x = _tone_noise(s.fft_size + 40 * gpu.hop, 12)
+    before = dict(histogram.route_launches)
+    vis_g, _, _ = gpu.process(x)
+    assert histogram.route_launches["global"] > before["global"]
+    assert histogram.route_launches["row"] == before["row"]
+    t = gpu.num_columns(x.shape[-1])
+    cmp = compare_grids(cpu._enhanced_power(cpu.to_device(x), t, cpu.params()),
+                        gpu._enhanced_power(gpu.to_device(x), t,
+                                            gpu.params()).cpu())
+    assert cmp.ok, cmp
+    ok, worst, share = compare_vis(cpu.process(x)[0], vis_g.cpu())
+    assert ok, (worst, share)
+    vis_s, _ = stream_signal(x, s, cuda, chunk=3000)
+    assert float(np.abs(vis_s - vis_g.cpu().numpy()).max()) <= 1e-5

@@ -38,7 +38,7 @@ from emspec_torch.dsp.kernels.deposits import (
     CLUSTER_N, SMALL_MAX_N, _twiddles, block_smem, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
 from emspec_torch.dsp.kernels.fourstep import fft4_steps123_plain
-from emspec_torch.dsp.kernels.scatter import MAX_BINS, histogram_plain
+from emspec_torch.dsp.kernels.scatter import SMEM_BINS, histogram_plain
 from emspec_torch.dsp.stft import th_window
 from emspec_torch.pipeline import Pipeline
 from emspec_torch.validate import compare_grids
@@ -427,7 +427,7 @@ def test_cluster_staging_holds_every_read():
                        torch.arange(m + 1))
     assert STAGE_STRIDE % 2 == 1 and (n2 + 1) % 2 == 1
     assert 8 * (512 + n1 * (n2 + 1) + n1 * STAGE_STRIDE) == 204800 \
-        <= 4 * MAX_BINS
+        <= 4 * SMEM_BINS
 
 
 def test_mirror_matches_pallas_interpret():
@@ -464,7 +464,7 @@ def test_routes_by_size_only():
     # SM by memory), 136,192 B at 16384, within a block's 227 KB with B6's
     # 2,560 cells
     assert block_smem(8192) == 70656 and block_smem(16384) == 136192
-    assert block_smem(16384, 2560) <= 4 * MAX_BINS
+    assert block_smem(16384, 2560) <= 4 * SMEM_BINS
 
 
 def test_cluster_wrapper_routes_cpu_to_plain_and_checks_size():
