@@ -23,7 +23,11 @@ them.  Phases, in order, one line each; the first failure ends the run:
    at the batch and north-live shapes, NaN/Inf behind dropped ids at
    every route and hot-cell cases (runs of 32 equal ids, a row in one
    cell, every deposit in one cell),
-   B3 colormap lookup (enhanced 8192, hop 2048, 512 rows); B4 four-step
+   B3 colormap lookup (enhanced 8192, hop 2048, 512 rows) in both forms,
+   int32 indices (``lut_lookup``) and fused from float32 values
+   (``lut_values``, what ``apply_lut`` runs), each on views offset by 0–3
+   elements, the fused form beside the four-pass ``apply_lut`` it
+   replaced and at one live column; B4 four-step
    steps 1–3 at n = 256, 1024, 4096, 8192, 16384 (the stress call's
    1,376 sequences), 32768 and 131072, each at a full batch and at b = 1
    (bit-equal to frame 0), with the kernel's and the plain version's
@@ -44,12 +48,16 @@ them.  Phases, in order, one line each; the first failure ends the run:
    match the port's CPU path.
 4. batch16: the same on a 16-channel batch.
 5. live: ``Stream`` fed in 1024-sample chunks (375 hops) then flushed; it
-   must match the batch result; per-hop latency p50/p99.
+   must match the batch result; per-hop latency p50/p99.  Every live
+   phase runs one CUDA graph replay a hop (one capture a stream, checked),
+   and prints first the eager step's p50/p99 on 200 hops driven straight
+   through ``Pipeline._stream_step_rolling`` (the A/B inside one run).
 6. natural: P-natural batch — ``Settings(mode="natural",
    fft_impl="fourstep")``, the multires banks 8192/2048/512, hop 128,
    512 rows — on 16 s mono; B4 and B3 must launch; matches the CPU path.
 7. natural_live: P-natural through ``Stream`` in 1024-sample pushes
-   (5,937 hops of 128); must match its batch; p50/p99 per hop.
+   (5,937 hops of 128); must match its batch; p50/p99 per hop, and the
+   p50 must be below the hop's 2.67 ms of audio.
 8. direct: P-direct batch — enhanced, one bank of 8192, hop 2048,
    ``fft_method="direct"``, ``fft_impl="fourstep"`` — on 16 s mono; B5,
    B4, B2 and B3 must launch; matches the CPU path.
@@ -71,7 +79,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
 15. wide: enhanced 8192 at hop 64 (R = 64: 66,048 relative cells, above
    a block's shared memory), 2 s mono — batch, then through ``Stream``;
    B1, B2 (on its global route) and B3 must launch; the batch matches
-   the CPU path and the stream matches the batch.
+   the CPU path and the stream matches the batch; the live p50 must be
+   below the hop's 1.33 ms of audio.
 16. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide; CUDA events), the device's busy
    time per kernel and idle share of every batch cell and of a live hop
@@ -91,7 +100,7 @@ deposit moved by one cell only, bins 0 and N/2 exact, and contrib within
 batch; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
-own plain versions; B3 and B5 bit-equal; B4 (either route) within
+own plain versions; B3 (both forms) and B5 bit-equal; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
 of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
@@ -117,7 +126,8 @@ from emspec_torch.dsp.kernels.deposits import (
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain)
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
-from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
+from emspec_torch.dsp.kernels.lut import (
+    lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, histogram, histogram_plain, route_of)
 from emspec_torch.dsp.kernels.window import (
@@ -155,6 +165,8 @@ KERNELS = (
      "emspec/dsp/pallas/scatter.py:135"),
     ("lut_lookup", lut_lookup, "emspec_torch/csrc/lut.cu",
      "emspec/dsp/pallas/lut.py:43"),
+    ("lut_values", lut_values, "emspec_torch/csrc/lut.cu",
+     "emspec/dsp/pallas/lut.py:43"),
     ("fft4_steps123", fft4_steps123, "emspec_torch/csrc/fourstep.cu",
      "emspec/dsp/pallas/fft4.py:130"),
     ("windowed_frames", windowed_frames, "emspec_torch/csrc/window.cu",
@@ -168,26 +180,26 @@ KERNELS = (
     ("hist_variant", hist_variant, "emspec_torch/csrc/scatter_ablation.cu",
      "bench_probes/scatter_ablation.py:93"),
 )
-CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_lookup")
+CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
 LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
-              "lut_lookup")
+              "lut_values")
 PATH_KERNELS = {        # kernels each path must launch
-    "batch": ("deposits_ids", "histogram", "lut_lookup"),
-    "batch16": ("deposits_ids", "histogram", "lut_lookup"),
-    "live": ("deposits_ids", "histogram", "lut_lookup"),
-    "natural": ("fft4_steps123", "lut_lookup"),
-    "natural_live": ("fft4_steps123", "lut_lookup"),
-    "direct": ("windowed_frames", "fft4_steps123", "histogram", "lut_lookup"),
+    "batch": ("deposits_ids", "histogram", "lut_values"),
+    "batch16": ("deposits_ids", "histogram", "lut_values"),
+    "live": ("deposits_ids", "histogram", "lut_values"),
+    "natural": ("fft4_steps123", "lut_values"),
+    "natural_live": ("fft4_steps123", "lut_values"),
+    "direct": ("windowed_frames", "fft4_steps123", "histogram", "lut_values"),
     "direct_live": ("windowed_frames", "fft4_steps123", "histogram",
-                    "lut_lookup"),
+                    "lut_values"),
     "stress": CLUSTER_PATH,
     "stress_live_batch": CLUSTER_PATH,
     "stress_live": CLUSTER_PATH,
     "north": CLUSTER_PATH,
     "north_live": CLUSTER_PATH,
     "ext262144": LARGE_PATH,
-    "wide": ("deposits_ids", "histogram", "lut_lookup"),
-    "wide_live": ("deposits_ids", "histogram", "lut_lookup"),
+    "wide": ("deposits_ids", "histogram", "lut_values"),
+    "wide_live": ("deposits_ids", "histogram", "lut_values"),
 }
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
@@ -418,19 +430,78 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
 
     res["histogram"] = kernels_b2(dev, ik, ck, S)
 
-    # B3 at the batch raster (t, rows): bit-equal
-    idx = torch.from_numpy(np.random.default_rng(2).integers(
-        0, 256, (b, rows)).astype(np.int32)).to(dev)
+    res.update(kernels_b3(dev, p, b, rows))
+    return res
+
+
+def apply_lut_unfused(vis, table):
+    """``apply_lut`` before B3 took over its quantization: four
+    elementwise passes to an int32 index, then B3's int32 form."""
+    idx = torch.clamp(torch.round(vis * 255).to(torch.int32), 0, 255)
+    return lut_lookup(idx.contiguous(), table)
+
+
+def kernels_b3(dev, p, b: int, rows: int) -> dict:
+    """B3 at the batch raster (t, rows), both forms bit-equal to plain on
+    aligned views and on views offset by 1–3 elements; the fused form
+    also on the ties (k + 0.5)/255, values outside [0, 1], NaN and ±Inf.
+    Times: both forms, the fused one also against the unfused
+    ``apply_lut`` (four passes and B3) and at a live column."""
+    rng = np.random.default_rng(2)
+    idx_all = torch.from_numpy(rng.integers(
+        0, 256, b * rows + 3).astype(np.int32)).to(dev)
+    idx = idx_all[:b * rows].reshape(b, rows)
+    probes = np.concatenate([(np.arange(256) + 0.5) / 255,
+                             [0.0, 1.0, -0.5, 1.5, 1e6, np.nan, np.inf,
+                              -np.inf]]).astype(np.float32)
+    v = rng.uniform(-0.05, 1.05, b * rows + 3).astype(np.float32)
+    v[:probes.size] = probes
+    vals_all = torch.from_numpy(v).to(dev)
+    vals = vals_all[:b * rows].reshape(b, rows)
+    for k in range(4):
+        iv, vv = idx_all[k:k + b * rows - 5], vals_all[k:k + b * rows - 5]
+        check(torch.equal(lut_lookup(iv, p.lut), lut_lookup_plain(iv, p.lut))
+              and torch.equal(lut_values(vv, p.lut),
+                              lut_values_plain(vv, p.lut)),
+              f"B3 differs from plain at an offset of {k} elements")
     lk, lp = lut_lookup(idx, p.lut), lut_lookup_plain(idx, p.lut)
+    fk, fp = lut_values(vals, p.lut), lut_values_plain(vals, p.lut)
     check(torch.equal(lk, lp), "B3 lut_lookup differs from table[idx]")
+    check(torch.equal(fk, fp), "B3 lut_values differs from its plain version")
     flat_idx = idx.reshape(-1)
+    npix = b * rows
+    col = vals[b // 2].clone()                       # one live column
+    res = {}
     res["lut_lookup"] = dict(
         at=f"idx ({b}, {rows})",
         max_abs_err=float((lk.int() - lp.int()).abs().max()),
         **times(lambda: lut_lookup(idx, p.lut),
                 lambda: lut_lookup_plain(idx, p.lut),
                 lambda: torch.index_select(p.lut, 0, flat_idx)),
-        **bound(4 * idx.numel() + 1024 + 4 * idx.numel(), 0.0))
+        **bound(4 * npix + 1024 + 4 * npix, 0.0))
+    res["lut_values"] = dict(
+        at=f"values ({b}, {rows})",
+        max_abs_err=float((fk.int() - fp.int()).abs().max()),
+        **times(lambda: lut_values(vals, p.lut),
+                lambda: lut_values_plain(vals, p.lut),
+                lambda: torch.index_select(p.lut, 0, flat_idx)),
+        **bound(4 * npix + 1024 + 4 * npix, 0.0),
+        unfused_apply_lut_ms=cuda_ms(lambda: apply_lut_unfused(vals, p.lut)),
+        unfused_apply_lut_device_ms=device_ms(
+            lambda: apply_lut_unfused(vals, p.lut)),
+        device_ms_column=device_ms(lambda: lut_values(col, p.lut)),
+        unfused_apply_lut_device_ms_column=device_ms(
+            lambda: apply_lut_unfused(col, p.lut)),
+        bound_ms_column=bound(8 * rows + 1024, 0.0)["bound_ms"])
+    r = res["lut_values"]
+    print(f"kernels B3: fused {r['ms']:.4f} ms / device {r['device_ms']:.4f}, "
+          f"the unfused apply_lut {r['unfused_apply_lut_ms']:.4f} / device "
+          f"{r['unfused_apply_lut_device_ms']:.4f}, index_select device "
+          f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.5f} ms at "
+          f"{npix} px; a {rows}-px column device {r['device_ms_column']:.4f} "
+          f"against {r['unfused_apply_lut_device_ms_column']:.4f}; int32 "
+          f"form device {res['lut_lookup']['device_ms']:.4f}; offsets 0-3 "
+          f"bit-equal", flush=True)
     return res
 
 
@@ -967,14 +1038,46 @@ def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
     return vis, ms
 
 
+def eager_hops(name: str, st: Stream, x: np.ndarray, hops: int = 200,
+               settle: int = 5) -> tuple:
+    """The step without the graph, for the A/B inside one run: ``hops``
+    hops (after ``settle``) straight through ``_stream_step_rolling`` on a
+    carry of its own, each staged with a plain copy as the stream did
+    before its graph → host p50/p99 per hop (ms, push → synchronize)."""
+    pipe = st.pipe
+    n, hop = pipe.n_max, pipe.hop
+    carry = pipe.init_roll_carry(x.shape[:-1])
+    p = pipe.params(st.settings)
+    hops = min(hops, (x.shape[-1] - n) // hop + 1 - settle)
+    lat = []
+    for f in range(settle + hops):
+        t0 = time.perf_counter()
+        block = torch.from_numpy(np.ascontiguousarray(
+            x[..., f * hop + n - hop:f * hop + n])).to(st.device)
+        carry, _ = pipe._stream_step_rolling(carry, block, p)
+        torch.cuda.synchronize()
+        if f >= settle:
+            lat.append(time.perf_counter() - t0)
+    p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+    print(f"{name} eager step (no graph): {hops} hops straight through "
+          f"_stream_step_rolling, per-hop latency p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms (host clock, copy → synchronize)", flush=True)
+    return p50, p99
+
+
 def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
                vis_batch: torch.Tensor, min_hops: int = 300,
-               chunk: int = 1024, budget_ms: float | None = None) -> None:
+               chunk: int = 1024, budget_ms: float | None = None,
+               keep_up: bool = False) -> None:
     """Drive ``Stream`` on the card once (counters) in ``chunk``-sample
     pushes, then flush; it must match the batch result.  Per-hop latency
-    p50/p99, beside ``budget_ms`` and the hop's own audio time if given."""
+    p50/p99, beside ``budget_ms`` and the hop's own audio time; with
+    ``keep_up`` the graphed p50 must be below the hop's audio time.  An
+    earlier line gives the eager step's p50/p99 (``eager_hops``)."""
     st = Stream(settings.replace(channels=1 if x.ndim == 1 else x.shape[0]),
                 dev)
+    check(st.captures == 1, f"{name}: {st.captures} graph captures")
+    eager = eager_hops(name, st, x)
     lat = []
 
     def run():
@@ -996,16 +1099,22 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
     vis_s = torch.stack([c.vis for c in cols])
     diff = float((vis_s - vis_batch).abs().max())
     check(diff <= STREAM_VIS_ATOL, f"{name} ≠ batch: max |Δvis| {diff}")
+    check(st.captures == 1, f"{name}: {st.captures} graph captures")
     p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
     hop_ms = st.pipe.hop / settings.sample_rate * 1e3
     budget = ("" if budget_ms is None else
-              f" (budget {budget_ms:.1f} ms, hop {hop_ms:.1f} ms of audio: "
-              f"p99 {'within' if p99 < budget_ms else 'OVER'} budget)")
+              f", budget {budget_ms:.1f} ms: p99 "
+              f"{'within' if p99 < budget_ms else 'OVER'} budget")
     print(f"{name}: {hops} hops of {st.pipe.hop} in {chunk}-sample pushes, "
-          f"{len(cols)} columns; max |vis − batch| {diff:.3g}; per-hop "
-          f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms{budget} (host "
-          f"clock, push → synchronize); launches {LAUNCHES[name]}, B2 "
-          f"routes {ROUTE_LAUNCHES[name]}", flush=True)
+          f"{len(cols)} columns, one graph replay a hop; max |vis − batch| "
+          f"{diff:.3g}; per-hop latency p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+          f"against the hop's {hop_ms:.3f} ms of audio{budget} (host clock, "
+          f"push → synchronize; eager step p50 {eager[0]:.3f}, p99 "
+          f"{eager[1]:.3f}); launches {LAUNCHES[name]}, B2 routes "
+          f"{ROUTE_LAUNCHES[name]}", flush=True)
+    if keep_up:
+        check(p50 < hop_ms, f"{name}: graphed p50 {p50:.3f} ms is not below "
+              f"the hop's {hop_ms:.3f} ms of audio")
 
 
 def device_busy(fn, reps: int):
@@ -1102,7 +1211,7 @@ def main() -> None:
     _, ms16 = batch_phase("batch16", dev, SETTINGS, x16, iters=5)
     live_phase("live", dev, SETTINGS, x, vis)
     vis_n, ms_n = batch_phase("natural", dev, NATURAL, x, iters=3)
-    live_phase("natural_live", dev, NATURAL, x, vis_n)
+    live_phase("natural_live", dev, NATURAL, x, vis_n, keep_up=True)
     vis_d, ms_d = batch_phase("direct", dev, DIRECT, x, iters=10)
     live_phase("direct_live", dev, DIRECT, x, vis_d)
 
@@ -1119,7 +1228,7 @@ def main() -> None:
     _, ms_e = batch_phase("ext262144", dev, EXT, xe, iters=3)
     xw = signal(2.0, seed=16)
     vis_w, ms_w = batch_phase("wide", dev, WIDE, xw, iters=3)
-    live_phase("wide_live", dev, WIDE, xw, vis_w, min_hops=1400)
+    live_phase("wide_live", dev, WIDE, xw, vis_w, min_hops=1400, keep_up=True)
     for path in ("wide", "wide_live"):
         check(ROUTE_LAUNCHES[path]["global"] > 0,
               f"{path}: B2 did not take its route above shared memory "

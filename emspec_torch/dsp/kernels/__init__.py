@@ -5,12 +5,45 @@ Every wrapper routes by the device of its input: a CPU tensor goes to the
 plain version in the same module, a CUDA tensor to the kernel — or the
 wrapper raises.  There is no fallback from a failed build or launch.
 Each wrapper keeps a plain-int launch counter (``wrapper.launches``) that
-rises only where it launches its kernel.
+rises only where it launches its kernel (``counted`` sets it up).  The
+counters rise at Python call time, so a CUDA graph's replays launch
+kernels that no wrapper sees: its owner reads ``launch_counts`` around
+the capture and adds the rise on each replay (``add_launch_counts``).
 """
 
 from __future__ import annotations
 
 import torch
+
+_COUNTED: list = []
+
+
+def counted(fn):
+    """Give a kernel wrapper its launch counter ``fn.launches`` (0)."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> dict:
+    """Every counted wrapper's launches, and each route's where the
+    wrapper counts routes (``route_launches``), keyed (wrapper, route or
+    None)."""
+    out = {}
+    for fn in _COUNTED:
+        out[fn, None] = fn.launches
+        for route, n in getattr(fn, "route_launches", {}).items():
+            out[fn, route] = n
+    return out
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times``·``delta`` (a difference of two ``launch_counts``)."""
+    for (fn, route), n in delta.items():
+        if route is None:
+            fn.launches += times * n
+        else:
+            fn.route_launches[route] += times * n
 
 
 def launch_stream(t: torch.Tensor):

@@ -35,7 +35,8 @@ import torch
 
 from emspec_torch import kernels_build
 from emspec_torch.dsp.fourstep import _FACTORS
-from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
+from emspec_torch.dsp.kernels import (
+    counted, launch_stream, require, require_cuda)
 from emspec_torch.dsp.kernels.fourstep import (
     device_radix_tables, fft4_steps123)
 from emspec_torch.dsp.kernels.scatter import SMEM_BINS, histogram_plain
@@ -212,6 +213,7 @@ def _finish(xr, xi, tw, scal_ptrs, consts, ids, out, *, frames: int, n: int,
     kernels_build.check(rc, what)
 
 
+@counted
 def deposits_ids(frames: torch.Tensor, logmap_a, logmap_b, power_floor, *,
                  n: int, hop: int, sr: float, rows: int, reach: int,
                  route: str | None = None):
@@ -242,6 +244,7 @@ def deposits_ids(frames: torch.Tensor, logmap_a, logmap_b, power_floor, *,
     return out
 
 
+@counted
 def deposits_ids_cluster(frames: torch.Tensor, logmap_a, logmap_b,
                          power_floor, *, n: int, hop: int, sr: float,
                          rows: int, reach: int):
@@ -272,6 +275,7 @@ def cluster_occupancy(device) -> int:
     return got.value
 
 
+@counted
 def deposits_ids_large(frames: torch.Tensor, logmap_a, logmap_b,
                        power_floor, *, n: int, hop: int, sr: float, rows: int,
                        reach: int):
@@ -295,6 +299,7 @@ def deposits_ids_large(frames: torch.Tensor, logmap_a, logmap_b,
     return ids, contrib
 
 
+@counted
 def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
                   min_id: int, *, n: int, hop: int, sr: float, rows: int,
                   reach: int) -> torch.Tensor:
@@ -339,9 +344,3 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
                     num_bins=num_bins, what=what)
     deposits_hist.launches += 1
     return out
-
-
-deposits_ids.launches = 0
-deposits_ids_cluster.launches = 0
-deposits_ids_large.launches = 0
-deposits_hist.launches = 0

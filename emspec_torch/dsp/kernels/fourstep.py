@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from emspec_torch import kernels_build
-from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
+from emspec_torch.dsp.kernels import (
+    counted, launch_stream, require, require_cuda)
 
 MIN_FACTOR, MAX_FACTOR = 16, 512      # the kernel's n1, n2: powers of two
 SMALL_MAX = 16384                     # n1·n2 of the one-launch route
@@ -99,6 +100,7 @@ def route_of(n1: int, n2: int) -> str:
     return "small" if n1 * n2 <= SMALL_MAX else "large"
 
 
+@counted
 def fft4_steps123(zr: torch.Tensor, zi: torch.Tensor, *,
                   route: str | None = None):
     """zr, zi (b, n1, n2) float32 → X[k1, k2] real/imag, each (b, n1, n2),
@@ -140,6 +142,3 @@ def fft4_steps123(zr: torch.Tensor, zi: torch.Tensor, *,
     kernels_build.check(rc, what)
     fft4_steps123.launches += 1
     return xr, xi
-
-
-fft4_steps123.launches = 0

@@ -28,7 +28,8 @@ import math
 import torch
 
 from emspec_torch import kernels_build
-from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
+from emspec_torch.dsp.kernels import (
+    counted, launch_stream, require, require_cuda)
 
 # float32 cells one block's shared memory holds (227 KB on the H100):
 # the bound of B2's row route, and of B6's and the probe's histogram
@@ -76,6 +77,7 @@ def histogram_plain(ids: torch.Tensor, vals: torch.Tensor,
     return out.view(b, num_bins + 1)[:, :num_bins].reshape(lead + (num_bins,))
 
 
+@counted
 def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
               passes: int = 2, *, route: str | None = None) -> torch.Tensor:
     """ids (..., M) int32, vals (..., M) float32 → (..., num_bins) float32.
@@ -121,5 +123,4 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     return out
 
 
-histogram.launches = 0
 histogram.route_launches = dict.fromkeys(ROUTES, 0)

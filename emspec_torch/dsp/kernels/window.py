@@ -9,7 +9,8 @@ import functools
 import torch
 
 from emspec_torch import kernels_build
-from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
+from emspec_torch.dsp.kernels import (
+    counted, launch_stream, require, require_cuda)
 from emspec_torch.dsp.windows import window_triple
 
 
@@ -31,6 +32,7 @@ def windowed_frames_plain(frames: torch.Tensor) -> torch.Tensor:
     return frames[None] * w3.reshape((3,) + (1,) * (frames.dim() - 1) + (n,))
 
 
+@counted
 def windowed_frames(frames: torch.Tensor) -> torch.Tensor:
     """frames (..., T, N) or (N,) float32 → (3, ...) float32, bit-equal to
     :func:`windowed_frames_plain`.  The frames may be a strided view (the
@@ -57,6 +59,3 @@ def windowed_frames(frames: torch.Tensor) -> torch.Tensor:
     kernels_build.check(rc, what)
     windowed_frames.launches += 1
     return out
-
-
-windowed_frames.launches = 0

@@ -45,7 +45,8 @@ _SIGNATURES = {
                                           _F, _I, _I, _I, _I, _I, _P],
     "emspec_hist_variant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P],
-    "emspec_lut": [_P, _P, _P, _LL, _P],
+    "emspec_lut": [_P, _P, _P, _LL, _I, _I, _P],
+    "emspec_lut_values": [_P, _P, _P, _LL, _I, _I, _P],
     "emspec_fourstep": [_P] * 8 + [_LL, _I, _I, _I, _P],
     "emspec_window": [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P],
 }

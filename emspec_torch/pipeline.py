@@ -347,27 +347,38 @@ class Pipeline:
     def _stream_step(self, carry, window, p: PipelineParams):
         """One hop: add this frame's deposits (enhanced) or its merged
         column (natural, R = 0) to the pending ring of P = 2R+1 columns,
-        then emit column t−R (no later frame can reach it).  ``t`` is a
-        host int.  The carry's ring is updated in place: pass each carry
-        to one step only."""
+        then emit column t−R (no later frame can reach it).
+
+        ``t`` is a 0-d int32 tensor on the pipeline's device, as in the
+        JAX step: no Python branch or host read touches it, so one hop is
+        a fixed sequence of launches that a CUDA graph can capture
+        (``stream.Stream``).  Every carry tensor (t, the ring, the post
+        state) is updated in place and returned: pass each carry to one
+        step only."""
         t, acc, post = carry                     # acc: (P, ..., rows)
         R, rows = self.reach, self.rows
         P = 2 * R + 1
         lead = window.shape[:-1]
+        t_emit = t - R                           # the column this hop emits
         if self.settings.mode != MODE_ENHANCED:
             specs = [self._bank_power(win, n) for win, n in
                      zip(self._bank_windows(window), self.sizes)]
-            acc[t % P] += self._merge(specs, p)
+            col = self._merge(specs, p)
+            acc.index_add_(0, _slot(t, P), col.unsqueeze(0))
         elif self.use_relative_scatter:
             ids_rel, contrib = self._deposit_ids_rel(window, p)
-            if t < R:
-                # t + δ ≥ 0 ⟺ id ≥ (R − t)·rows (row < rows): drop the rest
-                ids_rel = torch.where(ids_rel >= (R - t) * rows, ids_rel, -1)
+            # t + δ ≥ 0 ⟺ id ≥ (R − t)·rows (row < rows): drop the rest
+            # (an identity from t = R on: ids below 0 add nothing anyway)
+            min_id = torch.clamp(R - t, min=0) * rows
+            ids_rel = torch.where(ids_rel >= min_id, ids_rel, -1)
             hist = histogram(ids_rel, contrib, P * rows,
                              passes=self.settings.scatter_passes)
             dep = hist.reshape(lead + (P, rows)).movedim(-2, 0)
-            # slot of offset δ is (t+δ) mod P: roll by (t − R) mod P
-            acc = acc + torch.roll(dep, t - R, 0)
+            # slot of offset δ is (t+δ) mod P: roll by (t − R) mod P, as
+            # a gather (pure data movement, bit-exact)
+            src = torch.remainder(
+                torch.arange(P, device=acc.device) - t_emit, P)
+            acc.add_(torch.index_select(dep, 0, src))
         else:
             rows_i, delta, contrib = self._deposits(window, p)
             contrib = torch.where(t + delta >= 0, contrib,
@@ -379,27 +390,32 @@ class Pipeline:
             flat = slot * (n_lead * rows) + lane + rows_i
             # in place, in bin order: each cell adds in the batch's order
             acc.view(-1).index_add_(0, flat.reshape(-1), contrib.reshape(-1))
-        emit_slot = (t - R) % P
-        if t >= R:
-            vis, post = postprocess_column(acc[emit_slot], post, p.post,
+        # the chain always runs; its result is kept from t = R on
+        emit_slot = _slot(t_emit, P)
+        vis, new_post = postprocess_column(acc.index_select(0, emit_slot)[0],
+                                           post, p.post,
                                            self.settings.agc_global)
-        else:
-            vis = torch.zeros(lead + (rows,), dtype=DTYPE, device=acc.device)
+        do_emit = t >= R
+        for old, new in zip(post, new_post):
+            torch.where(do_emit, new, old, out=old)
+        vis = torch.where(do_emit, vis, 0.0)
         rgba = apply_lut(vis, p.lut)
-        acc[emit_slot] = 0.0                     # slot reused by t+R+1
-        return (t + 1, acc, post), (vis, rgba, t - R)
+        acc.index_fill_(0, emit_slot, 0.0)       # slot reused by t+R+1
+        t.add_(1)
+        return (t, acc, post), (vis, rgba, t_emit)
 
     def _stream_step_rolling(self, carry, block, p: PipelineParams):
         """Per-hop step whose analysis window is carry state: ``block`` is
-        only the ``hop`` new samples, window' = concat(window[hop:], block)."""
+        only the ``hop`` new samples, window' = concat(window[hop:], block),
+        written into the carry's own window tensor."""
         window, inner = carry
-        window = torch.cat([window[..., self.hop:], block], dim=-1)
+        window.copy_(torch.cat([window[..., self.hop:], block], dim=-1))
         inner, out = self._stream_step(inner, window, p)
         return (window, inner), out
 
     def init_stream_carry(self, lead: tuple = ()):
         P = 2 * self.reach + 1
-        return (0,
+        return (torch.zeros((), dtype=torch.int32, device=self.device),
                 torch.zeros((P,) + lead + (self.rows,), dtype=DTYPE,
                             device=self.device),
                 PostState.init(lead + (self.rows,), self.device))
@@ -410,6 +426,12 @@ class Pipeline:
         return (torch.zeros(lead + (self.n_max,), dtype=DTYPE,
                             device=self.device),
                 self.init_stream_carry(lead))
+
+
+def _slot(t: torch.Tensor, P: int) -> torch.Tensor:
+    """Ring slot ``t mod P`` of a 0-d device counter, as a (1,) int64
+    index on its device."""
+    return torch.remainder(t, P).to(torch.int64).reshape(1)
 
 
 @functools.lru_cache(maxsize=None)

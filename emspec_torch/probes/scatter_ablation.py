@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from emspec_torch import kernels_build
-from emspec_torch.dsp.kernels import launch_stream, require, require_cuda
+from emspec_torch.dsp.kernels import (
+    counted, launch_stream, require, require_cuda)
 from emspec_torch.dsp.kernels.scatter import SMEM_BINS, histogram_plain
 
 VARIANTS = ("full", "no_atomic", "no_zero", "io_only")
@@ -63,6 +64,7 @@ def hist_variant_plain(ids: torch.Tensor, vals: torch.Tensor,
     raise ValueError(f"hist_variant: unknown variant {variant!r}")
 
 
+@counted
 def hist_variant(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
                  variant: str) -> torch.Tensor:
     """ids (b, m) int32, vals (b, m) float32 → (b, num_bins) float32 by
@@ -90,6 +92,3 @@ def hist_variant(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     kernels_build.check(rc, what)
     hist_variant.launches += 1
     return out
-
-
-hist_variant.launches = 0

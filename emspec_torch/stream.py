@@ -6,9 +6,22 @@ window of ``n_max`` samples — the largest bank's — is device carry state,
 ``Pipeline._stream_step_rolling``), one step adds the frame's deposits
 (enhanced) or merged column (natural) to the pending ring and emits one
 display column.
-Staging is a plain synchronous ``.to(device)`` copy of one hop at a time;
-pinned buffers, a copy stream that overlaps hop t+1's copy with step t,
-and CUDA graphs are later work (ROADMAP.md).
+
+On the card a hop is one CUDA graph replay.  The ``Stream`` owns static
+tensors — the carry (window, hop counter ``t``, pending ring, post
+state), the params, the hop's input block — runs the eager step a few
+hops on cloned carries to warm up (kernel library, CUDA modules, kernel
+attributes, cuFFT plans, cached tables), then captures one step on the
+static tensors with ``torch.cuda.graph``.  A hop then copies its samples
+through a small ring of pinned host buffers into the static block
+(``non_blocking``), replays, and clones the graph's two outputs into the
+``Column``.  A failed capture raises: there is no eager fallback on the
+card.  What a capture cannot survive: a host read of a device value
+inside the step (``t`` is a device tensor for that reason) and rebinding
+a carry or params tensor — every method here writes into the static
+tensors with ``copy_``/``zero_`` instead, and the ``params`` setter
+copies new values into the captured tensors, never re-capturing.  On the
+CPU the same step runs eagerly on the same static tensors.
 """
 
 from __future__ import annotations
@@ -20,9 +33,13 @@ import torch
 
 from emspec_torch.config import Settings
 from emspec_torch.device import as_device
+from emspec_torch.dsp.kernels import add_launch_counts, launch_counts
 from emspec_torch.io.ring import RingBuffer
 from emspec_torch.pipeline import Pipeline, PipelineParams, get_pipeline
 from emspec_torch.post.chain import PostState
+
+WARMUP_HOPS = 3         # eager hops before the capture
+PINNED_SLOTS = 4        # pinned host staging buffers, used in turn
 
 
 class Column(NamedTuple):
@@ -36,6 +53,32 @@ class Column(NamedTuple):
 
 def _host(a: torch.Tensor) -> np.ndarray:
     return a.detach().to("cpu", copy=True).numpy()
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nested tuple (PipelineParams, a carry), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in _leaves(sub)]
+
+
+def _clone(tree):
+    """A nested tuple of fresh copies of ``tree``'s tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(s) for s in tree)) if hasattr(
+        tree, "_fields") else tuple(_clone(s) for s in tree)
+
+
+def _copy_into(dst, src, what: str) -> None:
+    """Copy every tensor of ``src`` into the same-shaped one of ``dst``."""
+    d, s = _leaves(dst), _leaves(src)
+    if len(d) != len(s) or any(a.shape != b.shape or a.dtype != b.dtype
+                               for a, b in zip(d, s)):
+        raise ValueError(f"{what}: shapes or dtypes differ from the "
+                         f"stream's (a structural change needs a new Stream)")
+    for a, b in zip(d, s):
+        a.copy_(b)
 
 
 class Stream:
@@ -57,24 +100,43 @@ class Stream:
         self.channels = s.channels
         self._lead = (s.channels,) if s.channels > 1 else ()
         # the pipeline is cached by structural projection; params come
-        # from THIS stream's settings (sliders live here)
-        self.params = params or self.pipe.params(settings)
+        # from THIS stream's settings (sliders live here), in tensors
+        # this stream owns
+        self._params = _clone(params or self.pipe.params(settings))
         capacity = max(int(ring_seconds * s.sample_rate),
                        self.pipe.n_max + 8 * self.pipe.hop)
         self.ring = RingBuffer(capacity, s.channels)
         self.dropped_frames = 0
         self._carry = self.pipe.init_roll_carry(self._lead)
+        self._block = torch.zeros(self._lead + (self.pipe.hop,),
+                                  dtype=torch.float32, device=self.device)
         self._window_ready = False  # device window primed for _next_frame?
         self._t = 0                 # host mirror of the carry's hop counter
         self._last_col = None
         self._next_frame = 0        # next hop index to analyze
         self._paused = False
         self._finished = False
+        self.captures = 0           # CUDA graph captures (one per stream)
+        self._graph = None
+        if self.device.type == "cuda":
+            self._capture()
 
     # ------------------------------------------------------------------ API
     @property
     def reach(self) -> int:
         return self.pipe.reach
+
+    @property
+    def params(self) -> PipelineParams:
+        """The continuous params, in the tensors the step reads (and, on
+        the card, that the graph captured)."""
+        return self._params
+
+    @params.setter
+    def params(self, params: PipelineParams) -> None:
+        """Slider move, colormap change, Freq-Scale zoom: the new values
+        are copied into the captured tensors; nothing is re-captured."""
+        _copy_into(self._params, params, "params")
 
     def pause(self) -> None:
         self._paused = True
@@ -103,24 +165,67 @@ class Stream:
         """Emit the R pending columns at stream end (all-zero hops, which
         deposit nothing).  The stream is finished afterwards."""
         self._finished = True
-        window, inner = self._carry
-        self._carry = (torch.zeros_like(window), inner)
+        self._carry[0].zero_()
         zero = np.zeros(self._lead + (self.pipe.hop,), np.float32)
         out = []
         for _ in range(self.pipe.reach):
-            out.extend(self._dispatch(self._to_device(zero),
-                                      self.dropped_frames))
+            out.extend(self._dispatch(zero, self.dropped_frames))
         return out
 
     # ------------------------------------------------------------- internals
-    def _to_device(self, block: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(block, np.float32)).to(self.device)
+    def _step(self, block: torch.Tensor):
+        """One eager step on the static carry → (vis, rgba)."""
+        _, (vis, rgba, _) = self.pipe._stream_step_rolling(
+            self._carry, block, self._params)
+        return vis, rgba
+
+    def _capture(self) -> None:
+        """Warm up on cloned carries (side stream), then capture one step
+        on the static tensors.  The wrappers' counters rise while the
+        capture records launches that did not run: that rise is taken
+        back now and added again on every replay."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            carry = _clone(self._carry)
+            for _ in range(WARMUP_HOPS):
+                self.pipe._stream_step_rolling(carry, self._block,
+                                               self._params)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._out = self._step(self._block)
+        after = launch_counts()
+        self._replay_launches = {k: after[k] - before[k] for k in after
+                                 if after[k] != before.get(k, 0)}
+        add_launch_counts(self._replay_launches, -1)
+        self._graph = graph
+        self.captures += 1
+        self._pinned = [torch.empty(self._block.shape, dtype=torch.float32,
+                                    pin_memory=True)
+                        for _ in range(PINNED_SLOTS)]
+        self._copied = [torch.cuda.Event() for _ in range(PINNED_SLOTS)]
+        self._slot = 0
+
+    def _replay(self, block: np.ndarray):
+        """Stage ``block`` through the next pinned buffer (once its last
+        copy has left it) into the static block, replay → (vis, rgba)."""
+        i = self._slot
+        self._slot = (i + 1) % PINNED_SLOTS
+        self._copied[i].synchronize()
+        self._pinned[i].numpy()[...] = block
+        self._block.copy_(self._pinned[i], non_blocking=True)
+        self._copied[i].record()
+        self._graph.replay()
+        add_launch_counts(self._replay_launches)
+        vis, rgba = self._out
+        return vis.clone(), rgba.clone()
 
     def _stage_one(self):
-        """Stage the next hop's new samples (plus, at stream start or after
-        an overrun skip-ahead, the window prefix that re-primes the device
-        window) → (device block, drop count, window prefix or None); None
+        """The next hop's new samples (plus, at stream start or after an
+        overrun skip-ahead, the window prefix that re-primes the device
+        window) → (host block, drop count, window prefix or None); None
         when the ring lacks hop ``_next_frame``'s window."""
         n_max, hop = self.pipe.n_max, self.pipe.hop
         while True:
@@ -152,7 +257,7 @@ class Stream:
                     w_init = w_init[0]
             # the drop count is snapshotted with the window (Column.index)
             self._next_frame += 1
-            return self._to_device(block), self.dropped_frames, w_init
+            return block, self.dropped_frames, w_init
 
     def _drain(self) -> list[Column]:
         out = []
@@ -160,11 +265,16 @@ class Stream:
             out.extend(self._dispatch(*staged))
         return out
 
-    def _dispatch(self, dev, dropped: int, w_init=None) -> list[Column]:
+    def _dispatch(self, block: np.ndarray, dropped: int,
+                  w_init=None) -> list[Column]:
         if w_init is not None:
-            self._carry = (self._to_device(w_init), self._carry[1])
-        self._carry, (vis, rgba, _) = self.pipe._stream_step_rolling(
-            self._carry, dev, self.params)
+            self._carry[0].copy_(torch.from_numpy(
+                np.ascontiguousarray(w_init, np.float32)))
+        if self._graph is None:
+            vis, rgba = self._step(torch.from_numpy(
+                np.ascontiguousarray(block, np.float32)).to(self.device))
+        else:
+            vis, rgba = self._replay(block)
         idx = self._t - self.pipe.reach + dropped
         self._t += 1
         if idx < 0:
@@ -176,25 +286,25 @@ class Stream:
     # ------------------------------------------------------- state save/load
     def state_dict(self) -> dict:
         """Streaming state as host numpy (post-chain carries, pending
-        ring, rolling window, hop counter) — the layout of
-        ``emspec.stream.Stream.state_pytree``."""
+        ring, rolling window, hop counter read back from the device) —
+        the layout of ``emspec.stream.Stream.state_pytree``."""
         window, (t, acc, post) = self._carry
         carry = (_host(window),
-                 (np.int32(t), _host(acc),
+                 (np.int32(t.item()), _host(acc),
                   PostState(smooth=_host(post.smooth),
                             agc_ref=_host(post.agc_ref))))
         return {"carry": carry, "t": self._t, "next_frame": self._next_frame}
 
     def load_state(self, state) -> None:
         """Resume from :meth:`state_dict` (or a converted JAX snapshot,
-        ``emspec_torch.convert.stream_state_from_jax``)."""
+        ``emspec_torch.convert.stream_state_from_jax``), copied into the
+        stream's own carry tensors."""
         window, (t, acc, post) = state["carry"]
-        dev = lambda a: torch.as_tensor(np.array(a, np.float32),
-                                        device=self.device)
-        self._carry = (dev(window),
-                       (int(t), dev(acc),
-                        PostState(smooth=dev(post.smooth),
-                                  agc_ref=dev(post.agc_ref))))
+        f32 = lambda a: torch.from_numpy(np.array(a, np.float32))
+        _copy_into(self._carry,
+                   (f32(window), (torch.tensor(np.int32(t)), f32(acc),
+                                  (f32(post.smooth), f32(post.agc_ref)))),
+                   "load_state")
         self._t = int(state["t"])
         self._next_frame = int(state["next_frame"])
         self._window_ready = self._t > 0

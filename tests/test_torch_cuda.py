@@ -16,7 +16,9 @@ the other probe variants against their own plain versions, 1e-5; B3 and
 B5 bit-equal; B4 2e-5·max|X| (the JAX package's four-step bound); B2's
 two routes, each forced, also exact zeros, and a path above a block's shared
 memory against the port's CPU path at PERF.md §2's tolerances, its
-stream ≡ its batch within 1e-5 in ``vis``."""
+stream ≡ its batch within 1e-5 in ``vis``; the live hop's CUDA graph
+replay against the eager step within 1.2e-7 in ``vis`` (float atomics
+reorder B2's sums), RGBA bit-equal wherever ``vis`` is."""
 
 import numpy as np
 import pytest
@@ -29,7 +31,8 @@ from emspec_torch.dsp.kernels.deposits import (
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, fft4_steps123, fft4_steps123_plain)
-from emspec_torch.dsp.kernels.lut import lut_lookup, lut_lookup_plain
+from emspec_torch.dsp.kernels.lut import (
+    lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, histogram, histogram_plain)
@@ -39,7 +42,7 @@ from emspec_torch.dsp.kernels.window import (
 from emspec_torch.pipeline import Pipeline
 from emspec_torch.probes.scatter_ablation import (
     VARIANTS, hist_variant, hist_variant_plain)
-from emspec_torch.stream import stream_signal
+from emspec_torch.stream import Stream, stream_signal
 from emspec_torch.validate import compare_grids, compare_vis
 
 
@@ -423,3 +426,148 @@ def test_cuda_pipeline_above_shared_memory_matches_cpu(cuda, kw, cells):
     assert ok, (worst, share)
     vis_s, _ = stream_signal(x, s, cuda, chunk=3000)
     assert float(np.abs(vis_s - vis_g.cpu().numpy()).max()) <= 1e-5
+
+
+# the six live settings of chip_smoke.py at a small depth (hops beyond R)
+LIVE_SETTINGS = {
+    "live": Settings(mode="enhanced", multires=False, fft_size=8192),
+    "natural_live": Settings(mode="natural", fft_impl="fourstep"),
+    "direct_live": Settings(mode="enhanced", multires=False, fft_size=8192,
+                            fft_method="direct", fft_impl="fourstep"),
+    "stress_live": Settings(mode="enhanced", multires=False, fft_size=32768,
+                            sample_rate=96000, channels=16),
+    "north_live": Settings(mode="enhanced", multires=False, fft_size=32768,
+                           hop=800),
+    "wide_live": Settings(mode="enhanced", multires=False, fft_size=8192,
+                          hop=64),
+}
+GRAPH_VIS_ATOL = 1.2e-7
+
+
+def _live_signal(s: Settings, hops: int, seed: int) -> np.ndarray:
+    """Audio for ``hops`` full frames, ``s.channels`` channels."""
+    x = _tone_noise(max(s.active_fft_sizes) + (hops - 1) * s.hop_samples,
+                    seed)
+    return x if s.channels == 1 else np.stack(
+        [np.roll(x, 37 * c) for c in range(s.channels)])
+
+
+def _eager_columns(st: Stream, x: np.ndarray, params=None, swap_at=None):
+    """The same hops as ``st`` staged them, through the eager step on a
+    carry of its own (``swap_at``: hop from which ``params`` apply) →
+    (vis, rgba) of every emitted hop, flush included."""
+    pipe = st.pipe
+    n, hop, R = pipe.n_max, pipe.hop, pipe.reach
+    lead = x.shape[:-1]
+    window, inner = pipe.init_roll_carry(lead)
+    window[..., hop:] = torch.from_numpy(np.ascontiguousarray(
+        x[..., :n - hop])).to(window.device)
+    p = pipe.params(st.settings)
+    frames = (x.shape[-1] - n) // hop + 1
+    blocks = [x[..., f * hop + n - hop:f * hop + n] for f in range(frames)]
+    blocks += [np.zeros(lead + (hop,), np.float32)] * R
+    carry, vis, rgba = (window, inner), [], []
+    for f, block in enumerate(blocks):
+        if f == frames:
+            carry[0].zero_()                      # the flush's window
+        if swap_at is not None and f == swap_at:
+            p = params
+        carry, (v, c, _) = pipe._stream_step_rolling(
+            carry, torch.from_numpy(np.ascontiguousarray(block)).to(
+                window.device), p)
+        if f >= R:
+            vis.append(v.clone())
+            rgba.append(c.clone())
+    return torch.stack(vis), torch.stack(rgba)
+
+
+def _assert_graph_matches_eager(cols, vis_e, rgba_e):
+    vis_g = torch.stack([c.vis for c in cols])
+    rgba_g = torch.stack([c.rgba for c in cols])
+    assert vis_g.shape == vis_e.shape and rgba_g.shape == rgba_e.shape
+    assert float((vis_g - vis_e).abs().max()) <= GRAPH_VIS_ATOL
+    same = (vis_g == vis_e)
+    assert torch.equal(rgba_g[same], rgba_e[same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIVE_SETTINGS))
+def test_cuda_graph_replay_matches_eager_step(cuda, name):
+    """Each live setting: the stream's one-graph-a-hop replay (a capture
+    at construction) emits what the eager step emits, hop for hop."""
+    s = LIVE_SETTINGS[name]
+    st = Stream(s, cuda)
+    assert st.captures == 1
+    x = _live_signal(s, st.reach + 5, seed=21)
+    cols = st.push(x) + st.flush()
+    assert [c.index for c in cols] == list(range(len(cols)))
+    _assert_graph_matches_eager(cols, *_eager_columns(st, x))
+    assert st.captures == 1
+
+
+@pytest.mark.cuda
+def test_cuda_params_setter_does_not_recapture(cuda):
+    """A slider move, a colormap change and a zoom copy into the captured
+    tensors: no second capture, and the hops after it are the eager
+    step's with the new params."""
+    s = LIVE_SETTINGS["natural_live"].replace(raster_height=256)
+    st = Stream(s, cuda)
+    x = _live_signal(s, 40, seed=22)
+    hop, n = st.pipe.hop, st.pipe.n_max
+    held = st.params.lut
+    cols = st.push(x[..., :n + 19 * hop])
+    new = st.pipe.params(s.replace(gain=5.0, colormap="viridis",
+                                   freq_scale=1.4, smoothing=0.2))
+    st.params = new
+    cols += st.push(x[..., n + 19 * hop:]) + st.flush()
+    assert st.captures == 1 and st.params.lut is held
+    assert torch.equal(held, new.lut)
+    _assert_graph_matches_eager(cols, *_eager_columns(
+        st, x, params=new, swap_at=20))
+
+
+@pytest.mark.cuda
+def test_cuda_columns_keep_values_and_counters_rise_on_replay(cuda):
+    """A column taken at hop t still holds hop t's values after later
+    replays, and every replay adds each kernel of the hop to its launch
+    counter (B2 by its route too)."""
+    s = LIVE_SETTINGS["wide_live"]
+    st = Stream(s, cuda)
+    n, hop, R = st.pipe.n_max, st.pipe.hop, st.reach
+    x = _live_signal(s, R + 30, seed=23)
+    first = st.push(x[..., :n + R * hop])
+    assert len(first) == 1
+    kept = (first[0].vis.clone(), first[0].rgba.clone())
+    before = (deposits_ids.launches, histogram.launches,
+              dict(histogram.route_launches), lut_values.launches)
+    later = st.push(x[..., n + R * hop:])
+    assert len(later) == 29
+    assert torch.equal(first[0].vis, kept[0])
+    assert torch.equal(first[0].rgba, kept[1])
+    assert not torch.equal(later[-1].vis, first[0].vis)
+    assert deposits_ids.launches == before[0] + 29
+    assert histogram.launches == before[1] + 29
+    assert histogram.route_launches["global"] == before[2]["global"] + 29
+    assert lut_values.launches == before[3] + 29
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_cuda_fused_lut_bit_equal_on_views(cuda, offset):
+    """Both forms of B3, on a view ``offset`` elements into its buffer, at
+    a column, a batch raster and sizes around the head and tail."""
+    rng = np.random.default_rng(24 + offset)
+    table = torch.from_numpy(rng.integers(0, 256, (256, 4)).astype(
+        np.uint8)).to(cuda)
+    probes = np.concatenate([(np.arange(256) + 0.5) / 255, np.arange(256)
+                             / 255, [np.nan, np.inf, -np.inf, -0.5, 1.5]])
+    for npix in (1, 2, 3, 4, 5, 7, 512, 372 * 512 + 3):
+        v = rng.uniform(-0.1, 1.1, npix + 3).astype(np.float32)
+        v[:min(npix, probes.size)] = probes[:min(npix, probes.size)]
+        vals = torch.from_numpy(v).to(cuda)[offset:offset + npix]
+        idx = torch.from_numpy(rng.integers(-3, 259, npix + 3).astype(
+            np.int32)).to(cuda)[offset:offset + npix]
+        assert torch.equal(lut_values(vals, table),
+                           lut_values_plain(vals, table))
+        assert torch.equal(lut_lookup(idx, table),
+                           lut_lookup_plain(idx.clamp(0, 255), table))
