@@ -42,7 +42,17 @@ them.  Phases, in order, one line each; the first failure ends the run:
    composed, at the batch shape (372 × 8192) and the stress shape
    (688 × 32768), with and without the streaming mask; the probe's B2
    variants at the probe's shape (688 × 16512 → 2560, half the ids −1)
-   and at the batch path's ids.
+   and at the batch path's ids; B1's windowed form (a bin window and a
+   band weight) at each bank of the display default (8192/2048/512 at
+   hop 128, 5,937 frames, and b = 1 bit-equal to frame 0) against its
+   plain version, beside the pruned-DFT product that could replace it
+   (``stft_triple_stencil_sliced``/``_blocks``, the spectra alone, and
+   the blocks product's whole route to ids), with the B2 at the
+   ``multires`` and ``multires_live`` ids; the batch scatters of the
+   display default — (a) one relative B2 and the fold (P = 65), (b) the
+   JAX package's mixed scatter, composed here, with each bank's
+   relative-or-absolute choice timed here, (c) one absolute-grid B2 —
+   and each bank's two options.
 3. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise; the result must
    match the port's CPU path.
@@ -81,10 +91,18 @@ them.  Phases, in order, one line each; the first failure ends the run:
    B1, B2 (on its global route) and B3 must launch; the batch matches
    the CPU path and the stream matches the batch; the live p50 must be
    below the hop's 1.33 ms of audio.
-16. breakdown: per-stage device times of the enhanced stencil batch
-   paths (batch, batch16, stress, wide; CUDA events), the device's busy
-   time per kernel and idle share of every batch cell and of a live hop
-   of each path (torch.profiler busy time over the unprofiled wall time).
+16. multires: the display default ``Settings()`` — enhanced multires
+   8192/2048/512, hop 128, 512 rows — batch on 16 s mono (5,937
+   columns); B1 in its windowed form, B2 and B3 must launch; matches the
+   CPU path.
+17. multires_live: the same through ``Stream`` in 1024-sample pushes
+   (5,937 hops of 128); must match its batch; p50/p99 per hop, and the
+   p50 must be below the hop's 2.67 ms of audio.
+18. breakdown: per-stage device times of the enhanced stencil batch
+   paths (batch, batch16, stress, wide, multires; CUDA events), the
+   device's busy time per kernel and idle share of every batch cell and
+   of a live hop of each path (torch.profiler busy time over the
+   unprofiled wall time).
 
 Every path is driven once with the launch counters set to 0 just before
 and read just after; those counts are the ``launches`` of the per-kernel
@@ -94,10 +112,11 @@ JSON line.  Then that line, and as the last line
 Tolerances (``emspec_torch.validate``): quantized power grids — total
 energy ≤ 1e-4 relative, 3×3 max-filters within 1e-3·peak on all but 1e-4
 of the cells (a float32 rounding flip moves a whole deposit one cell);
-B1 (every route) additionally ≥ 99.99% equal ids, every other valid
-deposit moved by one cell only, bins 0 and N/2 exact, and contrib within
-1e-5·peak wherever both are valid, and b = 1 bit-equal to frame 0 of the
-batch; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
+B1 (every route and form) additionally ≥ 99.99% equal ids, every other
+valid deposit moved by one cell only, bins 0 and N/2 exact (where its
+window holds them), and contrib within 1e-5·peak wherever both are
+valid, and b = 1 bit-equal to frame 0 of the batch; the three batch
+scatters of the display default against each other by the grid rule; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
 own plain versions; B3 (both forms) and B5 bit-equal; B4 (either route) within
@@ -120,10 +139,11 @@ import torch
 
 from emspec_torch import Settings, kernels_build
 from emspec_torch.dsp import fourstep
-from emspec_torch.dsp.frame import frame_signal
+from emspec_torch.dsp.frame import frame_signal, signal_blocks
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
-    deposits_ids_cluster, deposits_ids_large, deposits_ids_plain)
+    deposits_ids_cluster, deposits_ids_large, deposits_ids_plain,
+    quantize_deposits)
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import (
@@ -132,6 +152,9 @@ from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, histogram, histogram_plain, route_of)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
+from emspec_torch.dsp.stft import (
+    stft_triple_stencil_blocks, stft_triple_stencil_sliced)
+from emspec_torch.dsp.reassign import reassignment_corrections
 from emspec_torch.pipeline import Pipeline
 from emspec_torch.post.chain import PostState, postprocess_batch
 from emspec_torch.post.colormap import apply_lut
@@ -152,6 +175,7 @@ NORTH = Settings(mode="enhanced", multires=False, fft_size=32768, hop=800)
 EXT = Settings(mode="enhanced", multires=False, fft_size=262144,
                sample_rate=96000)
 WIDE = Settings(mode="enhanced", multires=False, fft_size=8192, hop=64)
+MULTIRES = Settings()           # the display default: enhanced multires
 CHANNELS = 16
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
@@ -179,7 +203,13 @@ KERNELS = (
      "emspec/dsp/pallas/fft4.py:616"),
     ("hist_variant", hist_variant, "emspec_torch/csrc/scatter_ablation.cu",
      "bench_probes/scatter_ablation.py:93"),
+    ("deposits_ids_window", deposits_ids, "emspec_torch/csrc/deposits.cu",
+     "emspec/dsp/pallas/fft4.py:404"),
 )
+# a kernel counted by another counter than its wrapper's ``launches``
+COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"]}
+MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
+                 "lut_values")
 CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
 LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
               "lut_values")
@@ -200,6 +230,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "ext262144": LARGE_PATH,
     "wide": ("deposits_ids", "histogram", "lut_values"),
     "wide_live": ("deposits_ids", "histogram", "lut_values"),
+    "multires": MULTIRES_PATH,
+    "multires_live": MULTIRES_PATH,
 }
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
@@ -275,17 +307,19 @@ def device_ms(fn, calls: int = 20) -> float:
          f"longer than the sleep in front of them")
 
 
-def times(fn, plain, library=None, iters: int = 20, warmup: int = 3) -> dict:
+def times(fn, plain, library=None, iters: int = 20, warmup: int = 3,
+          calls: int = 20) -> dict:
     """The kernel's, its plain version's and the library call's ms by CUDA
     events over back-to-back calls (each call's host dispatch included),
     and the device's own time per call of the kernel and of the library
-    call (``device_ms``, ``library_device_ms``)."""
+    call (``device_ms`` over ``calls`` calls, ``library_device_ms``)."""
     return dict(
         ms=cuda_ms(fn, iters, warmup), plain_ms=cuda_ms(plain, iters, warmup),
         library_ms=None if library is None else cuda_ms(library, iters,
                                                         warmup),
-        device_ms=device_ms(fn),
-        library_device_ms=None if library is None else device_ms(library))
+        device_ms=device_ms(fn, calls),
+        library_device_ms=None if library is None else device_ms(library,
+                                                                 calls))
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -305,10 +339,13 @@ def reset_counters() -> None:
     for _, wrapper, _, _ in KERNELS:
         wrapper.launches = 0
     histogram.route_launches.update(dict.fromkeys(ROUTES, 0))
+    deposits_ids.form_launches.update(dict.fromkeys(
+        deposits_ids.form_launches, 0))
 
 
 def counters() -> dict:
-    return {name: wrapper.launches for name, wrapper, _, _ in KERNELS}
+    return {name: COUNTS[name]() if name in COUNTS else wrapper.launches
+            for name, wrapper, _, _ in KERNELS}
 
 
 def drive(path: str, fn):
@@ -343,13 +380,14 @@ def phase_device():
 
 
 def check_b1(label: str, ik, ck, ip, cp, *, n: int, rows: int, R: int,
-             ) -> float:
-    """B1 (either route) against its plain version → the largest contrib
-    error.  Compared as histograms (DESIGN.md §9) and per deposit.
-    Invalid deposits carry contrib 0 (the kernel's id is −1, the plain
-    one's a clamped row).  A float32 rounding flip may move a valid
-    deposit one row or one column; its contrib = |X_h|²/N² must agree
-    regardless."""
+             k_lo: int = 0, band=None) -> float:
+    """B1 (either route; bins k_lo … of its window) against its plain
+    version → the largest contrib error.  Compared as histograms
+    (DESIGN.md §9) and per deposit.  Invalid deposits carry contrib 0
+    (the kernel's id is −1, the plain one's a clamped row); so do valid
+    ones where the band weight is 0.  A float32 rounding flip may move a
+    valid deposit one row or one column; its contrib = |X_h|²·band/N²
+    must agree regardless."""
     S = (2 * R + 1) * rows
     g = compare_grids(histogram_plain(ip, cp, S).reshape(-1, 2 * R + 1, rows),
                       histogram_plain(ik, ck, S).reshape(-1, 2 * R + 1, rows))
@@ -360,11 +398,13 @@ def check_b1(label: str, ik, ck, ip, cp, *, n: int, rows: int, R: int,
     moved = (ik - ip).abs()[both & (ik != ip)]
     one_cell = bool(torch.isin(moved, torch.tensor(
         [1, rows - 1, rows, rows + 1], device=ik.device)).all())
-    edges_exact = bool(agree[..., [0, n // 2]].all())   # Hermitian stencils
+    edges = [k - k_lo for k in (0, n // 2) if 0 <= k - k_lo < ik.shape[-1]]
+    edges_exact = bool(agree[..., edges].all())   # Hermitian stencils
     err = float((ck - cp)[both].abs().max())
     peak = float(cp.max())
+    invalid = ~vk if band is None else ~vk & (band != 0)
     check(g.ok and id_agree >= 0.9999 and one_cell and edges_exact
-          and bool((ik[~vk] == -1).all()) and err <= 1e-5 * peak,
+          and bool((ik[invalid] == -1).all()) and err <= 1e-5 * peak,
           f"{label} deposits vs plain: {g}, id agreement {id_agree}, moves "
           f"of one cell only {one_cell}, bins 0 and N/2 exact {edges_exact}, "
           f"contrib err {err} vs peak {peak}")
@@ -378,10 +418,10 @@ def check_b1_single(label: str, frames, ik, ck, scal, kw, **route) -> None:
     """b = 1 (a live hop: the first frame as an (N,) window) must give
     frame 0 of the batch bit for bit: a frame's arithmetic does not
     depend on the batch."""
-    n = kw["n"]
+    n, k = kw["n"], ik.shape[-1]
     i1, c1 = deposits_ids(frames.reshape(-1, n)[0], *scal, **kw, **route)
-    check(torch.equal(i1, ik.reshape(-1, n // 2 + 1)[0])
-          and torch.equal(c1, ck.reshape(-1, n // 2 + 1)[0]),
+    check(torch.equal(i1, ik.reshape(-1, k)[0])
+          and torch.equal(c1, ck.reshape(-1, k)[0]),
           f"{label} n={n}: b = 1 differs from frame 0 of the batch")
 
 
@@ -518,8 +558,9 @@ def relative_ids(dev, settings: Settings, x: np.ndarray):
     """The path's B1 ids and contrib on ``x`` and its relative cells."""
     pipe = Pipeline(settings.replace(
         channels=1 if x.ndim == 1 else x.shape[0]), dev)
-    frames = frame_signal(pipe.to_device(x), pipe.n_max, pipe.hop)
-    ids, contrib = pipe._deposit_ids_rel(frames, pipe.params())
+    xg = pipe.to_device(x)
+    ids, contrib = pipe._deposit_ids_rel(
+        pipe._bank_inputs(xg, pipe.num_columns(x.shape[-1])), pipe.params())
     return ids, contrib, (2 * pipe.reach + 1) * pipe.rows
 
 
@@ -544,6 +585,16 @@ def b2_cases(dev, ik, ck, S) -> list:
     wi, wc, ws = relative_ids(dev, WIDE, signal(2.0, seed=16))
     mid = wi.shape[0] // 2
     cases += [("wide", wi, wc, ws), ("wide_live", wi[mid], wc[mid], ws)]
+    # the display default: the batch sums every bank's deposits into the
+    # absolute (t, rows) grid in one row, a live hop one frame's into the
+    # relative space
+    pipe = Pipeline(MULTIRES, dev)
+    t = pipe.num_columns(int(SECONDS * SR))
+    mi, mc, ms = relative_ids(dev, MULTIRES, signal(SECONDS, seed=1))
+    mid = mi.shape[0] // 2
+    cases += [("multires", pipe._absolute_ids(mi, t, pipe.reach).reshape(-1),
+               mc.reshape(-1), t * pipe.rows),
+              ("multires_live", mi[mid], mc[mid], ms)]
     return cases
 
 
@@ -975,8 +1026,203 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
     return res
 
 
+def b1_window_bound(frames, width: int) -> dict:
+    """B1's roofline bound with a window of ``width`` bins: the frames'
+    distinct samples read, ids and contrib written for the window, the
+    t·h, twiddle and band tables; the whole frame's two real DFTs (the
+    window does not shrink the FFT), the t·h window and ~40 operations a
+    bin of the window."""
+    n = frames.shape[-1]
+    b = frames.numel() // n
+    return bound(frame_bytes(frames) + 8 * b * width + 8 * n + 4 * width + 12,
+                 b * (dft_ops(n) + n + 40 * width))
+
+
+def kernels_multires(dev) -> dict:
+    """B1's windowed form at each bank of the display default (16 s, 5,937
+    frames a bank) against its plain version (float64 plain deciding
+    where float32 plain's rounding flipped a deposit) and at b = 1, and
+    its window against the whole spectrum's slice bit for bit, beside the
+    pruned-DFT product that could take its place: the spectra alone
+    (``stft_triple_stencil_sliced`` on the frames, ``_blocks`` on the hop
+    blocks, the library column) and the blocks product's whole route to
+    ids (corrections and quantization in PyTorch)."""
+    pipe = Pipeline(MULTIRES, dev)
+    p = pipe.params()
+    x = torch.from_numpy(signal(SECONDS, seed=1)).to(dev)
+    t = pipe.num_columns(x.shape[-1])
+    inputs = pipe._bank_inputs(x, t)
+    scal = (p.logmap_a, p.logmap_b, p.power_floor)
+    rows, R = pipe.rows, pipe.reach
+    banks, lines = {}, []
+    for b, (frames, n) in enumerate(zip(inputs, pipe.sizes)):
+        k_lo, k_hi = pipe.k_slices[b]
+        band = p.band_bins[b]
+        kw = dict(n=n, hop=pipe.hop, sr=float(SR), rows=rows, reach=R,
+                  k_lo=k_lo, k_hi=k_hi, band=band)
+        ik, ck = deposits_ids(frames, *scal, **kw)
+        ip, cp = deposits_ids_plain(frames, *scal, **kw)
+        # where float32 plain's rounding flipped a deposit (the low bins'
+        # rows are 2.7 to a bin, so a last-ulp f̂ moves a row), float64
+        # plain decides, as in tests/test_torch_cuda.py
+        i64, c64 = deposits_ids_plain(frames.double(), *scal, **kw)
+        settled = (ik != ip) & (ik == i64) & ((ck > 0) == (c64 > 0))
+        print(f"B1 window n={n}: {int((ik != ip).sum())} ids differ from "
+              f"float32 plain, {int(settled.sum())} of them as float64 "
+              f"plain has them", flush=True)
+        ip = torch.where(settled, i64, ip)
+        cp = torch.where(settled, c64.float(), cp)
+        del i64, c64
+        err = check_b1(f"B1 window [{k_lo}, {k_hi}) n={n} b={t}", ik, ck,
+                       ip, cp, n=n, rows=rows, R=R, k_lo=k_lo, band=band)
+        check_b1_single("B1 window", frames, ik, ck, scal, kw)
+        whole = deposits_ids(frames, *scal, **dict(kw, k_lo=0, k_hi=None,
+                                                  band=None))
+        unweighted = deposits_ids(frames, *scal, **dict(kw, band=None))
+        check(torch.equal(unweighted[0], whole[0][..., k_lo:k_hi])
+              and torch.equal(unweighted[1], whole[1][..., k_lo:k_hi])
+              and torch.equal(ik, unweighted[0]),
+              f"B1 n={n}: the window is not the whole spectrum's slice")
+        x2 = signal_blocks_of(pipe, x, b, t)
+        one = frames[:1]
+
+        def pruned_route():       # the JAX package's TPU route to ids
+            row, delta, contrib = quantize_deposits(
+                *reassignment_corrections(*stft_triple_stencil_blocks(
+                    x2, t, n, k_lo, k_hi)), *scal, n=n, hop=pipe.hop,
+                sr=float(SR), rows=rows, band=band, k_lo=k_lo)
+            return (delta + R) * rows + row, contrib
+        gi, gc = pruned_route()
+        g = compare_grids(histogram_plain(ip, cp, (2 * R + 1) * rows).reshape(
+            -1, 2 * R + 1, rows), histogram_plain(gi, gc, (
+                2 * R + 1) * rows).reshape(-1, 2 * R + 1, rows))
+        check(g.ok, f"pruned-DFT route n={n} vs plain B1: {g}")
+        row = dict(
+            at=f"frames ({t}, {n}), bins [{k_lo}, {k_hi})", max_abs_err=err,
+            **times(lambda: deposits_ids(frames, *scal, **kw),
+                    lambda: deposits_ids_plain(frames, *scal, **kw),
+                    lambda: stft_triple_stencil_sliced(frames, k_lo, k_hi),
+                    iters=5, warmup=2, calls=5),
+            **b1_window_bound(frames, k_hi - k_lo),
+            library="pruned-DFT product, the spectra alone "
+                    "(stft_triple_stencil_sliced)",
+            blocks_device_ms=device_ms(lambda: stft_triple_stencil_blocks(
+                x2, t, n, k_lo, k_hi), calls=5),
+            blocks_ms=cuda_ms(lambda: stft_triple_stencil_blocks(
+                x2, t, n, k_lo, k_hi), 5, 2),
+            pruned_route_device_ms=device_ms(pruned_route, calls=5),
+            pruned_route_ms=cuda_ms(pruned_route, 5, 2),
+            device_ms_b1=device_ms(lambda: deposits_ids(one, *scal, **kw)),
+            library_device_ms_b1=device_ms(
+                lambda: stft_triple_stencil_sliced(one, k_lo, k_hi)),
+            bound_ms_b1=b1_window_bound(one, k_hi - k_lo)["bound_ms"])
+        banks[n] = row
+        lines.append(
+            f"n={n} bins [{k_lo}, {k_hi}) b={t}: B1 device "
+            f"{row['device_ms']:.4f} ms (events {row['ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"{row['bound_by']}); pruned DFT spectra alone device "
+            f"{row['library_device_ms']:.4f} (sliced; events "
+            f"{row['library_ms']:.4f}), {row['blocks_device_ms']:.4f} "
+            f"(blocks; events {row['blocks_ms']:.4f}), its route to ids "
+            f"{row['pruned_route_device_ms']:.4f} (events "
+            f"{row['pruned_route_ms']:.4f}); b = 1: B1 "
+            f"{row['device_ms_b1']:.4f}, sliced {row['library_device_ms_b1']:.4f}")
+    print("kernels B1 windowed (display default): " + "; ".join(lines),
+          flush=True)
+    return dict(banks[max(banks)], banks=banks)
+
+
+def signal_blocks_of(pipe: Pipeline, x, bank: int, t: int):
+    """Bank ``bank``'s hop blocks of ``x`` (``signal_blocks``), the
+    pruned-DFT product's input, over the samples of its frames."""
+    n, off = pipe.sizes[bank], pipe.offsets[bank]
+    return signal_blocks(x[..., off:off + (t - 1) * pipe.hop + n], n,
+                         pipe.hop)
+
+
+def multires_scatter(dev) -> dict:
+    """The batch scatters of the display default on 16 s, each with the
+    three B1 launches before it: (a) one relative B2 over 65 × 512 cells
+    and the fold, (b) the JAX package's mixed scatter (``_scatter_mixed``,
+    composed here from the pipeline's parts): each bank with its own
+    reach R_b, summed per frame and folded where that measured faster
+    here, the other banks into one absolute-grid B2, (c) one
+    absolute-grid B2 over 5,937 × 512; each bank's two options, B1 aside
+    (its cost is the same in both); and the one ``scatter="auto"`` runs,
+    which must be the fastest in turns (within 5%: (b) with no relative
+    bank runs (c)'s operations).  All held to (a) by the grid rule."""
+    pipe = Pipeline(MULTIRES, dev)
+    p = pipe.params()
+    x = torch.from_numpy(signal(SECONDS, seed=1)).to(dev)
+    t = pipe.num_columns(x.shape[-1])
+    inputs = pipe._bank_inputs(x, t)
+    R = pipe.reach
+    reaches = [int(np.round(n / (2.0 * pipe.hop))) for n in pipe.sizes]
+    per_bank = {}
+    own = pipe._bank_ids(inputs, p, reaches)
+    shared = pipe._bank_ids(inputs, p, [R] * len(pipe.sizes))
+    for (oi, oc), (si, sc), n, R_b in zip(own, shared, pipe.sizes, reaches):
+        per_bank[n] = dict(
+            cells=(2 * R_b + 1) * pipe.rows,
+            relative=device_ms(lambda: pipe._scatter_relative(
+                oi, oc, t, R_b), calls=5),
+            absolute=device_ms(lambda: pipe._scatter_absolute(
+                pipe._absolute_ids(si, t, R), sc, t), calls=5))
+    best = [v["relative"] < v["absolute"] for v in per_bank.values()]
+    tpu_shaped = [(2 * R_b + 1) * pipe.rows <= 16384 for R_b in reaches]
+
+    def mixed(relative):
+        banks = [R_b if rel else R for R_b, rel in zip(reaches, relative)]
+        banked = pipe._bank_ids(inputs, p, banks)
+        parts = [pipe._scatter_relative(ids, c, t, R_b)
+                 for (ids, c), R_b, rel in zip(banked, banks, relative)
+                 if rel]
+        absolute = [part for part, rel in zip(banked, relative) if not rel]
+        if absolute:
+            ids, c = (torch.cat(a, dim=-1) for a in zip(*absolute))
+            parts.append(pipe._scatter_absolute(
+                pipe._absolute_ids(ids, t, R), c, t))
+        return sum(parts[1:], parts[0])
+
+    def absolute():
+        ids, c = pipe._deposit_ids_rel(inputs, p)
+        return pipe._scatter_absolute(pipe._absolute_ids(ids, t, R), c, t)
+    options = {
+        "a": lambda: pipe._scatter_relative(
+            *pipe._deposit_ids_rel(inputs, p), t),
+        "b": lambda: mixed(best),
+        "b_tpu_choice": lambda: mixed(tpu_shaped),
+        "c": absolute,
+    }
+    want = options["a"]()
+    for name, fn in options.items():
+        g = compare_grids(want, fn())
+        check(g.ok, f"multires scatter {name} vs (a): {g}")
+    turns = {}
+    for name in ("a", "b", "c", "c", "b", "a"):
+        turns.setdefault(name, []).append(device_ms(options[name], calls=5))
+    median = {k: float(np.median(v)) for k, v in turns.items()}
+    auto = "a" if pipe.use_relative_batch else "c"
+    out = dict(per_bank=per_bank, best_relative=best,
+               tpu_relative=tpu_shaped, in_turns_device_ms=turns,
+               b_tpu_choice_device_ms=device_ms(options["b_tpu_choice"],
+                                                calls=5),
+               auto_takes=auto)
+    print(f"multires batch scatter, B1 included (device ms, 16 s, in turns "
+          f"a b c c b a): {turns}; per bank, scatter alone {per_bank}; (b) "
+          f"relative banks {best} (TPU choice {tpu_shaped}: "
+          f"{out['b_tpu_choice_device_ms']:.4f}); scatter=\"auto\" runs "
+          f"({auto})", flush=True)
+    check(median[auto] <= 1.05 * min(median.values()),
+          f"scatter=\"auto\" runs ({auto}), medians in turns {median}")
+    return out
+
+
 def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res = kernels_b123(dev, pipe, p)
+    res["histogram"]["multires_scatter"] = multires_scatter(dev)
+    res["deposits_ids_window"] = kernels_multires(dev)
     res.update(kernels_b4(dev, np.random.default_rng(7)))
     res.update(kernels_b5(dev))
     res.update(kernels_large(dev))
@@ -1153,9 +1399,16 @@ def phase_breakdown(dev, batches: dict, lives: dict) -> None:
         stages = ""
         if s.mode == "enhanced" and s.fft_method == "stencil":
             t = pipe.num_columns(x.shape[-1])
-            fr = frame_signal(xg, pipe.n_max, pipe.hop)
-            ids, c = pipe._deposit_ids_rel(fr, p)
-            cols = pipe._scatter_relative(ids, c, t).movedim(-2, 0).contiguous()
+            inputs = pipe._bank_inputs(xg, t)
+            ids, c = pipe._deposit_ids_rel(inputs, p)
+            if pipe.use_relative_batch:
+                def scatter():
+                    return pipe._scatter_relative(ids, c, t)
+            else:
+                def scatter():
+                    return pipe._scatter_absolute(
+                        pipe._absolute_ids(ids, t, pipe.reach), c, t)
+            cols = scatter().movedim(-2, 0).contiguous()
             st = PostState.init(xg.shape[:-1] + (pipe.rows,), dev)
 
             def post():
@@ -1163,9 +1416,10 @@ def phase_breakdown(dev, batches: dict, lives: dict) -> None:
             vis, _ = post()
             stages = "stages (CUDA events) " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in {
-                    "B1": cuda_ms(lambda: pipe._deposit_ids_rel(fr, p), 5, 2),
-                    "B2+fold": cuda_ms(
-                        lambda: pipe._scatter_relative(ids, c, t), 5, 2),
+                    "B1": cuda_ms(lambda: pipe._deposit_ids_rel(inputs, p),
+                                  5, 2),
+                    "B2+fold" if pipe.use_relative_batch
+                    else "B2 (absolute grid)": cuda_ms(scatter, 5, 2),
                     "post chain": cuda_ms(post, 5, 2),
                     "colormap": cuda_ms(lambda: apply_lut(vis, p.lut), 5, 2),
                 }.items()) + "; "
@@ -1233,14 +1487,18 @@ def main() -> None:
         check(ROUTE_LAUNCHES[path]["global"] > 0,
               f"{path}: B2 did not take its route above shared memory "
               f"({ROUTE_LAUNCHES[path]})")
+    vis_m, ms_m = batch_phase("multires", dev, MULTIRES, x, iters=3)
+    live_phase("multires_live", dev, MULTIRES, x, vis_m, keep_up=True)
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),
               "stress": (STRESS, xs, ms_s), "north": (NORTH, x, ms_no),
-              "ext262144": (EXT, xe, ms_e), "wide": (WIDE, xw, ms_w)},
+              "ext262144": (EXT, xe, ms_e), "wide": (WIDE, xw, ms_w),
+              "multires": (MULTIRES, x, ms_m)},
         {"live": (SETTINGS, x), "natural_live": (NATURAL, x),
          "direct_live": (DIRECT, x), "stress_live": (STRESS, xs_live),
-         "north_live": (NORTH, x), "wide_live": (WIDE, xw)})
+         "north_live": (NORTH, x), "wide_live": (WIDE, xw),
+         "multires_live": (MULTIRES, x)})
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -8,17 +8,21 @@ nothing of the JAX package: the host-only code it needs is copied
 table functions in ``tables``), each copy pinned to its original by the
 tests.
 
-Ported so far: enhanced mode with one bank (stencil and direct methods,
-every frame size 512–262144), and natural mode with one bank or the
-multires banks, each in batch (``Pipeline.process``) and live
-(``Stream``), with the ``xla`` (``torch.fft``) and ``fourstep`` FFT
-engines, through hand-written CUDA kernels (``emspec_torch/csrc``), one
-for each Pallas kernel of the JAX package.  ROADMAP.md lists the rest.  Entry
-points run on the card unless the caller passes ``device="cpu"``.
+Ported so far: enhanced and natural mode, each on one bank or on the
+multires banks — the display default ``Settings()`` is enhanced multires
+8192/2048/512 at hop 128 — in batch (``Pipeline.process``), live
+(``Stream``) and as images (``render``, ``pipeline.render_image_multires``
+and ``render_images_channels``); the stencil and direct methods, every
+frame size 512–262144 on one bank, the ``xla`` (``torch.fft``) and
+``fourstep`` FFT engines; through hand-written CUDA kernels
+(``emspec_torch/csrc``), one for each Pallas kernel of the JAX package.
+ROADMAP.md lists the rest.  Entry points run on the card unless the
+caller passes ``device="cpu"``.
 
 >>> from emspec_torch import Settings, get_pipeline, Stream
->>> pipe = get_pipeline(Settings(multires=False, fft_size=8192))
+>>> pipe = get_pipeline(Settings())
 >>> vis, rgba, state = pipe.process(samples)
+>>> image = render(samples)                  # (rows, t, 4) uint8
 """
 
 from emspec_torch.config import Settings  # noqa: F401
@@ -37,3 +41,17 @@ def __getattr__(name):
         from emspec_torch import stream
         return getattr(stream, name)
     raise AttributeError(f"module 'emspec_torch' has no attribute {name!r}")
+
+
+def render(samples, settings: Settings | None = None, device="cuda"):
+    """Offline convenience: audio (samples,) → RGBA image (rows, t, 4) on
+    ``device`` (``emspec.render``).  Multires settings take the
+    log-frequency display pipeline; the single-bank linear-frequency
+    raster (``emspec.render.raster``) is not ported yet (ROADMAP.md)."""
+    s = settings or Settings()
+    if not s.multires:
+        raise NotImplementedError(
+            "the single-bank raster (emspec.render.raster) is not ported "
+            "to emspec_torch yet (ROADMAP.md); use multires settings")
+    from emspec_torch.pipeline import render_image_multires
+    return render_image_multires(samples, s, device)

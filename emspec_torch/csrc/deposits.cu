@@ -19,6 +19,12 @@
 //     (the TPU kernel's (k1,k2)-major order was a layout artifact; the
 //     histogram does not depend on order).  Invalid deposits carry id −1
 //     and contrib 0, so nothing downstream reads them.
+//   * optionally a bin window [k_lo, k_hi) and a per-bin band weight: a
+//     band-sliced multires bank (emspec/pipeline.py:335-424
+//     _deposits_banked, whose JAX chain runs a full rfft, slices and
+//     weights; here only the window's bins are computed and written,
+//     (frames, k_hi − k_lo), contrib = (|X_h|²·band)/N²).  The window's
+//     edge bins read their true neighbours k_lo − 1 and k_hi.
 // The unpack and the per-bin epilogue are deposits_common.cuh, shared with
 // the large-frame route; the FFT is kernel B4's (radix_common.cuh).
 //
@@ -106,11 +112,13 @@ struct Args {
   const float2* tw4;             // B4's step-2 TW, (n1, n2)
   const float2* tw;              // unpack: e^{−2πij/N}, j < N/2
   const float *logmap_a, *logmap_b, *power_floor;
-  int* ids;                      // B1: (frames, m + 1)
+  int* ids;                      // B1: (frames, k_hi − k_lo)
   float* out;                    // B1: contrib; B6: (frames, num_bins)
   int n, log2n1, log2n2, hop;
   float c_dh, bin_scale, hz_per_bin, inv_n2;
   int rows, reach, min_id, num_bins;
+  int k_lo, k_hi;                // the bins written: [k_lo, k_hi)
+  const float* band;             // (k_hi − k_lo) band weights, or null (1)
 };
 
 // A packed spectrum Z after steps 1–3, in shared memory: Z[k], k < m, at
@@ -227,8 +235,9 @@ __device__ __forceinline__ void tile_fft(float2* tiles, const float2* w,
               Step2{nullptr, 0, 0});
 }
 
-// Bins k0 <= k < k1 of frame f from the packed raw spectrum Zx and the
-// packed t·h spectrum Zy: B1 writes ids and contrib, B6 adds into `hist`.
+// Bins k0 <= k < k1 of frame f (inside the launch's window [k_lo, k_hi))
+// from the packed raw spectrum Zx and the packed t·h spectrum Zy: B1
+// writes ids and contrib at column k − k_lo, B6 adds into `hist`.
 // A warp takes 30 consecutive bins at a time: lane l unpacks X at
 // k = base − 1 + l and Y at k (each clamped to what the bins need: X on
 // k0 − 1 … k1, Y on k0 … k1 − 1, within 0…m) and lanes 1…30 take
@@ -248,7 +257,7 @@ __device__ __forceinline__ void deposits_of(const Spectrum& Zx,
   const emspec::EpilogueConsts c{*a.logmap_a, *a.logmap_b, *a.power_floor,
                                  a.c_dh, a.bin_scale, a.hz_per_bin, a.inv_n2,
                                  a.n, a.hop, a.rows, a.reach};
-  const long long out0 = f * (long long)(m + 1);
+  const long long out0 = f * (long long)(a.k_hi - a.k_lo) - a.k_lo;
   for (int b0 = k0 + (threadIdx.x >> 5) * kBinsPerWarp - 1; b0 + 1 < k1;
        b0 += kBatch * stride) {
     float2 X[kBatch], Y[kBatch];
@@ -268,7 +277,8 @@ __device__ __forceinline__ void deposits_of(const Spectrum& Zx,
       const float2 Ap1 = k == m ? make_float2(xm.x, -xm.y) : xp;
       int id;
       float contrib;
-      emspec::deposit_at(k, X[j], Am1, Ap1, Y[j], c, &id, &contrib);
+      const float band = a.band == nullptr ? 1.0f : __ldg(a.band + k - a.k_lo);
+      emspec::deposit_at(k, X[j], Am1, Ap1, Y[j], band, c, &id, &contrib);
       if (kHist) {
         if (emspec::lands(id, a.min_id, a.num_bins))
           atomicAdd(&hist[id], contrib);
@@ -300,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, P == 16 ? 2 : 1) block_kernel(
   tile_fft<P>(tiles, w, a, 1);
   const int stride = (1 << a.log2n2) + 1;
   deposits_of<kHist>(Spectrum{tiles, stride, 0}, Spectrum{tiles + fs, stride, 0},
-                     0, m + 1, a, f, hist);
+                     a.k_lo, a.k_hi, a, f, hist);
   if (kHist) {
     __syncthreads();
     float* row = a.out + f * (long long)a.num_bins;
@@ -341,7 +351,8 @@ __device__ __forceinline__ void copy_columns(float2* stage,
 // the raw one (q = n2/4; the ends hold X[m/4 − 1] and X[3m/4 + 1], the
 // neighbours of its edge bins).  Each copies them into its own shared
 // memory, the cluster syncs once more (after which neither tile is read
-// remotely), and the epilogue reads only local shared memory.
+// remotely), and the epilogue reads only local shared memory.  A bin
+// window cuts each rank's ranges (the staged columns cover them still).
 __global__ void __launch_bounds__((1 << kClusterLog2M) / kClusterP, 1)
     cluster_kernel(const Args a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -363,11 +374,14 @@ __global__ void __launch_bounds__((1 << kClusterLog2M) / kClusterP, 1)
                rank == 0 ? 2 * q : 2 * q + 2, a);
   cluster.sync();                            // both copies done
   const Spectrum own{tile, n2 + 1, 0}, staged{stage, kStageStride, c0};
+  const int lo = a.k_lo, hi = a.k_hi;
   if (rank == 0) {
-    deposits_of<false>(own, staged, 0, m / 4, a, f, nullptr);
-    deposits_of<false>(own, staged, 3 * m / 4 + 1, m + 1, a, f, nullptr);
+    deposits_of<false>(own, staged, lo, min(hi, m / 4), a, f, nullptr);
+    deposits_of<false>(own, staged, max(lo, 3 * m / 4 + 1), hi, a, f,
+                       nullptr);
   } else {
-    deposits_of<false>(staged, own, m / 4, 3 * m / 4 + 1, a, f, nullptr);
+    deposits_of<false>(staged, own, max(lo, m / 4), min(hi, 3 * m / 4 + 1),
+                       a, f, nullptr);
   }
 }
 
@@ -386,10 +400,11 @@ bool make_args(Args* a, const float* x, long long frames_per_lead,
                const float* logmap_a, const float* logmap_b,
                const float* power_floor, int* ids, float* out, int n, int n1,
                int n2, int hop, float c_dh, float bin_scale, float hz_per_bin,
-               float inv_n2, int rows, int reach, int min_id, int num_bins) {
+               float inv_n2, int rows, int reach, int min_id, int num_bins,
+               int k_lo, int k_hi, const float* band) {
   const int l1 = log2_of(n1), l2 = log2_of(n2);
   if (l1 < 4 || l2 < 4 || l1 > kLog2Table || l2 > kLog2Table
-      || n1 * n2 * 2 != n)
+      || n1 * n2 * 2 != n || k_lo < 0 || k_lo >= k_hi || k_hi > n / 2 + 1)
     return false;
   *a = Args{x, frames_per_lead, lead_stride, frame_stride,
             (reinterpret_cast<std::uintptr_t>(x) % 16 == 0
@@ -397,7 +412,8 @@ bool make_args(Args* a, const float* x, long long frames_per_lead,
             th, static_cast<const float2*>(w512),
             static_cast<const float2*>(tw4), static_cast<const float2*>(tw),
             logmap_a, logmap_b, power_floor, ids, out, n, l1, l2, hop, c_dh,
-            bin_scale, hz_per_bin, inv_n2, rows, reach, min_id, num_bins};
+            bin_scale, hz_per_bin, inv_n2, rows, reach, min_id, num_bins,
+            k_lo, k_hi, band};
   return true;
 }
 
@@ -445,9 +461,10 @@ cudaLaunchConfig_t cluster_config(long long frames, cudaStream_t st,
 
 }  // namespace
 
-// B1, block route (N <= 16384): ids, contrib (frames, N/2+1), natural
-// order.  n1·n2 = N/2 (fourstep._FACTORS); w512, tw4: B4's tables for
-// (n1, n2); tw: e^{−2πij/N}, j < N/2.
+// B1, block route (N <= 16384): ids, contrib (frames, k_hi − k_lo), bins
+// k_lo … k_hi − 1 in natural order (0, N/2 + 1: the whole spectrum).
+// n1·n2 = N/2 (fourstep._FACTORS); w512, tw4: B4's tables for (n1, n2);
+// tw: e^{−2πij/N}, j < N/2; band: k_hi − k_lo weights, or null.
 extern "C" int emspec_deposits(
     const float* x, long long num_lead, long long frames_per_lead,
     long long lead_stride, long long frame_stride, const float* th,
@@ -455,12 +472,12 @@ extern "C" int emspec_deposits(
     const float* logmap_a, const float* logmap_b, const float* power_floor,
     int* ids, float* contrib, int n, int n1, int n2, int hop, float c_dh,
     float bin_scale, float hz_per_bin, float inv_n2, int rows, int reach,
-    void* stream) {
+    int k_lo, int k_hi, const float* band, void* stream) {
   Args a;
   if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
                  tw4, tw, logmap_a, logmap_b, power_floor, ids, contrib, n,
                  n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
-                 reach, 0, 0))
+                 reach, 0, 0, k_lo, k_hi, band))
     return (int)cudaErrorInvalidValue;
   return launch_block<false>(a, num_lead * frames_per_lead,
                              (cudaStream_t)stream);
@@ -474,12 +491,12 @@ extern "C" int emspec_deposits_cluster(
     const float* logmap_a, const float* logmap_b, const float* power_floor,
     int* ids, float* contrib, int n, int n1, int n2, int hop, float c_dh,
     float bin_scale, float hz_per_bin, float inv_n2, int rows, int reach,
-    void* stream) {
+    int k_lo, int k_hi, const float* band, void* stream) {
   Args a;
   if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
                  tw4, tw, logmap_a, logmap_b, power_floor, ids, contrib, n,
                  n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
-                 reach, 0, 0)
+                 reach, 0, 0, k_lo, k_hi, band)
       || a.log2n1 + a.log2n2 != kClusterLog2M)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = allow_smem(cluster_kernel, kClusterSmem);
@@ -517,7 +534,7 @@ extern "C" int emspec_deposits_hist(
   if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
                  tw4, tw, logmap_a, logmap_b, power_floor, nullptr, hist, n,
                  n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
-                 reach, min_id, num_bins))
+                 reach, min_id, num_bins, 0, n / 2 + 1, nullptr))
     return (int)cudaErrorInvalidValue;
   return launch_block<true>(a, num_lead * frames_per_lead,
                             (cudaStream_t)stream);

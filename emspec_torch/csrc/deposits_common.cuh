@@ -44,11 +44,13 @@ struct EpilogueConsts {
 
 // Bin k of one frame: raw spectrum A[k] and its neighbours A[k∓1] (the
 // Hermitian conjugates at k = 0 and N/2, chosen by the caller), t·h
-// spectrum B[k] → (id, contrib).  Periodic-Hann stencils, Δt, Δω, f̂,
-// round-half-even quantization (rintf) with Δt/hop a true division, the
-// validity mask; an invalid deposit carries id −1 and contrib 0.
+// spectrum B[k], the bank's band weight at k (1 for one bank) → (id,
+// contrib).  Periodic-Hann stencils, Δt, Δω, f̂, round-half-even
+// quantization (rintf) with Δt/hop a true division, the validity mask,
+// contrib = (|X_h|²·band)·(1/N²) in that order (band = 1 is exact); an
+// invalid deposit carries id −1 and contrib 0.
 __device__ __forceinline__ void deposit_at(int k, float2 A, float2 Am1,
-                                           float2 Ap1, float2 B,
+                                           float2 Ap1, float2 B, float band,
                                            const EpilogueConsts& c, int* id,
                                            float* contrib) {
   const float xhr = 0.5f * A.x - 0.25f * (Am1.x + Ap1.x);
@@ -65,7 +67,7 @@ __device__ __forceinline__ void deposit_at(int k, float2 A, float2 Am1,
   const bool valid = power > c.floor_p && rq >= 0.0f && rq < (float)c.rows
                      && f_hat > 0.0f && fabsf(dt) <= 0.5f * (float)c.n;
   *id = valid ? ((int)dq + c.reach) * c.rows + (int)rq : -1;
-  *contrib = valid ? power * c.inv_n2 : 0.0f;
+  *contrib = valid ? (power * band) * c.inv_n2 : 0.0f;
 }
 
 // B6's mask and range test: a deposit lands in the relative histogram of

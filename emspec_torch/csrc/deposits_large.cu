@@ -7,7 +7,8 @@
 // Replaces emspec/dsp/pallas/fft4.py::fft4_deposits (_deposits_kernel,
 // _frame_quantized with its half-spectrum route, _iota_grids) above 16384
 // points.  It computes exactly what deposits.cu computes at N <= 32768,
-// in natural bin order, id −1 and contrib 0 for every invalid deposit.
+// in natural bin order, id −1 and contrib 0 for every invalid deposit,
+// for the bins of a window [k_lo, k_hi) with an optional band weight.
 //
 // Why a second route: deposits.cu keeps a frame's two half-size complex
 // spectra in shared memory, 8·N bytes and more — one block's 227 KB holds
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) finish_kernel(
     int* __restrict__ ids, float* __restrict__ out, int chunks, int per_block,
     int n, int n1, int n2, int hop, float c_dh, float bin_scale,
     float hz_per_bin, float inv_n2, int rows, int reach, int min_id,
-    int num_bins) {
+    int num_bins, int k_lo, int k_hi, const float* __restrict__ band) {
   extern __shared__ float hist[];                 // B6 only
   const int m = n >> 1;
   const long long f = blockIdx.x / chunks;
@@ -118,6 +119,7 @@ __global__ void __launch_bounds__(kThreads) finish_kernel(
   }
   for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
     const int k = q == m ? m : q / n2 + n1 * (q % n2);
+    if (k < k_lo || k >= k_hi) continue;
     const float2 A = spectrum_at(raw_r, raw_i, tw, k, m, n1, n2);
     float2 Am1, Ap1;
     if (k == 0) {
@@ -135,12 +137,15 @@ __global__ void __launch_bounds__(kThreads) finish_kernel(
     const float2 B = spectrum_at(th_r, th_i, tw, k, m, n1, n2);
     int id;
     float contrib;
-    emspec::deposit_at(k, A, Am1, Ap1, B, c, &id, &contrib);
+    emspec::deposit_at(k, A, Am1, Ap1, B,
+                       band == nullptr ? 1.0f : band[k - k_lo], c, &id,
+                       &contrib);
     if (kHist) {
       if (emspec::lands(id, min_id, num_bins)) atomicAdd(&hist[id], contrib);
     } else {
-      ids[f * (m + 1) + k] = id;
-      out[f * (m + 1) + k] = contrib;
+      const long long at = f * (long long)(k_hi - k_lo) + k - k_lo;
+      ids[at] = id;
+      out[at] = contrib;
     }
   }
   if (kHist) {
@@ -158,7 +163,7 @@ int launch_finish(const float* xr, const float* xi, const void* tw,
                   long long frames, int n, int n1, int n2, int hop,
                   float c_dh, float bin_scale, float hz_per_bin,
                   float inv_n2, int rows, int reach, int min_id, int num_bins,
-                  cudaStream_t st) {
+                  int k_lo, int k_hi, const float* band, cudaStream_t st) {
   const int m = n >> 1;
   const int per_block = kHist ? kHistBinsPerBlock : kThreads;
   const int chunks = (m + 1 + per_block - 1) / per_block;
@@ -170,7 +175,8 @@ int launch_finish(const float* xr, const float* xi, const void* tw,
   finish_kernel<kHist><<<(unsigned)(frames * chunks), kThreads, smem, st>>>(
       xr, xi, static_cast<const float2*>(tw), logmap_a, logmap_b,
       power_floor, ids, out, chunks, per_block, n, n1, n2, hop, c_dh,
-      bin_scale, hz_per_bin, inv_n2, rows, reach, min_id, num_bins);
+      bin_scale, hz_per_bin, inv_n2, rows, reach, min_id, num_bins, k_lo,
+      k_hi, band);
   return (int)cudaGetLastError();
 }
 
@@ -192,25 +198,30 @@ extern "C" int emspec_deposits_pack(
 }
 
 // Stage 3.  xr, xi: B4's output for the packed planes, (2·frames, n1, n2)
-// with n1·n2 = N/2.  hist = 0: ids, contrib (frames, N/2+1), natural
-// order.  hist = 1 (B6): out (frames, num_bins), zeroed by the caller;
-// ids unused.
+// with n1·n2 = N/2.  hist = 0: ids, contrib (frames, k_hi − k_lo), bins
+// k_lo … k_hi − 1 in natural order, band: k_hi − k_lo weights or null.
+// hist = 1 (B6): out (frames, num_bins), zeroed by the caller; ids unused,
+// the window the whole spectrum.
 extern "C" int emspec_deposits_finish(
     const float* xr, const float* xi, const void* tw, const float* logmap_a,
     const float* logmap_b, const float* power_floor, int* ids, float* out,
     long long frames, int n, int n1, int n2, int hop, float c_dh,
     float bin_scale, float hz_per_bin, float inv_n2, int rows, int reach,
-    int min_id, int num_bins, int hist, void* stream) {
-  if (n1 * n2 != n / 2) return (int)cudaErrorInvalidValue;
+    int min_id, int num_bins, int hist, int k_lo, int k_hi,
+    const float* band, void* stream) {
+  if (n1 * n2 != n / 2 || k_lo < 0 || k_lo >= k_hi || k_hi > n / 2 + 1
+      || (hist && (k_lo != 0 || k_hi != n / 2 + 1 || band != nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (frames == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   return hist ? launch_finish<true>(xr, xi, tw, logmap_a, logmap_b,
                                     power_floor, ids, out, frames, n, n1, n2,
                                     hop, c_dh, bin_scale, hz_per_bin, inv_n2,
-                                    rows, reach, min_id, num_bins, st)
+                                    rows, reach, min_id, num_bins, k_lo, k_hi,
+                                    band, st)
               : launch_finish<false>(xr, xi, tw, logmap_a, logmap_b,
                                      power_floor, ids, out, frames, n, n1,
                                      n2, hop, c_dh, bin_scale, hz_per_bin,
                                      inv_n2, rows, reach, min_id, num_bins,
-                                     st);
+                                     k_lo, k_hi, band, st);
 }

@@ -19,6 +19,24 @@ def num_frames(num_samples: int, n: int, hop: int) -> int:
     return (num_samples - n) // hop + 1
 
 
+def signal_blocks(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """(..., samples) → (..., rows, hop) hop-aligned blocks, frame ``t``
+    being rows ``t..t+m-1`` concatenated (m = ⌈n/hop⌉), zero-padded at
+    the end where ``hop`` does not divide ``n``.  The pruned-DFT block
+    product (``dsp.stft.stft_triple_stencil_blocks``) folds the framing
+    into its sum over these rows."""
+    t = num_frames(x.shape[-1], n, hop)
+    m = -(-n // hop)
+    rows = max(t + m - 1, 0)
+    need = rows * hop
+    pad = need - x.shape[-1]
+    if pad > 0:
+        x = torch.nn.functional.pad(x, (0, pad))
+    elif pad < 0:
+        x = x[..., :need]
+    return x.reshape(x.shape[:-1] + (rows, hop))
+
+
 def frame_signal(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
     """(..., samples) → (..., frames, n) overlapping frames (a view)."""
     t = num_frames(x.shape[-1], n, hop)

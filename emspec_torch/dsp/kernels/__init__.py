@@ -26,24 +26,27 @@ def counted(fn):
 
 
 def launch_counts() -> dict:
-    """Every counted wrapper's launches, and each route's where the
-    wrapper counts routes (``route_launches``), keyed (wrapper, route or
-    None)."""
+    """Every counted wrapper's launches, and each entry of the counter
+    dicts a wrapper keeps beside them (``histogram.route_launches`` by
+    route, ``deposits_ids.form_launches`` by form), keyed (wrapper, dict
+    name or None, key or None)."""
     out = {}
     for fn in _COUNTED:
-        out[fn, None] = fn.launches
-        for route, n in getattr(fn, "route_launches", {}).items():
-            out[fn, route] = n
+        out[fn, None, None] = fn.launches
+        for name, counts in vars(fn).items():
+            if name.endswith("_launches") and isinstance(counts, dict):
+                for key, n in counts.items():
+                    out[fn, name, key] = n
     return out
 
 
 def add_launch_counts(delta: dict, times: int = 1) -> None:
     """Add ``times``·``delta`` (a difference of two ``launch_counts``)."""
-    for (fn, route), n in delta.items():
-        if route is None:
+    for (fn, name, key), n in delta.items():
+        if name is None:
             fn.launches += times * n
         else:
-            fn.route_launches[route] += times * n
+            getattr(fn, name)[key] += times * n
 
 
 def launch_stream(t: torch.Tensor):

@@ -8,7 +8,9 @@ B1 has three routes on the card, chosen by the frame size alone
 
 * "block", N ≤ 16384 (``SMALL_MAX_N``): ``csrc/deposits.cu``, one block a
   frame holding both signals' spectra in shared memory (kernel B4's
-  radix FFT body) — ``deposits_ids.launches``;
+  radix FFT body) — ``deposits_ids.launches``, and by form in
+  ``deposits_ids.form_launches``: "whole" (every bin, no band) or
+  "window" (a bin window or a band weight);
 * "cluster", N = 32768 (``CLUSTER_N``): ``csrc/deposits.cu``, one
   two-CTA thread-block cluster a frame, the raw and the t·h spectrum one
   CTA each, read across by distributed shared memory —
@@ -18,6 +20,13 @@ B1 has three routes on the card, chosen by the frame size alone
   which counts its own launches), then a finish kernel for the unpack and
   the epilogue — ``deposits_ids_large.launches``.  It is the route above
   32768, and ``deposits_ids(..., route="large")`` forces it at 32768.
+
+Every route takes an optional bin window ``[k_lo, k_hi)`` and a per-bin
+band weight (a band-sliced multires bank): only the window's bins are
+written, (..., k_hi − k_lo), and contrib = (|X_h|²·band)/N², the order
+of ``emspec/pipeline.py:420``; the edge bins read their true neighbours
+k_lo − 1 and k_hi.  Without them the output is the whole spectrum, bit
+for bit as before the window existed.
 
 ``quantize_deposits`` is the single definition of the quantization
 contract (``emspec.pipeline.Pipeline._deposits_banked``,
@@ -69,14 +78,17 @@ def block_smem(n: int, num_bins: int = 0) -> int:
 
 
 def quantize_deposits(power, dt, dw, logmap_a, logmap_b, power_floor, *,
-                      n: int, hop: int, sr: float, rows: int, band=None):
-    """Reassignment corrections (..., n//2+1) → (row, delta, contrib).
+                      n: int, hop: int, sr: float, rows: int, band=None,
+                      k_lo: int = 0):
+    """Reassignment corrections of bins k_lo, k_lo + 1, … (..., K) →
+    (row, delta, contrib).
 
     ``delta = round(Δt/hop)`` (a true division, half to even) is the
     relative column offset; contrib is zero for every invalid deposit
     (sub-floor power, row off the axis, f̂ ≤ 0, |Δt| > N/2).  ``band`` is
     the bank's band weight per bin (identically 1 for one bank)."""
-    k_idx = torch.arange(n // 2 + 1, dtype=torch.float32, device=power.device)
+    k_idx = torch.arange(k_lo, k_lo + power.shape[-1], dtype=torch.float32,
+                         device=power.device)
     f_hat = (k_idx + dw * (n / (2.0 * np.pi))) * (sr / n)           # Hz
     delta = torch.round(dt / float(hop)).to(torch.int32)
     row_f = (torch.log2(torch.clamp(f_hat, min=1e-6)) - logmap_a) * logmap_b
@@ -90,20 +102,26 @@ def quantize_deposits(power, dt, dw, logmap_a, logmap_b, power_floor, *,
 
 
 def deposits_plain(frames, logmap_a, logmap_b, power_floor, *, n: int,
-                   hop: int, sr: float, rows: int):
-    """frames (..., n) → (row, delta, contrib), each (..., n//2+1): the
-    stencil spectra (two ``torch.fft.rfft``), corrections, quantization."""
+                   hop: int, sr: float, rows: int, k_lo: int = 0,
+                   k_hi: int | None = None, band=None):
+    """frames (..., n) → (row, delta, contrib), each (..., k_hi − k_lo):
+    the stencil spectra of the whole frame (two ``torch.fft.rfft``), the
+    window's bins sliced out after the stencils, corrections,
+    quantization with the band weight."""
+    win = slice(k_lo, k_hi)
+    spectra = tuple(a[..., win] for a in stft_triple_stencil(frames))
     return quantize_deposits(
-        *reassignment_corrections(*stft_triple_stencil(frames)), logmap_a,
-        logmap_b, power_floor, n=n, hop=hop, sr=sr, rows=rows)
+        *reassignment_corrections(*spectra), logmap_a, logmap_b,
+        power_floor, n=n, hop=hop, sr=sr, rows=rows, band=band, k_lo=k_lo)
 
 
 def deposits_ids_plain(frames, logmap_a, logmap_b, power_floor, *, n: int,
-                       hop: int, sr: float, rows: int, reach: int):
+                       hop: int, sr: float, rows: int, reach: int,
+                       k_lo: int = 0, k_hi: int | None = None, band=None):
     """Plain B1: (ids = (δ + reach)·rows + row, contrib)."""
     row, delta, contrib = deposits_plain(
         frames, logmap_a, logmap_b, power_floor, n=n, hop=hop, sr=sr,
-        rows=rows)
+        rows=rows, k_lo=k_lo, k_hi=k_hi, band=band)
     return (delta + reach) * rows + row, contrib
 
 
@@ -125,6 +143,21 @@ def _twiddles(n: int, device: str) -> torch.Tensor:
     ang = -2.0 * np.pi * np.arange(n // 2) / n
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
     return torch.from_numpy(tw).to(device)
+
+
+def _window(frames: torch.Tensor, n: int, k_lo: int, k_hi, band,
+            what: str) -> tuple:
+    """Check a CUDA call's bin window and band → (k_lo, k_hi, band
+    pointer or 0)."""
+    k_hi = n // 2 + 1 if k_hi is None else k_hi
+    require(0 <= k_lo < k_hi <= n // 2 + 1, what,
+            f"bin window [{k_lo}, {k_hi}) outside [0, {n // 2 + 1})")
+    require(band is None or (
+        band.dtype == torch.float32 and band.shape == (k_hi - k_lo,)
+        and band.is_contiguous() and band.device == frames.device), what,
+        f"band must be a contiguous float32 ({k_hi - k_lo},) tensor on the "
+        f"frames' device")
+    return k_lo, k_hi, 0 if band is None else band.data_ptr()
 
 
 def _launch_args(frames: torch.Tensor, scal, what: str, *, n: int, sr: float):
@@ -163,23 +196,24 @@ def _frame_args(f3: torch.Tensor, th, tw, n: int) -> tuple:
             tw.data_ptr())
 
 
-def _outputs(frames: torch.Tensor, n: int):
-    """Empty (ids int32, contrib float32), each (..., n//2+1)."""
-    shape = frames.shape[:-1] + (n // 2 + 1,)
+def _outputs(frames: torch.Tensor, width: int):
+    """Empty (ids int32, contrib float32), each (..., width)."""
+    shape = frames.shape[:-1] + (width,)
     return (torch.empty(shape, dtype=torch.int32, device=frames.device),
             torch.empty(shape, dtype=torch.float32, device=frames.device))
 
 
 def _on_chip(entry: str, frames, scal, *, n: int, hop: int, sr: float,
-             rows: int, reach: int, what: str):
+             rows: int, reach: int, k_lo: int, k_hi, band, what: str):
     """One launch of an on-chip route (block or cluster) of B1."""
     f3, th, tw, ptrs, consts = _launch_args(frames, scal, what, n=n, sr=sr)
-    ids, contrib = _outputs(frames, n)
+    win = _window(frames, n, k_lo, k_hi, band, what)
+    ids, contrib = _outputs(frames, win[1] - win[0])
     with torch.cuda.device(frames.device):
         rc = getattr(kernels_build.library(), entry)(
             *_frame_args(f3, th, tw, n), *ptrs, ids.data_ptr(),
             contrib.data_ptr(), n, *_FACTORS[n // 2], hop, *consts, rows,
-            reach, launch_stream(frames))
+            reach, *win, launch_stream(frames))
     kernels_build.check(rc, what)
     return ids, contrib
 
@@ -201,39 +235,44 @@ def _packed_spectra(f3: torch.Tensor, th: torch.Tensor, n: int, what: str):
 
 def _finish(xr, xi, tw, scal_ptrs, consts, ids, out, *, frames: int, n: int,
             hop: int, rows: int, reach: int, min_id: int, num_bins: int,
-            what: str) -> None:
-    """Large route, stage 3: unpack + epilogue (``ids`` given: B1) or the
-    per-block histograms added into ``out`` (``ids`` None: B6)."""
+            win: tuple, what: str) -> None:
+    """Large route, stage 3: unpack + epilogue of the window's bins
+    (``ids`` given: B1) or the per-block histograms added into ``out``
+    (``ids`` None: B6, the whole spectrum)."""
     n1, n2 = _FACTORS[n // 2]
     rc = kernels_build.library().emspec_deposits_finish(
         xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), *scal_ptrs,
         0 if ids is None else ids.data_ptr(), out.data_ptr(), frames, n, n1,
         n2, hop, *consts, rows, reach, min_id, num_bins, int(ids is None),
-        launch_stream(xr))
+        *win, launch_stream(xr))
     kernels_build.check(rc, what)
 
 
 @counted
 def deposits_ids(frames: torch.Tensor, logmap_a, logmap_b, power_floor, *,
                  n: int, hop: int, sr: float, rows: int, reach: int,
-                 route: str | None = None):
+                 route: str | None = None, k_lo: int = 0,
+                 k_hi: int | None = None, band=None):
     """frames (..., n) float32 → (ids int32, contrib float32), each
-    (..., n//2+1) in natural bin order.  Invalid deposits carry contrib 0
-    (and, from the kernel, id −1).  On CUDA the scalars must be float32
-    tensors on the frames' device: the kernel reads them from device
-    memory, so a slider move causes no host sync.  ``route`` ("block",
-    "cluster" or "large") overrides ``route_of(n)``, for timing the
-    cluster route against the large one at 32768; the block route takes
-    n ≤ ``SMALL_MAX_N`` only, the cluster route n = ``CLUSTER_N`` only."""
+    (..., k_hi − k_lo) in natural bin order (the whole spectrum, n//2+1
+    bins, by default), contrib weighted by ``band`` (k_hi − k_lo,) where
+    given.  Invalid deposits carry contrib 0 (and, from the kernel, id
+    −1).  On CUDA the scalars and the band must be float32 tensors on the
+    frames' device: the kernel reads them from device memory, so a slider
+    move causes no host sync.  ``route`` ("block", "cluster" or "large")
+    overrides ``route_of(n)``, for timing the cluster route against the
+    large one at 32768; the block route takes n ≤ ``SMALL_MAX_N`` only,
+    the cluster route n = ``CLUSTER_N`` only."""
+    kw = dict(n=n, hop=hop, sr=sr, rows=rows, reach=reach, k_lo=k_lo,
+              k_hi=k_hi, band=band)
     if frames.device.type == "cpu":
         return deposits_ids_plain(frames, logmap_a, logmap_b, power_floor,
-                                  n=n, hop=hop, sr=sr, rows=rows, reach=reach)
+                                  **kw)
     what = "deposits_ids"
     route = route or route_of(n)
     require(route in ROUTES and (route == "block") == (n <= SMALL_MAX_N)
             and (route != "cluster" or n == CLUSTER_N), what,
             f"route {route!r} does not take n={n}")
-    kw = dict(n=n, hop=hop, sr=sr, rows=rows, reach=reach)
     scal = (logmap_a, logmap_b, power_floor)
     if route == "large":
         return deposits_ids_large(frames, *scal, **kw)
@@ -241,25 +280,33 @@ def deposits_ids(frames: torch.Tensor, logmap_a, logmap_b, power_floor, *,
         return deposits_ids_cluster(frames, *scal, **kw)
     out = _on_chip("emspec_deposits", frames, scal, what=what, **kw)
     deposits_ids.launches += 1
+    deposits_ids.form_launches[
+        "whole" if band is None and out[0].shape[-1] == n // 2 + 1
+        else "window"] += 1
     return out
+
+
+deposits_ids.form_launches = {"whole": 0, "window": 0}
 
 
 @counted
 def deposits_ids_cluster(frames: torch.Tensor, logmap_a, logmap_b,
                          power_floor, *, n: int, hop: int, sr: float,
-                         rows: int, reach: int):
+                         rows: int, reach: int, k_lo: int = 0,
+                         k_hi: int | None = None, band=None):
     """B1's cluster route, N = ``CLUSTER_N``: the contract of
     ``deposits_ids`` (a CPU tensor takes the plain version).  One launch,
     no scratch: each frame's spectra stay in its cluster's shared memory."""
+    kw = dict(n=n, hop=hop, sr=sr, rows=rows, reach=reach, k_lo=k_lo,
+              k_hi=k_hi, band=band)
     if frames.device.type == "cpu":
         return deposits_ids_plain(frames, logmap_a, logmap_b, power_floor,
-                                  n=n, hop=hop, sr=sr, rows=rows, reach=reach)
+                                  **kw)
     what = "deposits_ids_cluster"
     require(n == CLUSTER_N, what, f"n={n}: the cluster route takes "
             f"n={CLUSTER_N} only")
     out = _on_chip("emspec_deposits_cluster", frames,
-                   (logmap_a, logmap_b, power_floor), n=n, hop=hop, sr=sr,
-                   rows=rows, reach=reach, what=what)
+                   (logmap_a, logmap_b, power_floor), what=what, **kw)
     deposits_ids_cluster.launches += 1
     return out
 
@@ -278,23 +325,26 @@ def cluster_occupancy(device) -> int:
 @counted
 def deposits_ids_large(frames: torch.Tensor, logmap_a, logmap_b,
                        power_floor, *, n: int, hop: int, sr: float, rows: int,
-                       reach: int):
+                       reach: int, k_lo: int = 0, k_hi: int | None = None,
+                       band=None):
     """B1's large-frame route, N in (``SMALL_MAX_N``, ``MAX_N``]: the
     contract of ``deposits_ids`` (a CPU tensor takes the plain version)."""
     if frames.device.type == "cpu":
         return deposits_ids_plain(frames, logmap_a, logmap_b, power_floor,
-                                  n=n, hop=hop, sr=sr, rows=rows, reach=reach)
+                                  n=n, hop=hop, sr=sr, rows=rows, reach=reach,
+                                  k_lo=k_lo, k_hi=k_hi, band=band)
     what = "deposits_ids_large"
     require(n > SMALL_MAX_N, what, f"n={n}: sizes up to {SMALL_MAX_N} take "
             f"the block route (deposits_ids)")
     f3, th, tw, scal, consts = _launch_args(
         frames, (logmap_a, logmap_b, power_floor), what, n=n, sr=sr)
-    ids, contrib = _outputs(frames, n)
+    win = _window(frames, n, k_lo, k_hi, band, what)
+    ids, contrib = _outputs(frames, win[1] - win[0])
     with torch.cuda.device(frames.device):
         xr, xi = _packed_spectra(f3, th, n, what)
         _finish(xr, xi, tw, scal, consts, ids, contrib,
                 frames=f3.shape[0] * f3.shape[1], n=n, hop=hop, rows=rows,
-                reach=reach, min_id=0, num_bins=0, what=what)
+                reach=reach, min_id=0, num_bins=0, win=win, what=what)
     deposits_ids_large.launches += 1
     return ids, contrib
 
@@ -341,6 +391,6 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
             xr, xi = _packed_spectra(f3, th, n, what)
             _finish(xr, xi, tw, scal, consts, None, out, frames=frames_n,
                     n=n, hop=hop, rows=rows, reach=reach, min_id=min_id,
-                    num_bins=num_bins, what=what)
+                    num_bins=num_bins, win=(0, n // 2 + 1, 0), what=what)
     deposits_hist.launches += 1
     return out

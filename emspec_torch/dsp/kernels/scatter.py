@@ -59,37 +59,49 @@ def global_blocks(rows: int, m: int) -> int:
     return max(1, min(-(-vectors // GLOBAL_THREADS), GLOBAL_BLOCKS))
 
 
-def histogram_plain(ids: torch.Tensor, vals: torch.Tensor,
-                    num_bins: int) -> torch.Tensor:
-    """``histogram_reference``: per leading row, Σ vals into cells by id.
-    Out-of-range ids go to a discarded overflow cell with value 0, so a
-    NaN/Inf behind a dropped id never lands."""
+def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """``histogram_reference``: per leading row, Σ vals into cells by id
+    (into ``out`` in place where given), each cell adding in deposit
+    order.  A dropped id adds value 0 to a spare cell, so a NaN/Inf behind
+    it never lands."""
     lead = ids.shape[:-1]
     b = math.prod(lead)
     ok = (ids >= 0) & (ids < num_bins)
+    v = torch.where(ok, vals, torch.zeros_like(vals)).reshape(-1)
+    if out is not None:                  # the spare cell: 0 into cell 0
+        safe = torch.where(ok, ids, 0).to(torch.int64).reshape(b, -1)
+        safe = safe + (torch.arange(b, device=ids.device)
+                       * num_bins)[:, None]
+        out.view(-1).index_add_(0, safe.reshape(-1), v)
+        return out
     safe = torch.where(ok, ids, num_bins).to(torch.int64).reshape(b, -1)
     safe = safe + (torch.arange(b, device=ids.device)
                    * (num_bins + 1))[:, None]
-    v = torch.where(ok, vals, torch.zeros_like(vals)).reshape(-1)
-    out = torch.zeros(b * (num_bins + 1), dtype=torch.float32,
-                      device=ids.device)
-    out.index_add_(0, safe.reshape(-1), v)
-    return out.view(b, num_bins + 1)[:, :num_bins].reshape(lead + (num_bins,))
+    hist = torch.zeros(b * (num_bins + 1), dtype=torch.float32,
+                       device=ids.device)
+    hist.index_add_(0, safe.reshape(-1), v)
+    return hist.view(b, num_bins + 1)[:, :num_bins].reshape(
+        lead + (num_bins,))
 
 
 @counted
 def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
-              passes: int = 2, *, route: str | None = None) -> torch.Tensor:
+              passes: int = 2, *, route: str | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """ids (..., M) int32, vals (..., M) float32 → (..., num_bins) float32.
 
     An id outside [0, num_bins) contributes nothing, even when its value
     is NaN or Inf.  ``passes`` is accepted for the JAX signature and is
     moot here: the kernel adds in float32, each add exact to one rounding
     (the TPU kernel split values into bf16 terms).  ``route`` ("row" or
-    "global") overrides ``route_of``, for tests and timing."""
+    "global") overrides ``route_of``, for tests and timing.  ``out``, a
+    contiguous float32 (..., num_bins) tensor, is added into in place and
+    returned (the global route: its atomics add into whatever the output
+    holds) — the live step's ring."""
     del passes
     if ids.device.type == "cpu":
-        return histogram_plain(ids, vals, num_bins)
+        return histogram_plain(ids, vals, num_bins, out)
     what = "histogram"
     require_cuda(ids, what)
     require(ids.dtype == torch.int32 and vals.dtype == torch.float32, what,
@@ -105,12 +117,21 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     lead = ids.shape[:-1]
     rows = math.prod(lead)
     m = ids.shape[-1] if ids.dim() else 1
-    route = route or route_of(rows, m, num_bins)
+    route = route or ("global" if out is not None
+                      else route_of(rows, m, num_bins))
     require(route == "global" or num_bins <= SMEM_BINS, what,
             f"the row route holds at most {SMEM_BINS} cells in shared "
             f"memory, not {num_bins}")
-    alloc = torch.empty if route == "row" else torch.zeros
-    out = alloc(lead + (num_bins,), dtype=torch.float32, device=ids.device)
+    if out is None:
+        alloc = torch.empty if route == "row" else torch.zeros
+        out = alloc(lead + (num_bins,), dtype=torch.float32,
+                    device=ids.device)
+    else:
+        require(route == "global" and out.dtype == torch.float32
+                and out.shape == lead + (num_bins,) and out.is_contiguous()
+                and out.device == ids.device, what,
+                f"out must be a contiguous float32 {lead + (num_bins,)} "
+                f"tensor on the ids' device, added into by the global route")
     a0 = ids.data_ptr() % 16
     with torch.cuda.device(ids.device):
         rc = kernels_build.library().emspec_histogram(

@@ -9,6 +9,12 @@ package does (``stft.py:210-212``): at N = 8192 the t·h spectrum carries
 ``X_h`` and ``X_dh`` then follow exactly from 3-point periodic-Hann
 stencils on the raw spectrum.
 
+The pruned DFT (``stft_triple_stencil_sliced``/``_blocks``) computes
+only the bins ``[k_lo, k_hi)`` of a band-sliced multires bank, as a
+float32 matrix product (``torch.matmul``, TF32 off: ``device.py``)
+against a DFT matrix built in float64 — the JAX package's formulation
+(``stft.py:93-185``), which it runs outside any Pallas kernel.
+
 The ``xla`` branch feeds the deposits kernel's plain reference
 (``emspec_torch.dsp.kernels.deposits``) and the CPU path.  Its real FFT
 is ``rfft``: batch-shape stable on the CPU (see there), so streaming ≡
@@ -64,16 +70,21 @@ def stft_raw_pair(frames: torch.Tensor, fft_impl: str = "xla"
     return F[0], F[1]
 
 
+def _stencils(X, Xm1, Xp1, n: int):
+    """3-point periodic-Hann stencils → (X_h, X_dh); X_dh = (−i·c)·(Xm1 −
+    Xp1) in real arithmetic, c rounded to float32."""
+    X_h = 0.5 * X - 0.25 * (Xm1 + Xp1)
+    c = float(np.float32(0.5 * math.pi / n))
+    d = Xm1 - Xp1
+    return X_h, torch.complex(c * d.imag, -c * d.real)
+
+
 def stencil_from_raw(X: torch.Tensor, X_th: torch.Tensor, n: int):
     """(raw, t·h) spectra → (X_h, X_th, X_dh); neighbours at k = −1 and
     N/2+1 come from Hermitian symmetry of the real input."""
     Xm1 = torch.cat([torch.conj(X[..., 1:2]), X[..., :-1]], dim=-1)
     Xp1 = torch.cat([X[..., 1:], torch.conj(X[..., -2:-1])], dim=-1)
-    X_h = 0.5 * X - 0.25 * (Xm1 + Xp1)
-    # X_dh = (−i·c)·(Xm1 − Xp1) in real arithmetic, c rounded to float32
-    c = float(np.float32(0.5 * math.pi / n))
-    d = Xm1 - Xp1
-    X_dh = torch.complex(c * d.imag, -c * d.real)
+    X_h, X_dh = _stencils(X, Xm1, Xp1, n)
     return X_h, X_th, X_dh
 
 
@@ -82,3 +93,75 @@ def stft_triple_stencil(frames: torch.Tensor, fft_impl: str = "xla"):
     n = frames.shape[-1]
     X, X_th = stft_raw_pair(frames, fft_impl)
     return stencil_from_raw(X, X_th, n)
+
+
+def _dft_columns(n: int, k_lo: int, k_hi: int) -> np.ndarray:
+    """float64 (n, 2(K+2)): [cos | sin] of the DFT at k = k_lo−1 … k_hi
+    (the stencil neighbours included; k = −1 and N/2+1 need no Hermitian
+    case here, the matrix is evaluated at those k)."""
+    ks = np.arange(k_lo - 1, k_hi + 1)
+    ang = (-2.0 * np.pi / n) * np.outer(np.arange(n), ks)
+    return np.concatenate([np.cos(ang), np.sin(ang)], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sliced_matrix(n: int, k_lo: int, k_hi: int, device: str):
+    return torch.from_numpy(
+        _dft_columns(n, k_lo, k_hi).astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_matrices(n: int, k_lo: int, k_hi: int, hop: int, device: str):
+    """(m, hop, 4(K+2)) float32: [cos | sin | th·cos | th·sin], the t·h
+    window folded in (in float64), cut into m = ⌈n/hop⌉ row blocks (the
+    last zero-padded)."""
+    w = _dft_columns(n, k_lo, k_hi)
+    th = time_weighted_hann(n, np.float64)
+    w4 = np.concatenate([w, th[:, None] * w], axis=1)
+    m = -(-n // hop)
+    w4 = np.pad(w4, ((0, m * hop - n), (0, 0)))
+    return torch.from_numpy(
+        w4.reshape(m, hop, -1).astype(np.float32)).to(device)
+
+
+def _sliced_triple(Xe, X_th, n: int):
+    """(K+2) raw bins k_lo−1 … k_hi and the t·h bins → (X_h, X_th, X_dh)
+    on k_lo … k_hi−1."""
+    X_h, X_dh = _stencils(Xe[..., 1:-1], Xe[..., :-2], Xe[..., 2:], n)
+    return X_h, X_th[..., 1:-1], X_dh
+
+
+def stft_triple_stencil_sliced(frames: torch.Tensor, k_lo: int, k_hi: int):
+    """Pruned-DFT reassignment spectra: bins [k_lo, k_hi) of (X_h, X_th,
+    X_dh), (..., k_hi − k_lo), from frames (..., n) by one product of the
+    raw and the t·h frames with the (n, 2(K+2)) DFT columns
+    (``emspec.dsp.stft.stft_triple_stencil_sliced``)."""
+    n = frames.shape[-1]
+    lead = frames.shape[:-1]
+    w = _sliced_matrix(n, k_lo, k_hi, str(frames.device))
+    f2 = frames.reshape(-1, n)
+    pair = torch.cat([f2, f2 * th_window(n, frames.device)])    # (2B, n)
+    out = torch.matmul(pair, w)
+    K2 = k_hi - k_lo + 2
+    X = torch.complex(out[:, :K2], out[:, K2:]).reshape((2,) + lead + (K2,))
+    return _sliced_triple(X[0], X[1], n)
+
+
+def stft_triple_stencil_blocks(x2: torch.Tensor, t: int, n: int, k_lo: int,
+                               k_hi: int):
+    """``stft_triple_stencil_sliced`` of the ``t`` frames of n points whose
+    hop blocks are ``x2 = frame.signal_blocks(x, n, hop)`` (..., rows,
+    hop), without the frames: frames @ W = Σ_j x2[..., j:j+t, :] @
+    W[j·hop:(j+1)·hop], m = ⌈n/hop⌉ products summed in float32, with the
+    t·h window folded into W (``emspec.dsp.stft.stft_triple_stencil_blocks``).
+    → (X_h, X_th, X_dh), each (..., t, k_hi − k_lo)."""
+    hop = x2.shape[-1]
+    wj = _block_matrices(n, k_lo, k_hi, hop, str(x2.device))
+    acc = torch.matmul(x2[..., 0:t, :], wj[0])
+    for j in range(1, wj.shape[0]):
+        acc += torch.matmul(x2[..., j:j + t, :], wj[j])
+    K2 = k_hi - k_lo + 2
+    Xe = torch.complex(acc[..., :K2], acc[..., K2:2 * K2])
+    X_th = torch.complex(acc[..., 2 * K2:3 * K2], acc[..., 3 * K2:])
+    return _sliced_triple(Xe, X_th, n)
+

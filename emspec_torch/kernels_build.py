@@ -32,17 +32,19 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry points: each returns its cudaError_t (0 = launched)
 _SIGNATURES = {
     "emspec_deposits": [_P, _LL, _LL, _LL, _LL] + [_P] * 9
-                       + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+                       + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
+                          _P, _P],
     "emspec_deposits_cluster": [_P, _LL, _LL, _LL, _LL] + [_P] * 9
                                + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
-                                  _P],
+                                  _I, _I, _P, _P],
     "emspec_deposits_cluster_occupancy": [_P],
     "emspec_deposits_hist": [_P, _LL, _LL, _LL, _LL] + [_P] * 8
                             + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I,
                                _I, _P],
     "emspec_deposits_pack": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P],
     "emspec_deposits_finish": [_P] * 8 + [_LL, _I, _I, _I, _I, _F, _F, _F,
-                                          _F, _I, _I, _I, _I, _I, _P],
+                                          _F, _I, _I, _I, _I, _I, _I, _I,
+                                          _P, _P],
     "emspec_hist_variant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P],
     "emspec_lut": [_P, _P, _P, _LL, _I, _I, _P],

@@ -2,36 +2,43 @@
 
 Ported paths, in batch (``process``) and per hop (``_stream_step``):
 
-* **enhanced, one bank, stencil method** (the main path):
-  frames → deposits (kernel B1, ``dsp.kernels.deposits``) → relative
-  histogram (kernel B2, ``dsp.kernels.scatter``) → static shift-add fold
-  (batch) / roll into the pending ring (stream) → post chain
-  (``post.chain``) → colormap (kernel B3).
-* **enhanced, one bank, direct method**: frames → triple windowing
-  (kernel B5, ``dsp.kernels.window``) → three real FFTs (``torch.fft`` or
-  the four-step engine, kernel B4) → corrections → quantize → B2 → fold →
-  post → B3.
+* **enhanced, stencil method**, one bank or the multires banks (the
+  display default, ``Settings()``): per bank, frames → deposits of the
+  bank's band-support bins with its band weight (kernel B1 with a bin
+  window, ``dsp.kernels.deposits``) → one id space for all banks →
+  histogram (kernel B2, ``dsp.kernels.scatter``) → post chain
+  (``post.chain``) → colormap (kernel B3).  The batch path sums the
+  histogram per frame and folds it (relative), or straight into the
+  (t, rows) grid (absolute); the live step rolls a relative histogram
+  into its pending ring.
+* **enhanced, direct method**: frames → triple windowing (kernel B5,
+  ``dsp.kernels.window``) → three real FFTs (``torch.fft`` or the
+  four-step engine, kernel B4) → the bank's bins → corrections →
+  quantize → B2 → post → B3.
 * **natural, one bank or the multires banks**: per-bank Hann |X|² with
   the non-finite scrub (``torch.fft`` or the four-step engine, B4) →
   gather/lerp merge onto the log rows (``dsp.multires``) → post → B3.
 
 ``fft_impl="auto"`` resolves to ``"xla"`` (``torch.fft``) on every device
-(see ``Pipeline.fft_impl``).  ``scatter="auto"`` takes the relative
-histogram (B2) on CUDA and the absolute-grid ``segment_sum``
-(``index_add_``) on the CPU; both stay selectable (``"pallas"`` is the
-JAX package's name for the relative-histogram route).  Kernel wrappers
-route by tensor device: on the CPU the same calls run their plain
-PyTorch versions.  With the stencil method the card always takes the
-fused kernel B1, whatever ``fft_impl`` says, as the JAX package's
-``_use_fused_deposits`` does on its accelerator; the CPU runs the
-engine's unfused chain, as the JAX package does on its CPU.
+(see ``Pipeline.fft_impl``).  Kernel wrappers route by tensor device: on
+the CPU the same calls run their plain PyTorch versions.  With the
+stencil method the card takes the fused kernel B1 for every bank it
+holds (512–262144 points), whatever ``fft_impl`` says, as the JAX
+package's ``_use_fused_deposits`` does on its accelerator; a bank of
+256 points runs the unfused chain (routing by size only).  The JAX
+package's pruned-DFT product for long banks (``_use_pruned_dft``) is
+not routed: on an H100 it lost to B1's windowed form at every default
+bank (PERF.md §6); ``dsp.stft`` keeps it.  The CPU runs the engine's
+unfused chain — full spectra, the bank's bins sliced out, corrections,
+quantization with the band weight — as the JAX package does on its CPU.
 
-The stencil method runs at every size of ``FFT_SIZES``: on the card B1
-takes N ≤ 16384 in one block a frame, N = 32768 in a two-CTA cluster a
-frame, and larger frames through its large-frame route (pack → B4 →
-finish).  B2 takes every relative space (2R+1)·rows, above a block's
-shared memory too.  Enhanced multires raises ``NotImplementedError`` on
-every device.
+Scatter (``Settings.scatter``): ``"pallas"`` (the JAX package's name for
+the relative histogram) sums per frame into (2R+1)·rows cells and folds;
+``"segment_sum"`` sums into the absolute (t, rows) grid; ``"auto"`` takes
+the absolute grid on the CPU, the relative histogram for one bank on the
+card, and in batch the absolute grid for several banks on the card
+(``use_relative_batch``), live the relative histogram.  Every sum is
+kernel B2 on the card.
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from emspec_torch.config import MODE_ENHANCED, STRUCTURAL_FIELDS, Settings
 from emspec_torch.device import DTYPE, as_device
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
+from emspec_torch.dsp.kernels import deposits
 from emspec_torch.dsp.kernels.deposits import deposits_ids, quantize_deposits
-from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
+from emspec_torch.dsp.kernels.scatter import histogram
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
@@ -60,7 +68,6 @@ from emspec_torch.post.chain import (
     PostParams, PostState, postprocess_batch, postprocess_column)
 from emspec_torch.post.colormap import apply_lut
 from emspec_torch.tables import lut, row_map_consts
-
 
 class PipelineParams(NamedTuple):
     """Everything continuous, as tensors on the pipeline's device:
@@ -78,10 +85,9 @@ class PipelineParams(NamedTuple):
     band_bins: tuple           # (K_b,) float32 band weight per source bin
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to emspec_torch yet (ROADMAP.md, 'Modules "
-        f"still to port'); use the emspec package")
+def _cat(parts: list) -> torch.Tensor:
+    """Concatenate per-bank (..., K_b) tensors along the bins."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 class Pipeline:
@@ -90,10 +96,6 @@ class Pipeline:
 
     def __init__(self, settings: Settings, device="cuda"):
         s = settings
-        enhanced = s.mode == MODE_ENHANCED
-        if enhanced and s.multires:
-            raise _not_ported("enhanced multires (mode='enhanced', "
-                              "multires=True)")
         self.settings = s
         self.device = as_device(device)
         self.sizes = s.active_fft_sizes
@@ -105,8 +107,8 @@ class Pipeline:
             self.sizes, s.sample_rate, self.rows, s.freq_min, s.freq_scale,
             s.crossover_low, s.crossover_high)
         self.row_freqs = self.tables.row_freqs
-        # per-bank bin range with nonzero band weight (the enhanced
-        # deposits' band weights are evaluated on it)
+        # per-bank bin range with nonzero band weight: the enhanced
+        # deposits are computed and weighted on it alone
         self.k_slices = []
         n_banks = len(self.sizes)
         for b, n in enumerate(self.sizes):
@@ -121,12 +123,6 @@ class Pipeline:
             self.k_slices.append(
                 (max(int(np.floor(lo_hz / bin_hz)) - 1, 0),
                  min(int(np.ceil(hi_hz / bin_hz)) + 2, k_count)))
-        if n_banks == 1:
-            # kernel B1 carries no band weight: the single-bank weight is 1
-            probe = band_weight_at(np.linspace(1.0, s.sample_rate / 2.0, 64),
-                                   0, 1, s.crossover_low, s.crossover_high)
-            if not np.all(probe == 1.0):
-                raise AssertionError("single-bank band weight != 1")
         self.fft_impl                      # raises on an unsupported size
 
     @property
@@ -147,22 +143,33 @@ class Pipeline:
                 f"fourstep FFT unsupported for sizes {self.sizes}")
         return s
 
-    @property
-    def use_fused_deposits(self) -> bool:
-        """Kernel B1 for the stencil method's deposits: on the card, for
-        either engine (the JAX package fuses on its accelerator); the CPU
-        runs the engine's unfused chain."""
+    def _use_fused_deposits(self, n: int) -> bool:
+        """Kernel B1 for a bank's deposits: on the card, stencil method,
+        for every size B1 holds (``deposits.supported``); the CPU runs the
+        engine's unfused chain."""
         return (self.settings.fft_method == "stencil"
-                and self.device.type == "cuda")
+                and self.device.type == "cuda" and deposits.supported(n))
 
     @property
     def use_relative_scatter(self) -> bool:
-        """Deposit ids → B2 → fold (``"auto"`` on CUDA, at every relative
-        space, or ``"pallas"``); else the absolute-grid segment sum."""
+        """Per-frame relative histograms (B2) + fold in batch and the
+        relative ring update live (``"auto"`` on CUDA, or ``"pallas"``);
+        else the absolute-grid sum (batch) and the ring's slot ids (live)."""
         s = self.settings.scatter
         if s == "auto":
             return self.device.type == "cuda"
         return s == "pallas"
+
+    @property
+    def use_relative_batch(self) -> bool:
+        """The batch path's choice: ``use_relative_scatter``, but under
+        ``"auto"`` several banks take the absolute grid, one B2 over
+        (t, rows): at the display default on an H100, B1 included, it
+        ran 4.6× faster than the relative histogram of 65 × 512 cells and
+        its fold, and as fast as the JAX package's per-bank mixed scatter
+        (PERF.md §6)."""
+        return self.use_relative_scatter and not (
+            self.settings.scatter == "auto" and len(self.sizes) > 1)
 
     @property
     def reach(self) -> int:
@@ -170,7 +177,7 @@ class Pipeline:
         (|Δt| ≤ N/2 ⇒ |δ| ≤ round(N/(2·hop))); natural mode moves none."""
         if self.settings.mode != MODE_ENHANCED:
             return 0
-        return max(int(np.round(n / (2.0 * self.hop))) for n in self.sizes)
+        return int(np.round(self.n_max / (2.0 * self.hop)))
 
     # ---------------- params ----------------
     def params(self, settings: Settings | None = None) -> PipelineParams:
@@ -202,14 +209,13 @@ class Pipeline:
         )
 
     # ---------------- analysis ----------------
-    def _bank_frames(self, x, t_count: int) -> list:
-        """Center-aligned per-bank frames: bank b frame t covers
-        [offset_b + t·hop, … + N_b), so all banks share column centers."""
-        out = []
-        for n, off in zip(self.sizes, self.offsets):
-            end = off + (t_count - 1) * self.hop + n
-            out.append(frame_signal(x[..., off:end], n, self.hop))
-        return out
+    def _bank_inputs(self, x, t_count: int) -> list:
+        """Center-aligned per-bank frames (views) of the batch path: bank
+        b frame t covers [offset_b + t·hop, … + N_b), so all banks share
+        column centers."""
+        return [frame_signal(x[..., off:off + (t_count - 1) * self.hop + n],
+                             n, self.hop)
+                for n, off in zip(self.sizes, self.offsets)]
 
     def _bank_windows(self, window) -> list:
         """One analysis window (..., N_max) → per-bank slices (..., N_b)."""
@@ -238,54 +244,84 @@ class Pipeline:
 
     def _natural_power(self, x, t_count: int, p: PipelineParams):
         specs = [self._bank_power(frames, n) for frames, n in
-                 zip(self._bank_frames(x, t_count), self.sizes)]
+                 zip(self._bank_inputs(x, t_count), self.sizes)]
         return self._merge(specs, p)                          # (..., t, rows)
 
-    def _spectra(self, frames):
-        """(X_h, X_th, X_dh) of one bank's frames by the chosen method."""
+    def _bank_spectra(self, frames, bank: int):
+        """(X_h, X_th, X_dh) of one bank on its bins [k_lo, k_hi): the
+        chosen method's whole spectra, sliced (``pipeline.py:380-408``)."""
+        k_lo, k_hi = self.k_slices[bank]
         if self.settings.fft_method == "stencil":
-            return stft_triple_stencil(frames, self.fft_impl)
-        Xs = self._rfft(windowed_frames(frames))    # B5 on the card
-        return Xs[0], Xs[1], Xs[2]
+            X = stft_triple_stencil(frames, self.fft_impl)
+        else:
+            X = self._rfft(windowed_frames(frames))    # B5 on the card
+        return tuple(a[..., k_lo:k_hi] for a in X)
 
-    def _deposits(self, frames, p: PipelineParams):
-        """Unfused single-bank deposits (row, δ, contrib), (..., N/2+1)."""
+    def _bank_deposits(self, frames, bank: int, p: PipelineParams):
+        """Unfused deposits (row, δ, contrib) of one bank, each (..., K_b),
+        contrib weighted by the bank's band (``_deposits_banked``)."""
         return quantize_deposits(
-            *reassignment_corrections(*self._spectra(frames)), p.logmap_a,
-            p.logmap_b, p.power_floor, n=self.n_max, hop=self.hop,
-            sr=float(self.settings.sample_rate), rows=self.rows,
-            band=p.band_bins[0])
+            *reassignment_corrections(*self._bank_spectra(frames, bank)),
+            p.logmap_a, p.logmap_b, p.power_floor, n=self.sizes[bank],
+            hop=self.hop, sr=float(self.settings.sample_rate),
+            rows=self.rows, band=p.band_bins[bank],
+            k_lo=self.k_slices[bank][0])
 
-    def _deposit_ids_rel(self, frames, p: PipelineParams):
-        """Relative-histogram inputs (ids = (δ+R)·rows + row, contrib):
-        kernel B1 where ``use_fused_deposits``, else the unfused chain."""
-        if self.use_fused_deposits:
-            return deposits_ids(frames, p.logmap_a, p.logmap_b,
-                                p.power_floor, n=self.n_max, hop=self.hop,
-                                sr=float(self.settings.sample_rate),
-                                rows=self.rows, reach=self.reach)
-        rows_i, delta, contrib = self._deposits(frames, p)
-        return (delta + self.reach) * self.rows + rows_i, contrib
+    def _bank_ids(self, inputs, p: PipelineParams, reaches) -> list:
+        """Per bank (ids = (δ + R_b)·rows + row, contrib), each (..., K_b),
+        with ``reaches[b]`` as R_b: kernel B1 with the bank's bin window
+        and band weight where ``_use_fused_deposits``, else the unfused
+        chain.  One bank's band weight is identically 1 (a partition of
+        unity with one part), so it takes B1's whole-spectrum form."""
+        out = []
+        multibank = len(self.sizes) > 1
+        for b, (f, n, R) in enumerate(zip(inputs, self.sizes, reaches)):
+            if self._use_fused_deposits(n):
+                k_lo, k_hi = self.k_slices[b]
+                out.append(deposits_ids(
+                    f, p.logmap_a, p.logmap_b, p.power_floor, n=n,
+                    hop=self.hop, sr=float(self.settings.sample_rate),
+                    rows=self.rows, reach=R, k_lo=k_lo, k_hi=k_hi,
+                    band=p.band_bins[b] if multibank else None))
+            else:
+                row, delta, contrib = self._bank_deposits(f, b, p)
+                out.append(((delta + R) * self.rows + row, contrib))
+        return out
 
-    def _scatter_segment_sum(self, rows_i, delta, contrib, t_count, lead):
-        """Absolute (t, rows) grid, one flattened segment sum per lead row;
-        each cell adds its deposits in (frame, bin) order."""
-        t_idx = torch.arange(t_count, dtype=torch.int32,
-                             device=contrib.device)[:, None]
-        col = t_idx + delta
-        ids = torch.where((col >= 0) & (col < t_count),
-                          col * self.rows + rows_i, -1)
-        out = histogram_plain(ids.reshape(lead + (-1,)),
-                              contrib.reshape(lead + (-1,)),
-                              t_count * self.rows)
+    def _deposit_ids_rel(self, inputs, p: PipelineParams):
+        """Relative-histogram inputs of all banks, (ids = (δ+R)·rows +
+        row, contrib) each (..., ΣK_b), with the pipeline's reach R."""
+        ids, contrib = zip(*self._bank_ids(inputs, p,
+                                           [self.reach] * len(self.sizes)))
+        return _cat(list(ids)), _cat(list(contrib))
+
+    def _absolute_ids(self, ids_rel, t_count: int, R: int):
+        """Relative ids (δ + R)·rows + row of frames 0 … t_count−1, (...,
+        t, K) → absolute-grid ids (t + δ)·rows + row.  A negative relative
+        id (B1's invalid deposit) stays −1; a column outside [0, t_count)
+        falls outside the grid, where the sum drops it."""
+        base = ((torch.arange(t_count, dtype=torch.int32,
+                              device=ids_rel.device) - R) * self.rows)
+        return torch.where(ids_rel >= 0, ids_rel + base[:, None], -1)
+
+    def _scatter_absolute(self, ids_abs, contrib, t_count: int):
+        """One sum (B2 on the card) of each lead row's deposits into its
+        absolute (t, rows) grid; on the CPU each cell adds its deposits in
+        (frame, bin) order, as the live step's ring does."""
+        lead = ids_abs.shape[:-2]
+        out = histogram(ids_abs.reshape(lead + (-1,)),
+                        contrib.reshape(lead + (-1,)), t_count * self.rows,
+                        passes=self.settings.scatter_passes)
         return out.reshape(lead + (t_count, self.rows))
 
-    def _scatter_relative(self, ids_rel, contrib, t_count):
+    def _scatter_relative(self, ids_rel, contrib, t_count, R=None):
         """Per-frame relative histograms (B2) + the static shift-add fold
-        out[u] = Σ_δ hist[u−δ, δ].  Terms are added in ascending source
-        frame (descending δ), the order the streaming ring accumulates
-        them, so the two paths agree bit for bit where the histograms do."""
-        R, rows = self.reach, self.rows
+        out[u] = Σ_δ hist[u−δ, δ], R defaulting to the pipeline's reach.
+        Terms are added in ascending source frame (descending δ), the
+        order the streaming ring accumulates them, so the two paths agree
+        bit for bit where the histograms do."""
+        R = self.reach if R is None else R
+        rows = self.rows
         P = 2 * R + 1
         hist = histogram(ids_rel, contrib, P * rows,
                          passes=self.settings.scatter_passes)
@@ -300,13 +336,13 @@ class Pipeline:
 
     def _enhanced_power(self, x, t_count, p: PipelineParams):
         """Reassigned 2-D histogram on the (t, rows) display grid."""
-        frames = frame_signal(x, self.n_max, self.hop)
-        if self.use_relative_scatter:
-            ids_rel, contrib = self._deposit_ids_rel(frames, p)
+        ids_rel, contrib = self._deposit_ids_rel(
+            self._bank_inputs(x, t_count), p)
+        if self.use_relative_batch:
             return self._scatter_relative(ids_rel, contrib, t_count)
-        rows_i, delta, contrib = self._deposits(frames, p)
-        return self._scatter_segment_sum(rows_i, delta, contrib, t_count,
-                                         x.shape[:-1])
+        return self._scatter_absolute(
+            self._absolute_ids(ids_rel, t_count, self.reach), contrib,
+            t_count)
 
     # ---------------- full batch path ----------------
     def _batch_vis(self, x, p: PipelineParams, state: PostState,
@@ -366,7 +402,8 @@ class Pipeline:
             col = self._merge(specs, p)
             acc.index_add_(0, _slot(t, P), col.unsqueeze(0))
         elif self.use_relative_scatter:
-            ids_rel, contrib = self._deposit_ids_rel(window, p)
+            ids_rel, contrib = self._deposit_ids_rel(
+                self._bank_windows(window), p)
             # t + δ ≥ 0 ⟺ id ≥ (R − t)·rows (row < rows): drop the rest
             # (an identity from t = R on: ids below 0 add nothing anyway)
             min_id = torch.clamp(R - t, min=0) * rows
@@ -380,16 +417,23 @@ class Pipeline:
                 torch.arange(P, device=acc.device) - t_emit, P)
             acc.add_(torch.index_select(dep, 0, src))
         else:
-            rows_i, delta, contrib = self._deposits(window, p)
-            contrib = torch.where(t + delta >= 0, contrib,
-                                  torch.zeros_like(contrib))
-            slot = torch.remainder(t + delta, P).to(torch.int64)
+            ids_rel, contrib = self._deposit_ids_rel(
+                self._bank_windows(window), p)
+            # id = (δ + R)·rows + row; an id below 0 (B1's invalid
+            # deposit) and a column t + δ below 0 are dropped
+            delta = torch.div(ids_rel, rows, rounding_mode="floor") - R
+            slot = torch.remainder(t + delta, P)
             n_lead = acc[0].numel() // rows
-            lane = (torch.arange(n_lead, device=acc.device) * rows
+            lane = (torch.arange(n_lead, dtype=torch.int32,
+                                 device=acc.device) * rows
                     ).reshape(lead + (1,))
-            flat = slot * (n_lead * rows) + lane + rows_i
-            # in place, in bin order: each cell adds in the batch's order
-            acc.view(-1).index_add_(0, flat.reshape(-1), contrib.reshape(-1))
+            flat = slot * (n_lead * rows) + lane + torch.remainder(
+                ids_rel, rows)
+            flat = torch.where((ids_rel >= 0) & (t + delta >= 0), flat, -1)
+            # added into the ring in place (B2 on the card), in bin order
+            # on the CPU: each cell adds in the batch's order
+            histogram(flat.reshape(-1), contrib.reshape(-1), acc.numel(),
+                      out=acc.view(-1))
         # the chain always runs; its result is kept from t = R on
         emit_slot = _slot(t_emit, P)
         vis, new_post = postprocess_column(acc.index_select(0, emit_slot)[0],
@@ -460,3 +504,32 @@ def get_pipeline(settings: Settings, device="cuda") -> Pipeline:
     params from YOUR settings (``pipe.params(settings)``)."""
     return _cached_pipeline(_structural_projection(settings),
                             str(as_device(device)))
+
+
+def render_image_multires(x, settings: Settings, device="cuda") -> np.ndarray:
+    """Audio → (rows, t, 4) uint8 RGBA log-frequency image, on ``device``.
+
+    Multichannel input renders ``settings.display_channel`` (the single
+    view of the app; ``render_images_channels`` gives every channel)."""
+    pipe = get_pipeline(settings, device)
+    _, rgba, _ = pipe.process(x, params=pipe.params(settings))
+    img = rgba.cpu().numpy()                           # (t, [ch,] rows, 4)
+    if img.ndim == 4:
+        img = img[:, settings.display_channel]
+    return img.transpose(1, 0, 2)[::-1]
+
+
+def render_images_channels(x, settings: Settings,
+                           device="cuda") -> list[np.ndarray]:
+    """Multichannel audio (ch, samples) → one (rows, t, 4) log-frequency
+    image per channel, from one batched pass on ``device``."""
+    x = np.asarray(x, np.float32)
+    if x.ndim == 1:
+        x = x[None]
+    s = settings.replace(channels=x.shape[0], display_channel=0)
+    pipe = get_pipeline(s, device)
+    _, rgba, _ = pipe.process(x, params=pipe.params(s))
+    img = rgba.cpu().numpy()                           # (t, [ch,] rows, 4)
+    if img.ndim == 3:
+        img = img[:, None]
+    return [img[:, c].transpose(1, 0, 2)[::-1] for c in range(img.shape[1])]

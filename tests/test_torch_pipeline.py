@@ -170,12 +170,29 @@ def test_nan_sample_leaves_no_nan():
 @pytest.mark.parametrize("kw", [
     dict(multires=True), dict(multires=True, multires_sizes=(4096, 1024)),
 ])
-def test_unsupported_settings_raise(kw):
-    """Enhanced multires is not ported: it raises on every device."""
-    base = dict(mode="enhanced", multires=False, fft_size=8192)
+def test_enhanced_multires_runs_and_matches_jax(kw):
+    """Enhanced multires (once refused) runs on the CPU at 512 rows and
+    matches the JAX package: the grid by ``compare_grids``, ``vis`` by
+    ``compare_vis``."""
+    base = dict(mode="enhanced", multires=False, fft_size=8192,
+                smoothing=0.3)
     base.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pipeline(Settings(**base), "cpu")
+    s = Settings(**base)
+    tp = Pipeline(s, "cpu")
+    jp = JaxPipeline(s)
+    x = _signal(1.0, seed=13)
+    t_count = tp.num_columns(x.shape[-1])
+    jparams = jp.params()
+    p = params_from_jax(jparams, "cpu")
+    vis_j, _, _ = jp.process(x, jparams)
+    vis_t, _, _ = tp.process(x, p)
+    assert vis_t.shape == vis_j.shape == (t_count, 512)
+    power_j = jax.jit(jp._enhanced_power, static_argnums=1)(
+        jnp.asarray(x), t_count, jparams)
+    power_t = tp._enhanced_power(tp.to_device(x), t_count, p)
+    cmp = compare_grids(torch.from_numpy(np.array(power_j)), power_t)
+    assert cmp.ok, cmp
+    _vis_maxf_close(np.asarray(vis_j), vis_t.numpy())
 
 
 @pytest.mark.parametrize("kw", [

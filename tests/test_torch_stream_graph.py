@@ -4,9 +4,11 @@ port's own batch path, guarded against any host read of ``t``, and the
 ``Stream``'s static tensors (the params setter, ``load_state``, an
 overrun re-prime) against the JAX ``Stream``.
 
-Four settings: enhanced with the relative histogram (``scatter="pallas"``;
+Five settings: enhanced with the relative histogram (``scatter="pallas"``;
 the CPU runs B2's plain version), enhanced with the segment sum, natural
-on the multires banks 8192/2048/512, and the direct method.  Each hop
+on the multires banks 8192/2048/512, the direct method, and enhanced on
+the multires banks (the display default, three banks' deposits a hop;
+the CPU's ``"auto"`` is the segment sum).  Each hop
 sequence starts the window from zero (hops t < R emit nothing), re-primes
 it mid-stream as an overrun does, and ends with the flush (a zeroed
 window and R zero hops).
@@ -14,7 +16,11 @@ window and R zero hops).
 Tolerances against JAX, per hop: the masked hops and the emit indices
 bit-equal; ``vis`` by ``compare_vis`` (enhanced: a float32 rounding flip
 moves a quantized deposit one cell) or within 1e-4 (natural: float32 FFT
-rounding only); RGBA bit-equal wherever the two ``vis`` quantize to the
+rounding only); on enhanced multires ``compare_vis`` admits a 1e-3 share
+of the cells (``VIS_FRAC``): at hop 128 its 0.5 s raster holds ~20× the
+deposits of the 1024-point settings' in 19k cells, so a few deposits
+flip a row (one log2 ulp), and each one moved touches 3–9 cells of the
+max-filtered raster through the smoothing EMA; RGBA bit-equal wherever the two ``vis`` quantize to the
 same entry; the post state's AGC reference within 0.05 dB and its
 smoothing state like ``vis``.  Against the port's batch path and between
 the port's own runs: bit for bit.
@@ -51,7 +57,9 @@ CONFIGS = {
     "natural-multires": dict(mode="natural", raster_height=128),
     "direct": dict(mode="enhanced", multires=False, fft_size=1024, hop=256,
                    raster_height=128, fft_method="direct"),
+    "enhanced-multires": dict(mode="enhanced", raster_height=128),
 }
+VIS_FRAC = {"enhanced-multires": 1e-3}    # compare_vis share, else 1e-4
 SLIDERS = dict(gain=4.0, db_range=70.0, colormap="viridis", freq_scale=1.3,
                smoothing=0.4, brightness=0.6)
 
@@ -158,13 +166,14 @@ def _jax_hops(jp, jparams, plan):
             (np.asarray(post.smooth), np.asarray(post.agc_ref)))
 
 
-def _close_to_jax(mode, want, got):
+def _close_to_jax(config, want, got):
     """``vis``-like arrays (hops, rows) at this file's tolerance."""
-    if mode == "natural":
+    if CONFIGS[config]["mode"] == "natural":
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     else:
         ok, worst, share = compare_vis(torch.from_numpy(np.array(want)),
-                                       torch.from_numpy(np.array(got)))
+                                       torch.from_numpy(np.array(got)),
+                                       frac=VIS_FRAC.get(config, 1e-4))
         assert ok, (worst, share)
 
 
@@ -197,10 +206,10 @@ def test_hops_match_jax_step(config):
     np.testing.assert_array_equal(vis_t[:R], vis_j[:R])
     np.testing.assert_array_equal(rgba_t[:R], rgba_j[:R])
     assert not vis_t[:R].any()
-    _close_to_jax(kw["mode"], vis_j, vis_t)
+    _close_to_jax(config, vis_j, vis_t)
     _rgba_agree(vis_j, vis_t, rgba_j, rgba_t)
     np.testing.assert_allclose(ref_t, ref_j, rtol=0, atol=0.05)   # dB
-    _close_to_jax(kw["mode"], sm_j[None], sm_t[None])
+    _close_to_jax(config, sm_j[None], sm_t[None])
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
@@ -266,7 +275,7 @@ def test_params_setter_mid_stream_matches_jax(config):
     assert all(a is b for a, b in zip(
         held, [t for t in ts.params.post] + [ts.params.lut, *ts.params.i0]))
     assert not all(torch.equal(a, b) for a, b in zip(before, held))
-    _close_to_jax(kw["mode"], vis_j, vis_t)
+    _close_to_jax(config, vis_j, vis_t)
     _rgba_agree(vis_j, vis_t, rgba_j, rgba_t)
     with pytest.raises(ValueError, match="params"):
         ts.params = Pipeline(Settings(**kw).replace(raster_height=64),
@@ -316,5 +325,5 @@ def test_overrun_reprime_matches_jax_stream(config):
     idx_j, vis_j, rgba_j = _collect(js, pushes)
     assert ts.dropped_frames == js.dropped_frames > 0
     assert idx_t == idx_j
-    _close_to_jax(kw["mode"], vis_j, vis_t)
+    _close_to_jax(config, vis_j, vis_t)
     _rgba_agree(vis_j, vis_t, rgba_j, rgba_t)
