@@ -52,7 +52,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
    display default — (a) one relative B2 and the fold (P = 65), (b) the
    JAX package's mixed scatter, composed here, with each bank's
    relative-or-absolute choice timed here, (c) one absolute-grid B2 —
-   and each bank's two options.
+   and each bank's two options; the EMA scan kernel (``ema_scan``) of
+   the batch post chain against its plain loop, bit for bit, at every
+   batch path's shape (multires 5,937 × 512, batch16 372 × 8192, wide
+   1,437 × 512, the AGC series 5,937 × 1 and 372 × 16, t = 0 and t = 1),
+   with both of its bounds (bytes; the dependent chain) and the
+   associative form's device time and largest relative difference; B2's
+   sorted route at the single-bank raster's ids, bit-equal to the plain
+   sum and the same on a second run, beside the global route.
 3. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise; the result must
    match the port's CPU path.
@@ -98,11 +105,30 @@ them.  Phases, in order, one line each; the first failure ends the run:
 17. multires_live: the same through ``Stream`` in 1024-sample pushes
    (5,937 hops of 128); must match its batch; p50/p99 per hop, and the
    p50 must be below the hop's 2.67 ms of audio.
-18. breakdown: per-stage device times of the enhanced stencil batch
+18. raster: the single-bank raster (``render.raster.render_image``) on
+   16 s mono, enhanced 8192 at hop 2048 (B5, B2's sorted route, the scan
+   kernel and B3 must launch) and natural 2048 at hop 512; the image is
+   the colormap of ``render_vis``, which is the same on a second run
+   (and, measured beside it, how many pixels five more runs change when
+   its sum takes B2's atomic global route instead); the power grid and
+   vis match the port's CPU path; wall per call.
+19. cli: ``python -m emspec_torch`` in subprocesses on a 16 s WAV written
+   with the port's ``io.wav`` — render (8192, and --multires), export
+   (``apply_lut`` of its vis equals render's PNG pixel for pixel), stream,
+   animate over the first 4 s at 10 fps (its last frame equals stream's
+   PNG of the same 4 s) and note 443 — each must exit 0; walls.
+20. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
-   of a live hop of each path (torch.profiler busy time over the
-   unprofiled wall time).
+   of a live hop of each path and each raster (torch.profiler busy time
+   over the unprofiled wall time).
+
+Every batch phase also times the post chain alone in both forms
+(sequential: the scan kernel; associative: ⌈log2 t⌉ doubling passes),
+beside the per-column loop's stage where PERF.md has it, must launch the
+scan kernel,
+and counts the pixels in which five more calls differ from the first
+(B2's atomics: a measurement, not a check).
 
 Every path is driven once with the launch counters set to 0 just before
 and read just after; those counts are the ``launches`` of the per-kernel
@@ -119,7 +145,8 @@ valid, and b = 1 bit-equal to frame 0 of the batch; the three batch
 scatters of the display default against each other by the grid rule; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
-own plain versions; B3 (both forms) and B5 bit-equal; B4 (either route) within
+own plain versions; B3 (both forms), B5 and the scan kernel bit-equal;
+B2's sorted route bit-equal to the plain sum on the CPU; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
 of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
@@ -130,9 +157,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -140,6 +170,7 @@ import torch
 from emspec_torch import Settings, kernels_build
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, signal_blocks
+from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain,
@@ -149,15 +180,23 @@ from emspec_torch.dsp.kernels.fourstep import (
 from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, histogram, histogram_plain, route_of)
+    ROUTES, SMEM_BINS, SORTED, histogram, histogram_plain, route_of)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
     stft_triple_stencil_blocks, stft_triple_stencil_sliced)
-from emspec_torch.dsp.reassign import reassignment_corrections
+from emspec_torch.dsp.reassign import (
+    reassigned_bins, reassignment_corrections)
+from emspec_torch.dsp.stft import stft_triple
+from emspec_torch.io.wav import write_wav
 from emspec_torch.pipeline import Pipeline
+from emspec_torch.post import chain
 from emspec_torch.post.chain import PostState, postprocess_batch
 from emspec_torch.post.colormap import apply_lut
+from emspec_torch.render import raster
+from emspec_torch.render.apng import read_apng
+from emspec_torch.render.png import read_png
+from emspec_torch.tables import lut
 from emspec_torch.probes.scatter_ablation import (
     VARIANTS, hist_variant, hist_variant_plain)
 from emspec_torch.stream import Stream
@@ -176,6 +215,9 @@ EXT = Settings(mode="enhanced", multires=False, fft_size=262144,
                sample_rate=96000)
 WIDE = Settings(mode="enhanced", multires=False, fft_size=8192, hop=64)
 MULTIRES = Settings()           # the display default: enhanced multires
+RASTER = Settings(mode="enhanced", multires=False, fft_size=8192)  # hop 2048
+RASTER_NATURAL = Settings(mode="natural", multires=False, fft_size=2048)
+ROOT = Path(__file__).resolve().parent
 CHANNELS = 16
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
@@ -205,6 +247,9 @@ KERNELS = (
      "bench_probes/scatter_ablation.py:93"),
     ("deposits_ids_window", deposits_ids, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:404"),
+    # the sequential lax.scan of the JAX batch post chain (XLA, not Pallas)
+    ("ema_scan", ema_scan, "emspec_torch/csrc/ema_scan.cu",
+     "emspec/post/chain.py:89"),
 )
 # a kernel counted by another counter than its wrapper's ``launches``
 COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"]}
@@ -213,27 +258,38 @@ MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
 CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
 LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
               "lut_values")
+SCAN = ("ema_scan",)    # every batch path's post chain
 PATH_KERNELS = {        # kernels each path must launch
-    "batch": ("deposits_ids", "histogram", "lut_values"),
-    "batch16": ("deposits_ids", "histogram", "lut_values"),
+    "batch": ("deposits_ids", "histogram", "lut_values") + SCAN,
+    "batch16": ("deposits_ids", "histogram", "lut_values") + SCAN,
     "live": ("deposits_ids", "histogram", "lut_values"),
-    "natural": ("fft4_steps123", "lut_values"),
+    "natural": ("fft4_steps123", "lut_values") + SCAN,
     "natural_live": ("fft4_steps123", "lut_values"),
-    "direct": ("windowed_frames", "fft4_steps123", "histogram", "lut_values"),
+    "direct": ("windowed_frames", "fft4_steps123", "histogram",
+               "lut_values") + SCAN,
     "direct_live": ("windowed_frames", "fft4_steps123", "histogram",
                     "lut_values"),
-    "stress": CLUSTER_PATH,
-    "stress_live_batch": CLUSTER_PATH,
+    "stress": CLUSTER_PATH + SCAN,
+    "stress_live_batch": CLUSTER_PATH + SCAN,
     "stress_live": CLUSTER_PATH,
-    "north": CLUSTER_PATH,
+    "north": CLUSTER_PATH + SCAN,
     "north_live": CLUSTER_PATH,
-    "ext262144": LARGE_PATH,
-    "wide": ("deposits_ids", "histogram", "lut_values"),
+    "ext262144": LARGE_PATH + SCAN,
+    "wide": ("deposits_ids", "histogram", "lut_values") + SCAN,
     "wide_live": ("deposits_ids", "histogram", "lut_values"),
-    "multires": MULTIRES_PATH,
+    "multires": MULTIRES_PATH + SCAN,
     "multires_live": MULTIRES_PATH,
+    "raster": ("windowed_frames", "histogram", "lut_values") + SCAN,
+    "raster_natural": ("lut_values",) + SCAN,
 }
+# the post chain's stage on each batch path when it was a loop of two
+# launches a column, before the scan kernel (PERF.md §5, the same card
+# model and power limit), printed beside this run's
+LOOP_POST_STAGE_MS = {"batch": 23.0, "batch16": 30.1, "stress": 4.2,
+                     "north": 51.3, "wide": 85.6, "multires": 302.4}
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
+SM_CLOCK_HZ = [0.0]     # the card's top SM clock (nvidia-smi), phase device
+STEP_CYCLES = 8         # one scan step: a dependent multiply and add
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
 
 
@@ -338,7 +394,8 @@ def dft_ops(n: int) -> float:
 def reset_counters() -> None:
     for _, wrapper, _, _ in KERNELS:
         wrapper.launches = 0
-    histogram.route_launches.update(dict.fromkeys(ROUTES, 0))
+    histogram.route_launches.update(dict.fromkeys(histogram.route_launches,
+                                                  0))
     deposits_ids.form_launches.update(dict.fromkeys(
         deposits_ids.form_launches, 0))
 
@@ -369,6 +426,11 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
     t0 = time.perf_counter()
     kernels_build.library()
     build_s = time.perf_counter() - t0
@@ -1219,6 +1281,119 @@ def multires_scatter(dev) -> dict:
     return out
 
 
+# The batch post chain's two scans at each path's shape: (label, t, C, α),
+# α the smoothing slider (a 0-d device tensor) or the AGC's decay (a
+# float): multires 16 s at hop 128, batch16 (16 channels × 512 rows),
+# wide, the AGC series mono and at 16 channels, and the edge cases.
+EMA_CASES = (("multires smoothing", 5937, 512, "slider"),
+             ("batch16 smoothing", 372, 16 * 512, "slider"),
+             ("wide smoothing", 1437, 512, "slider"),
+             ("multires AGC", 5937, 1, "agc"),
+             ("batch16 AGC", 372, 16, "agc"),
+             ("t = 0", 0, 512, "slider"),
+             ("t = 1", 1, 512, "slider"))
+
+
+def kernels_ema(dev) -> dict:
+    """The scan kernel against its plain loop on the card, bit for bit, at
+    every case; its time, the plain loop's, both bounds (bytes: b read and
+    ys written once; the chain: t dependent steps of ``STEP_CYCLES`` at
+    the top SM clock), and the associative form's device time and largest
+    difference from the sequential form relative to max|ys|."""
+    rng = np.random.default_rng(11)
+    shapes, lines, worst = {}, [], 0.0
+    for label, t, c, kind in EMA_CASES:
+        xs = torch.from_numpy(rng.uniform(0, 1, (t, c)).astype(
+            np.float32)).to(dev)
+        y0 = torch.from_numpy(rng.uniform(0, 1, c).astype(np.float32)).to(dev)
+        alpha = (torch.tensor(np.float32(0.6), device=dev)
+                 if kind == "slider" else chain.AGC_DECAY)
+        b = (1.0 - alpha) * xs
+        ys, fin = ema_scan(y0, alpha, b)
+        ps, pfin = ema_scan_plain(y0, alpha, b)
+        check(torch.equal(ys, ps) and torch.equal(fin, pfin),
+              f"ema_scan {label} ({t}, {c}) differs from its plain loop")
+        worst = max(worst, float((ys - ps).abs().max()) if t else 0.0)
+        row = dict(
+            at=f"b ({t}, {c}), α {kind}", max_abs_err=0.0 if t == 0 else
+            float((ys - ps).abs().max()),
+            ms=cuda_ms(lambda: ema_scan(y0, alpha, b)),
+            plain_ms=cuda_ms(lambda: ema_scan_plain(y0, alpha, b), iters=2,
+                             warmup=1),
+            library_ms=None, library_device_ms=None,
+            device_ms=device_ms(lambda: ema_scan(y0, alpha, b)),
+            **bound(8.0 * t * c + 8.0 * c, 2.0 * t * c),
+            chain_bound_ms=t * STEP_CYCLES / SM_CLOCK_HZ[0] * 1e3)
+        if t > 1:
+            a_ys, _ = chain._ema_scan(y0, alpha, xs, True)
+            s_ys, _ = chain._ema_scan(y0, alpha, xs, False)
+            row["associative_device_ms"] = device_ms(
+                lambda: chain._ema_scan(y0, alpha, xs, True), calls=5)
+            row["sequential_device_ms"] = device_ms(
+                lambda: chain._ema_scan(y0, alpha, xs, False), calls=5)
+            row["associative_max_rel_diff"] = float(
+                (a_ys - s_ys).abs().max() / s_ys.abs().max())
+        shapes[label] = row
+        lines.append(
+            f"{label} ({t}, {c}): device {row['device_ms']:.4f} ms, bytes "
+            f"bound {row['bound_ms']:.4f}, chain bound "
+            f"{row['chain_bound_ms']:.4f}, plain {row['plain_ms']:.4f} ms"
+            + (f", associative form device {row['associative_device_ms']:.4f}"
+               f" ms (sequential with b {row['sequential_device_ms']:.4f}),"
+               f" rel diff {row['associative_max_rel_diff']:.2e}"
+               if t > 1 else ""))
+    print("kernels ema_scan (bit-equal to the plain loop at every case): "
+          + "; ".join(lines), flush=True)
+    return dict(shapes["multires smoothing"], max_abs_err=worst,
+                shapes=shapes)
+
+
+def raster_ids(dev, settings: Settings, x: np.ndarray):
+    """The single-bank raster's absolute ids t_bin·K + f_bin (−1 where the
+    deposit is dropped) and powers on ``x``, as ``dsp.reassign`` makes
+    them on the card, and the grid's cell count."""
+    n, hop = settings.fft_size, settings.hop_samples
+    X = stft_triple(torch.from_numpy(x).to(dev), n, hop, "direct")
+    t = X[0].shape[-2]
+    t_bin, f_bin, p = reassigned_bins(*reassignment_corrections(*X), n, hop,
+                                      t)
+    ids = torch.where(p != 0, t_bin * (n // 2 + 1) + f_bin, -1)
+    return ids.reshape(-1).contiguous(), p.reshape(-1).contiguous(), \
+        t * (n // 2 + 1)
+
+
+def kernels_b2_sorted(dev) -> dict:
+    """B2's sorted route at the raster's ids (8192, hop 2048, 16 s):
+    bit-equal to the plain sum on the CPU (each cell in deposit order),
+    the same on a second run; its time beside the global route's (atomics:
+    another order each run) and index_add_."""
+    ids, vals, cells = raster_ids(dev, RASTER, signal(SECONDS, seed=17))
+    got = histogram(ids, vals, cells, route=SORTED)
+    want = histogram_plain(ids.cpu(), vals.cpu(), cells)
+    check(torch.equal(got.cpu(), want),
+          "B2 sorted route differs from the plain sum in deposit order")
+    check(torch.equal(histogram(ids, vals, cells, route=SORTED), got),
+          "B2 sorted route differs between two runs")
+    flat = torch.where(ids >= 0, ids, cells).long()
+    vals0 = torch.where(ids >= 0, vals, 0.0)
+    row = dict(
+        at=f"ids (1, {ids.numel()}) → {cells} bins", max_abs_err=0.0,
+        **times(lambda: histogram(ids, vals, cells, route=SORTED),
+                lambda: histogram_plain(ids, vals, cells),
+                lambda: torch.zeros(cells + 1, device=dev).index_add_(
+                    0, flat, vals0), iters=10),
+        **bound(8.0 * ids.numel() + 4.0 * cells, float((ids >= 0).sum())),
+        global_route_device_ms=device_ms(
+            lambda: histogram(ids, vals, cells, route="global")))
+    print(f"kernels B2 sorted route at the raster's ids ({ids.numel()} → "
+          f"{cells}): bit-equal to the plain sum and run to run; device "
+          f"{row['device_ms']:.4f} ms (global route "
+          f"{row['global_route_device_ms']:.4f}, index_add_ "
+          f"{row['library_device_ms']:.4f}), bound {row['bound_ms']:.4f} ms",
+          flush=True)
+    return row
+
+
 def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res = kernels_b123(dev, pipe, p)
     res["histogram"]["multires_scatter"] = multires_scatter(dev)
@@ -1227,6 +1402,8 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res.update(kernels_b5(dev))
     res.update(kernels_large(dev))
     res.update(kernels_fused(dev, pipe, p))
+    res["ema_scan"] = kernels_ema(dev)
+    res["histogram"]["raster_sorted"] = kernels_b2_sorted(dev)
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
         f"{k} {v['ms']:.4f} ms at {v['at']} (device {v['device_ms']:.4f} ms, "
@@ -1260,28 +1437,62 @@ def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
     t = gpu.num_columns(x.shape[-1])
     if s.mode == "natural":
         want = cpu._natural_power(cpu.to_device(x), t, cpu.params())
-        got = gpu._natural_power(xg, t, p).cpu()
+        power = gpu._natural_power(xg, t, p)
+        got = power.cpu()
         worst = float((got - want).abs().max()) / float(want.max())
         check(worst <= NATURAL_POWER_TOL, f"{name}: GPU vs CPU power "
               f"{worst}·peak > {NATURAL_POWER_TOL}")
         grid = f"power max diff {worst:.2e}·peak"
     else:
+        power = gpu._enhanced_power(xg, t, p)
         g = compare_grids(cpu._enhanced_power(cpu.to_device(x), t,
-                                              cpu.params()),
-                          gpu._enhanced_power(xg, t, p).cpu())
+                                              cpu.params()), power.cpu())
         check(g.ok, f"{name}: GPU vs CPU grid {g}")
         grid = f"energy {g.energy_rel:.2e}, grid maxf {g.maxf_rel:.2e}"
+    post = post_stage(name, power, s, p, dev)
     vis_ok, vd, vshare = compare_vis(vis_c, vis.cpu())
     check(vis_ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share "
           f"over 2/255: {vshare})")
+    again = repeat_pixels(lambda: gpu.process(xg, p)[1], rgba)
     ms = cuda_ms(lambda: gpu.process(xg, p), iters=iters, warmup=2)
     frames = t * (1 if x.ndim == 1 else x.shape[0])
     print(f"{name}: {tuple(x.shape)} samples → vis {tuple(vis.shape)}; "
           f"{ms:.3f} ms/call, {frames / (ms / 1e3):.1f} frames/s ({frames} "
           f"frames/call, device-resident input); vs CPU path: {grid}, vis "
-          f"maxf {vd:.2e} (share over 2/255 {vshare:.2e}); launches "
-          f"{LAUNCHES[name]}, B2 routes {ROUTE_LAUNCHES[name]}", flush=True)
+          f"maxf {vd:.2e} (share over 2/255 {vshare:.2e}); {post}; pixels "
+          f"differing from the first call in {len(again)} more: {again}; "
+          f"launches {LAUNCHES[name]}, B2 routes {ROUTE_LAUNCHES[name]}",
+          flush=True)
     return vis, ms
+
+
+def repeat_pixels(fn, first, runs: int = 5) -> list:
+    """Pixels (RGBA entries of any channel) in which each of ``runs`` more
+    calls of ``fn`` differs from ``first``: B2's float atomics add a
+    cell's deposits in another order each run, and the EMAs can carry a
+    last-bit difference over a colormap edge.  A measurement, not a
+    check: only the single-bank raster promises equal runs."""
+    out = []
+    for _ in range(runs):
+        got = fn()
+        out.append(int((got != first).reshape(-1, 4).any(-1).sum()))
+    return out
+
+
+def post_stage(name: str, power, s: Settings, p, dev) -> str:
+    """The batch post chain alone on a path's (..., t, rows) power: CUDA
+    events over the stage in each form, beside the per-column loop's
+    stage where PERF.md has it."""
+    cols = power.movedim(-2, 0).contiguous()
+    st = PostState.init(cols.shape[1:], dev)
+    ms = {assoc: cuda_ms(lambda: postprocess_batch(
+        cols, st, p.post, s.agc_global, associative=assoc), iters=5,
+        warmup=1) for assoc in (False, True)}
+    before = LOOP_POST_STAGE_MS.get(name)
+    return (f"post chain stage {ms[False]:.4f} ms (associative form "
+            f"{ms[True]:.4f}), {cols.shape[0]} columns"
+            + ("" if before is None else
+               f"; the per-column loop's stage (PERF.md §5): {before} ms"))
 
 
 def eager_hops(name: str, st: Stream, x: np.ndarray, hops: int = 200,
@@ -1363,6 +1574,132 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
               f"the hop's {hop_ms:.3f} ms of audio")
 
 
+def raster_phase(name: str, dev, settings: Settings, x: np.ndarray,
+                 iters: int = 5) -> tuple:
+    """The single-bank raster (``render.raster``) on the card, driven once
+    through ``render_image`` (counters); its vis the same on a second run
+    (B2's sorted route) and its image the colormap of that vis; the power
+    grid and vis against the port's CPU path; wall by the host clock over
+    ``iters`` calls (device-resident input, image copied to the host).
+    → (the call for the breakdown, wall ms)."""
+    xg = torch.from_numpy(x).to(dev)
+    img = drive(name, lambda: raster.render_image(xg, settings, dev))
+    n = settings.fft_size
+    t = (x.size - n) // settings.hop_samples + 1
+    check(img.shape == (n // 2 + 1, t, 4) and img.dtype == np.uint8,
+          f"{name}: image {img.shape} {img.dtype}")
+    vis = raster.render_vis(xg, settings, dev)
+    check(np.array_equal(raster.render_vis(xg, settings, dev), vis),
+          f"{name}: vis differs between two runs")
+    own = apply_lut(torch.from_numpy(vis.T.copy()),
+                    torch.from_numpy(lut(settings.colormap).copy())).numpy()
+    check(np.array_equal(own.transpose(1, 0, 2)[::-1], img),
+          f"{name}: the image is not the colormap of render_vis")
+    check(bool(np.isfinite(vis).all()), f"{name}: non-finite vis")
+    pc = raster.analyze(torch.from_numpy(x), settings)
+    pg = raster.analyze(xg, settings).cpu()
+    if settings.mode == "natural":
+        worst = float((pg - pc).abs().max()) / float(pc.max())
+        check(worst <= NATURAL_POWER_TOL, f"{name}: GPU vs CPU power "
+              f"{worst}·peak > {NATURAL_POWER_TOL}")
+        grid = f"power max diff {worst:.2e}·peak"
+    else:
+        g = compare_grids(pc, pg)
+        check(g.ok, f"{name}: GPU vs CPU grid {g}")
+        grid = f"energy {g.energy_rel:.2e}, grid maxf {g.maxf_rel:.2e}"
+    vis_c = raster.render_vis(x, settings, "cpu")
+    ok, vd, share = compare_vis(torch.from_numpy(vis_c.T.copy()),
+                                torch.from_numpy(vis.T.copy()))
+    check(ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share over "
+          f"2/255: {share})")
+
+    atomic = ""
+    if settings.mode == "enhanced":
+        # the same raster with B2's global route (atomics) for its sum:
+        # what the sorted route is there to prevent
+        ids, vals, cells = raster_ids(dev, settings, x)
+        freqs, params, table = raster._tables(settings, str(dev))
+
+        def with_atomics():
+            grid = histogram(ids, vals, cells, route="global")
+            v = raster.postprocess(grid.reshape(-1, n // 2 + 1), freqs,
+                                   settings, params)
+            return apply_lut(v, table)
+        again = repeat_pixels(with_atomics, with_atomics())
+        atomic = (f"; with B2's global route instead of the sorted one, "
+                  f"pixels differing from the first run in 5 more: {again}")
+
+    def call():
+        return raster.render_image(xg, settings, dev)
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    print(f"{name}: {settings.mode} {n} at hop {settings.hop_samples} on "
+          f"{x.size} samples → image {img.shape}; wall {wall:.3f} ms/call "
+          f"(host clock, image on the host); vs CPU path: {grid}, vis maxf "
+          f"{vd:.2e} (share over 2/255 {share:.2e}); vis equal run to run"
+          f"{atomic}; launches {LAUNCHES[name]}, B2 routes "
+          f"{ROUTE_LAUNCHES[name]}", flush=True)
+    return call, wall
+
+
+def cli_phase(x: np.ndarray) -> None:
+    """``python -m emspec_torch`` as a user runs it, each command a
+    subprocess on the card that must exit 0: render (single bank 8192, and
+    --multires), export (its vis through the colormap must equal that
+    render's PNG pixel for pixel), stream, animate over the first 4 s at
+    10 fps (its last frame must equal stream's PNG of the same 4 s), and
+    note 443.  The WAVs are written with the port's io.wav."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        write_wav(d / "s16.wav", x, SR)
+        write_wav(d / "s4.wav", x[:4 * SR], SR)
+        runs = (("render", ["render", "s16.wav", "r.png", "--fft-size",
+                            "8192"]),
+                ("render --multires", ["render", "s16.wav", "m.png",
+                                       "--multires"]),
+                ("export", ["export", "s16.wav", "e.npz", "--fft-size",
+                            "8192"]),
+                ("stream", ["stream", "s16.wav", "s.png"]),
+                ("stream 4 s", ["stream", "s4.wav", "s4.png"]),
+                ("animate", ["animate", "s4.wav", "a.png", "--fps", "10"]),
+                ("note", ["note", "443"]))
+        walls, outs = {}, {}
+        for label, args in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "emspec_torch", *args],
+                               cwd=d, env=env, capture_output=True, text=True,
+                               timeout=600)
+            walls[label] = time.perf_counter() - t0
+            check(r.returncode == 0, f"cli {label}: exit {r.returncode}: "
+                  f"{r.stderr[-2000:]}")
+            outs[label] = r.stdout.strip()
+        z = np.load(d / "e.npz", allow_pickle=False)
+        s = json.loads(str(z["settings_json"]))
+        rgba = apply_lut(torch.from_numpy(z["vis"].T.copy()),
+                         torch.from_numpy(lut(s["colormap"]).copy())).numpy()
+        check(np.array_equal(rgba.transpose(1, 0, 2)[::-1],
+                             read_png(d / "r.png")),
+              "cli: export's vis through the colormap differs from render's "
+              "PNG")
+        frames, fps = read_apng(d / "a.png")
+        check(frames.shape[0] == 40 and fps == 10,
+              f"cli animate: {frames.shape[0]} frames at {fps} fps")
+        check(np.array_equal(frames[-1], read_png(d / "s4.png")),
+              "cli: animate's last frame differs from stream's PNG")
+        check("A4" in outs["note"], f"cli note: {outs['note']!r}")
+    print("cli: python -m emspec_torch, each a subprocess that exited 0, "
+          "wall s (process start, import and kernel library load included): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + "; export ≡ render pixel for pixel; animate's last frame ≡ "
+          "stream's PNG; outputs: " + " | ".join(outs.values()), flush=True)
+
+
 def device_busy(fn, reps: int):
     """Device busy time per call of ``fn`` (ms) and its split by kernel:
     the sums of kernel and copy times in torch.profiler (one stream, so
@@ -1387,7 +1724,7 @@ def _top(by_name: dict, k: int = 4) -> str:
     return ", ".join(f"{name[:40]} {ms:.4f}" for name, ms in top)
 
 
-def phase_breakdown(dev, batches: dict, lives: dict) -> None:
+def phase_breakdown(dev, batches: dict, lives: dict, calls: dict) -> None:
     """Where the time goes: per-stage device times (CUDA events) of the
     enhanced stencil batch paths; for every batch cell and a live hop of
     every path, the device busy time, its largest kernels and the idle
@@ -1427,6 +1764,12 @@ def phase_breakdown(dev, batches: dict, lives: dict) -> None:
         print(f"breakdown {name}: {stages}device busy {busy:.4f} of "
               f"{wall_ms:.4f} ms/call, idle share {1 - busy / wall_ms:.4f}; "
               f"largest (ms/call): {_top(by_name)}", flush=True)
+
+    for name, (fn, wall_ms) in calls.items():
+        busy, by_name = device_busy(fn, 3)
+        print(f"breakdown {name}: device busy {busy:.4f} of {wall_ms:.4f} "
+              f"ms/call, idle share {1 - busy / wall_ms:.4f}; largest "
+              f"(ms/call): {_top(by_name)}", flush=True)
 
     # live: 20 hops to settle, then up to 100 profiled and as many on the
     # host clock alone (fewer where the signal is shorter)
@@ -1489,6 +1832,10 @@ def main() -> None:
               f"({ROUTE_LAUNCHES[path]})")
     vis_m, ms_m = batch_phase("multires", dev, MULTIRES, x, iters=3)
     live_phase("multires_live", dev, MULTIRES, x, vis_m, keep_up=True)
+    rasters = {name: raster_phase(name, dev, s, x)
+               for name, s in (("raster", RASTER),
+                               ("raster_natural", RASTER_NATURAL))}
+    cli_phase(x)
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),
@@ -1498,7 +1845,7 @@ def main() -> None:
         {"live": (SETTINGS, x), "natural_live": (NATURAL, x),
          "direct_live": (DIRECT, x), "stress_live": (STRESS, xs_live),
          "north_live": (NORTH, x), "wide_live": (WIDE, xw),
-         "multires_live": (MULTIRES, x)})
+         "multires_live": (MULTIRES, x)}, rasters)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

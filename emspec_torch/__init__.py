@@ -4,18 +4,22 @@ The JAX package ``emspec`` stays the reference; this package mirrors its
 module names (``emspec_torch.pipeline`` ↔ ``emspec.pipeline`` …) so each
 counterpart is easy to find.  It imports ``torch`` and never ``jax``, and
 nothing of the JAX package: the host-only code it needs is copied
-(``config``, ``dsp.windows``, ``io.ring``, ``post._cmap_data``, the numpy
-table functions in ``tables``), each copy pinned to its original by the
-tests.
+(``config``, ``dsp.windows``, ``io.ring``, ``io.wav``, ``io.synth``,
+``post._cmap_data``, ``render.png``, ``render.apng``, ``utils.notes``,
+the numpy table functions in ``tables``), each copy pinned to its
+original by the tests.
 
 Ported so far: enhanced and natural mode, each on one bank or on the
 multires banks — the display default ``Settings()`` is enhanced multires
 8192/2048/512 at hop 128 — in batch (``Pipeline.process``), live
-(``Stream``) and as images (``render``, ``pipeline.render_image_multires``
-and ``render_images_channels``); the stencil and direct methods, every
-frame size 512–262144 on one bank, the ``xla`` (``torch.fft``) and
-``fourstep`` FFT engines; through hand-written CUDA kernels
-(``emspec_torch/csrc``), one for each Pallas kernel of the JAX package.
+(``Stream``) and as images (``render``: ``render.raster`` on one bank,
+``pipeline.render_image_multires`` and ``render_images_channels`` on the
+banks); the scrolling ``Waterfall``, ``animate_frames`` and the CLI
+(``python -m emspec_torch render|export|stream|animate|note``); the
+stencil and direct methods, every frame size 512–262144 on one bank,
+the ``xla`` (``torch.fft``) and ``fourstep`` FFT engines; through
+hand-written CUDA kernels (``emspec_torch/csrc``), one for each Pallas
+kernel of the JAX package and one for the batch post chain's EMA scan.
 ROADMAP.md lists the rest.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
@@ -25,6 +29,7 @@ caller passes ``device="cpu"``.
 >>> image = render(samples)                  # (rows, t, 4) uint8
 """
 
+import emspec_torch.render  # noqa: F401  (see ``render`` below)
 from emspec_torch.config import Settings  # noqa: F401
 from emspec_torch.device import apply_precision_policy
 
@@ -33,25 +38,35 @@ apply_precision_policy()
 __version__ = "0.1.0"
 
 
+_LAZY = {
+    "Pipeline": "pipeline", "PipelineParams": "pipeline",
+    "get_pipeline": "pipeline", "Stream": "stream",
+    "stream_signal": "stream", "Waterfall": "render.waterfall",
+    "animate_frames": "render.animate", "write_apng": "render.apng",
+    "read_apng": "render.apng",
+}
+
+
 def __getattr__(name):
-    if name in ("Pipeline", "PipelineParams", "get_pipeline"):
-        from emspec_torch import pipeline
-        return getattr(pipeline, name)
-    if name in ("Stream", "stream_signal"):
-        from emspec_torch import stream
-        return getattr(stream, name)
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f"emspec_torch.{_LAZY[name]}"),
+                       name)
     raise AttributeError(f"module 'emspec_torch' has no attribute {name!r}")
 
 
+# ``render`` the function shares its name with the ``render`` subpackage:
+# the first import of a submodule binds the package's attribute to the
+# subpackage, so the subpackage is imported above, before this def, and the
+# function keeps the name for good.
 def render(samples, settings: Settings | None = None, device="cuda"):
     """Offline convenience: audio (samples,) → RGBA image (rows, t, 4) on
     ``device`` (``emspec.render``).  Multires settings take the
-    log-frequency display pipeline; the single-bank linear-frequency
-    raster (``emspec.render.raster``) is not ported yet (ROADMAP.md)."""
+    log-frequency display pipeline; otherwise the single-bank
+    linear-frequency raster."""
     s = settings or Settings()
-    if not s.multires:
-        raise NotImplementedError(
-            "the single-bank raster (emspec.render.raster) is not ported "
-            "to emspec_torch yet (ROADMAP.md); use multires settings")
-    from emspec_torch.pipeline import render_image_multires
-    return render_image_multires(samples, s, device)
+    if s.multires:
+        from emspec_torch.pipeline import render_image_multires
+        return render_image_multires(samples, s, device)
+    from emspec_torch.render.raster import render_image
+    return render_image(samples, s, device)

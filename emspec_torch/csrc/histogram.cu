@@ -12,8 +12,9 @@
 // global atomics flush subnormal values (red.global.add.f32 is .ftz);
 // the pipeline's contributions lie far above that range.
 //
-// Two routes, chosen by the wrapper from (rows, m, num_bins) alone
-// (emspec_torch/dsp/kernels/scatter.py route_of):
+// Two atomic routes, chosen by the wrapper from (rows, m, num_bins) alone
+// (emspec_torch/dsp/kernels/scatter.py route_of), and a deterministic one
+// a caller asks for (sorted, at the end of this file):
 //   row     one block of 512 threads a row: a float32 histogram of
 //           num_bins cells in shared memory, then one coalesced store of
 //           the row (no zeroed output needed).  Taken where the rows
@@ -244,7 +245,52 @@ __global__ void __launch_bounds__(kGlobalThreads) global_kernel(
                      blockIdx.x == 0 && threadIdx.x < 32u);
 }
 
+// The sorted route, deterministic: ``keys`` (row·num_bins + id) of every
+// deposit sorted stably by the wrapper (torch.sort), −1 for a dropped id,
+// and ``vals`` in the same order.  The first deposit of each run of equal
+// keys sums its run in order onto the cell (0, or the value of an output
+// added into) and stores the total.  No atomics, so a cell's sum is the
+// same on every run, and, since the stable sort keeps each cell's
+// deposits in deposit order, equal bit for bit to the plain version's
+// (index_add_, which adds them in that order).  A run is one thread's
+// sequential loop: fine for the raster's few deposits a cell; a cell of
+// thousands of deposits would serialise on its thread.
+template <typename Key>
+__global__ void __launch_bounds__(kGlobalThreads) sorted_kernel(
+    const Key* __restrict__ keys, const float* __restrict__ vals,
+    float* __restrict__ out, long long n) {
+  for (long long i = (long long)blockIdx.x * kGlobalThreads + threadIdx.x;
+       i < n; i += (long long)gridDim.x * kGlobalThreads) {
+    const Key k = keys[i];
+    if (k < 0 || (i > 0 && keys[i - 1] == k)) continue;
+    float s = out[k];
+    for (long long j = i; j < n && keys[j] == k; ++j)
+      s = __fadd_rn(s, vals[j]);
+    out[k] = s;
+  }
+}
+
 }  // namespace
+
+// keys (int32 if key_bytes == 4, else int64) and vals: n sorted deposits
+// (see sorted_kernel); out holds every cell a key names, zeroed or added
+// into, on ``stream``.
+extern "C" int emspec_histogram_sorted(const void* keys, int key_bytes,
+                                       const float* vals, float* out,
+                                       long long n, int blocks,
+                                       void* stream) {
+  if (n < 0 || blocks <= 0 || (key_bytes != 4 && key_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (key_bytes == 4)
+    sorted_kernel<int><<<(unsigned)blocks, kGlobalThreads, 0, st>>>(
+        static_cast<const int*>(keys), vals, out, n);
+  else
+    sorted_kernel<long long><<<(unsigned)blocks, kGlobalThreads, 0, st>>>(
+        static_cast<const long long*>(keys), vals, out, n);
+  return (int)cudaGetLastError();
+}
 
 // ids, vals: (rows, m) int32 / float32, contiguous; a0 = (ids address / 4)
 // mod 4; vec = 1 when vals has the same 16-byte alignment.  route 0

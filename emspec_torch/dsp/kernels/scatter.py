@@ -19,6 +19,15 @@ audio cluster on a few hot cells) and read ids and vals with 16-byte
 loads where the two share their alignment.  ``histogram(..., route=...)``
 forces a route, for tests and timing only; the pipeline never passes it.
 The thresholds are card timings (PERF.md §6).
+
+Float atomics add a cell's deposits in an order that changes from run to
+run, so two runs can differ in the last bit of a cell.  A caller that
+needs the same sums on every run asks for the third route, ``"sorted"``
+(``SORTED``): the wrapper sorts the deposits by (row, id), stably, and
+the kernel sums each cell's run of deposits in deposit order on one
+thread, with no atomics — deterministic, and bit-equal to the plain
+version.  The single-bank raster takes it (``dsp.reassign``), so an
+export and a render of the same file agree pixel for pixel.
 """
 
 from __future__ import annotations
@@ -34,7 +43,8 @@ from emspec_torch.dsp.kernels import (
 # float32 cells one block's shared memory holds (227 KB on the H100):
 # the bound of B2's row route, and of B6's and the probe's histogram
 SMEM_BINS = 232448 // 4
-ROUTES = ("row", "global")
+ROUTES = ("row", "global")    # the atomic routes, chosen by route_of
+SORTED = "sorted"             # the deterministic route, on request
 ROW_THREADS = 512         # histogram.cu kRowThreads
 GLOBAL_THREADS = 256      # histogram.cu kGlobalThreads
 SMS = 132                 # the H100's streaming multiprocessors
@@ -95,10 +105,11 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     is NaN or Inf.  ``passes`` is accepted for the JAX signature and is
     moot here: the kernel adds in float32, each add exact to one rounding
     (the TPU kernel split values into bf16 terms).  ``route`` ("row" or
-    "global") overrides ``route_of``, for tests and timing.  ``out``, a
+    "global") overrides ``route_of``, for tests and timing; ``"sorted"``
+    asks for the deterministic route.  ``out``, a
     contiguous float32 (..., num_bins) tensor, is added into in place and
     returned (the global route: its atomics add into whatever the output
-    holds) — the live step's ring."""
+    holds) — the live step's ring; the sorted route adds into it too."""
     del passes
     if ids.device.type == "cpu":
         return histogram_plain(ids, vals, num_bins, out)
@@ -112,11 +123,13 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
             "ids and vals must be contiguous")
     require(0 < num_bins < 2**31, what,
             f"num_bins={num_bins} outside (0, 2**31)")
-    require(route is None or route in ROUTES, what,
-            f"route {route!r} not in {ROUTES}")
+    require(route is None or route in ROUTES + (SORTED,), what,
+            f"route {route!r} not in {ROUTES + (SORTED,)}")
     lead = ids.shape[:-1]
     rows = math.prod(lead)
     m = ids.shape[-1] if ids.dim() else 1
+    if route == SORTED:
+        return _sorted(ids, vals, num_bins, out, lead, rows)
     route = route or ("global" if out is not None
                       else route_of(rows, m, num_bins))
     require(route == "global" or num_bins <= SMEM_BINS, what,
@@ -144,4 +157,37 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     return out
 
 
-histogram.route_launches = dict.fromkeys(ROUTES, 0)
+histogram.route_launches = dict.fromkeys(ROUTES + (SORTED,), 0)
+
+
+def _sorted(ids, vals, num_bins: int, out, lead: tuple, rows: int):
+    """B2's sorted route (see the module docstring): keys row·num_bins + id
+    (−1 where dropped) sorted stably, the values gathered into that order,
+    one launch that sums each cell's run."""
+    what = "histogram"
+    if out is None:
+        out = torch.zeros(lead + (num_bins,), dtype=torch.float32,
+                          device=ids.device)
+    else:
+        require(out.dtype == torch.float32 and out.is_contiguous()
+                and out.shape == lead + (num_bins,)
+                and out.device == ids.device, what,
+                f"out must be a contiguous float32 {lead + (num_bins,)} "
+                f"tensor on the ids' device")
+    kt = torch.int32 if rows * num_bins < 2**31 else torch.int64
+    base = (torch.arange(rows, dtype=kt, device=ids.device)
+            * num_bins).reshape(lead + (1,))
+    ok = (ids >= 0) & (ids < num_bins)
+    keys, order = torch.sort(
+        torch.where(ok, ids.to(kt) + base, -1).reshape(-1), stable=True)
+    svals = vals.reshape(-1)[order]
+    n = keys.numel()
+    blocks = max(1, min(-(-n // GLOBAL_THREADS), GLOBAL_BLOCKS))
+    with torch.cuda.device(ids.device):
+        rc = kernels_build.library().emspec_histogram_sorted(
+            keys.data_ptr(), keys.element_size(), svals.data_ptr(),
+            out.data_ptr(), n, blocks, launch_stream(ids))
+    kernels_build.check(rc, what)
+    histogram.launches += 1
+    histogram.route_launches[SORTED] += 1
+    return out

@@ -1,4 +1,12 @@
-"""Stencil-method reassignment spectra, plain PyTorch (``emspec.dsp.stft``).
+"""Short-time Fourier transforms (``emspec.dsp.stft``).
+
+``stft``, ``power_spectrogram`` and ``stft_triple`` take a signal: frames
+(``dsp.frame``) → window → ``torch.fft.rfft`` (the JAX package leaves its
+FFT to XLA, so the library FFT stays).  ``stft_triple``'s direct method
+windows the frames three ways with kernel B5 on the card
+(``dsp.kernels.window``), its plain version on the CPU.
+
+Stencil-method reassignment spectra, plain PyTorch:
 
 Two real transforms per frame — raw and time-weighted (t·h) — as two
 ``torch.fft.rfft`` calls on the ``xla`` engine (``stft.py:213-215``).  The
@@ -30,7 +38,9 @@ import numpy as np
 import torch
 
 from emspec_torch.dsp.fourstep import packed_pair_fft
-from emspec_torch.dsp.windows import time_weighted_hann
+from emspec_torch.dsp.frame import frame_signal
+from emspec_torch.dsp.kernels.window import windowed_frames
+from emspec_torch.dsp.windows import hann, time_weighted_hann
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +51,16 @@ def _th_table(n: int, device: str) -> torch.Tensor:
 
 def th_window(n: int, device) -> torch.Tensor:
     return _th_table(n, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _hann_table(n: int, device: str) -> torch.Tensor:
+    """float32 periodic Hann (``emspec.dsp.windows.hann``)."""
+    return torch.from_numpy(hann(n)).to(device)
+
+
+def hann_window(n: int, device) -> torch.Tensor:
+    return _hann_table(n, str(torch.device(device)))
 
 
 def rfft(x: torch.Tensor) -> torch.Tensor:
@@ -55,6 +75,31 @@ def rfft(x: torch.Tensor) -> torch.Tensor:
     rows = x.reshape(-1, x.shape[-1])
     return torch.stack([torch.fft.rfft(r) for r in rows]).reshape(
         x.shape[:-1] + (-1,))
+
+
+def stft(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """(..., samples) → complex STFT (..., frames, n//2+1), Hann window."""
+    frames = frame_signal(x, n, hop)
+    return rfft(frames * hann_window(n, frames.device))
+
+
+def power_spectrogram(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """Natural-mode power spectrogram |X_h|², (..., frames, n//2+1)."""
+    X = stft(x, n, hop)
+    return X.real * X.real + X.imag * X.imag
+
+
+def stft_triple(x: torch.Tensor, n: int, hop: int, method: str = "stencil"):
+    """(X_h, X_th, X_dh) of a signal (..., samples), each (..., frames,
+    n//2+1).  ``"direct"``: the frames windowed by [h, t·h, dh/dn] (B5 on
+    the card) and three real FFTs; ``"stencil"``: two real FFTs (raw and
+    t·h) and the exact periodic-Hann stencils.  The two differ by float32
+    rounding only."""
+    frames = frame_signal(x, n, hop)
+    if method == "direct":
+        X = rfft(windowed_frames(frames))
+        return X[0], X[1], X[2]
+    return stft_triple_stencil(frames)
 
 
 def stft_raw_pair(frames: torch.Tensor, fft_impl: str = "xla"

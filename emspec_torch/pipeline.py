@@ -60,14 +60,14 @@ from emspec_torch.dsp.kernels.scatter import histogram
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
-    build_merge_tables, merge_columns)
+    build_merge_tables, log_freq_axis, merge_columns)
 from emspec_torch.dsp.reassign import reassignment_corrections
-from emspec_torch.dsp.stft import rfft, stft_triple_stencil
-from emspec_torch.dsp.windows import hann
+from emspec_torch.dsp.stft import hann_window, rfft, stft_triple_stencil
 from emspec_torch.post.chain import (
     PostParams, PostState, postprocess_batch, postprocess_column)
 from emspec_torch.post.colormap import apply_lut
 from emspec_torch.tables import lut, row_map_consts
+from emspec_torch.utils.notes import describe_frequency
 
 class PipelineParams(NamedTuple):
     """Everything continuous, as tensors on the pipeline's device:
@@ -233,7 +233,7 @@ class Pipeline:
         NaN/Inf sample would otherwise NaN its frame's spectrum and, via
         ``peak_db``, poison the AGC reference for good; for finite input
         the ``where`` is an exact identity (``pipeline.py:288-313``)."""
-        X = self._rfft(frames * _hann(n, str(frames.device)))
+        X = self._rfft(frames * hann_window(n, frames.device))
         power = X.real * X.real + X.imag * X.imag
         return torch.where(torch.isfinite(power), power,
                            torch.zeros_like(power))
@@ -366,6 +366,34 @@ class Pipeline:
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
             self.device)
 
+    # ---------------- hover readout ----------------
+    def _axis(self, freq_scale: float | None) -> np.ndarray:
+        """Row-frequency axis at the zoom ``freq_scale`` (a continuous
+        slider: pass the current value; ``self.row_freqs`` is the zoom the
+        pipeline was built with)."""
+        if freq_scale is None or freq_scale == self.settings.freq_scale:
+            return self.row_freqs
+        s = self.settings
+        return log_freq_axis(self.rows, s.freq_min, s.sample_rate / 2.0,
+                             freq_scale)
+
+    def frequency_at_row(self, row: int,
+                         freq_scale: float | None = None) -> float:
+        """Display row (0 = bottom, bass) → its center frequency in Hz."""
+        return float(self._axis(freq_scale)[row])
+
+    def row_of_frequency(self, freq_hz: float,
+                         freq_scale: float | None = None) -> int:
+        """Nearest display row of a frequency (the hover's inverse map)."""
+        f = self._axis(freq_scale)
+        r = (np.log2(max(freq_hz, 1e-9)) - np.log2(f[0])) \
+            / (np.log2(f[-1]) - np.log2(f[0])) * (self.rows - 1)
+        return int(np.clip(round(r), 0, self.rows - 1))
+
+    def describe_row(self, row: int, freq_scale: float | None = None) -> str:
+        """The hover tooltip of a display row: frequency and note."""
+        return describe_frequency(self.frequency_at_row(row, freq_scale))
+
     def process(self, x, params: PipelineParams | None = None,
                 state: PostState | None = None):
         """Whole-signal batch processing: x (..., samples) →
@@ -476,12 +504,6 @@ def _slot(t: torch.Tensor, P: int) -> torch.Tensor:
     """Ring slot ``t mod P`` of a 0-d device counter, as a (1,) int64
     index on its device."""
     return torch.remainder(t, P).to(torch.int64).reshape(1)
-
-
-@functools.lru_cache(maxsize=None)
-def _hann(n: int, device: str) -> torch.Tensor:
-    """float32 periodic Hann (``emspec.dsp.windows.hann``)."""
-    return torch.from_numpy(hann(n)).to(device)
 
 
 @functools.lru_cache(maxsize=32)

@@ -6,10 +6,12 @@
 5. gate ``v → −200`` below ``gate_db``   6. ``vis = clip((v + range)/range, 0, 1)``
 7. smoothing ``y = α·y + (1−α)·vis``   8. ``vis = clip(y·2·brightness, 0, 1)``
 
-The batch chain runs the two EMAs as a sequential loop over columns, the
-same per-element operations in the same order as ``postprocess_column``;
-the associative scan and the time-sharded chain are later work
-(ROADMAP.md).
+The batch chain runs each of the two EMAs as one scan over the columns
+(``_ema_scan``): sequential by default — the scan kernel on the card
+(``dsp.kernels.ema``), its plain loop on the CPU, the same per-element
+operations in the same order as ``postprocess_column`` — or, with
+``associative=True``, the affine recurrence composed in ⌈log2 t⌉ doubling
+passes.  The time-sharded chain is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from emspec_torch.config import Settings
+from emspec_torch.dsp.kernels.ema import ema_scan
 from emspec_torch.tables import low_end_ramp
 
 DB_EPS = 1e-12
@@ -74,17 +77,40 @@ class PostState(NamedTuple):
         )
 
 
-def _ema_seq(y0: torch.Tensor, alpha, xs: torch.Tensor):
-    """Leading-axis EMA ``y_t = α·y_{t-1} + (1−α)·x_t`` → (ys, y_final),
-    one column at a time (bit-identical to the per-column step: the same
-    multiply, then the same add, written straight into ``ys``)."""
+def _ema_scan(y0: torch.Tensor, alpha, xs: torch.Tensor,
+              associative: bool):
+    """Leading-axis EMA ``y_t = α·y_{t-1} + (1−α)·x_t`` → (ys, y_final)
+    (``emspec.post.chain._ema_scan``).
+
+    associative=False: the sequential scan, ``α·y`` then ``+ b`` a step —
+    kernel ``ema_scan`` on the card, its plain loop on the CPU — bit-equal
+    to the column-by-column evolution of :func:`postprocess_column`.
+
+    associative=True: the affine maps ``y ↦ a·y + b`` composed as
+    ``(a2·a1, a2·b1 + b2)`` in ⌈log2 t⌉ doubling passes of plain torch
+    (each pass composes every column with the one ``d`` before it), then
+    ``ys = A·y0 + B``.  Reassociation changes float32 rounding by
+    ~log2(t)·ε relative, the JAX docstring's bound for its own
+    associative scan (which composes in another order)."""
     b = (1.0 - alpha) * xs
-    ys = torch.empty_like(b)
-    y = y0
-    for i in range(xs.shape[0]):
-        torch.mul(y, alpha, out=ys[i])
-        y = ys[i].add_(b[i])
-    return ys, (y.clone() if xs.shape[0] else y)
+    t = xs.shape[0]
+    if t == 0:
+        return b, y0                  # a length-0 scan: carry unchanged
+    if not associative:
+        return ema_scan(y0, alpha, b)
+    A = torch.empty_like(b)
+    if isinstance(alpha, torch.Tensor):
+        A.copy_(alpha)                # the slider's device value, no host read
+    else:
+        A.fill_(alpha)                # a float: no host-to-device copy
+    B = b
+    d = 1
+    while d < t:
+        B = torch.cat([B[:d], A[d:] * B[:-d] + B[d:]])
+        A = torch.cat([A[:d], A[d:] * A[:-d]])
+        d *= 2
+    ys = A * y0 + B
+    return ys, ys[-1]
 
 
 def _boost_db_peak(power, p: PostParams, global_agc: bool, lead_axes: tuple):
@@ -114,13 +140,22 @@ def _brightness_clip(smoothed, p: PostParams):
 
 
 def postprocess_batch(power_ts: torch.Tensor, state: PostState, p: PostParams,
-                      global_agc: bool = False):
-    """Whole-signal chain: (t, ..., rows) power → (t, ..., rows) vis."""
+                      global_agc: bool = False,
+                      associative: bool | None = None):
+    """Whole-signal chain: (t, ..., rows) power → (t, ..., rows) vis.
+
+    ``associative`` picks the form of both EMAs (:func:`_ema_scan`);
+    ``None`` means sequential on every device — bit-identical to scanning
+    :func:`postprocess_column` over t.  The JAX package's default (the
+    associative form on its TPU, at t ≥ 1024 for the smoothing) is a TPU
+    measurement and is not carried over."""
+    assoc = bool(associative)
     v_db, peak_db = _boost_db_peak(
         power_ts, p, global_agc, tuple(range(1, power_ts.ndim - 1)))
-    refs, ref_final = _ema_seq(state.agc_ref, AGC_DECAY, peak_db)
+    refs, ref_final = _ema_scan(state.agc_ref, AGC_DECAY, peak_db, assoc)
     vis = _agc_gate_norm(v_db, refs, p)                            # 4-6
-    smoothed, smooth_final = _ema_seq(state.smooth, p.smoothing, vis)  # 7
+    smoothed, smooth_final = _ema_scan(state.smooth, p.smoothing, vis,
+                                       assoc)                      # 7
     out = _brightness_clip(smoothed, p)                            # 8
     return out, PostState(smooth=smooth_final, agc_ref=ref_final)
 

@@ -1,8 +1,9 @@
 """The port keeps its own copies of the host-only code it needs from the
 JAX package (``emspec_torch.config``, ``dsp.windows``, ``io.ring``,
-``post._cmap_data``, ``dsp.multires``'s tables): each is held here to its
-original, and the port is held to importing nothing of the JAX package —
-not JAX, not ``emspec`` nor any ``emspec.*`` module."""
+``post._cmap_data``, ``dsp.multires``'s tables, ``utils.notes``,
+``render.png``, ``render.apng``, ``io.wav``, ``io.synth``): each is held
+here to its original, and the port is held to importing nothing of the
+JAX package — not JAX, not ``emspec`` nor any ``emspec.*`` module."""
 
 import ast
 import dataclasses
@@ -165,6 +166,90 @@ def test_merge_columns_matches_jax():
                                 for f in (t.i0, t.w0, t.band_w)))
     got = multires.merge_columns([torch.from_numpy(s) for s in specs], tt)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ verbatim copies
+# (copy, original, functions whose body differs): the copies' source is
+# the original's with ``emspec.`` imports read as ``emspec_torch.``;
+# ``io.wav.read_wav`` drops the native decoder the port does not have.
+VERBATIM = [("emspec_torch/utils/notes.py", "emspec/utils/notes.py", ()),
+            ("emspec_torch/render/png.py", "emspec/render/png.py", ()),
+            ("emspec_torch/render/apng.py", "emspec/render/apng.py", ()),
+            ("emspec_torch/io/synth.py", "emspec/io/synth.py", ()),
+            ("emspec_torch/io/wav.py", "emspec/io/wav.py", ("read_wav",))]
+
+
+@pytest.mark.parametrize("copy,orig,differs", VERBATIM,
+                         ids=[v[0] for v in VERBATIM])
+def test_verbatim_copy_source(copy, orig, differs):
+    want = (ROOT / orig).read_text().replace("from emspec.",
+                                             "from emspec_torch.")
+    got = (ROOT / copy).read_text()
+    if not differs:
+        assert got == want
+        return
+
+    def kept(text):
+        return [ast.get_source_segment(text, n) for n in ast.parse(text).body
+                if not (isinstance(n, ast.FunctionDef) and n.name in differs)]
+    assert kept(got) == kept(want)
+
+
+def test_wav_copy_reads_and_writes_as_the_original(tmp_path):
+    from emspec.io import wav as jax_wav
+    from emspec_torch.io import wav
+    rng = np.random.default_rng(0)
+    for shape in ((1000,), (2, 777), (3, 50)):
+        x = rng.uniform(-1, 1, shape).astype(np.float32)
+        a, b = tmp_path / "a.wav", tmp_path / "b.wav"
+        wav.write_wav(a, x, 44100)
+        jax_wav.write_wav(b, x, 44100)
+        assert a.read_bytes() == b.read_bytes()
+        got, want = wav.read_wav(a), jax_wav.read_wav(a)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
+    with pytest.raises(ValueError) as w:
+        jax_wav._read_wav_py(bad)
+    with pytest.raises(ValueError) as g:
+        wav.read_wav(bad)
+    assert str(g.value) == str(w.value)
+
+
+def test_synth_notes_png_apng_outputs_equal(tmp_path):
+    from emspec.io import synth as jax_synth
+    from emspec.render import apng as jax_apng
+    from emspec.render import png as jax_png
+    from emspec.utils import notes as jax_notes
+    from emspec_torch.io import synth
+    from emspec_torch.render import apng, png
+    from emspec_torch.utils import notes
+    for name, args in (("tone", (440.0, 0.1)), ("chirp", (100, 9000, 0.1)),
+                       ("impulse", (7, 64)), ("noise", (0.1,)),
+                       ("silence", (0.01,)),
+                       ("multitone", ([220, 330], 0.1))):
+        np.testing.assert_array_equal(getattr(synth, name)(*args),
+                                      getattr(jax_synth, name)(*args))
+    for f in (27.5, 440.0, 443.0, 1000.0, 12345.6):
+        assert notes.describe_frequency(f) == jax_notes.describe_frequency(f)
+        assert notes.frequency_to_note(f) == jax_notes.frequency_to_note(f)
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, (5, 7, 4), dtype=np.uint8)
+            for _ in range(3)]
+    np.testing.assert_array_equal(png.tile_images(imgs),
+                                  jax_png.tile_images(imgs))
+    png.write_png(tmp_path / "a.png", imgs[0])
+    jax_png.write_png(tmp_path / "b.png", imgs[0])
+    assert (tmp_path / "a.png").read_bytes() == (tmp_path / "b.png").read_bytes()
+    np.testing.assert_array_equal(png.read_png(tmp_path / "a.png"), imgs[0])
+    assert apng.apng_bytes(imgs, fps=12.5) == jax_apng.apng_bytes(imgs,
+                                                                  fps=12.5)
+    apng.write_apng(tmp_path / "a.apng", iter(imgs), fps=12.5)
+    frames, fps = apng.read_apng(tmp_path / "a.apng")
+    want, wfps = jax_apng.read_apng(tmp_path / "a.apng")
+    np.testing.assert_array_equal(frames, want)
+    assert fps == wfps
 
 
 # ------------------------------------------------------------ imports

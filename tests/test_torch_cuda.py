@@ -27,7 +27,14 @@ memory, and the display default ``Settings()`` under each scatter,
 against the port's CPU path at PERF.md §2's tolerances, its stream ≡ its
 batch within 1e-5 in ``vis``; the live hop's CUDA graph
 replay against the eager step within 1.2e-7 in ``vis`` (float atomics
-reorder B2's sums), RGBA bit-equal wherever ``vis`` is."""
+reorder B2's sums), RGBA bit-equal wherever ``vis`` is; the EMA scan
+kernel bit-equal to its plain loop and the batch post chain bit-equal to
+the card's own column-by-column chain, the associative form within
+4·⌈log2 t⌉·ε·max|y|; B2's sorted route bit-equal to the plain sum on the
+CPU; the single-bank raster against the CPU path by ``compare_grids`` and
+``compare_vis``, the same on two runs."""
+
+import math
 
 import numpy as np
 import pytest
@@ -35,6 +42,7 @@ import torch
 
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
+from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
@@ -44,11 +52,13 @@ from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, histogram, histogram_plain)
+    ROUTES, SMEM_BINS, SORTED, histogram, histogram_plain)
 from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
 from emspec_torch.pipeline import Pipeline
+from emspec_torch.post import chain as ema_chain
+from emspec_torch.render import raster
 from emspec_torch.probes.scatter_ablation import (
     VARIANTS, hist_variant, hist_variant_plain)
 from emspec_torch.stream import Stream, stream_signal
@@ -723,3 +733,129 @@ def test_cuda_enhanced_multires_matches_cpu(cuda, scatter):
     assert hops >= t
     assert deposits_ids.form_launches["window"] == before[1] + 3 * hops
     assert float(np.abs(vis_s - vis_g.cpu().numpy()).max()) <= 1e-5
+
+
+# ------------------------------------------------------------ EMA scan
+def _ema_case(dev, t, c, seed):
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.uniform(0, 1, (t, c)).astype(np.float32)).to(dev)
+    y0 = torch.from_numpy(rng.uniform(0, 1, c).astype(np.float32)).to(dev)
+    return xs, y0
+
+
+EMA_SHAPES = [(t, c) for t in (0, 1, 127, 300) for c in (1, 16, 512, 8192)
+              ] + [(5937, 1), (5937, 16), (5937, 512), (372, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", EMA_SHAPES)
+def test_cuda_ema_scan_bit_equal_to_plain(cuda, t, c):
+    """Every t around the kernel's load ring (127: not a multiple of its
+    16-step stages; 300: its last two rounds step by step) and the paths'
+    shapes, α a device tensor and a float."""
+    xs, y0 = _ema_case(cuda, t, c, seed=t + c)
+    for alpha in (torch.tensor(np.float32(0.6), device=cuda), 0.99):
+        b = (1.0 - alpha) * xs
+        before = ema_scan.launches
+        ys, fin = ema_scan(y0, alpha, b)
+        assert ema_scan.launches == before + (1 if t else 0)
+        ps, pfin = ema_scan_plain(y0, alpha, b)
+        assert torch.equal(ys, ps) and torch.equal(fin, pfin)
+        assert ys.shape == (t, c) and fin.shape == (c,)
+
+
+@pytest.mark.cuda
+def test_cuda_ema_scan_reads_alpha_on_the_device(cuda):
+    """The slider's α is read by the kernel from device memory: a value
+    copied into the same tensor changes the result, with no host read."""
+    xs, y0 = _ema_case(cuda, 200, 512, seed=3)
+    alpha = torch.tensor(np.float32(0.2), device=cuda)
+    b = xs * 0.5
+    first, _ = ema_scan(y0, alpha, b)
+    alpha.copy_(torch.tensor(np.float32(0.7)))
+    second, _ = ema_scan(y0, alpha, b)
+    want, _ = ema_scan_plain(y0, torch.tensor(np.float32(0.7), device=cuda), b)
+    assert not torch.equal(first, second) and torch.equal(second, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", [(372, 8192), (1437, 512), (5937, 1)])
+def test_cuda_associative_form_within_tolerance(cuda, t, c):
+    xs, y0 = _ema_case(cuda, t, c, seed=t)
+    for alpha in (torch.tensor(np.float32(0.6), device=cuda), 0.99):
+        seq, _ = ema_chain._ema_scan(y0, alpha, xs, False)
+        assoc, fin = ema_chain._ema_scan(y0, alpha, xs, True)
+        bound = 4 * math.ceil(math.log2(t)) * 1.1920929e-07 * float(
+            seq.abs().max())
+        assert float((assoc - seq).abs().max()) <= bound
+        assert torch.equal(fin, assoc[-1])
+
+
+@pytest.mark.cuda
+def test_cuda_post_chain_batch_is_column_by_column(cuda):
+    """On the card the batch chain (two scan launches) equals the live
+    step's column-by-column chain bit for bit."""
+    rows = 512
+    s = Settings()
+    freqs = np.geomspace(20.0, 24000.0, rows)
+    p = ema_chain.PostParams.from_settings(s.replace(smoothing=0.5), freqs,
+                                           cuda)
+    rng = np.random.default_rng(8)
+    power = torch.from_numpy((10.0 ** rng.uniform(-12, 0, (300, rows))
+                              ).astype(np.float32)).to(cuda)
+    st0 = ema_chain.PostState.init((rows,), cuda)
+    before = ema_scan.launches
+    batch, bst = ema_chain.postprocess_batch(power, st0, p)
+    assert ema_scan.launches == before + 2
+    st, cols = st0, []
+    for i in range(power.shape[0]):
+        out, st = ema_chain.postprocess_column(power[i], st, p)
+        cols.append(out)
+    assert torch.equal(batch, torch.stack(cols))
+    assert torch.equal(bst.smooth, st.smooth)
+    assert torch.equal(bst.agc_ref, st.agc_ref)
+
+
+# ------------------------------------------------------------ raster
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,cells", [(1, 400_000, 300_000), (3, 5000, 700),
+                                          (16, 16385, 2560), (2, 5, 64)])
+def test_cuda_histogram_sorted_route_bit_equal_to_cpu_plain(cuda, rows, m,
+                                                            cells):
+    ids, vals = _hist_case(cuda, "hot", rows, m, cells, seed=rows * 7 + m)
+    vals[(ids < 0) | (ids >= cells)] = float("nan")
+    before = histogram.route_launches[SORTED]
+    got = histogram(ids, vals, cells, route=SORTED)
+    assert histogram.route_launches[SORTED] == before + 1
+    want = histogram_plain(ids.cpu(), vals.cpu(), cells)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(histogram(ids, vals, cells, route=SORTED), got)
+    base = torch.rand(rows, cells, device=cuda)
+    added = histogram(ids, vals, cells, route=SORTED, out=base.clone())
+    assert torch.equal(added.cpu(), histogram_plain(ids.cpu(), vals.cpu(),
+                                                    cells, out=base.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n", [("enhanced", 8192), ("natural", 2048),
+                                    ("enhanced", 1024)])
+def test_cuda_raster_matches_cpu_and_repeats(cuda, mode, n):
+    s = Settings(mode=mode, multires=False, fft_size=n)
+    x = _tone_noise(48000 * 4, 21)
+    before = (windowed_frames.launches, histogram.route_launches[SORTED],
+              ema_scan.launches)
+    vis = raster.render_vis(x, s, cuda)
+    if mode == "enhanced":
+        assert windowed_frames.launches == before[0] + 1
+        assert histogram.route_launches[SORTED] == before[1] + 1
+    assert ema_scan.launches == before[2] + 2
+    assert np.array_equal(raster.render_vis(x, s, cuda), vis)
+    ok, worst, share = compare_vis(
+        torch.from_numpy(raster.render_vis(x, s, "cpu").T.copy()),
+        torch.from_numpy(vis.T.copy()))
+    assert ok, (worst, share)
+    if mode == "enhanced":
+        g = compare_grids(raster.analyze(torch.from_numpy(x), s),
+                          raster.analyze(torch.from_numpy(x).to(cuda),
+                                         s).cpu())
+        assert g.ok, g
