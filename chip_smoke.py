@@ -117,7 +117,24 @@ them.  Phases, in order, one line each; the first failure ends the run:
    (``apply_lut`` of its vis equals render's PNG pixel for pixel), stream,
    animate over the first 4 s at 10 fps (its last frame equals stream's
    PNG of the same 4 s) and note 443 — each must exit 0; walls.
-20. breakdown: per-stage device times of the enhanced stencil batch
+20. app: the live app as a user opens it — ``ShellServer(Settings(),
+   source="wav")`` on the card looping the 16 s signal over HTTP, a
+   viewer polling ``/api/frame`` at 15 Hz, one continuous POST and two
+   structural ones (4096 single-bank, then natural); in each window
+   between them the columns painted must be ≥ 0.98 × the audio hops that
+   arrived with no dropped frame, the kinds as expected (the slider
+   re-captures nothing), every frame (512, 1024, 4); POST walls, the gap
+   to a new stream's first column, drain-tick and ``/api/frame`` walls
+   p50/p99.
+21. swap: ``EmSpecApp.apply_settings`` wall for natural, the display
+   default and each dropdown size ≤ 32768, cold and prewarmed; ten swaps
+   under a running background prewarm: one capture a new stream, none
+   a slider move, reserved memory after swap 10 within one stream's of
+   after swap 2.
+22. live_cli: ``python -m emspec_torch`` live --capture (synthetic), live
+   --fast on a 4 s WAV, presets add/show/delete, gui --duration 3
+   --no-prewarm and doctor --kernels, each a subprocess exiting 0; walls.
+23. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
    of a live hop of each path and each raster (torch.profiler busy time
@@ -281,6 +298,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "multires_live": MULTIRES_PATH,
     "raster": ("windowed_frames", "histogram", "lut_values") + SCAN,
     "raster_natural": ("lut_values",) + SCAN,
+    # the shell on the display default, then 4096 single-bank, then natural
+    "app": MULTIRES_PATH,
 }
 # the post chain's stage on each batch path when it was a loop of two
 # launches a column, before the scan kernel (PERF.md §5, the same card
@@ -1700,6 +1719,411 @@ def cli_phase(x: np.ndarray) -> None:
           "stream's PNG; outputs: " + " | ".join(outs.values()), flush=True)
 
 
+SWAP_SIZES = (512, 1024, 2048, 4096, 8192, 16384, 32768)   # the dropdown
+KEEP_UP = 0.98          # columns over audio hops in a window without swaps
+
+
+def _percentiles(values) -> tuple:
+    return tuple(float(np.percentile(values, q)) for q in (50, 99))
+
+
+def app_phase(dev, x: np.ndarray) -> None:
+    """The live app as a user opens it: ``ShellServer(Settings(),
+    source="wav")`` on the card looping the 16 s signal, driven over HTTP
+    once (counters) while a viewer polls ``/api/frame`` at 15 Hz: a
+    settle second, a 2.5 s window, a continuous POST (gain), 1.5 s, a
+    structural POST (4096 single-bank), 3 s, a structural POST (natural),
+    3 s.  In each window (no swap inside) the columns painted must be ≥
+    ``KEEP_UP`` × the audio hops that arrived (both read under the shell's
+    lock just after a drain tick that painted, at each end) and
+    ``dropped_frames`` 0; the kinds must be as expected, the
+    slider must re-capture nothing and each swap's stream capture once;
+    every frame (512, 1024, 4).  Prints each POST's wall, the gap from a
+    structural POST to its stream's first column, the drain ticks'
+    p50/p99 wall and ``/api/frame``'s."""
+    import threading
+    import urllib.request
+
+    from emspec_torch.shell import ShellServer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        write_wav(d / "s16.wav", x, SR)
+        res = {"windows": [], "posts": [], "frames": [], "shapes": set()}
+
+        def run():
+            srv = ShellServer(Settings(), port=0, source="wav",
+                              wav_path=str(d / "s16.wav"),
+                              user_dir=str(d / "ud"), device=dev)
+            url = f"http://127.0.0.1:{srv.port}"
+            stop = threading.Event()
+
+            def viewer():
+                while not stop.wait(1 / 15):
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(url + "/api/frame",
+                                                timeout=60) as r:
+                        raw = r.read()
+                    res["frames"].append((time.perf_counter() - t0) * 1e3)
+                    h, w = (int.from_bytes(raw[i:i + 4], "big")
+                            for i in (0, 4))
+                    res["shapes"].add((h, w, (len(raw) - 8) / (h * w)))
+
+            def snapshot():
+                # right after a drain tick that painted: the audio not yet
+                # analyzed is then at most what arrived since
+                ticks = srv.columns_emitted
+                deadline = time.perf_counter() + 5.0
+                while (srv.columns_emitted == ticks
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.0005)
+                with srv.lock:
+                    st = srv.app.stream
+                    return (st, srv.columns_emitted, st.ring.total_written,
+                            st.dropped_frames)
+
+            def window(label, seconds):
+                st0, c0, w0, _ = snapshot()
+                time.sleep(seconds)
+                st1, c1, w1, dropped = snapshot()
+                check(st1 is st0, f"app {label}: the stream changed inside "
+                      f"the window")
+                hops = (w1 - w0) / st0.pipe.hop
+                ratio = (c1 - c0) / hops
+                res["windows"].append((label, c1 - c0, hops, ratio, dropped))
+                check(ratio >= KEEP_UP and dropped == 0,
+                      f"app {label}: {c1 - c0} columns for {hops:.1f} audio "
+                      f"hops ({ratio:.4f} < {KEEP_UP}) or {dropped} dropped "
+                      f"frames")
+
+            def post(label, payload, kind):
+                st = srv.app.stream
+                caps = st.captures
+                req = urllib.request.Request(
+                    url + "/api/settings", data=json.dumps(payload).encode(),
+                    method="POST")
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    got = json.loads(r.read())["kind"]
+                wall = (time.perf_counter() - t0) * 1e3
+                new = srv.app.stream
+                check(got == kind, f"app {label}: kind {got}, want {kind}")
+                if kind == "continuous":
+                    check(new is st and st.captures == caps,
+                          f"app {label}: the slider re-captured or swapped")
+                    gap = None
+                else:
+                    check(new is not st and new.captures == 1,
+                          f"app {label}: {new.captures} captures")
+                    while new.last_column() is None:
+                        check(time.perf_counter() - t0 < 30,
+                              f"app {label}: no column 30 s after the swap")
+                        time.sleep(0.001)
+                    gap = (time.perf_counter() - t0) * 1e3
+                res["posts"].append((label, kind, wall, gap))
+
+            srv.start()
+            th = threading.Thread(target=viewer, daemon=True)
+            th.start()
+            try:
+                time.sleep(1.0)
+                window("display default", 2.5)
+                post("gain 5", {"gain": 5.0}, "continuous")
+                window("after the slider", 1.5)
+                post("fft 4096 single-bank", {"multires": False,
+                                              "fft_size": 4096}, "structural")
+                time.sleep(0.3)
+                window("4096 single-bank", 3.0)
+                post("natural", {"mode": "natural"}, "structural")
+                time.sleep(0.3)
+                window("natural 4096", 3.0)
+            finally:
+                stop.set()
+                th.join(timeout=60)
+                srv.stop()
+            res["ticks"] = list(srv.tick_ms)
+            res["columns"] = srv.columns_emitted
+
+        drive("app", run)
+    check(res["shapes"] == {(512, 1024, 4)} and len(res["frames"]) >= 20,
+          f"app: /api/frame shapes {res['shapes']}, {len(res['frames'])} GETs")
+    t50, t99 = _percentiles(res["ticks"])
+    f50, f99 = _percentiles(res["frames"])
+    print("app: ShellServer(Settings()) on the card, a 16 s WAV looped at "
+          "real time, driven over HTTP; keep-up by window (columns painted / "
+          "audio hops, dropped frames): " + "; ".join(
+              f"{lb} {c} / {h:.1f} = {r:.4f}, dropped {dr}"
+              for lb, c, h, r, dr in res["windows"])
+          + "; POST walls (and gap to the new stream's first column): "
+          + "; ".join(f"{lb} ({k}) {w:.1f} ms"
+                      + ("" if g is None else f" (gap {g:.1f} ms)")
+                      for lb, k, w, g in res["posts"])
+          + f"; drain tick wall p50 {t50:.3f} ms, p99 {t99:.3f} ms over "
+          f"{len(res['ticks'])} ticks that painted ({res['columns']} "
+          f"columns); /api/frame wall p50 {f50:.3f} ms, p99 {f99:.3f} ms "
+          f"over {len(res['frames'])} GETs, each (512, 1024, 4); launches "
+          f"{LAUNCHES['app']}, B2 routes {ROUTE_LAUNCHES['app']}", flush=True)
+
+
+def swap_stalls(mode: str) -> dict:
+    """Run in a fresh process (``python3 chip_smoke.py swap-stalls
+    MODE``): open the app on the display default as ``gui`` does, then
+    swap once to each of natural, back to the display default, and each
+    dropdown size ≤ 32768 single-bank → {"first": {name:
+    (``EmSpecApp.apply_settings`` wall ms, its parts ms: ``_time_parts``)}};
+    each new stream must paint.
+    ``cold``: nothing warmed, so each swap but the one back to the display
+    default is its variant's first use in the process (the pipeline's
+    tables, cuFFT plans, the first launch of each kernel it runs, three
+    eager hops, the capture); then the same swaps again ("again": every
+    cache warm, the warm-up hops and the capture alone).  ``prewarmed``:
+    first the app's own prewarm of the dropdown and the multires base, as
+    ``gui`` starts it, and ``prewarm`` of the natural base (which ``gui``
+    does not warm), finished."""
+    from emspec_torch.app import EmSpecApp
+    from emspec_torch.pipeline import prewarm
+
+    _time_parts()
+    dev = torch.device("cuda")
+    base = Settings()
+    natural = base.replace(mode="natural")
+    audio = signal(1.5)               # a first column at every variant
+    variants = [("natural", natural), ("multires", base)] + [
+        (str(n), base.replace(multires=False, fft_size=n))
+        for n in SWAP_SIZES]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        app = EmSpecApp(base, user_dir=tmp, device=dev,
+                        prewarm_sizes=SWAP_SIZES if mode == "prewarmed"
+                        else None)
+        app.push_audio(audio)
+        if mode == "prewarmed":
+            app._warm_future.result(timeout=600)
+            prewarm(natural, (4096,), background=False, device=dev)
+        for label in ("first", "again") if mode == "cold" else ("first",):
+            out[label] = {}
+            for name, v in variants:
+                out[label].update(swaps_one(app, name, v, audio))
+        app.close()
+    return out
+
+
+def swap_phase(dev, x: np.ndarray) -> None:
+    """The swap stall and memory across swaps.  ``swap_stalls`` cold and
+    prewarmed, each in a process of its own.  Then, in this process, ten
+    swaps while background prewarms of the dropdown (four, queued) run:
+    each a new
+    stream captured once, a continuous change between them capturing
+    nothing; reserved memory after swap 10 must be within one stream's
+    (the most that building one of the cycle's streams reserves on an
+    emptied cache) of after swap 2."""
+    from emspec_torch.app import EmSpecApp
+    from emspec_torch.pipeline import _cached_pipeline, prewarm
+
+    stalls = {}
+    for mode in ("cold", "prewarmed"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "swap-stalls", mode], capture_output=True,
+                           text=True, timeout=900, cwd=ROOT)
+        check(r.returncode == 0, f"swap-stalls {mode}: exit "
+              f"{r.returncode}: {r.stderr[-3000:]}")
+        stalls.update({f"{mode} {k}": v for k, v in json.loads(
+            r.stdout.strip().splitlines()[-1]).items()})
+        stalls[mode + " process s"] = time.perf_counter() - t0
+    base = Settings()
+    natural = base.replace(mode="natural")
+    audio = x[:3 * SR // 2]        # a first column at every variant
+    with tempfile.TemporaryDirectory() as tmp:
+        app = EmSpecApp(base.replace(multires=False, fft_size=512),
+                        user_dir=tmp, device=dev)
+        cycle = [base.replace(multires=False, fft_size=4096), natural,
+                 base.replace(multires=False, fft_size=8192), base,
+                 base.replace(multires=False, fft_size=2048), natural,
+                 base.replace(multires=False, fft_size=16384), base,
+                 base.replace(multires=False, fft_size=1024), natural]
+        pool = 0
+        for v in dict.fromkeys(cycle):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved(dev)
+            st = Stream(v, dev)
+            pool = max(pool, torch.cuda.memory_reserved(dev) - r0)
+            st.close()
+        # the dropdown four times over on the warmer: eager card work on
+        # its thread through most of the swaps below
+        _cached_pipeline.cache_clear()
+        warms = [prewarm(base, SWAP_SIZES, device=dev) for _ in range(4)]
+        reserved, during = [], 0
+        for i, v in enumerate(cycle):
+            during += not all(w.done() for w in warms)
+            old = app.stream
+            check(app.apply_settings(v) == "structural"
+                  and app.stream is not old and app.stream.captures == 1,
+                  f"swap {i + 1} under prewarm: {app.stream.captures} "
+                  f"captures")
+            app.push_audio(audio)
+            st = app.stream
+            check(app.set(gain=app.settings.gain + 0.5) == "continuous"
+                  and app.stream is st and st.captures == 1,
+                  f"swap {i + 1}: the slider re-captured")
+            app.push_audio(audio)
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(dev))
+        for w in warms:
+            w.result(timeout=300)
+        app.close()
+    check(during >= 1, "swap: the prewarm finished before the first swap")
+    grew = reserved[9] - reserved[1]
+    check(grew <= pool, f"swap: reserved grew {grew} B from swap 2 to swap "
+          f"10, more than one stream's {pool} B ({reserved})")
+    mib = 1 << 20
+    print("swap: EmSpecApp.apply_settings wall, ms, cold / prewarmed / "
+          "again (cold and prewarmed each a fresh process, again the cold "
+          "one's second pass): "
+          + ", ".join(f"{k} " + " / ".join(
+              f"{stalls[m][k][0]:.1f}" for m in (
+                  "cold first", "prewarmed first", "cold again"))
+              for k in stalls["cold first"])
+          + "; parts of each swap over 40 ms (ms: pipeline build, warm-up "
+          "and capture, of it pinned buffers, the old stream's close, gc): "
+          + ", ".join(f"{m.split()[0]} {k} {w:.1f} = " + " ".join(
+              f"{part} {ms:.1f}" for part, ms in sorted(parts.items()))
+              for m in ("cold first", "prewarmed first", "cold again")
+              for k, (w, parts) in stalls[m].items() if w > 40)
+          + f" (processes {stalls['cold process s']:.1f} s, "
+          f"{stalls['prewarmed process s']:.1f} s); ten swaps under a running "
+          f"prewarm ({during} of them before it finished): reserved MiB "
+          f"after each {[round(r / mib, 1) for r in reserved]}, swap 2 → "
+          f"10 {grew / mib:+.1f} MiB, one stream's memory up to "
+          f"{pool / mib:.1f} MiB", flush=True)
+
+
+SPLIT: dict = {}        # part of a swap → ms so far (``swap_stalls``)
+
+
+def _add_ms(part: str, t0: float) -> None:
+    SPLIT[part] = SPLIT.get(part, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def _time_parts() -> None:
+    """Time the parts of a swap into ``SPLIT``: the pipeline build
+    (``get_pipeline`` from ``Stream``), the warm-up hops and the capture
+    (``Stream._capture``), the pinned staging buffers inside it, the old
+    stream's ``close``, and Python's garbage collections."""
+    import gc
+
+    from emspec_torch import stream as stream_mod
+
+    def timed(owner, name: str, part: str) -> None:
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                _add_ms(part, t0)
+        setattr(owner, name, wrapper)
+
+    timed(stream_mod, "get_pipeline", "pipeline")
+    timed(stream_mod.Stream, "_capture", "capture")
+    timed(stream_mod.Stream, "close", "close")
+    empty = torch.empty
+
+    def pinned_empty(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return empty(*a, **kw)
+        finally:
+            if kw.get("pin_memory"):
+                _add_ms("pinned", t0)
+    torch.empty = pinned_empty
+    gc_t0 = [0.0]
+
+    def gc_timer(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            _add_ms("gc", gc_t0[0])
+    gc.callbacks.append(gc_timer)
+
+
+def swaps_one(app, name: str, v: Settings, audio) -> dict:
+    """One timed structural swap of ``app`` to ``v`` (from a structurally
+    different setting), whose new stream must paint → {name: (wall ms,
+    {part: ms} of ``SPLIT`` within it)}."""
+    if app.settings == v:
+        app.apply_settings(v.replace(hop=v.hop_samples * 2))
+    torch.cuda.synchronize()
+    before = dict(SPLIT)
+    t0 = time.perf_counter()
+    check(app.apply_settings(v) == "structural", f"swap {name}: not "
+          f"structural")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    parts = {k: v - before.get(k, 0.0) for k, v in SPLIT.items()
+             if v - before.get(k, 0.0) > 0.05}
+    check(app.push_audio(audio) > 0 and app.stream.captures == 1,
+          f"swap {name}: the new stream painted nothing")
+    return {name: (wall, parts)}
+
+
+def live_cli_phase(x: np.ndarray) -> None:
+    """The CLI's live commands as a user runs them, each a subprocess on
+    the card that must exit 0: ``live --capture --backend synthetic
+    --duration 2`` (the display default; it must report the synthetic
+    backend), ``live <4 s WAV> --fast``, ``presets add/show/delete``,
+    ``gui --duration 3 --no-prewarm`` (the web shell on auto capture: it
+    must paint columns and drop none) and ``doctor --kernels``; walls."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        write_wav(d / "s4.wav", x[:4 * SR], SR)
+        runs = (("live --capture", ["live", "--capture", "--backend",
+                                    "synthetic", "--duration", "2"]),
+                ("live --fast", ["live", "s4.wav", "--fast"]),
+                ("presets add", ["presets", "add", "--name", "Smoke",
+                                 "--gain", "6", "--file", "p.json"]),
+                ("presets show", ["presets", "show", "--name", "Smoke",
+                                  "--file", "p.json"]),
+                ("presets delete", ["presets", "delete", "--name", "Smoke",
+                                    "--file", "p.json"]),
+                ("gui", ["gui", "--duration", "3", "--no-prewarm", "--port",
+                         "0", "--user-dir", "ud"]),
+                ("doctor --kernels", ["doctor", "--kernels"]))
+        walls, outs, stdout = {}, {}, {}
+        for label, args in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "emspec_torch", *args],
+                               cwd=d, env=env, capture_output=True, text=True,
+                               timeout=600)
+            walls[label] = time.perf_counter() - t0
+            check(r.returncode == 0, f"cli {label}: exit {r.returncode}: "
+                  f"{r.stdout[-1500:]} {r.stderr[-2000:]}")
+            stdout[label] = r.stdout.strip()
+            outs[label] = (stdout[label].splitlines() or [""])[-1]
+        outs["gui"] = " | ".join(stdout["gui"].splitlines())
+        outs["presets show"] = stdout["presets show"].replace("\n", " ")
+        shown = json.loads(stdout["presets show"])
+        left = json.loads((d / "p.json").read_text())
+    check(shown["gain"] == 6.0 and list(left) == ["Default"],
+          f"cli presets: shown gain {shown['gain']}, left {list(left)}")
+    check("synthetic capture" in outs["live --capture"],
+          f"cli live --capture: {outs['live --capture']!r}")
+    check("displayed" in outs["live --fast"], f"cli live --fast: "
+          f"{outs['live --fast']!r}")
+    stopped = outs["gui"].split("shell stopped: ")[-1].split()
+    check(len(stopped) > 1 and int(stopped[0]) > 0
+          and "0 dropped frames" in outs["gui"], f"cli gui: {outs['gui']!r}")
+    check("all checks passed" in outs["doctor --kernels"],
+          f"cli doctor: {outs['doctor --kernels']!r}")
+    print("live_cli: python -m emspec_torch, each a subprocess that exited "
+          "0, wall s: " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + "; last lines: " + " | ".join(outs.values()), flush=True)
+
+
 def device_busy(fn, reps: int):
     """Device busy time per call of ``fn`` (ms) and its split by kernel:
     the sums of kernel and copy times in torch.profiler (one stream, so
@@ -1836,6 +2260,9 @@ def main() -> None:
                for name, s in (("raster", RASTER),
                                ("raster_natural", RASTER_NATURAL))}
     cli_phase(x)
+    app_phase(dev, x)
+    swap_phase(dev, x)
+    live_cli_phase(x)
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),
@@ -1862,4 +2289,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["swap-stalls"]:       # the swap phase's helper
+        print(json.dumps(swap_stalls(sys.argv[2])), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -5,17 +5,21 @@ module names (``emspec_torch.pipeline`` ↔ ``emspec.pipeline`` …) so each
 counterpart is easy to find.  It imports ``torch`` and never ``jax``, and
 nothing of the JAX package: the host-only code it needs is copied
 (``config``, ``dsp.windows``, ``io.ring``, ``io.wav``, ``io.synth``,
-``post._cmap_data``, ``render.png``, ``render.apng``, ``utils.notes``,
-the numpy table functions in ``tables``), each copy pinned to its
-original by the tests.
+``io.resample``, ``io.capture``, ``post._cmap_data``, ``render.png``,
+``render.apng``, ``utils.notes``, ``utils.update``,
+``integrations.live_state``, ``shell.page``, the numpy table functions
+in ``tables``), each copy pinned to its original by the tests.
 
 Ported so far: enhanced and natural mode, each on one bank or on the
 multires banks — the display default ``Settings()`` is enhanced multires
 8192/2048/512 at hop 128 — in batch (``Pipeline.process``), live
 (``Stream``) and as images (``render``: ``render.raster`` on one bank,
 ``pipeline.render_image_multires`` and ``render_images_channels`` on the
-banks); the scrolling ``Waterfall``, ``animate_frames`` and the CLI
-(``python -m emspec_torch render|export|stream|animate|note``); the
+banks); the scrolling ``Waterfall``, ``animate_frames``; the live app
+(``EmSpecApp``, the web shell ``shell.ShellServer`` and the tkinter
+window, live capture, the terminal view, ``prewarm``) and the CLI
+(``python -m emspec_torch render|export|stream|animate|live|gui|presets|
+doctor|note``; a bare call opens ``gui``); the
 stencil and direct methods, every frame size 512–262144 on one bank,
 the ``xla`` (``torch.fft``) and ``fourstep`` FFT engines; through
 hand-written CUDA kernels (``emspec_torch/csrc``), one for each Pallas
@@ -43,7 +47,7 @@ _LAZY = {
     "get_pipeline": "pipeline", "Stream": "stream",
     "stream_signal": "stream", "Waterfall": "render.waterfall",
     "animate_frames": "render.animate", "write_apng": "render.apng",
-    "read_apng": "render.apng",
+    "read_apng": "render.apng", "EmSpecApp": "app", "prewarm": "pipeline",
 }
 
 

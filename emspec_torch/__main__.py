@@ -6,10 +6,16 @@ linear-frequency raster, ``--multires`` the log-frequency display,
 ``--channel all`` every channel tiled), ``export`` (the pre-colormap
 display values and their axes to ``.npz``), ``stream`` (the WAV through
 the live path into a scrolling waterfall, snapshotted to PNG),
-``animate`` (that waterfall as an animated PNG) and ``note`` (frequency
-→ musical note).  Each command that analyses audio runs on the card;
-``--device cpu`` asks for the CPU.  Without a card and without it, the
-command prints one line and exits 2: it never carries on on the CPU.
+``animate`` (that waterfall as an animated PNG), ``live`` (the live
+terminal waterfall of a WAV or of captured audio), ``gui`` (the web
+shell, or ``--native`` the desktop window), ``presets`` (preset CRUD),
+``doctor`` (an environment self-check; ``--kernels`` validates the CUDA
+kernels on the card) and ``note`` (frequency → musical note).  A bare
+``python -m emspec_torch`` opens ``gui``.  Each command that analyses
+audio runs on the card; ``--device cpu`` asks for the CPU.  Without a
+card and without it, the command prints one line and exits 2: it never
+carries on on the CPU.  (``live``'s capture input is ``--capture-device``:
+``--device`` is where the analysis runs.)
 
 A user mistake (a missing or unreadable file, a bad flag value, a file
 too short for one window) is one line on stderr and exit code 2.
@@ -260,6 +266,220 @@ def cmd_animate(args) -> int:
     return 0
 
 
+def cmd_live(args) -> int:
+    """The live terminal waterfall: a WAV at audio rate (``--fast``: as
+    fast as it goes), or ``--capture`` for captured audio; prints the
+    columns displayed and, for a capture, the backend it used."""
+    if args.capture:
+        from emspec_torch.render.terminal import (
+            capture_backend, live_capture_view)
+        dev = _device(args)
+        s = _settings_from(args, args.sample_rate, multires_default=True)
+        cap_dev = args.capture_device
+        if cap_dev is not None and cap_dev.lstrip("-").isdigit():
+            cap_dev = int(cap_dev)
+        used = []
+        n = live_capture_view(s, backend=args.backend,
+                              duration=args.duration, width=args.width,
+                              capture_device=cap_dev, device=dev,
+                              on_open=lambda cap: used.append(
+                                  capture_backend(cap)))
+        print(f"\ndisplayed {n} columns ({used[0]} capture, device {dev})")
+        return 0
+    if not args.input:
+        print("live: provide a WAV file or use --capture", file=sys.stderr)
+        return 1
+    from emspec_torch.render.terminal import live_view
+
+    dev = _device(args)
+    audio, rate = _read_wav_cli(args.input)    # decoded once, passed through
+    s = _settings_from(args, rate, multires_default=True)
+    n = live_view((audio, rate), s, width=args.width, realtime=not args.fast,
+                  device=dev)
+    print(f"\ndisplayed {n} columns")
+    return 0
+
+
+def cmd_presets(args) -> int:
+    """Preset CRUD (Add/Edit/Delete): ``add``/``edit`` build a Settings
+    bundle from the same flags as render/stream and persist it.  The file
+    is the JAX package's format: either package reads the other's."""
+    from emspec_torch.config import PresetStore
+    store = PresetStore(args.file)
+    if args.action == "list":
+        for name in store.names():
+            print(name)
+    elif args.action == "show":
+        try:
+            preset = store.get(args.name)
+        except KeyError:
+            raise UsageError(f"no preset named {args.name!r}") from None
+        print(json.dumps(preset.to_dict(), indent=2, sort_keys=True))
+    elif args.action == "delete":
+        try:
+            store.delete(args.name)
+        except KeyError:
+            raise UsageError(f"no preset named {args.name!r}") from None
+        except ValueError as e:           # Default-delete guard
+            raise UsageError(str(e)) from None
+    elif args.action in ("add", "edit"):
+        exists = args.name in store.names()
+        if args.action == "add" and exists:
+            print(f"preset {args.name!r} already exists (use 'edit')",
+                  file=sys.stderr)
+            return 1
+        if args.action == "edit" and not exists:
+            print(f"no preset named {args.name!r} (use 'add')", file=sys.stderr)
+            return 1
+        s = _settings_from(args, args.sample_rate, args.channels,
+                           multires_default=True)
+        store.add(args.name, s)
+        print(f"{args.action}: {args.name} -> {args.file}")
+    return 0
+
+
+def cmd_gui(args) -> int:
+    """Window shell on the card: the live display and the settings panel
+    on a local web page, or ``--native`` a frameless always-on-top
+    tkinter window (the web page where Tk cannot open one).  Unless
+    ``--no-prewarm``, the FFT-size dropdown (≤ 32768) and the multires
+    base are warmed in the background."""
+    from emspec_torch.config import FFT_SIZES
+    from emspec_torch.shell import ShellServer
+
+    dev = _device(args)
+    source = "wav" if args.input else args.backend
+    s = _settings_from(args, args.sample_rate, multires_default=True)
+    warm = (tuple(n for n in FFT_SIZES if n <= 32768)
+            if not args.no_prewarm else None)
+    if args.native:
+        from emspec_torch.shell.native import NativeUnavailable, run_native
+        try:
+            run_native(s, source=source, wav_path=args.input,
+                       user_dir=args.user_dir, prewarm_sizes=warm, device=dev)
+            return 0
+        except NativeUnavailable as e:
+            print(f"native window unavailable ({e}); "
+                  f"falling back to the web shell", file=sys.stderr)
+    srv = ShellServer(s, port=args.port, source=source, wav_path=args.input,
+                      user_dir=args.user_dir, prewarm_sizes=warm, device=dev)
+    srv.start()
+    print(f"emspec_torch shell: http://127.0.0.1:{srv.port}/  "
+          f"(source={srv.feeder.backend}, device={srv.app.device} "
+          f"{srv.device_name}, Ctrl-C to quit)", flush=True)
+    srv.wait(duration=args.duration)
+    print(f"shell stopped: {srv.columns_emitted} columns, "
+          f"{srv.app.stream.dropped_frames} dropped frames")
+    return 0
+
+
+def _smi(query: str) -> str | None:
+    """One ``nvidia-smi --query-gpu`` answer for the first card, or None."""
+    import shutil
+    import subprocess
+    if shutil.which("nvidia-smi") is None:
+        return None
+    try:
+        r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = r.stdout.strip().splitlines()
+    return lines[0].strip() if r.returncode == 0 and lines else None
+
+
+def cmd_doctor(args) -> int:
+    """Environment self-check, one ``ok``/``WARN``/``FAIL`` line a
+    subsystem: torch and CUDA versions, the card's name and power limit,
+    ``nvcc``, the kernel library, audio capture, the native window and
+    the update manifest; ``--kernels`` also validates every CUDA kernel
+    against its plain version on the card (``--full``: every shape).
+    Exits 1 on any FAIL: on ``--device cuda`` (the default) without a
+    card, and ``--kernels`` with ``--device cpu``."""
+    import os
+    import platform
+
+    import torch
+
+    from emspec_torch import __version__, kernels_build
+
+    fails = 0
+
+    def row(status, name, detail=""):
+        nonlocal fails
+        fails += status == "FAIL"
+        print(f"{status:<5} {name:<16} {detail}")
+
+    row("ok", "emspec_torch", f"{__version__} (python "
+        f"{platform.python_version()}, {platform.system().lower()})")
+    row("ok", "torch", f"{torch.__version__} (CUDA build "
+        f"{torch.version.cuda or 'none'})")
+    on_card = args.device == "cuda"
+    if torch.cuda.is_available():
+        smi = _smi("name,power.limit")
+        row("ok", "cuda device", f"{torch.cuda.get_device_name(0)} "
+            f"x{torch.cuda.device_count()}"
+            + (f" ({smi})" if smi else " (nvidia-smi not found)"))
+    elif on_card:
+        row("FAIL", "cuda device", "no CUDA device is available — run on a "
+            "machine with an NVIDIA GPU, or pass --device cpu")
+    else:
+        row("ok", "cuda device", "none (--device cpu)")
+    try:
+        nvcc = kernels_build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    built = kernels_build.library_path()
+    if built.exists():
+        row("ok", "kernel library", f"built: {built}")
+    elif nvcc is not None:
+        row("ok", "kernel library",
+            f"not built yet; {nvcc} builds it at first use on the card")
+    else:
+        row("FAIL" if on_card else "WARN", "kernel library",
+            "not built, and no nvcc to build it (set CUDA_HOME)")
+    row("ok" if nvcc else "WARN", "nvcc", nvcc or "not found")
+
+    try:
+        import sounddevice as sd
+        n_in = sum(1 for d in sd.query_devices()
+                   if d.get("max_input_channels", 0) > 0)
+        row("ok", "audio capture", f"sounddevice: {n_in} input device(s)")
+    except Exception:
+        row("WARN", "audio capture",
+            "sounddevice not installed — synthetic/WAV sources only")
+
+    try:
+        import tkinter                               # noqa: F401
+        row("ok", "native window", "tkinter available (gui --native)")
+    except Exception:
+        row("WARN", "native window", "no tkinter — web shell only")
+
+    from emspec_torch.utils.update import UPDATE_MANIFEST_ENV, check_for_update
+    if os.environ.get(UPDATE_MANIFEST_ENV):
+        note = check_for_update()
+        row("ok", "update check",
+            f"newer version available: {note['latest']}" if note
+            else "up to date")
+    else:
+        row("ok", "update check", "no manifest configured (offline)")
+
+    if args.kernels:
+        from emspec_torch.dsp.kernels.validate import validate_kernels
+        try:
+            report = validate_kernels(quick=not args.full, device=args.device)
+            row("ok", "cuda kernels",
+                f"B1-B5 and the EMA scan match their plain versions on "
+                f"{report['device']} ({'quick' if report['quick'] else 'full'}"
+                f" shapes, {report['library']})")
+        except Exception as e:
+            row("FAIL", "cuda kernels", f"{type(e).__name__}: {e}")
+
+    print(f"doctor: {'all checks passed' if fails == 0 else f'{fails} FAILURE(S)'}")
+    return 1 if fails else 0
+
+
 def cmd_note(args) -> int:
     from emspec_torch.utils.notes import describe_frequency
     try:
@@ -324,19 +544,87 @@ def _parser() -> argparse.ArgumentParser:
     _add_settings_args(pa)
     pa.set_defaults(fn=cmd_animate)
 
+    pl = sub.add_parser("live", help="live terminal waterfall (ANSI truecolor)")
+    pl.add_argument("input", nargs="?", default=None,
+                    help="WAV file (omit with --capture)")
+    pl.add_argument("--width", type=int, default=512)
+    pl.add_argument("--fast", action="store_true",
+                    help="render as fast as possible instead of audio-rate")
+    pl.add_argument("--capture", action="store_true",
+                    help="visualize live captured audio instead of a file")
+    pl.add_argument("--backend", choices=["auto", "sounddevice", "synthetic"],
+                    default="auto", help="capture backend (auto: real device "
+                                         "if sounddevice is installed, else "
+                                         "synthetic test source)")
+    pl.add_argument("--capture-device", default=None,
+                    help="capture input index or PortAudio name (default: "
+                         "prefer a loopback/monitor input, else the default "
+                         "input)")
+    pl.add_argument("--duration", type=float, default=10.0,
+                    help="capture run time in seconds")
+    pl.add_argument("--sample-rate", type=int, default=48_000)
+    _add_settings_args(pl)
+    pl.set_defaults(fn=cmd_live)
+
     pn = sub.add_parser("note", help="frequency → musical note (hover readout)")
     pn.add_argument("freq", type=float)
     pn.set_defaults(fn=cmd_note)
+
+    pp = sub.add_parser("presets", help="preset store CRUD (Add/Edit/Delete)")
+    pp.add_argument("action", choices=["list", "show", "add", "edit", "delete"])
+    pp.add_argument("--name", default="Default")
+    pp.add_argument("--file", default="presets.json")
+    pp.add_argument("--sample-rate", type=int, default=48_000)
+    pp.add_argument("--channels", type=int, default=1)
+    _add_settings_args(pp)
+    pp.set_defaults(fn=cmd_presets)
+
+    pg = sub.add_parser("gui", help="window shell: local web page with the "
+                                    "live display and the settings panel")
+    pg.add_argument("input", nargs="?", default=None,
+                    help="WAV file to loop (default: live capture)")
+    pg.add_argument("--port", type=int, default=7780)
+    pg.add_argument("--backend", choices=["auto", "sounddevice", "synthetic"],
+                    default="auto", help="capture backend when no WAV given")
+    pg.add_argument("--duration", type=float, default=0.0,
+                    help="serve for N seconds (0 = until Ctrl-C)")
+    pg.add_argument("--sample-rate", type=int, default=48_000)
+    pg.add_argument("--user-dir", default=".emspec",
+                    help="presets + live_state.json directory")
+    pg.add_argument("--native", action="store_true",
+                    help="open a frameless always-on-top desktop window "
+                         "(tkinter) instead of the web page; falls back to "
+                         "the web shell when headless")
+    pg.add_argument("--no-prewarm", action="store_true",
+                    help="skip warming the FFT-size dropdown in the "
+                         "background (a size change then also builds its "
+                         "pipeline)")
+    _add_settings_args(pg)
+    pg.set_defaults(fn=cmd_gui)
+
+    pd = sub.add_parser(
+        "doctor",
+        help="environment self-check (torch/CUDA, the card, nvcc, the "
+             "kernel library, capture, window shell; --kernels validates "
+             "the CUDA kernels)")
+    pd.add_argument("--kernels", action="store_true",
+                    help="check every CUDA kernel against its plain version "
+                         "on the card")
+    pd.add_argument("--full", action="store_true",
+                    help="with --kernels: every shape, not the quick ones")
+    pd.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the checks run (default: the card)")
+    pd.set_defaults(fn=cmd_doctor)
     return ap
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    ap = _parser()
     if not argv:
-        ap.print_usage(sys.stderr)
-        return 2
-    args = ap.parse_args(argv)
+        # a bare launch opens the window shell on auto capture, as
+        # ``python -m emspec`` does
+        argv = ["gui"]
+    args = _parser().parse_args(argv)
     try:
         return args.fn(args)
     except FileNotFoundError as e:

@@ -1,10 +1,10 @@
 """Settings surface of the port (a copy of ``emspec.config``).
 
 The port imports nothing of the JAX package, so it keeps its own copy of
-``Settings``, the mode and size constants, ``STRUCTURAL_FIELDS`` and
-``is_structural_change``; ``tests/test_torch_copies.py`` holds each to
-its original (field names, defaults, validation).  ``PresetStore`` is
-not copied: the app layer is not ported yet.
+``Settings``, the mode and size constants, ``STRUCTURAL_FIELDS``,
+``is_structural_change`` and ``PresetStore``; ``tests/test_torch_copies.py``
+holds each to its original (field names, defaults, validation, and a
+presets file written by either package loading in the other).
 
 Structural fields change shapes or precomputed tables and build a new
 ``Pipeline``; continuous fields become tensors of ``PipelineParams``, so
@@ -14,6 +14,8 @@ moving a slider swaps tensors and rebuilds nothing.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Any
 
 # FFT sizes offered by the settings dropdown (512..32768) and the scaling
@@ -228,3 +230,51 @@ def is_structural_change(old: Settings, new: Settings) -> bool:
     """True iff switching ``old`` → ``new`` requires a new ``Pipeline``
     (SURVEY.md §3.3 continuous-vs-structural split)."""
     return any(getattr(old, f) != getattr(new, f) for f in STRUCTURAL_FIELDS)
+
+
+# ---------------------------------------------------------------------------
+# Presets: named Settings bundles persisted as JSON (reference: README.md:16
+# "Add/Edit/Delete" preset buttons; settings.png dropdown "Default").
+# ---------------------------------------------------------------------------
+
+class PresetStore:
+    """JSON-backed preset CRUD. Falls back to defaults on parse error
+    (failure-recovery contract, SURVEY.md §5.3)."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self._presets: dict[str, Settings] = {"Default": Settings()}
+        if self.path.exists():
+            try:
+                raw = json.loads(self.path.read_text())
+                self._presets = {name: Settings.from_dict(d) for name, d in raw.items()}
+                self._presets.setdefault("Default", Settings())
+            except (json.JSONDecodeError, TypeError, ValueError, KeyError):
+                # corrupt store → defaults (never crash the app on bad JSON)
+                self._presets = {"Default": Settings()}
+
+    def names(self) -> list[str]:
+        return sorted(self._presets)
+
+    def get(self, name: str) -> Settings:
+        return self._presets[name]
+
+    def add(self, name: str, settings: Settings) -> None:
+        self._presets[name] = settings
+        self._save()
+
+    # "Edit" in the reference UI is an overwrite of an existing name.
+    edit = add
+
+    def delete(self, name: str) -> None:
+        if name == "Default":
+            raise ValueError("the Default preset cannot be deleted")
+        del self._presets[name]
+        self._save()
+
+    def _save(self) -> None:
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        payload = {name: s.to_dict() for name, s in self._presets.items()}
+        tmp = self.path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(payload, indent=2, sort_keys=True))
+        tmp.replace(self.path)

@@ -7,13 +7,25 @@
 * Entry points (``Pipeline``, ``get_pipeline``, ``Stream``,
   ``stream_signal``) run on the card unless the caller passes
   ``device="cpu"``; nothing moves work to the CPU when CUDA is missing.
+* ``CARD_LOCK`` keeps a CUDA graph capture and a prewarm job apart.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 DTYPE = torch.float32
+
+# One process-wide lock around the card work that must not overlap: a
+# ``Stream``'s warm-up and graph capture, a ``prewarm`` job, and the
+# release of a dropped stream's memory.  ``torch.cuda.graph`` captures in
+# its default "global" mode, which another thread breaks with any unsafe
+# CUDA call (a synchronize, an allocation outside the graph's pool) made
+# while the capture records; a prewarm job runs eager work on another
+# thread, so the two take turns.
+CARD_LOCK = threading.RLock()
 
 
 def apply_precision_policy() -> None:

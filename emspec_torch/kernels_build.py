@@ -8,7 +8,9 @@ the kernel modules must work on a machine without ``nvcc`` or a GPU).
 The library lands in ``emspec_torch/_build/`` keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  Flags: ``sm_90a`` and IEEE float math — never ``--use_fast_math``
-(it would swap in approximate ``log2f`` and division).
+(it would swap in approximate ``log2f`` and division).  The first
+``library()`` call builds under a lock, so two threads that reach it
+together (a prewarm job and the first ``Stream``) build once.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).parent
@@ -112,9 +115,17 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+_BUILD_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread)."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

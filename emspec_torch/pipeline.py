@@ -39,6 +39,9 @@ the absolute grid on the CPU, the relative histogram for one bank on the
 card, and in batch the absolute grid for several banks on the card
 (``use_relative_batch``), live the relative histogram.  Every sum is
 kernel B2 on the card.
+
+``prewarm`` warms the live app's structural variants ahead of a swap
+(a ``WarmHandle`` over the queued jobs, one worker thread).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import numpy as np
 import torch
 
 from emspec_torch.config import MODE_ENHANCED, STRUCTURAL_FIELDS, Settings
-from emspec_torch.device import DTYPE, as_device
+from emspec_torch.device import CARD_LOCK, DTYPE, as_device
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels import deposits
@@ -526,6 +529,96 @@ def get_pipeline(settings: Settings, device="cuda") -> Pipeline:
     params from YOUR settings (``pipe.params(settings)``)."""
     return _cached_pipeline(_structural_projection(settings),
                             str(as_device(device)))
+
+
+class WarmHandle:
+    """Handle over the queued per-variant warm jobs.  ``cancel()`` drops
+    every variant that has not started yet, so an app quitting mid-warm
+    does not hold interpreter exit behind the rest of the dropdown (one
+    job in flight still finishes; the executor's exit join waits only for
+    that)."""
+
+    def __init__(self, futures):
+        self.futures = list(futures)
+
+    def result(self, timeout: float | None = None):
+        import time as _time
+        deadline = None if timeout is None else _time.monotonic() + timeout
+        for f in self.futures:
+            left = (None if deadline is None
+                    else max(0.0, deadline - _time.monotonic()))
+            f.result(left)
+
+    def done(self) -> bool:
+        return all(f.done() for f in self.futures)
+
+    def cancel(self) -> None:
+        for f in self.futures:
+            f.cancel()
+
+
+def prewarm(base: Settings, sizes: tuple | None = None,
+            background: bool = True, device="cuda"):
+    """Warm every FFT size of the dropdown so a size change stalls the
+    live display as little as it can (``emspec.pipeline.prewarm``).
+
+    Warms the single-bank variant for each ``size`` plus, for a multires
+    ``base``, ``base`` itself.  Warming a variant on ``device`` builds
+    the kernel library (on the card), builds its ``Pipeline`` (tables on
+    the device, kept by ``get_pipeline``'s cache) and runs one eager
+    ``_stream_step_rolling`` on a throwaway carry, which loads the kernel
+    modules, plans cuFFT and fills the cached tables.  A graph cannot be
+    captured ahead: it binds the static tensors of a ``Stream`` that does
+    not exist yet, so the ``Stream`` a swap builds still runs its warm-up
+    hops and captures.  Each job holds ``device.CARD_LOCK`` and runs on a
+    side stream of its own, off the live stream's.  Returns a
+    :class:`WarmHandle`, or None when ``background=False`` and warming
+    ran inline."""
+    from emspec_torch.config import FFT_SIZES
+
+    dev = as_device(device)
+    sizes = sizes or FFT_SIZES
+    variants = [base.replace(multires=False, fft_size=n) for n in sizes]
+    if base.multires:
+        variants.append(base)
+
+    def _warm_one(s: Settings) -> None:
+        with CARD_LOCK:
+            if dev.type != "cuda":
+                _warm_step(s, dev)
+                return
+            from emspec_torch import kernels_build
+            kernels_build.library()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _warm_step(s, dev)
+            side.synchronize()
+
+    if background:
+        pool = _warm_pool()
+        return WarmHandle([pool.submit(_warm_one, s) for s in variants])
+    for s in variants:
+        _warm_one(s)
+    return None
+
+
+def _warm_step(s: Settings, dev: torch.device) -> None:
+    """One eager rolling step of ``s``'s pipeline on a throwaway carry."""
+    pipe = get_pipeline(s, dev)
+    lead = (s.channels,) if s.channels > 1 else ()
+    carry = pipe.init_roll_carry(lead)
+    block = torch.zeros(lead + (pipe.hop,), dtype=DTYPE, device=dev)
+    pipe._stream_step_rolling(carry, block, pipe.params())
+
+
+@functools.lru_cache(maxsize=1)
+def _warm_pool():
+    """One shared single-thread warmer: repeated ``prewarm`` calls queue on
+    the same worker instead of each starting a thread."""
+    import concurrent.futures
+    return concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="emspec_torch-prewarm")
 
 
 def render_image_multires(x, settings: Settings, device="cuda") -> np.ndarray:

@@ -22,6 +22,10 @@ a carry or params tensor — every method here writes into the static
 tensors with ``copy_``/``zero_`` instead, and the ``params`` setter
 copies new values into the captured tensors, never re-capturing.  On the
 CPU the same step runs eagerly on the same static tensors.
+
+The warm-up and the capture hold ``device.CARD_LOCK``, so a prewarm job
+on another thread cannot break the capture; ``close`` releases the
+graph's private memory pool when an app drops the stream.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from emspec_torch.config import Settings
-from emspec_torch.device import as_device
+from emspec_torch.device import CARD_LOCK, as_device
 from emspec_torch.dsp.kernels import add_launch_counts, launch_counts
 from emspec_torch.io.ring import RingBuffer
 from emspec_torch.pipeline import Pipeline, PipelineParams, get_pipeline
@@ -172,6 +176,20 @@ class Stream:
             out.extend(self._dispatch(zero, self.dropped_frames))
         return out
 
+    def close(self) -> None:
+        """Release what the stream holds on the card: the graph, its
+        outputs, and with them the graph's private memory pool, which the
+        caching allocator frees at the ``empty_cache`` that follows (a
+        dropped graph's pool is only marked freeable).  An app calls this
+        on the stream a structural change replaced; the stream is
+        finished afterwards."""
+        self._finished = True
+        self._graph = None
+        self._out = None
+        if self.device.type == "cuda":
+            with CARD_LOCK:
+                torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- internals
     def _step(self, block: torch.Tensor):
         """One eager step on the static carry → (vis, rgba)."""
@@ -181,22 +199,24 @@ class Stream:
 
     def _capture(self) -> None:
         """Warm up on cloned carries (side stream), then capture one step
-        on the static tensors.  The wrappers' counters rise while the
-        capture records launches that did not run: that rise is taken
-        back now and added again on every replay."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            carry = _clone(self._carry)
-            for _ in range(WARMUP_HOPS):
-                self.pipe._stream_step_rolling(carry, self._block,
-                                               self._params)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._out = self._step(self._block)
-        after = launch_counts()
+        on the static tensors, both under ``CARD_LOCK``.  The wrappers'
+        counters rise while the capture records launches that did not
+        run: that rise is taken back now and added again on every
+        replay."""
+        with CARD_LOCK:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                carry = _clone(self._carry)
+                for _ in range(WARMUP_HOPS):
+                    self.pipe._stream_step_rolling(carry, self._block,
+                                                   self._params)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._out = self._step(self._block)
+            after = launch_counts()
         self._replay_launches = {k: after[k] - before[k] for k in after
                                  if after[k] != before.get(k, 0)}
         add_launch_counts(self._replay_launches, -1)

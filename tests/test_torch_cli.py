@@ -232,9 +232,10 @@ def test_without_a_card_the_command_exits_2(chirp_wav, tmp_path, capsys,
 
 def test_module_entry_point_runs_and_refuses_without_a_card(chirp_wav,
                                                             tmp_path):
-    """``python -m emspec_torch`` as a user runs it: a bare call prints the
-    usage (rc 2), ``note`` works anywhere, and ``render`` without a card
-    is the one-line error."""
+    """``python -m emspec_torch`` as a user runs it: a bare call opens the
+    window shell, which without a card is the one-line error (rc 2),
+    ``--help`` prints the usage, ``note`` works anywhere, and ``render``
+    without a card is the one-line error."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT))
 
@@ -244,7 +245,11 @@ def test_module_entry_point_runs_and_refuses_without_a_card(chirp_wav,
                               cwd=tmp_path, timeout=120)
 
     r = run()
-    assert r.returncode == 2 and r.stderr.startswith("usage: emspec_torch")
+    assert r.returncode == 2 and r.stderr.count("\n") == 1
+    assert "no CUDA device" in r.stderr and "Traceback" not in r.stderr
+    r = run("--help")
+    assert r.returncode == 0 and r.stdout.startswith("usage: emspec_torch")
+    assert "gui" in r.stdout and "doctor" in r.stdout
     r = run("note", "440")
     assert r.returncode == 0 and "A4" in r.stdout
     r = run("render", str(chirp_wav), "o.png")

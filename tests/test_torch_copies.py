@@ -1,9 +1,11 @@
 """The port keeps its own copies of the host-only code it needs from the
-JAX package (``emspec_torch.config``, ``dsp.windows``, ``io.ring``,
-``post._cmap_data``, ``dsp.multires``'s tables, ``utils.notes``,
-``render.png``, ``render.apng``, ``io.wav``, ``io.synth``): each is held
-here to its original, and the port is held to importing nothing of the
-JAX package — not JAX, not ``emspec`` nor any ``emspec.*`` module."""
+JAX package (``emspec_torch.config`` with ``PresetStore``,
+``dsp.windows``, ``io.ring``, ``post._cmap_data``, ``dsp.multires``'s
+tables, ``utils.notes``, ``render.png``, ``render.apng``, ``io.wav``,
+``io.synth``, ``io.resample``, ``io.capture``, ``utils.update``,
+``integrations.live_state``, ``shell.page``): each is held here to its
+original, and the port is held to importing nothing of the JAX package —
+not JAX, not ``emspec`` nor any ``emspec.*`` module."""
 
 import ast
 import dataclasses
@@ -171,12 +173,20 @@ def test_merge_columns_matches_jax():
 # ------------------------------------------------------------ verbatim copies
 # (copy, original, functions whose body differs): the copies' source is
 # the original's with ``emspec.`` imports read as ``emspec_torch.``;
-# ``io.wav.read_wav`` drops the native decoder the port does not have.
+# ``io.wav.read_wav`` drops the native decoder the port does not have;
+# ``utils.update.check_for_update`` reads ``emspec_torch.__version__``.
 VERBATIM = [("emspec_torch/utils/notes.py", "emspec/utils/notes.py", ()),
             ("emspec_torch/render/png.py", "emspec/render/png.py", ()),
             ("emspec_torch/render/apng.py", "emspec/render/apng.py", ()),
             ("emspec_torch/io/synth.py", "emspec/io/synth.py", ()),
-            ("emspec_torch/io/wav.py", "emspec/io/wav.py", ("read_wav",))]
+            ("emspec_torch/io/wav.py", "emspec/io/wav.py", ("read_wav",)),
+            ("emspec_torch/io/resample.py", "emspec/io/resample.py", ()),
+            ("emspec_torch/io/capture.py", "emspec/io/capture.py", ()),
+            ("emspec_torch/integrations/live_state.py",
+             "emspec/integrations/live_state.py", ()),
+            ("emspec_torch/shell/page.py", "emspec/shell/page.py", ()),
+            ("emspec_torch/utils/update.py", "emspec/utils/update.py",
+             ("check_for_update",))]
 
 
 @pytest.mark.parametrize("copy,orig,differs", VERBATIM,
@@ -193,6 +203,42 @@ def test_verbatim_copy_source(copy, orig, differs):
         return [ast.get_source_segment(text, n) for n in ast.parse(text).body
                 if not (isinstance(n, ast.FunctionDef) and n.name in differs)]
     assert kept(got) == kept(want)
+
+
+def test_update_copy_differs_only_in_its_version():
+    """``check_for_update`` is the original's body with the port's
+    version read where the original reads ``emspec.__version__``."""
+    import inspect
+
+    from emspec.utils import update as jax_update
+    from emspec_torch.utils import update
+    got = inspect.getsource(update.check_for_update)
+    want = inspect.getsource(jax_update.check_for_update)
+    assert got == want.replace("from emspec import __version__",
+                               "from emspec_torch import __version__")
+
+
+def test_preset_store_copy_source_and_files():
+    """``PresetStore`` is the original's class, and the presets-section
+    comment above it, verbatim; a file either writes loads in the
+    other."""
+    def segment(path):
+        text = (ROOT / path).read_text()
+        node = next(n for n in ast.parse(text).body
+                    if isinstance(n, ast.ClassDef) and n.name == "PresetStore")
+        return ast.get_source_segment(text, node)
+    assert segment("emspec_torch/config.py") == segment("emspec/config.py")
+
+
+def test_preset_files_load_both_ways(tmp_path):
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    s = dict(gain=1.5, mode="natural", fft_size=2048, multires=False,
+             hop=300, crossover_low=150.0)
+    config.PresetStore(a).add("X", config.Settings(**s))
+    jax_config.PresetStore(b).add("X", jax_config.Settings(**s))
+    assert a.read_text() == b.read_text()
+    assert jax_config.PresetStore(a).get("X").to_dict() == \
+        config.PresetStore(b).get("X").to_dict()
 
 
 def test_wav_copy_reads_and_writes_as_the_original(tmp_path):

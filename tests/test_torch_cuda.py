@@ -859,3 +859,95 @@ def test_cuda_raster_matches_cpu_and_repeats(cuda, mode, n):
                           raster.analyze(torch.from_numpy(x).to(cuda),
                                          s).cpu())
         assert g.ok, g
+
+
+# ------------------------------------------------------------ the live app
+def _app_signal(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 48000)) / 48000
+    x = (0.5 * np.sin(2 * np.pi * (200 * t + 0.5 * 5800 / seconds * t * t))
+         + sum(0.1 * np.sin(2 * np.pi * f * t) for f in (440, 880, 1320))
+         + 0.01 * rng.standard_normal(t.size))
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"mode": "natural"},
+                                {"multires": False, "fft_size": 2048}],
+                         ids=["default", "natural", "enhanced-2048"])
+def test_cuda_app_image_matches_cpu_app(cuda, tmp_path, kw):
+    """``EmSpecApp`` on the card (a graph replay a hop, B1–B3) against the
+    same app on the CPU after the same pushes and one continuous change:
+    at most 1e-3 of the pixels differ."""
+    from emspec_torch.app import EmSpecApp
+    s = Settings(raster_width=256, **kw)
+    x = _app_signal(1.5, 31)
+    gpu = EmSpecApp(s, user_dir=tmp_path / "g", device=cuda)
+    cpu = EmSpecApp(s, user_dir=tmp_path / "c", device="cpu")
+    assert gpu.stream.captures == 1
+    for i in range(0, x.size, 1024):
+        assert gpu.push_audio(x[i:i + 1024]) == cpu.push_audio(x[i:i + 1024])
+        if i == 24 * 1024:
+            assert gpu.set(gain=6.0, smoothing=0.4) == cpu.set(
+                gain=6.0, smoothing=0.4) == "continuous"
+    assert gpu.stream.captures == 1            # the slider re-captured nothing
+    a, b = gpu.image(), cpu.image()
+    assert a.shape == b.shape == (512, 256, 4)
+    assert float((a != b).any(-1).mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_swaps_under_a_running_prewarm(cuda, tmp_path):
+    """Ten structural swaps while a background prewarm of the whole
+    dropdown runs: nothing raises, every new stream captured once, a
+    continuous change captures nothing, and reserved memory after swap 10
+    is within one stream's memory of after swap 2."""
+    from emspec_torch.app import EmSpecApp
+    from emspec_torch.pipeline import _cached_pipeline, prewarm
+
+    base = Settings()
+    cycle = [base.replace(multires=False, fft_size=4096),
+             base.replace(mode="natural"),
+             base.replace(multires=False, fft_size=8192), base,
+             base.replace(multires=False, fft_size=2048),
+             base.replace(mode="natural"),
+             base.replace(multires=False, fft_size=16384), base,
+             base.replace(multires=False, fft_size=1024),
+             base.replace(mode="natural")]
+    pool = 0
+    for v in {c: None for c in cycle}:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        st = Stream(v, cuda)
+        pool = max(pool, torch.cuda.memory_reserved() - r0)
+        st.close()
+    app = EmSpecApp(base, user_dir=tmp_path, device=cuda)
+    _cached_pipeline.cache_clear()
+    warms = [prewarm(base, (512, 1024, 2048, 4096, 8192, 16384, 32768),
+                     device=cuda) for _ in range(4)]
+    x = _app_signal(0.5, 32)
+    reserved, during = [], 0
+    for v in cycle:
+        during += not all(w.done() for w in warms)
+        old = app.stream
+        assert app.apply_settings(v) == "structural"
+        assert app.stream is not old and app.stream.captures == 1
+        app.push_audio(x)
+        st = app.stream
+        assert app.set(gain=app.settings.gain + 1.0) == "continuous"
+        assert app.stream is st and st.captures == 1
+        app.push_audio(x)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    for w in warms:
+        w.result(timeout=300)
+    assert during >= 1
+    assert reserved[9] - reserved[1] <= pool, (reserved, pool)
+
+
+@pytest.mark.cuda
+def test_cuda_validate_kernels_full(cuda):
+    from emspec_torch.dsp.kernels.validate import validate_kernels
+    report = validate_kernels(quick=False)
+    assert report["kernels_validated"] and not report["quick"]
