@@ -116,7 +116,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
    with the port's ``io.wav`` — render (8192, and --multires), export
    (``apply_lut`` of its vis equals render's PNG pixel for pixel), stream,
    animate over the first 4 s at 10 fps (its last frame equals stream's
-   PNG of the same 4 s) and note 443 — each must exit 0; walls.
+   PNG of the same 4 s) and note 443 — each must exit 0; walls; and render --multires
+   --time-parallel (world size 1 under NCCL), whose PNG must be render
+   --multires's within one colormap step a pixel.
 20. app: the live app as a user opens it — ``ShellServer(Settings(),
    source="wav")`` on the card looping the 16 s signal over HTTP, a
    viewer polling ``/api/frame`` at 15 Hz, one continuous POST and two
@@ -134,7 +136,22 @@ them.  Phases, in order, one line each; the first failure ends the run:
 22. live_cli: ``python -m emspec_torch`` live --capture (synthetic), live
    --fast on a 4 s WAV, presets add/show/delete, gui --duration 3
    --no-prewarm and doctor --kernels, each a subprocess exiting 0; walls.
-23. breakdown: per-stage device times of the enhanced stencil batch
+23. parallel: ``emspec_torch.parallel`` at world size 1 under NCCL, at
+   full width, each against the port's unsharded path on the card (vis
+   within 1e-5, rgba within one colormap step) with B1, B2, the scan (in
+   batch) and B3 launching, its wall (CUDA events) beside the unsharded
+   one and its collectives a call: ``ShardedPipeline`` on the stress
+   configuration (4 s, 16 ch; with and without the global AGC),
+   ``ShardedStream`` through ``stream_signal_sharded`` on it for 16 s,
+   ``TimeParallelRenderer`` on the display default (16 s mono) and on a
+   1×1 (ch × t) mesh over the 16-channel stress signal (global AGC).
+24. checkpoint: a graphed ``Stream`` (the live phase's settings and
+   signal) saved at hop 187 (``utils.checkpoint.save_stream``), loaded
+   into a fresh graphed ``Stream``, which must not re-capture; its
+   continuation within 1e-5 of the uninterrupted stream's.
+25. trace: ``utils.tracing.trace`` around one batch call; the trace it
+   writes must name B1's, B2's and the scan's kernels.
+26. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
    of a live hop of each path and each raster (torch.profiler busy time
@@ -183,6 +200,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# the checkout holding this script, put on the path whatever the working
+# directory and the interpreter's flags (``-P``/``-I`` leave the script's
+# directory off it); a copy of the script without its package stops here
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+try:
+    import emspec_torch  # noqa: F401
+except ModuleNotFoundError as e:
+    raise SystemExit(f"chip_smoke: FAILED: {e} (this script runs from a "
+                     f"checkout of the repository, beside emspec_torch/)")
 
 from emspec_torch import Settings, kernels_build
 from emspec_torch.dsp import fourstep
@@ -234,7 +262,6 @@ WIDE = Settings(mode="enhanced", multires=False, fft_size=8192, hop=64)
 MULTIRES = Settings()           # the display default: enhanced multires
 RASTER = Settings(mode="enhanced", multires=False, fft_size=8192)  # hop 2048
 RASTER_NATURAL = Settings(mode="natural", multires=False, fft_size=2048)
-ROOT = Path(__file__).resolve().parent
 CHANNELS = 16
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
@@ -300,6 +327,12 @@ PATH_KERNELS = {        # kernels each path must launch
     "raster_natural": ("lut_values",) + SCAN,
     # the shell on the display default, then 4096 single-bank, then natural
     "app": MULTIRES_PATH,
+    "sharded_pipeline": CLUSTER_PATH + SCAN,
+    "sharded_pipeline_agc": CLUSTER_PATH + SCAN,
+    "sharded_stream": CLUSTER_PATH,
+    "time_parallel": MULTIRES_PATH + SCAN,
+    "time_parallel_2d": CLUSTER_PATH + SCAN,
+    "checkpoint": ("deposits_ids", "histogram", "lut_values"),
 }
 # the post chain's stage on each batch path when it was a loop of two
 # launches a column, before the scan kernel (PERF.md §5, the same card
@@ -1682,6 +1715,9 @@ def cli_phase(x: np.ndarray) -> None:
                             "8192"]),
                 ("render --multires", ["render", "s16.wav", "m.png",
                                        "--multires"]),
+                ("render --multires --time-parallel",
+                 ["render", "s16.wav", "tp.png", "--multires",
+                  "--time-parallel"]),
                 ("export", ["export", "s16.wav", "e.npz", "--fft-size",
                             "8192"]),
                 ("stream", ["stream", "s16.wav", "s.png"]),
@@ -1712,11 +1748,17 @@ def cli_phase(x: np.ndarray) -> None:
         check(np.array_equal(frames[-1], read_png(d / "s4.png")),
               "cli: animate's last frame differs from stream's PNG")
         check("A4" in outs["note"], f"cli note: {outs['note']!r}")
+        steps, share = lut_steps(torch.from_numpy(read_png(d / "tp.png")),
+                                 torch.from_numpy(read_png(d / "m.png")),
+                                 torch.from_numpy(lut("inferno").copy()))
+        check(steps <= 1, f"cli: render --time-parallel is {steps} colormap "
+              f"steps from render --multires")
     print("cli: python -m emspec_torch, each a subprocess that exited 0, "
           "wall s (process start, import and kernel library load included): "
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
           + "; export ≡ render pixel for pixel; animate's last frame ≡ "
-          "stream's PNG; outputs: " + " | ".join(outs.values()), flush=True)
+          f"stream's PNG; render --time-parallel vs --multires: at most "
+          f"{steps} colormap step, {share:.2e} of the pixels; outputs: " + " | ".join(outs.values()), flush=True)
 
 
 SWAP_SIZES = (512, 1024, 2048, 4096, 8192, 16384, 32768)   # the dropdown
@@ -2124,16 +2166,239 @@ def live_cli_phase(x: np.ndarray) -> None:
           + "; last lines: " + " | ".join(outs.values()), flush=True)
 
 
+def lut_steps(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor):
+    """RGBA (..., 4) of two renders and their colormap → (the largest
+    difference of their colormap indices where they differ, the share of
+    pixels that differ).  Adjacent entries differ by up to 5 a byte, so
+    "rgba ±1" is held as one step of the colormap; a differing pixel that
+    is no colormap entry fails."""
+    dev = a.device
+    weights = torch.tensor([1 << 24, 1 << 16, 1 << 8, 1], device=dev)
+    key = lambda t: (t.to(torch.int64) * weights).sum(-1)
+    keys, order = torch.sort(key(table.to(dev)))
+    a, b = a.reshape(-1, 4), b.reshape(-1, 4)
+    moved = (a != b).any(-1)
+
+    def index(t):
+        k = key(t[moved])
+        pos = torch.searchsorted(keys, k).clamp(max=keys.numel() - 1)
+        check(bool((keys[pos] == k).all()), "lut_steps: a differing pixel "
+              "is no colormap entry")
+        return order[pos]
+    steps = (index(a) - index(b)).abs()
+    return (int(steps.max()) if steps.numel() else 0,
+            float(moved.double().mean()))
+
+
+def hold_batch(name: str, got, want, table) -> str:
+    """A sharded batch result against the unsharded one: vis within
+    ``STREAM_VIS_ATOL``, rgba within one colormap step, the final state
+    within the JAX package's bounds (smooth 1e-5, agc_ref 1e-4)."""
+    vis, rgba, st = got
+    vis1, rgba1, st1 = want
+    check(vis.shape == vis1.shape and rgba.shape == rgba1.shape,
+          f"{name}: shapes {tuple(vis.shape)} vs {tuple(vis1.shape)}")
+    check(bool(torch.isfinite(vis).all()), f"{name}: non-finite vis")
+    dv = float((vis - vis1).abs().max())
+    steps, share = lut_steps(rgba, rgba1, table)
+    ds = float((st.smooth - st1.smooth).abs().max())
+    dr = float((st.agc_ref - st1.agc_ref).abs().max())
+    check(dv <= STREAM_VIS_ATOL and steps <= 1 and ds <= 1e-5 and dr <= 1e-4,
+          f"{name} ≠ unsharded: |Δvis| {dv}, colormap steps {steps}, "
+          f"|Δsmooth| {ds}, |Δagc_ref| {dr}")
+    return (f"max |Δvis| {dv:.3g}, colormap steps {steps} ({share:.2e} of "
+            f"the pixels), |Δsmooth| {ds:.3g}, |Δagc_ref| {dr:.3g}")
+
+
+def parallel_phase(dev, xs: np.ndarray, xs_live: np.ndarray, vis_sl,
+                   x: np.ndarray, vis_m) -> None:
+    """The sharded paths at world size 1 under NCCL (``emspec_torch.
+    parallel``), each driven once (counters, the collectives of that
+    call) and held to the unsharded path on the card, then timed beside
+    it with CUDA events."""
+    import torch.distributed as dist
+
+    from emspec_torch import parallel as par
+
+    created = par.init_group(dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"parallel: group {dist.get_backend()} of "
+          f"{dist.get_world_size()}")
+    mesh = par.channel_mesh(device=dev)
+    table = torch.from_numpy(lut("inferno").copy()).to(dev)
+
+    def census(path, fn):
+        par.COLLECTIVES.clear()
+        out = drive(path, fn)
+        return out, dict(par.COLLECTIVES)
+
+    for agc in (False, True):
+        name = "sharded_pipeline" + ("_agc" if agc else "")
+        s = STRESS.replace(agc_global=agc)
+        gpu = Pipeline(s, dev)
+        p, xg = gpu.params(), gpu.to_device(xs)
+        sp = par.ShardedPipeline(s, mesh)
+        got, coll = census(name, lambda: sp.process(xg, p))
+        held = hold_batch(name, got, gpu.process(xg, p), table)
+        ms = cuda_ms(lambda: sp.process(xg, p), iters=10)
+        ms1 = cuda_ms(lambda: gpu.process(xg, p), iters=10)
+        print(f"parallel {name}: {tuple(xs.shape)} samples, 1 rank of "
+              f"{s.channels} channels; vs Pipeline.process: {held}; "
+              f"{ms:.4f} ms/call (unsharded {ms1:.4f}; CUDA events, "
+              f"device-resident input); collectives a call {coll}; "
+              f"launches {LAUNCHES[name]}", flush=True)
+
+    (vis, rgba), coll = census("sharded_stream", lambda:
+                               par.stream_signal_sharded(xs_live, STRESS,
+                                                         mesh))
+    dv = float(np.abs(vis - vis_sl.cpu().numpy()).max())
+    check(vis.shape == tuple(vis_sl.shape) and dv <= STREAM_VIS_ATOL,
+          f"sharded_stream ≠ batch: shapes {vis.shape} "
+          f"{tuple(vis_sl.shape)}, max |Δvis| {dv}")
+    hops = vis.shape[0] + Pipeline(STRESS, dev).reach
+    steps = {}
+    for agc in (False, True):
+        s = STRESS.replace(agc_global=agc)
+        st = par.ShardedStream(s, mesh)
+        pipe = st.pipe
+        st.reset_window(xs_live[:, :pipe.n_max])
+        block = xs_live[:, pipe.n_max - pipe.hop:pipe.n_max]
+        par.COLLECTIVES.clear()
+        st.step(block)
+        step_coll = dict(par.COLLECTIVES)
+        blk = pipe.to_device(block)
+        carry, p = pipe.init_roll_carry((s.channels,)), pipe.params()
+        steps[agc] = (cuda_ms(lambda: st.step(block), iters=50),
+                      cuda_ms(lambda: pipe._stream_step_rolling(
+                          carry, blk, p), iters=50), step_coll)
+    print(f"parallel sharded_stream: stream_signal_sharded of "
+          f"{tuple(xs_live.shape)} samples, {hops} hops of "
+          f"{Pipeline(STRESS, dev).hop}; max |vis − stress batch| {dv:.3g}; "
+          f"collectives in the run {coll}; a hop (CUDA events, eager, the "
+          f"block from the host): {steps[False][0]:.4f} ms (the unsharded "
+          f"eager step {steps[False][1]:.4f}, block on the card), "
+          f"collectives {steps[False][2]}; with the global AGC "
+          f"{steps[True][0]:.4f} ms (unsharded {steps[True][1]:.4f}), "
+          f"collectives {steps[True][2]}; launches "
+          f"{LAUNCHES['sharded_stream']}", flush=True)
+
+    for name, s, sig, m in (
+            ("time_parallel", MULTIRES, x,
+             par.channel_mesh(axis="t", device=dev)),
+            ("time_parallel_2d", STRESS.replace(agc_global=True), xs,
+             par.ch_time_mesh(1, device=dev))):
+        r = par.TimeParallelRenderer(s, m)
+        gpu = Pipeline(s, dev)
+        p = gpu.params()
+        got, coll = census(name, lambda: r.render(sig))
+        want = gpu.process(sig, p)
+        held = hold_batch(name, got, want, table)
+        ms = cuda_ms(lambda: r.render(sig), iters=10)
+        ms1 = cuda_ms(lambda: gpu.process(sig, p), iters=10)
+        print(f"parallel {name}: {tuple(sig.shape)} samples → "
+              f"{got[0].shape[0]} columns, mesh "
+              f"{dict(zip(m.mesh_dim_names, m.shape))}; vs "
+              f"Pipeline.process: {held}; {ms:.4f} ms/call (unsharded "
+              f"{ms1:.4f}; CUDA events, host input); collectives a call "
+              f"{coll}; launches {LAUNCHES[name]}", flush=True)
+        if name == "time_parallel":
+            dm = float((got[0] - vis_m).abs().max())
+            check(dm <= STREAM_VIS_ATOL, f"{name} ≠ the multires phase's "
+                  f"vis: {dm}")
+    if created:
+        dist.destroy_process_group()
+
+
+def checkpoint_phase(dev, x: np.ndarray) -> None:
+    """A graphed ``Stream`` saved at hop 187 and resumed in a fresh one."""
+    from emspec_torch.utils.checkpoint import load_stream, save_stream
+
+    hop, n = SETTINGS.hop_samples, SETTINGS.fft_size
+    cut = 186 * hop + n                     # the window of hop 186 is in
+
+    def push(st, lo, hi, chunk=1024):       # as the live phase feeds it
+        return [c for i in range(lo, hi, chunk)
+                for c in st.push(x[i:min(i + chunk, hi)])]
+    ref = Stream(SETTINGS, dev)
+    want = push(ref, 0, x.shape[-1]) + ref.flush()
+
+    def run():
+        a = Stream(SETTINGS, dev)
+        cols = push(a, 0, cut)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            save_stream(Path(tmp) / "s.npz", a)
+            save_s = time.perf_counter() - t0
+            b = Stream(SETTINGS, dev)
+            t0 = time.perf_counter()
+            load_stream(Path(tmp) / "s.npz", b)
+            load_s = time.perf_counter() - t0
+        cols += push(b, cut, x.shape[-1]) + b.flush()
+        return a, b, cols, save_s, load_s
+    a, b, cols, save_s, load_s = drive("checkpoint", run)
+    check(a._t == 187 and b.captures == 1,
+          f"checkpoint: saved at hop {a._t}, {b.captures} captures")
+    check([c.index for c in cols] == [c.index for c in want],
+          "checkpoint: column indices differ from the uninterrupted run")
+    diff = float((torch.stack([c.vis for c in cols])
+                  - torch.stack([c.vis for c in want])).abs().max())
+    check(diff <= STREAM_VIS_ATOL, f"checkpoint: resumed ≠ uninterrupted: "
+          f"{diff}")
+    print(f"checkpoint: graphed Stream saved at hop {a._t} of "
+          f"{len(want) + ref.reach}, loaded into a fresh graphed Stream "
+          f"(captures {b.captures}); max |vis − uninterrupted| {diff:.3g}; "
+          f"save {save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms (host "
+          f"clock); launches {LAUNCHES['checkpoint']}", flush=True)
+
+
+# the kernels' names in a trace: B1 (block or cluster route), B2 (any
+# route), the scan
+TRACE_NAMES = {"B1": ("block_kernel", "cluster_kernel"),
+               "B2": ("row_kernel", "global_kernel", "sorted_kernel"),
+               "ema_scan": ("ema_scan_kernel",)}
+
+
+def trace_phase(dev, x: np.ndarray) -> None:
+    """``utils.tracing.trace`` around one batch call of the batch phase's
+    settings: the trace it writes must name B1's, B2's and the scan's
+    kernels."""
+    from emspec_torch.utils.tracing import annotation, trace
+
+    pipe = Pipeline(SETTINGS, dev)
+    p, xg = pipe.params(), pipe.to_device(x)
+    pipe.process(xg, p)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            with annotation("emspec_batch"):
+                pipe.process(xg, p)
+            torch.cuda.synchronize()
+        files = list(Path(tmp).glob("trace_*.json"))
+        check(len(files) == 1, f"trace: {len(files)} files written")
+        events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in kernels if any(w in n for w in want))
+             for k, want in TRACE_NAMES.items()}
+    missing = [k for k, v in found.items() if not v]
+    check(not missing and any(e.get("name") == "emspec_batch"
+                              for e in events),
+          f"trace: no {missing} among the kernels {sorted(kernels)}")
+    print(f"trace: {len(events)} events, {len(kernels)} kernel names; "
+          + "; ".join(f"{k}: {v[0][:60]}" for k, v in found.items()),
+          flush=True)
+
+
 def device_busy(fn, reps: int):
     """Device busy time per call of ``fn`` (ms) and its split by kernel:
     the sums of kernel and copy times in torch.profiler (one stream, so
     none overlap).  A first, discarded profile absorbs start-up."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):
+    # acc_events: torch 2.11 warns on every profile without it
+    with profile(activities=acts, acc_events=True):
         fn()
         torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -2263,6 +2528,9 @@ def main() -> None:
     app_phase(dev, x)
     swap_phase(dev, x)
     live_cli_phase(x)
+    parallel_phase(dev, xs, xs_live, vis_sl, x, vis_m)
+    checkpoint_phase(dev, x)
+    trace_phase(dev, x)
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),

@@ -19,9 +19,11 @@ banks); the scrolling ``Waterfall``, ``animate_frames``; the live app
 (``EmSpecApp``, the web shell ``shell.ShellServer`` and the tkinter
 window, live capture, the terminal view, ``prewarm``) and the CLI
 (``python -m emspec_torch render|export|stream|animate|live|gui|presets|
-doctor|note``; a bare call opens ``gui``); the
-stencil and direct methods, every frame size 512–262144 on one bank,
-the ``xla`` (``torch.fft``) and ``fourstep`` FFT engines; through
+doctor|note``; a bare call opens ``gui``); checkpoints of a live stream
+(``utils.checkpoint``), tracing (``utils.tracing``), channel and time
+sharding on ``torch.distributed`` (``parallel``, ``render
+--time-parallel``); the stencil and direct methods, every frame size
+512–262144 on one bank, the ``xla`` (``torch.fft``) and ``fourstep`` FFT engines; through
 hand-written CUDA kernels (``emspec_torch/csrc``), one for each Pallas
 kernel of the JAX package and one for the batch post chain's EMA scan.
 ROADMAP.md lists the rest.  Entry points run on the card unless the
@@ -48,6 +50,9 @@ _LAZY = {
     "stream_signal": "stream", "Waterfall": "render.waterfall",
     "animate_frames": "render.animate", "write_apng": "render.apng",
     "read_apng": "render.apng", "EmSpecApp": "app", "prewarm": "pipeline",
+    "ShardedPipeline": "parallel", "ShardedStream": "parallel",
+    "channel_mesh": "parallel", "ch_time_mesh": "parallel",
+    "TimeParallelRenderer": "parallel",
 }
 
 

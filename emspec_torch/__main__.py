@@ -3,7 +3,9 @@
 
 Subcommands: ``render`` (a WAV to a PNG spectrogram: the single-bank
 linear-frequency raster, ``--multires`` the log-frequency display,
-``--channel all`` every channel tiled), ``export`` (the pre-colormap
+``--channel all`` every channel tiled; ``--time-parallel`` shards the
+display render over time across the ranks of the process group, one a
+card under ``torchrun``, world size 1 alone), ``export`` (the pre-colormap
 display values and their axes to ``.npz``), ``stream`` (the WAV through
 the live path into a scrolling waterfall, snapshotted to PNG),
 ``animate`` (that waterfall as an animated PNG), ``live`` (the live
@@ -128,16 +130,35 @@ def cmd_render(args) -> int:
               f"{n_need} — use a longer file or {fix}",
               file=sys.stderr)
         return 2
+    time_parallel = args.time_parallel
+    if time_parallel and not (s.multires or args.channel == "all"):
+        raise UsageError(
+            "--time-parallel requires the log-frequency display "
+            "pipeline (--multires, or --channel all which always uses "
+            "it); the linear-axis offline raster is single-device")
     if args.channel == "all":
         # one log-frequency image a channel from one batched pass, tiled
-        from emspec_torch.pipeline import render_images_channels
-        img = tile_images(render_images_channels(audio, s, dev))
+        if time_parallel:
+            imgs = _render_time_parallel(
+                audio, s.replace(channels=audio.shape[0], display_channel=0),
+                dev)
+            if imgs is None:
+                return 0                        # not rank 0: rank 0 writes
+        else:
+            from emspec_torch.pipeline import render_images_channels
+            imgs = render_images_channels(audio, s, dev)
+        img = tile_images(imgs)
         write_png(args.output, img)
         print(f"{args.output}: {img.shape[1]}x{img.shape[0]} px, "
               f"{audio.shape[0]} channels tiled, mode={s.mode}, sr={rate}")
         return 0
     x = audio[_pick_channel(audio, args.channel)]
-    if s.multires:
+    if time_parallel:
+        imgs = _render_time_parallel(x, s, dev)
+        if imgs is None:
+            return 0
+        img = imgs[0]
+    elif s.multires:
         from emspec_torch.pipeline import render_image_multires
         img = render_image_multires(x, s, dev)
     else:
@@ -147,6 +168,41 @@ def cmd_render(args) -> int:
     print(f"{args.output}: {img.shape[1]}x{img.shape[0]} px, mode={s.mode}, "
           f"fft={s.fft_size}, sr={rate}")
     return 0
+
+
+def _render_time_parallel(audio, s, dev):
+    """The log-frequency image of each channel of ``audio`` (samples,) or
+    (channels, samples), the render sharded over time across the ranks of
+    the process group (``parallel.TimeParallelRenderer``; one process
+    alone is world size 1).  With several channels the channel axis takes
+    the gcd of the channels and the ranks, time the rest.  Rank 0 gets the
+    images, every other rank None."""
+    import math
+
+    import torch.distributed as dist
+
+    from emspec_torch.parallel import (
+        TimeParallelRenderer, ch_time_mesh, channel_mesh, init_group)
+
+    created = init_group(dev)
+    try:
+        n_ch = (math.gcd(audio.shape[0], dist.get_world_size())
+                if audio.ndim == 2 else 1)
+        mesh = (ch_time_mesh(n_ch, device=dev) if n_ch > 1
+                else channel_mesh(axis="t", device=dev))
+        r = TimeParallelRenderer(s, mesh)
+        _, rgba, _ = r.render(audio)
+        raster = r.gather(rgba, r.pipe.num_columns(audio.shape[-1]))
+        if dist.get_rank() != 0:
+            return None
+        raster = raster.cpu().numpy()             # (t, [ch,] rows, 4)
+        if raster.ndim == 3:
+            raster = raster[:, None]
+        return [raster[:, c].transpose(1, 0, 2)[::-1]
+                for c in range(raster.shape[1])]
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 def cmd_export(args) -> int:
@@ -506,6 +562,11 @@ def _parser() -> argparse.ArgumentParser:
     pr.add_argument("input")
     pr.add_argument("output")
     pr.add_argument("--channel", default="0", help=channel_help)
+    pr.add_argument("--time-parallel", action="store_true",
+                    help="shard the render over the TIME axis across the "
+                         "ranks of the process group (one per card under "
+                         "torchrun; alone, one); requires the --multires "
+                         "display pipeline or --channel all")
     _add_settings_args(pr)
     pr.set_defaults(fn=cmd_render)
 

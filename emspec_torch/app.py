@@ -116,12 +116,12 @@ class EmSpecApp:
         # before changing any of self, so a construction error leaves the
         # app on its old, consistent state
         if is_structural_change(old, new):
+            table = lut(new.colormap)
             stream = Stream(new, self.device)
             if (new.raster_width != old.raster_width
                     or new.raster_height != old.raster_height):
                 waterfall = Waterfall(new.raster_width, new.raster_height,
-                                      new.scroll_speed,
-                                      lut_table=lut(new.colormap),
+                                      new.scroll_speed, lut_table=table,
                                       device=self.device)
             else:
                 waterfall = self.waterfall
@@ -132,7 +132,7 @@ class EmSpecApp:
             self.stream = stream
             self.waterfall = waterfall
             self.waterfall.scroll_speed = new.scroll_speed
-            self.waterfall.lut_table = lut(new.colormap)
+            self.waterfall.lut_table = table
             replaced.close()
             return "structural"
         # continuous: new values into the stream's own (captured) tensors

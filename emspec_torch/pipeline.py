@@ -337,10 +337,20 @@ class Pipeline:
             out = term.clone() if out is None else out + term
         return out.movedim(0, -2)                            # (..., t, rows)
 
-    def _enhanced_power(self, x, t_count, p: PipelineParams):
-        """Reassigned 2-D histogram on the (t, rows) display grid."""
+    def _enhanced_power(self, x, t_count, p: PipelineParams,
+                        frame_valid=None):
+        """Reassigned 2-D histogram on the (t, rows) display grid.
+
+        ``frame_valid``: an optional (t,) mask; the deposits of a frame
+        where it is 0 are dropped.  A time-sharded render
+        (``parallel.TimeParallelRenderer``) analyses halo frames past the
+        signal's frame range to recompute the deposits that cross its
+        chunk's edges, and a trailing partial frame, which the whole
+        batch never analyses, must not deposit."""
         ids_rel, contrib = self._deposit_ids_rel(
             self._bank_inputs(x, t_count), p)
+        if frame_valid is not None:
+            ids_rel = torch.where(frame_valid[:, None] > 0, ids_rel, -1)
         if self.use_relative_batch:
             return self._scatter_relative(ids_rel, contrib, t_count)
         return self._scatter_absolute(
@@ -349,13 +359,16 @@ class Pipeline:
 
     # ---------------- full batch path ----------------
     def _batch_vis(self, x, p: PipelineParams, state: PostState,
-                   t_count: int):
+                   t_count: int, peak_reduce=None):
+        """``peak_reduce``: the global AGC's peak across channel shards
+        (``post.chain._boost_db_peak``)."""
         power = (self._enhanced_power(x, t_count, p)
                  if self.settings.mode == MODE_ENHANCED
                  else self._natural_power(x, t_count, p))    # (..., t, rows)
         cols_first = power.movedim(-2, 0).contiguous()       # (t, ..., rows)
         vis, state = postprocess_batch(cols_first, state, p.post,
-                                       self.settings.agc_global)
+                                       self.settings.agc_global,
+                                       peak_reduce=peak_reduce)
         rgba = apply_lut(vis, p.lut)                         # (t, ..., rows, 4)
         return vis, rgba, state
 
@@ -411,7 +424,8 @@ class Pipeline:
         return self._batch_vis(x, p, st, t_count)
 
     # ---------------- streaming path ----------------
-    def _stream_step(self, carry, window, p: PipelineParams):
+    def _stream_step(self, carry, window, p: PipelineParams,
+                     peak_reduce=None):
         """One hop: add this frame's deposits (enhanced) or its merged
         column (natural, R = 0) to the pending ring of P = 2R+1 columns,
         then emit column t−R (no later frame can reach it).
@@ -421,7 +435,7 @@ class Pipeline:
         a fixed sequence of launches that a CUDA graph can capture
         (``stream.Stream``).  Every carry tensor (t, the ring, the post
         state) is updated in place and returned: pass each carry to one
-        step only."""
+        step only.  ``peak_reduce``: as in :meth:`_batch_vis`."""
         t, acc, post = carry                     # acc: (P, ..., rows)
         R, rows = self.reach, self.rows
         P = 2 * R + 1
@@ -431,7 +445,7 @@ class Pipeline:
             specs = [self._bank_power(win, n) for win, n in
                      zip(self._bank_windows(window), self.sizes)]
             col = self._merge(specs, p)
-            acc.index_add_(0, _slot(t, P), col.unsqueeze(0))
+            _ring_add(acc, _slot(t, P), col.unsqueeze(0))
         elif self.use_relative_scatter:
             ids_rel, contrib = self._deposit_ids_rel(
                 self._bank_windows(window), p)
@@ -469,7 +483,8 @@ class Pipeline:
         emit_slot = _slot(t_emit, P)
         vis, new_post = postprocess_column(acc.index_select(0, emit_slot)[0],
                                            post, p.post,
-                                           self.settings.agc_global)
+                                           self.settings.agc_global,
+                                           peak_reduce)
         do_emit = t >= R
         for old, new in zip(post, new_post):
             torch.where(do_emit, new, old, out=old)
@@ -479,13 +494,14 @@ class Pipeline:
         t.add_(1)
         return (t, acc, post), (vis, rgba, t_emit)
 
-    def _stream_step_rolling(self, carry, block, p: PipelineParams):
+    def _stream_step_rolling(self, carry, block, p: PipelineParams,
+                             peak_reduce=None):
         """Per-hop step whose analysis window is carry state: ``block`` is
         only the ``hop`` new samples, window' = concat(window[hop:], block),
         written into the carry's own window tensor."""
         window, inner = carry
         window.copy_(torch.cat([window[..., self.hop:], block], dim=-1))
-        inner, out = self._stream_step(inner, window, p)
+        inner, out = self._stream_step(inner, window, p, peak_reduce)
         return (window, inner), out
 
     def init_stream_carry(self, lead: tuple = ()):
@@ -507,6 +523,19 @@ def _slot(t: torch.Tensor, P: int) -> torch.Tensor:
     """Ring slot ``t mod P`` of a 0-d device counter, as a (1,) int64
     index on its device."""
     return torch.remainder(t, P).to(torch.int64).reshape(1)
+
+
+def _ring_add(acc: torch.Tensor, slot: torch.Tensor,
+              rows: torch.Tensor) -> None:
+    """``acc[slot] += rows`` in place, one add a cell.  On the CPU this is
+    the serial accumulating ``index_put_``: ``index_add_`` of a row into a
+    2-D ring starts every intra-op thread for a few hundred floats, and
+    with other processes on the host's cores a hop then waits ~140 ms for
+    its threads (PERF.md §6).  The card keeps ``index_add_``."""
+    if acc.device.type == "cpu":
+        acc.index_put_((slot,), rows, accumulate=True)
+    else:
+        acc.index_add_(0, slot, rows)
 
 
 @functools.lru_cache(maxsize=32)

@@ -11,7 +11,11 @@ The batch chain runs each of the two EMAs as one scan over the columns
 (``dsp.kernels.ema``), its plain loop on the CPU, the same per-element
 operations in the same order as ``postprocess_column`` — or, with
 ``associative=True``, the affine recurrence composed in ⌈log2 t⌉ doubling
-passes.  The time-sharded chain is later work (ROADMAP.md).
+passes.  ``postprocess_batch_timeshard`` is the chain of one time chunk
+of a sharded render (``emspec_torch.parallel.TimeParallelRenderer``):
+each EMA scans its chunk from zero, one gather of the chunk finals over
+the time axis gives the chunk's incoming state, and the affine
+correction re-bases the series.
 """
 
 from __future__ import annotations
@@ -113,15 +117,20 @@ def _ema_scan(y0: torch.Tensor, alpha, xs: torch.Tensor,
     return ys, ys[-1]
 
 
-def _boost_db_peak(power, p: PostParams, global_agc: bool, lead_axes: tuple):
+def _boost_db_peak(power, p: PostParams, global_agc: bool, lead_axes: tuple,
+                   peak_reduce=None):
     """Stages 1-3 + the pre-AGC per-column peak (``lead_axes``: the axes of
-    ``peak_db`` that the global-AGC option couples)."""
+    ``peak_db`` that the global-AGC option couples).  ``peak_reduce``
+    completes the coupled peak across the other channel shards of a
+    sharded run (an in-place max over their group)."""
     boosted = power * p.low_end_ramp * p.gain                      # 1-2
     v_db = 10.0 * torch.log10(boosted + DB_EPS)                    # 3
     peak_db = torch.amax(v_db, dim=-1)
     if global_agc and lead_axes:
-        peak_db = torch.amax(peak_db, dim=lead_axes,
-                             keepdim=True).expand(peak_db.shape)
+        peak = torch.amax(peak_db, dim=lead_axes, keepdim=True)
+        if peak_reduce is not None:
+            peak = peak_reduce(peak)
+        peak_db = peak.expand(peak_db.shape)
     return v_db, peak_db
 
 
@@ -141,17 +150,19 @@ def _brightness_clip(smoothed, p: PostParams):
 
 def postprocess_batch(power_ts: torch.Tensor, state: PostState, p: PostParams,
                       global_agc: bool = False,
-                      associative: bool | None = None):
+                      associative: bool | None = None, peak_reduce=None):
     """Whole-signal chain: (t, ..., rows) power → (t, ..., rows) vis.
 
     ``associative`` picks the form of both EMAs (:func:`_ema_scan`);
     ``None`` means sequential on every device — bit-identical to scanning
     :func:`postprocess_column` over t.  The JAX package's default (the
     associative form on its TPU, at t ≥ 1024 for the smoothing) is a TPU
-    measurement and is not carried over."""
+    measurement and is not carried over.  ``peak_reduce``: see
+    :func:`_boost_db_peak`."""
     assoc = bool(associative)
     v_db, peak_db = _boost_db_peak(
-        power_ts, p, global_agc, tuple(range(1, power_ts.ndim - 1)))
+        power_ts, p, global_agc, tuple(range(1, power_ts.ndim - 1)),
+        peak_reduce)
     refs, ref_final = _ema_scan(state.agc_ref, AGC_DECAY, peak_db, assoc)
     vis = _agc_gate_norm(v_db, refs, p)                            # 4-6
     smoothed, smooth_final = _ema_scan(state.smooth, p.smoothing, vis,
@@ -161,12 +172,87 @@ def postprocess_batch(power_ts: torch.Tensor, state: PostState, p: PostParams,
 
 
 def postprocess_column(power: torch.Tensor, state: PostState, p: PostParams,
-                       global_agc: bool = False):
+                       global_agc: bool = False, peak_reduce=None):
     """One hop: power column (..., rows) → display values + new state."""
     v_db, peak_db = _boost_db_peak(
-        power, p, global_agc, tuple(range(power.ndim - 1)))        # 1-3
+        power, p, global_agc, tuple(range(power.ndim - 1)),
+        peak_reduce)                                               # 1-3
     new_ref = AGC_DECAY * state.agc_ref + (1.0 - AGC_DECAY) * peak_db
     vis = _agc_gate_norm(v_db, new_ref, p)                         # 4-6
     smoothed = p.smoothing * state.smooth + (1.0 - p.smoothing) * vis  # 7
     out = _brightness_clip(smoothed, p)                            # 8
     return out, PostState(smooth=smoothed, agc_ref=new_ref)
+
+
+def _affine_chunk_in(y0, fin_all, alpha_L, d: int):
+    """Incoming EMA state of time chunk ``d`` (``emspec.post.chain.
+    _affine_chunk_in``).  With a constant α a chunk of L steps is the
+    affine map ``y_out = α^L·y_in + B``, ``B`` its zero-initialised final
+    (``fin_all[k]`` for chunk k, gathered over the time axis), so
+
+        y_in(d) = α^(L·d)·y0 + Σ_{k<d} α^(L·(d−1−k))·B_k
+
+    computed on every rank from the same gathered finals.  ``alpha_L`` is
+    α^L as a 0-d float32 tensor."""
+    n = fin_all.shape[0]
+    k = torch.arange(n, device=fin_all.device)
+    expo = torch.clamp(d - 1 - k, min=0).to(torch.float32)
+    w = torch.where(k < d, torch.pow(alpha_L, expo), 0.0)
+    w = w.reshape((n,) + (1,) * (fin_all.ndim - 1))
+    return torch.pow(alpha_L, float(d)) * y0 + torch.sum(w * fin_all, dim=0)
+
+
+def postprocess_batch_timeshard(power_local: torch.Tensor, state0: PostState,
+                                p: PostParams, axis, global_agc: bool = False,
+                                valid_count: int | None = None, ch_axis=None):
+    """Post chain of one contiguous (L, ..., rows) time chunk of a sharded
+    render (``emspec.post.chain.postprocess_batch_timeshard``).
+
+    ``axis`` is the time axis as this rank sees it (``parallel.MeshAxis``:
+    ``index``, the chunk's place, and ``all_gather``); ``ch_axis``, on a
+    (ch × t) mesh, the channel axis, over which the global AGC's peak
+    takes one ``all_reduce_max``.  ``state0`` is the global initial state
+    of this rank's channels.  Each EMA scans the chunk from zero — the
+    sequential scan, kernel ``ema_scan`` on the card — one gather ships
+    the chunk finals, and ``y_t = α^(t+1)·y_in + y_t(0)`` re-bases the
+    series: two gathers in all.  The re-base reassociates the float32
+    recurrence (~1e-6, as the associative scan).
+
+    Returns (vis (L, ..., rows), the state after the chunk's last valid
+    column: ``valid_count`` columns of a chunk past the signal's end are
+    real, the rest padding whose evolution must not reach the final
+    state)."""
+    L = power_local.shape[0]
+    dev = power_local.device
+    reduce = (ch_axis.all_reduce_max if global_agc and ch_axis is not None
+              else None)
+    v_db, peak_db = _boost_db_peak(
+        power_local, p, global_agc, tuple(range(1, power_local.ndim - 1)),
+        reduce)
+    steps = torch.arange(1, L + 1, dtype=torch.float32, device=dev)
+    lead1 = (L,) + (1,) * (peak_db.ndim - 1)
+
+    refs0, ref_fin0 = _ema_scan(torch.zeros_like(state0.agc_ref), AGC_DECAY,
+                                peak_db, False)
+    # 0-d constants filled on the device: a host tensor's copy would wait
+    # for the queue
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+    ref_in = _affine_chunk_in(
+        state0.agc_ref, axis.all_gather(ref_fin0),
+        f32(np.float32(AGC_DECAY ** L)), axis.index)
+    refs = (torch.pow(f32(np.float32(AGC_DECAY)), steps).reshape(lead1)
+            * ref_in + refs0)
+    vis = _agc_gate_norm(v_db, refs, p)                            # 4-6
+
+    smooth0, smooth_fin0 = _ema_scan(torch.zeros_like(state0.smooth),
+                                     p.smoothing, vis, False)
+    s_in = _affine_chunk_in(
+        state0.smooth, axis.all_gather(smooth_fin0),
+        torch.pow(p.smoothing, float(L)), axis.index)
+    spow = torch.pow(p.smoothing, steps).reshape(
+        (L,) + (1,) * (smooth0.ndim - 1))
+    smoothed = spow * s_in + smooth0                               # 7
+    out = _brightness_clip(smoothed, p)                            # 8
+    idx = L - 1 if valid_count is None else min(max(valid_count - 1, 0),
+                                                L - 1)
+    return out, PostState(smooth=smoothed[idx], agc_ref=refs[idx])

@@ -951,3 +951,160 @@ def test_cuda_validate_kernels_full(cuda):
     from emspec_torch.dsp.kernels.validate import validate_kernels
     report = validate_kernels(quick=False)
     assert report["kernels_validated"] and not report["quick"]
+
+
+# ------------------------------------------------ checkpoints and sharding
+@pytest.mark.cuda
+def test_cuda_graphed_stream_checkpoint_round_trip(cuda, tmp_path):
+    """A graphed Stream saved mid-run resumes in a fresh graphed Stream
+    (copied into its captured tensors: no second capture) within live ≡
+    batch's 1e-5 of the uninterrupted stream."""
+    from emspec_torch.utils.checkpoint import load_stream, save_stream
+
+    s = Settings(mode="enhanced", multires=False, fft_size=2048)
+    x = _tone_noise(48000 * 2, seed=21)
+    cut = 30 * s.hop_samples + 2048
+    ref = Stream(s, cuda)
+    want = ref.push(x) + ref.flush()
+    a = Stream(s, cuda)
+    cols = a.push(x[:cut])
+    save_stream(tmp_path / "s", a)
+    b = Stream(s, cuda)
+    load_stream(tmp_path / "s", b)
+    cols += b.push(x[cut:]) + b.flush()
+    assert b.captures == 1 and a._t == 31
+    assert [c.index for c in cols] == [c.index for c in want]
+    diff = (torch.stack([c.vis for c in cols])
+            - torch.stack([c.vis for c in want])).abs().max()
+    assert float(diff) <= 1e-5
+
+
+@pytest.fixture
+def nccl_world_1(cuda):
+    """A world-size-1 NCCL group for the test, gone after it."""
+    import torch.distributed as dist
+
+    from emspec_torch import parallel
+
+    created = parallel.init_group(cuda)
+    assert dist.get_backend() == "nccl"
+    yield cuda
+    if created:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,channels", [
+    ({}, 1),                                  # the display default
+    ({"mode": "natural", "multires": False, "fft_size": 2048}, 1),
+    ({"multires": False, "fft_size": 8192, "agc_global": True}, 4),
+])
+def test_cuda_time_parallel_matches_unsharded(nccl_world_1, kw, channels):
+    """TimeParallelRenderer at world 1 against Pipeline.process on the
+    card: vis 1e-5, the final state within the JAX package's bounds; the
+    chunk scans of the re-base run on the scan kernel."""
+    from emspec_torch import parallel
+
+    dev = nccl_world_1
+    s = Settings(channels=channels, smoothing=0.4, **kw)
+    x = np.stack([_tone_noise(48000 * 2, seed=30 + c)
+                  for c in range(channels)])
+    x = x[0] if channels == 1 else x
+    mesh = (parallel.ch_time_mesh(1, device=dev) if channels > 1
+            else parallel.channel_mesh(axis="t", device=dev))
+    r = parallel.TimeParallelRenderer(s, mesh)
+    before = ema_scan.launches
+    parallel.COLLECTIVES.clear()
+    vis, rgba, st = r.render(x)
+    assert ema_scan.launches - before == 2
+    want = {"all_gather": 2, "broadcast": 1}
+    if channels > 1:
+        want["all_reduce_max"] = 1
+    assert dict(parallel.COLLECTIVES) == want
+    vis1, rgba1, st1 = Pipeline(s, dev).process(x)
+    assert vis.shape == vis1.shape and rgba.dtype == torch.uint8
+    assert float((vis - vis1).abs().max()) <= 1e-5
+    assert float((st.smooth - st1.smooth).abs().max()) <= 1e-5
+    assert float((st.agc_ref - st1.agc_ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agc", [False, True])
+def test_cuda_sharded_stream_and_pipeline_match_unsharded(nccl_world_1, agc):
+    """ShardedStream (through stream_signal_sharded) and ShardedPipeline
+    at world 1 against the unsharded batch on the card, vis 1e-5; one
+    max a hop with the global AGC, none without."""
+    from emspec_torch import parallel
+
+    dev = nccl_world_1
+    s = Settings(mode="enhanced", multires=False, fft_size=4096,
+                 channels=2, agc_global=agc)
+    x = np.stack([_tone_noise(48000, seed=40), _tone_noise(48000, seed=41)])
+    mesh = parallel.channel_mesh(device=dev)
+    vis_b, _, _ = Pipeline(s, dev).process(x)
+    parallel.COLLECTIVES.clear()
+    vis_s, _ = parallel.stream_signal_sharded(x, s, mesh)
+    hops = vis_s.shape[0] + Pipeline(s, dev).reach
+    assert parallel.COLLECTIVES["all_reduce_max"] == (hops if agc else 0)
+    assert float(np.abs(vis_s - vis_b.cpu().numpy()).max()) <= 1e-5
+    vis_p, _, _ = parallel.ShardedPipeline(s, mesh).process(x)
+    assert float((vis_p - vis_b).abs().max()) <= 1e-5
+
+
+def _colormap_steps(a: np.ndarray, b: np.ndarray) -> tuple:
+    """Two RGBA images → (the largest difference of their inferno
+    indices where they differ, the share of pixels that differ); a
+    differing pixel must be a colormap entry in both."""
+    from emspec_torch.tables import lut
+
+    index = {tuple(c): i for i, c in enumerate(lut("inferno"))}
+    a, b = a.reshape(-1, 4), b.reshape(-1, 4)
+    moved = (a != b).any(-1)
+    steps = [abs(index[tuple(p)] - index[tuple(q)])
+             for p, q in zip(a[moved], b[moved])]
+    return max(steps, default=0), float(moved.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,sr,seconds,extra", [
+    (1, 48000, 16.0, ["--multires"]),
+    (2, 48000, 16.0, ["--channel", "all"]),      # a 2 × (cards/2) mesh
+    (16, 96000, 4.0, ["--channel", "all"]),      # channels over the cards
+])
+def test_cuda_time_parallel_render_across_cards(cuda, tmp_path, channels,
+                                                sr, seconds, extra):
+    """``render --time-parallel`` under torchrun, one rank a card on every
+    card of the machine, renders what one process renders, within one
+    colormap step a pixel; skips with fewer than two cards."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from emspec_torch.io.wav import write_wav
+    from emspec_torch.render.png import read_png
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards or more")
+    root = Path(__file__).resolve().parents[1]
+    x = np.stack([_tone_noise(int(seconds * sr), seed=50 + c)
+                  for c in range(channels)])
+    write_wav(tmp_path / "in.wav", x[0] if channels == 1 else x, sr)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    runs = {"one": [], "cards": ["-m", "torch.distributed.run",
+                                 "--standalone", f"--nproc-per-node={cards}"]}
+    for name, launcher in runs.items():
+        args = ["render", str(tmp_path / "in.wav"),
+                str(tmp_path / f"{name}.png"), *extra]
+        if name == "cards":
+            args.append("--time-parallel")
+        r = subprocess.run([sys.executable, *launcher, "-m", "emspec_torch",
+                            *args], env=env, capture_output=True, text=True,
+                           timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+    one, many = (read_png(tmp_path / f"{k}.png") for k in ("one", "cards"))
+    steps, share = _colormap_steps(many, one)
+    print(f"{cards} cards, {channels} ch {extra}: {one.shape}, colormap "
+          f"steps {steps}, share {share:.3e}")
+    assert many.shape == one.shape and steps <= 1
