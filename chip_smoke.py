@@ -52,14 +52,22 @@ them.  Phases, in order, one line each; the first failure ends the run:
    display default — (a) one relative B2 and the fold (P = 65), (b) the
    JAX package's mixed scatter, composed here, with each bank's
    relative-or-absolute choice timed here, (c) one absolute-grid B2 —
-   and each bank's two options; the EMA scan kernel (``ema_scan``) of
-   the batch post chain against its plain loop, bit for bit, at every
-   batch path's shape (multires 5,937 × 512, batch16 372 × 8192, wide
-   1,437 × 512, the AGC series 5,937 × 1 and 372 × 16, t = 0 and t = 1),
-   with both of its bounds (bytes; the dependent chain) and the
-   associative form's device time and largest relative difference; B2's
-   sorted route at the single-bank raster's ids, bit-equal to the plain
-   sum and the same on a second run, beside the global route.
+   and each bank's two options; the batch post chain's kernels: the
+   chunk-parallel EMA scan (``ema_scan``) against its plain loop, bit for
+   bit, at every batch path's shape (multires 5,937 × 512 at α 0.6 and at
+   the default 0, batch16 372 × 8192, wide 1,437 × 512, the AGC series
+   5,937 × 1 and 372 × 16, t = 0 and t = 1) and with W forced to 0 (every
+   chunk repaired, counted), with both of its bounds (bytes; the chain of
+   its longest chunk, beside the sequential walk's) and the chunks its
+   speculation left to the repair, and the associative form's device time
+   and largest relative difference; ``post_head`` and ``post_tail``
+   against their plain versions, bit for bit, on the multires (smoothing
+   0 and 0.6), batch and batch16 paths' own power, the tail also with
+   every chunk forced to repair, and the batch chain bit-equal to the
+   live step's column-by-column chain on the same power; B2's sorted route at the single-bank
+   raster's ids, bit-equal to the plain sum and the same on a second run,
+   beside the global route, ``index_add_`` and the deterministic
+   ``index_put_(accumulate=True)``.
 3. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise; the result must
    match the port's CPU path.
@@ -150,7 +158,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
    into a fresh graphed ``Stream``, which must not re-capture; its
    continuation within 1e-5 of the uninterrupted stream's.
 25. trace: ``utils.tracing.trace`` around one batch call; the trace it
-   writes must name B1's, B2's and the scan's kernels.
+   writes must name B1's, B2's and the post chain's kernels (``post_head``,
+   both scans' speculate and repair passes); the kernels one post chain
+   call launches, read from the trace.
 26. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
@@ -158,9 +168,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
    over the unprofiled wall time).
 
 Every batch phase also times the post chain alone in both forms
-(sequential: the scan kernel; associative: ⌈log2 t⌉ doubling passes),
-beside the per-column loop's stage where PERF.md has it, must launch the
-scan kernel,
+(sequential: ``post_head``, ``ema_scan``, ``post_tail``; associative:
+⌈log2 t⌉ doubling passes) with its launches a call and the chunks its
+scans repaired, beside the per-column loop's stage where PERF.md has it,
+must launch the three post chain kernels,
 and counts the pixels in which five more calls differ from the first
 (B2's atomics: a measurement, not a check).
 
@@ -179,7 +190,8 @@ valid, and b = 1 bit-equal to frame 0 of the batch; the three batch
 scatters of the display default against each other by the grid rule; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
 exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
 relative per nonzero bin; the other probe variants within 1e-5 of their
-own plain versions; B3 (both forms), B5 and the scan kernel bit-equal;
+own plain versions; B3 (both forms), B5 and the post chain's three
+kernels bit-equal;
 B2's sorted route bit-equal to the plain sum on the CPU; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
@@ -215,7 +227,10 @@ except ModuleNotFoundError as e:
 from emspec_torch import Settings, kernels_build
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, signal_blocks
+from emspec_torch.dsp.kernels import ema
 from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
+from emspec_torch.dsp.kernels.post import (
+    post_head, post_head_plain, post_tail, post_tail_plain)
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain,
@@ -291,9 +306,14 @@ KERNELS = (
      "bench_probes/scatter_ablation.py:93"),
     ("deposits_ids_window", deposits_ids, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:404"),
-    # the sequential lax.scan of the JAX batch post chain (XLA, not Pallas)
+    # the JAX batch post chain (XLA, not Pallas): the sequential lax.scan,
+    # stages 1-3 with the row peak, stages 4-8 around the smoothing scan
     ("ema_scan", ema_scan, "emspec_torch/csrc/ema_scan.cu",
      "emspec/post/chain.py:89"),
+    ("post_head", post_head, "emspec_torch/csrc/post_chain.cu",
+     "emspec/post/chain.py:131"),
+    ("post_tail", post_tail, "emspec_torch/csrc/post_chain.cu",
+     "emspec/post/chain.py:149"),
 )
 # a kernel counted by another counter than its wrapper's ``launches``
 COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"]}
@@ -302,7 +322,7 @@ MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
 CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
 LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
               "lut_values")
-SCAN = ("ema_scan",)    # every batch path's post chain
+SCAN = ("post_head", "ema_scan", "post_tail")   # every batch post chain
 PATH_KERNELS = {        # kernels each path must launch
     "batch": ("deposits_ids", "histogram", "lut_values") + SCAN,
     "batch16": ("deposits_ids", "histogram", "lut_values") + SCAN,
@@ -330,8 +350,9 @@ PATH_KERNELS = {        # kernels each path must launch
     "sharded_pipeline": CLUSTER_PATH + SCAN,
     "sharded_pipeline_agc": CLUSTER_PATH + SCAN,
     "sharded_stream": CLUSTER_PATH,
-    "time_parallel": MULTIRES_PATH + SCAN,
-    "time_parallel_2d": CLUSTER_PATH + SCAN,
+    # the time renderer's chunk EMAs: the scan kernel alone, then a re-base
+    "time_parallel": MULTIRES_PATH + ("ema_scan",),
+    "time_parallel_2d": CLUSTER_PATH + ("ema_scan",),
     "checkpoint": ("deposits_ids", "histogram", "lut_values"),
 }
 # the post chain's stage on each batch path when it was a loop of two
@@ -444,12 +465,13 @@ def dft_ops(n: int) -> float:
 
 
 def reset_counters() -> None:
+    """Every wrapper's ``launches`` and each of its ``*_launches`` dicts
+    (B2's by route, B1's by form, the scans' by pass) to 0."""
     for _, wrapper, _, _ in KERNELS:
         wrapper.launches = 0
-    histogram.route_launches.update(dict.fromkeys(histogram.route_launches,
-                                                  0))
-    deposits_ids.form_launches.update(dict.fromkeys(
-        deposits_ids.form_launches, 0))
+        for name, counts in vars(wrapper).items():
+            if name.endswith("_launches") and isinstance(counts, dict):
+                counts.update(dict.fromkeys(counts, 0))
 
 
 def counters() -> dict:
@@ -1333,71 +1355,207 @@ def multires_scatter(dev) -> dict:
     return out
 
 
-# The batch post chain's two scans at each path's shape: (label, t, C, α),
-# α the smoothing slider (a 0-d device tensor) or the AGC's decay (a
-# float): multires 16 s at hop 128, batch16 (16 channels × 512 rows),
-# wide, the AGC series mono and at 16 channels, and the edge cases.
-EMA_CASES = (("multires smoothing", 5937, 512, "slider"),
-             ("batch16 smoothing", 372, 16 * 512, "slider"),
-             ("wide smoothing", 1437, 512, "slider"),
-             ("multires AGC", 5937, 1, "agc"),
-             ("batch16 AGC", 372, 16, "agc"),
-             ("t = 0", 0, 512, "slider"),
-             ("t = 1", 1, 512, "slider"))
+# The batch post chain's two scans at each path's shape: (label, t, C, α,
+# W forced), α the smoothing slider (a 0-d device tensor: 0.6, or the
+# display default's 0) or the AGC's decay (a float): multires 16 s at hop
+# 128, batch16 (16 channels × 512 rows), wide, the AGC series mono and at
+# 16 channels, the edge cases, and W forced to 0 (every chunk repaired).
+EMA_CASES = (("multires smoothing", 5937, 512, "slider", None),
+             ("multires smoothing, α = 0", 5937, 512, "default", None),
+             ("batch16 smoothing", 372, 16 * 512, "slider", None),
+             ("wide smoothing", 1437, 512, "slider", None),
+             ("multires AGC", 5937, 1, "agc", None),
+             ("batch16 AGC", 372, 16, "agc", None),
+             ("t = 0", 0, 512, "slider", None),
+             ("t = 1", 1, 512, "slider", None),
+             ("multires AGC, forced repair", 5937, 1, "agc", 0),
+             ("wide smoothing, forced repair", 1437, 512, "slider", 0))
+SLIDER = {"slider": 0.6, "default": 0.0}
+
+
+def scan_chain_bound(t: int, c: int, alpha: float, window=None) -> float:
+    """The chunk-parallel scan's chain bound in ms: its longest chunk's
+    warm-up and own steps, min(W, s) + L dependent steps of
+    ``STEP_CYCLES`` at the top SM clock (every chunk's own steps after a
+    forced W = 0, the repair's walk not counted)."""
+    if t == 0:
+        return 0.0
+    L = ema.chunk_len(t, c)
+    s_last = (-(-t // L) - 1) * L
+    w = ema.window_len(alpha, s_last, window) if s_last else 0
+    return (min(L, t) + w) * STEP_CYCLES / SM_CLOCK_HZ[0] * 1e3
+
+
+def repaired_during(dev, fn) -> int:
+    """The chunks the scans repaired during one call of ``fn``."""
+    counter = ema.repair_counter(dev)
+    counter.zero_()
+    fn()
+    torch.cuda.synchronize()
+    return int(counter.item())
 
 
 def kernels_ema(dev) -> dict:
     """The scan kernel against its plain loop on the card, bit for bit, at
-    every case; its time, the plain loop's, both bounds (bytes: b read and
-    ys written once; the chain: t dependent steps of ``STEP_CYCLES`` at
-    the top SM clock), and the associative form's device time and largest
-    difference from the sequential form relative to max|ys|."""
+    every case; its time, the plain loop's, the bytes bound (b read and
+    ys written once), the chain bound (``scan_chain_bound``) beside the
+    sequential walk's (t steps), the chunks its speculation left to the
+    repair, and the associative form's device time and largest difference
+    from the sequential form relative to max|ys|."""
     rng = np.random.default_rng(11)
     shapes, lines, worst = {}, [], 0.0
-    for label, t, c, kind in EMA_CASES:
+    for label, t, c, kind, window in EMA_CASES:
         xs = torch.from_numpy(rng.uniform(0, 1, (t, c)).astype(
             np.float32)).to(dev)
         y0 = torch.from_numpy(rng.uniform(0, 1, c).astype(np.float32)).to(dev)
-        alpha = (torch.tensor(np.float32(0.6), device=dev)
-                 if kind == "slider" else chain.AGC_DECAY)
+        a = SLIDER.get(kind, chain.AGC_DECAY)
+        alpha = (torch.tensor(np.float32(a), device=dev) if kind in SLIDER
+                 else a)
         b = (1.0 - alpha) * xs
-        ys, fin = ema_scan(y0, alpha, b)
+
+        def run():
+            return ema_scan(y0, alpha, b, window=window)
+        repaired = repaired_during(dev, run)
+        ys, fin = run()
         ps, pfin = ema_scan_plain(y0, alpha, b)
         check(torch.equal(ys, ps) and torch.equal(fin, pfin),
               f"ema_scan {label} ({t}, {c}) differs from its plain loop")
+        check(window is None or repaired == (-(-t // ema.chunk_len(t, c))
+                                             - 1) * c,
+              f"ema_scan {label}: {repaired} chunks repaired, not every one")
         worst = max(worst, float((ys - ps).abs().max()) if t else 0.0)
         row = dict(
-            at=f"b ({t}, {c}), α {kind}", max_abs_err=0.0 if t == 0 else
-            float((ys - ps).abs().max()),
-            ms=cuda_ms(lambda: ema_scan(y0, alpha, b)),
+            at=f"b ({t}, {c}), α {kind}"
+               + ("" if window is None else f", W forced {window}"),
+            max_abs_err=0.0 if t == 0 else float((ys - ps).abs().max()),
+            ms=cuda_ms(run),
             plain_ms=cuda_ms(lambda: ema_scan_plain(y0, alpha, b), iters=2,
                              warmup=1),
             library_ms=None, library_device_ms=None,
-            device_ms=device_ms(lambda: ema_scan(y0, alpha, b)),
+            device_ms=device_ms(run),
             **bound(8.0 * t * c + 8.0 * c, 2.0 * t * c),
-            chain_bound_ms=t * STEP_CYCLES / SM_CLOCK_HZ[0] * 1e3)
-        if t > 1:
+            chain_bound_ms=scan_chain_bound(t, c, a, window),
+            sequential_chain_bound_ms=t * STEP_CYCLES / SM_CLOCK_HZ[0] * 1e3,
+            chunk_len=ema.chunk_len(t, c), repaired_chunks=repaired,
+            boundaries=max(-(-t // ema.chunk_len(t, c)) - 1, 0) * c)
+        if t > 1 and window is None:
             a_ys, _ = chain._ema_scan(y0, alpha, xs, True)
             s_ys, _ = chain._ema_scan(y0, alpha, xs, False)
             row["associative_device_ms"] = device_ms(
                 lambda: chain._ema_scan(y0, alpha, xs, True), calls=5)
-            row["sequential_device_ms"] = device_ms(
-                lambda: chain._ema_scan(y0, alpha, xs, False), calls=5)
             row["associative_max_rel_diff"] = float(
                 (a_ys - s_ys).abs().max() / s_ys.abs().max())
         shapes[label] = row
         lines.append(
             f"{label} ({t}, {c}): device {row['device_ms']:.4f} ms, bytes "
             f"bound {row['bound_ms']:.4f}, chain bound "
-            f"{row['chain_bound_ms']:.4f}, plain {row['plain_ms']:.4f} ms"
+            f"{row['chain_bound_ms']:.4f} (sequential "
+            f"{row['sequential_chain_bound_ms']:.4f}), L {row['chunk_len']}, "
+            f"repaired {repaired} of {row['boundaries']} chunks, plain "
+            f"{row['plain_ms']:.4f} ms"
             + (f", associative form device {row['associative_device_ms']:.4f}"
-               f" ms (sequential with b {row['sequential_device_ms']:.4f}),"
-               f" rel diff {row['associative_max_rel_diff']:.2e}"
-               if t > 1 else ""))
+               f" ms, rel diff {row['associative_max_rel_diff']:.2e}"
+               if "associative_device_ms" in row else ""))
     print("kernels ema_scan (bit-equal to the plain loop at every case): "
           + "; ".join(lines), flush=True)
-    return dict(shapes["multires smoothing"], max_abs_err=worst,
+    return dict(shapes["multires smoothing, α = 0"], max_abs_err=worst,
                 shapes=shapes)
+
+
+# The fused chain's kernels on each batch path's own power (16 s mono
+# unless said): (label, settings, channels, smoothing)
+POST_CASES = (("multires", MULTIRES, 1, 0.0),
+              ("multires, smoothing 0.6", MULTIRES, 1, 0.6),
+              ("batch", SETTINGS, 1, 0.0),
+              ("batch16", SETTINGS, CHANNELS, 0.0))
+
+
+def kernels_post(dev) -> dict:
+    """``post_head`` and ``post_tail`` against their plain versions on the
+    card, bit for bit, on each case's real power (the path's grid, columns
+    first), ``post_tail`` also with W forced to 0, and the batch chain
+    against the live step's column by column, bit for bit (vis and both
+    states); their times, the plain
+    versions' (torch's eager stages), the bytes bounds (head: power read,
+    the peak written; tail: power and refs read, vis written, the state
+    read and written) and the tail's chain bound, and the chunks the tail's
+    speculation left to the repair.  No PyTorch call computes either."""
+    head, tail, lines = {}, {}, []
+    for label, settings, channels, smoothing in POST_CASES:
+        s = settings.replace(channels=channels, smoothing=smoothing)
+        pipe = Pipeline(s, dev)
+        pp = pipe.params()
+        p = pp.post
+        x = signal(SECONDS, channels, seed=5)
+        xg = pipe.to_device(x)
+        t = pipe.num_columns(x.shape[-1])
+        cols = pipe._enhanced_power(xg, t, pp).movedim(-2, 0).contiguous()
+        lead, rows = cols.shape[1:-1], cols.shape[-1]
+        c = math.prod(cols.shape[1:])
+        coef = 1.0 - chain.AGC_DECAY
+        got = post_head(cols, p.low_end_ramp, p.gain, coef)
+        want = post_head_plain(cols, p.low_end_ramp, p.gain, coef)
+        check(torch.equal(got, want), f"post_head {label} differs from its "
+              f"plain version")
+        refs, _ = ema_scan(PostState.init(cols.shape[1:], dev).agc_ref,
+                           chain.AGC_DECAY, got)
+        y0 = torch.zeros(cols.shape[1:], device=dev)
+        want_t = post_tail_plain(cols, refs, y0, p)
+        counts = {}
+        for window in (None, 0):
+            def run():
+                return post_tail(cols, refs, y0, p, window=window)
+            counts[window] = repaired_during(dev, run)
+            check(all(torch.equal(g, w) for g, w in zip(run(), want_t)),
+                  f"post_tail {label} (W {window}) differs from its plain "
+                  f"version")
+        # the batch chain against the live step's, column by column
+        st0 = PostState.init(cols.shape[1:], dev)
+        batch, bst = postprocess_batch(cols, st0, p, s.agc_global)
+        st, outs = st0, []
+        for i in range(t):
+            out, st = chain.postprocess_column(cols[i], st, p, s.agc_global)
+            outs.append(out)
+        check(torch.equal(batch, torch.stack(outs))
+              and torch.equal(bst.smooth, st.smooth)
+              and torch.equal(bst.agc_ref, st.agc_ref),
+              f"post chain {label}: batch differs from column by column")
+        L = ema.chunk_len(t, c)
+        head[label] = dict(
+            at=f"power ({t}, {c}) → peak ({t}, {math.prod(lead)})",
+            max_abs_err=0.0,
+            **times(lambda: post_head(cols, p.low_end_ramp, p.gain, coef),
+                    lambda: post_head_plain(cols, p.low_end_ramp, p.gain,
+                                            coef)),
+            **bound(4.0 * t * c + 4.0 * t * math.prod(lead) + 4.0 * rows,
+                    6.0 * t * c))
+        tail[label] = dict(
+            at=f"power ({t}, {c}), smoothing {smoothing}", max_abs_err=0.0,
+            **times(lambda: post_tail(cols, refs, y0, p),
+                    lambda: post_tail_plain(cols, refs, y0, p), iters=5,
+                    warmup=1),
+            **bound(8.0 * t * c + 4.0 * t * math.prod(lead) + 8.0 * c,
+                    14.0 * t * c),
+            chain_bound_ms=scan_chain_bound(t, c, smoothing),
+            chunk_len=L, repaired_chunks=counts[None],
+            forced_repair_chunks=counts[0],
+            forced_repair_device_ms=device_ms(
+                lambda: post_tail(cols, refs, y0, p, window=0), calls=5),
+            boundaries=(-(-t // L) - 1) * c)
+        h, r = head[label], tail[label]
+        lines.append(
+            f"{label} ({t}, {c}): post_head device {h['device_ms']:.4f} ms "
+            f"(bound {h['bound_ms']:.4f}, plain {h['plain_ms']:.4f}); "
+            f"post_tail device {r['device_ms']:.4f} ms (bytes bound "
+            f"{r['bound_ms']:.4f}, chain bound {r['chain_bound_ms']:.4f}, "
+            f"plain {r['plain_ms']:.4f}), L {L}, repaired {counts[None]} of "
+            f"{r['boundaries']} chunks; forced W = 0: {counts[0]} repaired, "
+            f"device {r['forced_repair_device_ms']:.4f} ms")
+    print("kernels post_head and post_tail (bit-equal to their plain "
+          "versions on each path's power; the batch chain bit-equal to the "
+          "column-by-column chain): " + "; ".join(lines), flush=True)
+    return {"post_head": dict(head["multires"], shapes=head),
+            "post_tail": dict(tail["multires"], shapes=tail)}
 
 
 def raster_ids(dev, settings: Settings, x: np.ndarray):
@@ -1428,6 +1586,11 @@ def kernels_b2_sorted(dev) -> dict:
           "B2 sorted route differs between two runs")
     flat = torch.where(ids >= 0, ids, cells).long()
     vals0 = torch.where(ids >= 0, vals, 0.0)
+
+    def index_put():
+        return torch.zeros(cells + 1, device=dev).index_put_(
+            (flat,), vals0, accumulate=True)
+    put = index_put()[:cells]
     row = dict(
         at=f"ids (1, {ids.numel()}) → {cells} bins", max_abs_err=0.0,
         **times(lambda: histogram(ids, vals, cells, route=SORTED),
@@ -1436,12 +1599,22 @@ def kernels_b2_sorted(dev) -> dict:
                     0, flat, vals0), iters=10),
         **bound(8.0 * ids.numel() + 4.0 * cells, float((ids >= 0).sum())),
         global_route_device_ms=device_ms(
-            lambda: histogram(ids, vals, cells, route="global")))
+            lambda: histogram(ids, vals, cells, route="global")),
+        # the deterministic library call (index_add_ sums in another order
+        # each run): its time, and whether it gives the plain sum's bits
+        index_put_ms=cuda_ms(index_put, iters=10),
+        index_put_device_ms=device_ms(index_put),
+        index_put_equals_plain=bool(torch.equal(put.cpu(), want)),
+        index_put_repeats=bool(torch.equal(index_put()[:cells], put)))
     print(f"kernels B2 sorted route at the raster's ids ({ids.numel()} → "
           f"{cells}): bit-equal to the plain sum and run to run; device "
           f"{row['device_ms']:.4f} ms (global route "
           f"{row['global_route_device_ms']:.4f}, index_add_ "
-          f"{row['library_device_ms']:.4f}), bound {row['bound_ms']:.4f} ms",
+          f"{row['library_device_ms']:.4f}, index_put_(accumulate=True) "
+          f"{row['index_put_device_ms']:.4f}, events "
+          f"{row['index_put_ms']:.4f}; equal to the plain sum "
+          f"{row['index_put_equals_plain']}, to itself on a second run "
+          f"{row['index_put_repeats']}), bound {row['bound_ms']:.4f} ms",
           flush=True)
     return row
 
@@ -1455,6 +1628,7 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res.update(kernels_large(dev))
     res.update(kernels_fused(dev, pipe, p))
     res["ema_scan"] = kernels_ema(dev)
+    res.update(kernels_post(dev))
     res["histogram"]["raster_sorted"] = kernels_b2_sorted(dev)
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
@@ -1531,18 +1705,46 @@ def repeat_pixels(fn, first, runs: int = 5) -> list:
     return out
 
 
+def chain_census(fn) -> dict:
+    """The post chain's kernel launches in one call of ``fn``, by wrapper
+    and by pass (the scans' speculate and repair launches)."""
+    names = ("post_head", "ema_scan", "post_tail")
+    wrappers = (post_head, ema_scan, post_tail)
+
+    def snap():
+        return [w.launches for w in wrappers] + [
+            w.pass_launches[k] for w in (ema_scan, post_tail)
+            for k in ("speculate", "repair")]
+    before = snap()
+    fn()
+    d = [a - b for a, b in zip(snap(), before)]
+    return dict(zip(names, d[:3]), kernels=d[0] + sum(d[3:]),
+                ema_scan_passes=d[3:5], post_tail_passes=d[5:7])
+
+
 def post_stage(name: str, power, s: Settings, p, dev) -> str:
     """The batch post chain alone on a path's (..., t, rows) power: CUDA
-    events over the stage in each form, beside the per-column loop's
-    stage where PERF.md has it."""
+    events over the stage in each form and the fused form's device time,
+    its kernel launches a call (``chain_census``), the chunks its scans
+    repaired, beside the per-column loop's stage where PERF.md has it."""
     cols = power.movedim(-2, 0).contiguous()
     st = PostState.init(cols.shape[1:], dev)
+
+    def fused():
+        return postprocess_batch(cols, st, p.post, s.agc_global)
+    census = chain_census(fused)
+    repaired = repaired_during(dev, fused)
     ms = {assoc: cuda_ms(lambda: postprocess_batch(
         cols, st, p.post, s.agc_global, associative=assoc), iters=5,
         warmup=1) for assoc in (False, True)}
+    dms = device_ms(fused, calls=5)
     before = LOOP_POST_STAGE_MS.get(name)
-    return (f"post chain stage {ms[False]:.4f} ms (associative form "
-            f"{ms[True]:.4f}), {cols.shape[0]} columns"
+    coupled = s.agc_global and cols.ndim > 2
+    return (f"post chain stage {ms[False]:.4f} ms (device {dms:.4f}; "
+            f"associative form {ms[True]:.4f}), {cols.shape[0]} columns, "
+            f"launches a call {census} (torch ops besides: "
+            f"{'amax and the product' if coupled else 'none'}), "
+            f"chunks repaired {repaired}"
             + ("" if before is None else
                f"; the per-column loop's stage (PERF.md §5): {before} ms"))
 
@@ -2355,23 +2557,36 @@ def checkpoint_phase(dev, x: np.ndarray) -> None:
 # route), the scan
 TRACE_NAMES = {"B1": ("block_kernel", "cluster_kernel"),
                "B2": ("row_kernel", "global_kernel", "sorted_kernel"),
-               "ema_scan": ("ema_scan_kernel",)}
+               "post_head": ("post_head_kernel",),
+               "ema_scan": ("ema_speculate_kernel",),
+               "post_tail": ("post_tail_speculate_kernel",),
+               "repair": ("ema_repair_kernel",
+                          "post_tail_repair_kernel")}
 
 
 def trace_phase(dev, x: np.ndarray) -> None:
     """``utils.tracing.trace`` around one batch call of the batch phase's
-    settings: the trace it writes must name B1's, B2's and the scan's
-    kernels."""
+    settings: the trace it writes must name B1's, B2's and the post
+    chain's kernels (``post_head``, the scans' speculate and repair
+    passes); then a census of the kernels that one post chain call
+    launches, read from the trace (the launches inside its annotation)."""
     from emspec_torch.utils.tracing import annotation, trace
 
     pipe = Pipeline(SETTINGS, dev)
     p, xg = pipe.params(), pipe.to_device(x)
     pipe.process(xg, p)
+    t = pipe.num_columns(x.shape[-1])
+    cols = pipe._enhanced_power(xg, t, p).movedim(-2, 0).contiguous()
+    st = PostState.init(cols.shape[1:], dev)
+    postprocess_batch(cols, st, p.post)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
             with annotation("emspec_batch"):
                 pipe.process(xg, p)
+            torch.cuda.synchronize()
+            with annotation("emspec_post"):
+                postprocess_batch(cols, st, p.post)
             torch.cuda.synchronize()
         files = list(Path(tmp).glob("trace_*.json"))
         check(len(files) == 1, f"trace: {len(files)} files written")
@@ -2383,9 +2598,21 @@ def trace_phase(dev, x: np.ndarray) -> None:
     check(not missing and any(e.get("name") == "emspec_batch"
                               for e in events),
           f"trace: no {missing} among the kernels {sorted(kernels)}")
+    span = [e for e in events if e.get("name") == "emspec_post"
+            and e.get("cat") == "user_annotation"]
+    launched = []
+    if span:
+        lo, hi = span[0]["ts"], span[0]["ts"] + span[0].get("dur", 0)
+        corr = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "Launch" in e.get("name", "") and lo <= e["ts"] <= hi}
+        launched = sorted(e["name"][:40] for e in events
+                          if e.get("cat") == "kernel"
+                          and e.get("args", {}).get("correlation") in corr)
     print(f"trace: {len(events)} events, {len(kernels)} kernel names; "
-          + "; ".join(f"{k}: {v[0][:60]}" for k, v in found.items()),
-          flush=True)
+          + "; ".join(f"{k}: {v[0][:60]}" for k, v in found.items())
+          + f"; one post chain call at {tuple(cols.shape)} launched "
+          f"{len(launched)} kernels: {launched}", flush=True)
 
 
 def device_busy(fn, reps: int):

@@ -526,7 +526,8 @@ def cmd_doctor(args) -> int:
         try:
             report = validate_kernels(quick=not args.full, device=args.device)
             row("ok", "cuda kernels",
-                f"B1-B5 and the EMA scan match their plain versions on "
+                f"B1-B5, the EMA scan, post_head and post_tail match "
+                f"their plain versions on "
                 f"{report['device']} ({'quick' if report['quick'] else 'full'}"
                 f" shapes, {report['library']})")
         except Exception as e:

@@ -5,13 +5,16 @@ plain PyTorch version (``emspec.dsp.pallas.validate``), the check
 Shapes are the JAX package's: B2 at (16, 16512, 4608) and (4, 901, 1152)
 (rows, deposits a row, cells), B5 at (90, 2048) and (32768,), B4 at 8192
 and 32768 points, B1 at 8192 and 32768 and, unless ``quick``, 131072 and
-262144 at b = 2, B3 at (640, 512) pixels in both forms, and the EMA scan
-of the batch post chain.  ``quick`` takes the smaller set: B2 (4, 2048,
+262144 at b = 2, B3 at (640, 512) pixels in both forms, and the batch
+post chain's three kernels: the EMA scan (1024 × 512, also with every
+chunk forced to repair), ``post_head`` and ``post_tail`` (1024 × 512, at
+smoothing 0 and 0.6).  ``quick`` takes the smaller set: B2 (4, 2048,
 4608), B5 (16, 2048), B4 and B1 at 8192.
 
 Tolerances: B2 rtol 5e-5, atol 1e-4 (float32 sums in another order); B5,
-B3 and the scan bit-equal; B4 2e-5·max|X|; B1 as histograms (energy and
-3×3 max-filters, ``validate.compare_grids``) and ≥ 99.99% equal ids.
+B3 and the post chain's kernels bit-equal; B4 2e-5·max|X|; B1 as
+histograms (energy and 3×3 max-filters, ``validate.compare_grids``) and
+≥ 99.99% equal ids.
 
 The card only: on the CPU the plain versions are what the wrappers run,
 so there is nothing to hold them against and ``validate_kernels``
@@ -129,7 +132,8 @@ def validate_lut(dev) -> None:
 
 
 def validate_ema(dev, shape=(1024, 512), alpha: float = 0.7) -> None:
-    """The EMA scan kernel bit-equal to its plain loop."""
+    """The EMA scan kernel bit-equal to its plain loop, with its
+    speculation as it comes and with every chunk forced to repair."""
     from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 
     rng = np.random.default_rng(12)
@@ -137,9 +141,41 @@ def validate_ema(dev, shape=(1024, 512), alpha: float = 0.7) -> None:
     y0 = torch.from_numpy(rng.uniform(0, 1, shape[1:]).astype(
         np.float32)).to(dev)
     for a in (alpha, torch.tensor(alpha, dtype=torch.float32, device=dev)):
-        got, want = ema_scan(y0, a, b), ema_scan_plain(y0, a, b)
-        _assert(all(torch.equal(g, w) for g, w in zip(got, want)),
-                "ema_scan differs from its plain loop")
+        want = ema_scan_plain(y0, a, b)
+        for window in (None, 0):
+            got = ema_scan(y0, a, b, window=window)
+            _assert(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"ema_scan (window {window}) differs from its plain "
+                    f"loop")
+
+
+def validate_post(dev, t: int = 1024, rows: int = 512) -> None:
+    """The post chain's fused kernels: ``post_head`` bit-equal to its plain
+    stages 1–3 and row peak, ``post_tail`` to its plain stages 4–8 around
+    the smoothing loop (forced repair too), at smoothing 0 and 0.6."""
+    from emspec_torch.config import Settings
+    from emspec_torch.dsp.kernels.post import (
+        post_head, post_head_plain, post_tail, post_tail_plain)
+    from emspec_torch.post.chain import PostParams
+
+    rng = np.random.default_rng(13)
+    power = torch.from_numpy((10.0 ** rng.uniform(-12, 0, (t, rows))).astype(
+        np.float32)).to(dev)
+    y0 = torch.from_numpy(rng.uniform(0, 1, rows).astype(np.float32)).to(dev)
+    freqs = np.geomspace(20.0, 24000.0, rows)
+    for smoothing in (0.0, 0.6):
+        p = PostParams.from_settings(Settings(smoothing=smoothing), freqs,
+                                     dev)
+        refs = post_head(power, p.low_end_ramp, p.gain)
+        _assert(torch.equal(refs, post_head_plain(power, p.low_end_ramp,
+                                                  p.gain)),
+                "post_head differs from its plain version")
+        want = post_tail_plain(power, refs, y0, p)
+        for window in (None, 0):
+            got = post_tail(power, refs, y0, p, window=window)
+            _assert(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"post_tail (smoothing {smoothing}, window {window}) "
+                    f"differs from its plain version")
 
 
 def validate_kernels(quick: bool = False, device="cuda") -> dict:
@@ -168,6 +204,7 @@ def validate_kernels(quick: bool = False, device="cuda") -> dict:
         validate_deposits(dev, 262144, b=2)
     validate_lut(dev)
     validate_ema(dev)
+    validate_post(dev)
     torch.cuda.synchronize(dev)
     return {"device": torch.cuda.get_device_name(dev),
             "torch": torch.__version__, "cuda": torch.version.cuda,

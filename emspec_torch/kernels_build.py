@@ -48,10 +48,13 @@ _SIGNATURES = {
     "emspec_deposits_finish": [_P] * 8 + [_LL, _I, _I, _I, _I, _F, _F, _F,
                                           _F, _I, _I, _I, _I, _I, _I, _I,
                                           _P, _P],
-    "emspec_ema_scan": [_P, _P, _P, _F, _P, _P, _LL, _LL, _P],
+    "emspec_ema_scan": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _LL, _LL, _LL,
+                        _P],
     "emspec_hist_variant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P],
     "emspec_histogram_sorted": [_P, _I, _P, _P, _LL, _I, _P],
+    "emspec_post_head": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "emspec_post_tail": [_P] * 15 + [_I, _LL, _LL, _LL, _LL, _P],
     "emspec_lut": [_P, _P, _P, _LL, _I, _I, _P],
     "emspec_lut_values": [_P, _P, _P, _LL, _I, _I, _P],
     "emspec_fourstep": [_P] * 8 + [_LL, _I, _I, _I, _P],

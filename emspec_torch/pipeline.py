@@ -361,7 +361,7 @@ class Pipeline:
     def _batch_vis(self, x, p: PipelineParams, state: PostState,
                    t_count: int, peak_reduce=None):
         """``peak_reduce``: the global AGC's peak across channel shards
-        (``post.chain._boost_db_peak``)."""
+        (``post.chain._couple``)."""
         power = (self._enhanced_power(x, t_count, p)
                  if self.settings.mode == MODE_ENHANCED
                  else self._natural_power(x, t_count, p))    # (..., t, rows)

@@ -6,12 +6,16 @@
 5. gate ``v → −200`` below ``gate_db``   6. ``vis = clip((v + range)/range, 0, 1)``
 7. smoothing ``y = α·y + (1−α)·vis``   8. ``vis = clip(y·2·brightness, 0, 1)``
 
-The batch chain runs each of the two EMAs as one scan over the columns
-(``_ema_scan``): sequential by default — the scan kernel on the card
-(``dsp.kernels.ema``), its plain loop on the CPU, the same per-element
-operations in the same order as ``postprocess_column`` — or, with
-``associative=True``, the affine recurrence composed in ⌈log2 t⌉ doubling
-passes.  ``postprocess_batch_timeshard`` is the chain of one time chunk
+The batch chain is sequential by default, bit-equal to scanning
+``postprocess_column`` over the columns.  On the card it is the fused
+kernels of ``dsp.kernels.post`` around the chunk-parallel scan of
+``dsp.kernels.ema``: ``post_head`` (stages 1–3 and the row peak), the
+global AGC's coupling in torch where it is on, ``ema_scan`` over the AGC
+series, ``post_tail`` (stages 4–8 around the smoothing scan).  On the CPU
+it is the torch stages with each EMA one scan (``_ema_scan``, the plain
+loop).  ``associative=True`` composes the affine recurrences in ⌈log2 t⌉
+doubling passes of plain torch on any device (on no path).
+``postprocess_batch_timeshard`` is the chain of one time chunk
 of a sharded render (``emspec_torch.parallel.TimeParallelRenderer``):
 each EMA scans its chunk from zero, one gather of the chunk finals over
 the time axis gives the chunk's incoming state, and the affine
@@ -27,11 +31,11 @@ import torch
 
 from emspec_torch.config import Settings
 from emspec_torch.dsp.kernels.ema import ema_scan
+from emspec_torch.dsp.kernels.post import (
+    AGC_TARGET_DB, agc_gate_norm, boost_db, brightness_clip, post_head,
+    post_tail)
 from emspec_torch.tables import low_end_ramp
 
-DB_EPS = 1e-12
-DB_FLOOR = -200.0
-AGC_TARGET_DB = 0.0
 # stays a PYTHON float: ``1.0 - AGC_DECAY`` folds in float64 exactly as the
 # JAX chain writes it (chain.py:202-204)
 AGC_DECAY = 0.99
@@ -117,35 +121,26 @@ def _ema_scan(y0: torch.Tensor, alpha, xs: torch.Tensor,
     return ys, ys[-1]
 
 
+def _couple(peak_db, global_agc: bool, lead_axes: tuple, peak_reduce):
+    """The global AGC: every column's peak over the ``lead_axes`` (the
+    channels), completed across the other channel shards of a sharded run
+    by ``peak_reduce`` (an in-place max over their group)."""
+    if not (global_agc and lead_axes):
+        return peak_db
+    peak = torch.amax(peak_db, dim=lead_axes, keepdim=True)
+    if peak_reduce is not None:
+        peak = peak_reduce(peak)
+    return peak.expand(peak_db.shape)
+
+
 def _boost_db_peak(power, p: PostParams, global_agc: bool, lead_axes: tuple,
                    peak_reduce=None):
     """Stages 1-3 + the pre-AGC per-column peak (``lead_axes``: the axes of
-    ``peak_db`` that the global-AGC option couples).  ``peak_reduce``
-    completes the coupled peak across the other channel shards of a
-    sharded run (an in-place max over their group)."""
-    boosted = power * p.low_end_ramp * p.gain                      # 1-2
-    v_db = 10.0 * torch.log10(boosted + DB_EPS)                    # 3
-    peak_db = torch.amax(v_db, dim=-1)
-    if global_agc and lead_axes:
-        peak = torch.amax(peak_db, dim=lead_axes, keepdim=True)
-        if peak_reduce is not None:
-            peak = peak_reduce(peak)
-        peak_db = peak.expand(peak_db.shape)
-    return v_db, peak_db
-
-
-def _agc_gate_norm(v_db, refs, p: PostParams):
-    """Stages 4-6 given the AGC reference."""
-    offset = p.agc_enabled * p.agc_strength * (AGC_TARGET_DB - refs)
-    v_db = v_db + offset[..., None]                                # 4
-    v_db = torch.where(v_db < p.noise_gate_db,
-                       torch.full_like(v_db, DB_FLOOR), v_db)      # 5
-    return torch.clamp((v_db - (AGC_TARGET_DB - p.db_range)) / p.db_range,
-                       0.0, 1.0)                                   # 6
-
-
-def _brightness_clip(smoothed, p: PostParams):
-    return torch.clamp(smoothed * (2.0 * p.brightness), 0.0, 1.0)  # 8
+    ``peak_db`` that the global-AGC option couples; ``peak_reduce``: see
+    :func:`_couple`)."""
+    v_db = boost_db(power, p.low_end_ramp, p.gain)                 # 1-3
+    return v_db, _couple(torch.amax(v_db, dim=-1), global_agc, lead_axes,
+                         peak_reduce)
 
 
 def postprocess_batch(power_ts: torch.Tensor, state: PostState, p: PostParams,
@@ -154,20 +149,45 @@ def postprocess_batch(power_ts: torch.Tensor, state: PostState, p: PostParams,
     """Whole-signal chain: (t, ..., rows) power → (t, ..., rows) vis.
 
     ``associative`` picks the form of both EMAs (:func:`_ema_scan`);
-    ``None`` means sequential on every device — bit-identical to scanning
-    :func:`postprocess_column` over t.  The JAX package's default (the
-    associative form on its TPU, at t ≥ 1024 for the smoothing) is a TPU
-    measurement and is not carried over.  ``peak_reduce``: see
-    :func:`_boost_db_peak`."""
+    ``None`` (or False) means sequential on every device — bit-identical
+    to scanning :func:`postprocess_column` over t: the fused kernels on
+    the card (:func:`_fused_batch`), the torch stages on the CPU.  The
+    JAX package's default (the associative form on its TPU, at t ≥ 1024
+    for the smoothing) is a TPU measurement and is not carried over.
+    ``peak_reduce``: see :func:`_couple`."""
     assoc = bool(associative)
-    v_db, peak_db = _boost_db_peak(
-        power_ts, p, global_agc, tuple(range(1, power_ts.ndim - 1)),
-        peak_reduce)
+    lead_axes = tuple(range(1, power_ts.ndim - 1))
+    if not assoc and power_ts.device.type != "cpu":
+        return _fused_batch(power_ts, state, p, global_agc, lead_axes,
+                            peak_reduce)
+    v_db, peak_db = _boost_db_peak(power_ts, p, global_agc, lead_axes,
+                                   peak_reduce)
     refs, ref_final = _ema_scan(state.agc_ref, AGC_DECAY, peak_db, assoc)
-    vis = _agc_gate_norm(v_db, refs, p)                            # 4-6
+    vis = agc_gate_norm(v_db, refs, p)                             # 4-6
     smoothed, smooth_final = _ema_scan(state.smooth, p.smoothing, vis,
                                        assoc)                      # 7
-    out = _brightness_clip(smoothed, p)                            # 8
+    out = brightness_clip(smoothed, p)                             # 8
+    return out, PostState(smooth=smooth_final, agc_ref=ref_final)
+
+
+def _fused_batch(power_ts, state: PostState, p: PostParams,
+                 global_agc: bool, lead_axes: tuple, peak_reduce):
+    """The sequential batch chain on the card: ``post_head``, the global
+    AGC's coupling (torch, only where it is on), ``ema_scan`` over the AGC
+    series, ``post_tail``: five kernel launches (``post_head`` and each
+    scan's two passes), two more of torch's (``amax``, the product)
+    where the global AGC couples the channels.  ``b = (1 − 0.99)·peak`` is
+    rounded as :func:`_ema_scan` rounds it: by ``post_head`` itself, or
+    by torch after the coupling."""
+    if global_agc and lead_axes:
+        peak = _couple(post_head(power_ts, p.low_end_ramp, p.gain),
+                       global_agc, lead_axes, peak_reduce)
+        b_ref = (1.0 - AGC_DECAY) * peak
+    else:
+        b_ref = post_head(power_ts, p.low_end_ramp, p.gain,
+                          scale=1.0 - AGC_DECAY)
+    refs, ref_final = ema_scan(state.agc_ref, AGC_DECAY, b_ref)
+    out, smooth_final = post_tail(power_ts, refs, state.smooth, p)
     return out, PostState(smooth=smooth_final, agc_ref=ref_final)
 
 
@@ -178,9 +198,9 @@ def postprocess_column(power: torch.Tensor, state: PostState, p: PostParams,
         power, p, global_agc, tuple(range(power.ndim - 1)),
         peak_reduce)                                               # 1-3
     new_ref = AGC_DECAY * state.agc_ref + (1.0 - AGC_DECAY) * peak_db
-    vis = _agc_gate_norm(v_db, new_ref, p)                         # 4-6
+    vis = agc_gate_norm(v_db, new_ref, p)                          # 4-6
     smoothed = p.smoothing * state.smooth + (1.0 - p.smoothing) * vis  # 7
-    out = _brightness_clip(smoothed, p)                            # 8
+    out = brightness_clip(smoothed, p)                             # 8
     return out, PostState(smooth=smoothed, agc_ref=new_ref)
 
 
@@ -242,7 +262,7 @@ def postprocess_batch_timeshard(power_local: torch.Tensor, state0: PostState,
         f32(np.float32(AGC_DECAY ** L)), axis.index)
     refs = (torch.pow(f32(np.float32(AGC_DECAY)), steps).reshape(lead1)
             * ref_in + refs0)
-    vis = _agc_gate_norm(v_db, refs, p)                            # 4-6
+    vis = agc_gate_norm(v_db, refs, p)                             # 4-6
 
     smooth0, smooth_fin0 = _ema_scan(torch.zeros_like(state0.smooth),
                                      p.smoothing, vis, False)
@@ -252,7 +272,7 @@ def postprocess_batch_timeshard(power_local: torch.Tensor, state0: PostState,
     spow = torch.pow(p.smoothing, steps).reshape(
         (L,) + (1,) * (smooth0.ndim - 1))
     smoothed = spow * s_in + smooth0                               # 7
-    out = _brightness_clip(smoothed, p)                            # 8
+    out = brightness_clip(smoothed, p)                             # 8
     idx = L - 1 if valid_count is None else min(max(valid_count - 1, 0),
                                                 L - 1)
     return out, PostState(smooth=smoothed[idx], agc_ref=refs[idx])

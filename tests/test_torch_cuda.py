@@ -28,7 +28,9 @@ against the port's CPU path at PERF.md §2's tolerances, its stream ≡ its
 batch within 1e-5 in ``vis``; the live hop's CUDA graph
 replay against the eager step within 1.2e-7 in ``vis`` (float atomics
 reorder B2's sums), RGBA bit-equal wherever ``vis`` is; the EMA scan
-kernel bit-equal to its plain loop and the batch post chain bit-equal to
+kernel bit-equal to its plain loop (forced repair and non-finite inputs
+included), ``post_head`` bit-equal to ``_boost_db_peak``'s peak,
+``post_tail`` to its plain version, and the batch post chain bit-equal to
 the card's own column-by-column chain, the associative form within
 4·⌈log2 t⌉·ε·max|y|; B2's sorted route bit-equal to the plain sum on the
 CPU; the single-bank raster against the CPU path by ``compare_grids`` and
@@ -42,7 +44,9 @@ import torch
 
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal
+from emspec_torch.dsp.kernels import ema
 from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
+from emspec_torch.dsp.kernels.post import post_head, post_tail, post_tail_plain
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
@@ -744,17 +748,19 @@ def _ema_case(dev, t, c, seed):
 
 
 EMA_SHAPES = [(t, c) for t in (0, 1, 127, 300) for c in (1, 16, 512, 8192)
-              ] + [(5937, 1), (5937, 16), (5937, 512), (372, 8192)]
+              ] + [(5937, 1), (5937, 16), (5937, 512), (372, 8192),
+                   (1437, 512), (372, 16), (17, 512), (49, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,c", EMA_SHAPES)
 def test_cuda_ema_scan_bit_equal_to_plain(cuda, t, c):
-    """Every t around the kernel's load ring (127: not a multiple of its
-    16-step stages; 300: its last two rounds step by step) and the paths'
-    shapes, α a device tensor and a float."""
+    """Every t around the chunks (one chunk, L ± 1, many), every shape of
+    ``chip_smoke.py``'s ``EMA_CASES``, α the display default's 0 and 0.6
+    as device tensors and the AGC's 0.99 as a float."""
     xs, y0 = _ema_case(cuda, t, c, seed=t + c)
-    for alpha in (torch.tensor(np.float32(0.6), device=cuda), 0.99):
+    for alpha in (torch.tensor(np.float32(0.0), device=cuda),
+                  torch.tensor(np.float32(0.6), device=cuda), 0.99):
         b = (1.0 - alpha) * xs
         before = ema_scan.launches
         ys, fin = ema_scan(y0, alpha, b)
@@ -762,6 +768,45 @@ def test_cuda_ema_scan_bit_equal_to_plain(cuda, t, c):
         ps, pfin = ema_scan_plain(y0, alpha, b)
         assert torch.equal(ys, ps) and torch.equal(fin, pfin)
         assert ys.shape == (t, c) and fin.shape == (c,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", [(300, 512), (5937, 1), (372, 16),
+                                 (1437, 512)])
+def test_cuda_ema_scan_forced_repair(cuda, t, c):
+    """W forced to 0 at α = 0.99: every boundary fails, every chunk after
+    the first is repaired (the card's count says so), and the result is
+    the plain loop's bit for bit, the same on a second run."""
+    xs, y0 = _ema_case(cuda, t, c, seed=t)
+    b = (1.0 - 0.99) * xs
+    counter = ema.repair_counter(cuda)
+    counter.zero_()
+    ys, fin = ema_scan(y0, 0.99, b, window=0)
+    chunks = -(-t // ema.chunk_len(t, c))
+    assert int(counter.item()) == (chunks - 1) * c
+    ps, pfin = ema_scan_plain(y0, 0.99, b)
+    assert torch.equal(ys, ps) and torch.equal(fin, pfin)
+    again, afin = ema_scan(y0, 0.99, b, window=0)
+    assert torch.equal(again, ys) and torch.equal(afin, fin)
+
+
+@pytest.mark.cuda
+def test_cuda_ema_scan_non_finite_as_the_loop(cuda):
+    """NaN and ±inf in b, at chunk boundaries and inside chunks, with and
+    without forced repair: the plain loop's bits."""
+    xs, y0 = _ema_case(cuda, 400, 64, seed=4)
+    xs[15, 0] = float("nan")
+    xs[16, 1] = float("inf")
+    xs[35, 2] = float("-inf")
+    xs[80, 3], xs[81, 3] = float("inf"), float("-inf")
+    xs[300:, 4] = float("nan")
+    for alpha in (torch.tensor(np.float32(0.0), device=cuda),
+                  torch.tensor(np.float32(0.6), device=cuda), 0.99):
+        want = ema_scan_plain(y0, alpha, xs)
+        for window in (None, 0):
+            got = ema_scan(y0, alpha, xs, window=window)
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -791,22 +836,31 @@ def test_cuda_associative_form_within_tolerance(cuda, t, c):
         assert torch.equal(fin, assoc[-1])
 
 
-@pytest.mark.cuda
-def test_cuda_post_chain_batch_is_column_by_column(cuda):
-    """On the card the batch chain (two scan launches) equals the live
-    step's column-by-column chain bit for bit."""
-    rows = 512
-    s = Settings()
+def _post_case(cuda, t, lead, rows, smoothing, seed):
     freqs = np.geomspace(20.0, 24000.0, rows)
-    p = ema_chain.PostParams.from_settings(s.replace(smoothing=0.5), freqs,
-                                           cuda)
-    rng = np.random.default_rng(8)
-    power = torch.from_numpy((10.0 ** rng.uniform(-12, 0, (300, rows))
-                              ).astype(np.float32)).to(cuda)
+    p = ema_chain.PostParams.from_settings(
+        Settings().replace(smoothing=smoothing), freqs, cuda)
+    rng = np.random.default_rng(seed)
+    power = torch.from_numpy((10.0 ** rng.uniform(-12, 0, (t,) + lead + (
+        rows,))).astype(np.float32)).to(cuda)
+    return p, power
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,smoothing", [(300, 0.5), (1000, 0.5),
+                                         (5937, 0.5), (5937, 0.0)])
+def test_cuda_post_chain_batch_is_column_by_column(cuda, t, smoothing):
+    """On the card the batch chain (``post_head``, ``ema_scan`` over the
+    AGC series, ``post_tail``) equals the live step's column-by-column
+    chain bit for bit: one chunk's worth of columns, t above a chunk, the
+    multires length, the display default's smoothing 0."""
+    rows = 512
+    p, power = _post_case(cuda, t, (), rows, smoothing, seed=8)
     st0 = ema_chain.PostState.init((rows,), cuda)
-    before = ema_scan.launches
+    before = (post_head.launches, ema_scan.launches, post_tail.launches)
     batch, bst = ema_chain.postprocess_batch(power, st0, p)
-    assert ema_scan.launches == before + 2
+    assert (post_head.launches, ema_scan.launches, post_tail.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     st, cols = st0, []
     for i in range(power.shape[0]):
         out, st = ema_chain.postprocess_column(power[i], st, p)
@@ -814,6 +868,62 @@ def test_cuda_post_chain_batch_is_column_by_column(cuda):
     assert torch.equal(batch, torch.stack(cols))
     assert torch.equal(bst.smooth, st.smooth)
     assert torch.equal(bst.agc_ref, st.agc_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,agc_global", [((3,), False), ((3,), True),
+                                             ((2, 2), True)])
+def test_cuda_post_chain_channels_column_by_column(cuda, lead, agc_global):
+    """Channels, with and without the global AGC's torch coupling: batch
+    ≡ column by column bit for bit."""
+    p, power = _post_case(cuda, 200, lead, 512, 0.5, seed=9)
+    st0 = ema_chain.PostState.init(lead + (512,), cuda)
+    batch, bst = ema_chain.postprocess_batch(power, st0, p, agc_global)
+    st, cols = st0, []
+    for i in range(power.shape[0]):
+        out, st = ema_chain.postprocess_column(power[i], st, p, agc_global)
+        cols.append(out)
+    assert torch.equal(batch, torch.stack(cols))
+    assert torch.equal(bst.smooth, st.smooth)
+    assert torch.equal(bst.agc_ref, st.agc_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lead,rows", [(372, (), 512), (5937, (), 512),
+                                         (372, (16,), 512), (50, (3,), 47),
+                                         (7, (2, 2), 4098)])
+def test_cuda_post_head_bit_equal_to_boost_db_peak(cuda, t, lead, rows):
+    """``post_head`` against ``_boost_db_peak``'s peak (torch's stages 1–3
+    and ``amax``) bit for bit, in both load forms (rows % 4) and scaled;
+    zeros, NaN and ±inf in the power propagate as ``amax`` does."""
+    p, power = _post_case(cuda, t, lead, rows, 0.0, seed=t + rows)
+    power.reshape(-1)[::97] = 0.0
+    power.reshape(-1)[5] = float("inf")
+    power.reshape(-1)[rows + 3] = float("nan")
+    _, want = ema_chain._boost_db_peak(power, p, False, ())
+    got = post_head(power, p.low_end_ramp, p.gain)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    scaled = post_head(power, p.low_end_ramp, p.gain, scale=0.5)
+    assert torch.equal(scaled.view(torch.int32),
+                       (0.5 * want).view(torch.int32))
+    assert torch.equal(post_head(power, p.low_end_ramp, p.gain).view(
+        torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [0.0, 0.6, 0.99])
+@pytest.mark.parametrize("window", [None, 0])
+def test_cuda_post_tail_bit_equal_to_plain(cuda, smoothing, window):
+    """``post_tail`` against its plain version bit for bit at the multires
+    shape, forced repair included, the same on a second run."""
+    p, power = _post_case(cuda, 5937, (), 512, smoothing, seed=10)
+    refs = post_head(power, p.low_end_ramp, p.gain)
+    y0 = torch.rand(512, device=cuda)
+    want, wfin = post_tail_plain(power, refs, y0, p)
+    got, fin = post_tail(power, refs, y0, p, window=window)
+    assert torch.equal(got, want) and torch.equal(fin, wfin)
+    again, afin = post_tail(power, refs, y0, p, window=window)
+    assert torch.equal(again, got) and torch.equal(afin, fin)
 
 
 # ------------------------------------------------------------ raster
@@ -843,12 +953,13 @@ def test_cuda_raster_matches_cpu_and_repeats(cuda, mode, n):
     s = Settings(mode=mode, multires=False, fft_size=n)
     x = _tone_noise(48000 * 4, 21)
     before = (windowed_frames.launches, histogram.route_launches[SORTED],
-              ema_scan.launches)
+              post_head.launches, ema_scan.launches, post_tail.launches)
     vis = raster.render_vis(x, s, cuda)
     if mode == "enhanced":
         assert windowed_frames.launches == before[0] + 1
         assert histogram.route_launches[SORTED] == before[1] + 1
-    assert ema_scan.launches == before[2] + 2
+    assert (post_head.launches, ema_scan.launches, post_tail.launches) == (
+        before[2] + 1, before[3] + 1, before[4] + 1)
     assert np.array_equal(raster.render_vis(x, s, cuda), vis)
     ok, worst, share = compare_vis(
         torch.from_numpy(raster.render_vis(x, s, "cpu").T.copy()),

@@ -1,7 +1,7 @@
 """The batch post chain's EMA scan (``post.chain._ema_scan``, kernel
 ``ema_scan``'s plain version on the CPU) against the JAX package, against
-the port's own column-by-column chain, and a mirror of the kernel's load
-schedule.
+the port's own column-by-column chain (the kernel's chunk schedule is
+mirrored in ``test_torch_post_fused.py``).
 
 Tolerances:
 
@@ -163,7 +163,7 @@ def test_batch_is_column_by_column_bit_exact_hop_by_hop(lead, agc_global):
     v_db, peak = tchain._boost_db_peak(power, tp, agc_global,
                                        tuple(range(1, power.ndim - 1)))
     b_refs, _ = tchain._ema_scan(st0.agc_ref, tchain.AGC_DECAY, peak, False)
-    vis = tchain._agc_gate_norm(v_db, b_refs, tp)
+    vis = tchain.agc_gate_norm(v_db, b_refs, tp)
     b_smooth, _ = tchain._ema_scan(st0.smooth, tp.smoothing, vis, False)
     for t in range(power.shape[0]):
         assert torch.equal(b_refs[t], refs[t]), t
@@ -221,64 +221,3 @@ def test_wrapper_refuses_a_tensor_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="ema_scan"):
         ema.ema_scan(torch.empty(3, device="meta"), 0.5, b)
 
-
-# ------------------------------------------------------------- the mirror
-def _mirror(y0, alpha, b):
-    """The kernel's walk, for every column at once: a ring of STAGES
-    register buffers of UNROLL steps; the prologue loads steps 0 …
-    STAGES·UNROLL − 1 (those below t); rounds with no predicate while
-    i + 2·STAGES·UNROLL ≤ t, each stage consumed then refilled with the
-    steps STAGES·UNROLL further on; then predicated rounds to t.
-    → (ys, y_final, the steps loaded in order, the steps consumed in
-    order)."""
-    t = b.shape[0]
-    U, S = ema.UNROLL, ema.STAGES
-    ahead = U * S
-    loaded, consumed = [], []
-    zero = torch.zeros_like(y0)
-
-    def load(i):
-        if i < t:
-            loaded.append(i)
-            return b[i]
-        return zero
-
-    buf = [[load(s * U + u) for u in range(U)] for s in range(S)]
-    ys = torch.empty_like(b)
-    y = y0
-    i = 0
-    while i + 2 * ahead <= t:
-        for s in range(S):
-            for u in range(U):
-                step = i + s * U + u
-                y = torch.mul(y, alpha) + buf[s][u]
-                ys[step] = y
-                consumed.append(step)
-            buf[s] = [load(i + s * U + ahead + u) for u in range(U)]
-        i += ahead
-    while i < t:
-        for s in range(S):
-            for u in range(U):
-                step = i + s * U + u
-                if step < t:
-                    y = torch.mul(y, alpha) + buf[s][u]
-                    ys[step] = y
-                    consumed.append(step)
-            buf[s] = [load(i + s * U + ahead + u) for u in range(U)]
-        i += ahead
-    return ys, y, loaded, consumed
-
-
-@pytest.mark.parametrize("t", [1, 5, 127, 128, 255, 256, 257, 383, 384, 385,
-                               1000])
-def test_mirror_of_the_kernel_schedule(t):
-    """Every step is loaded once and consumed once, in order, after its
-    load; the mirror's values equal the plain loop bit for bit."""
-    rng = np.random.default_rng(t)
-    b = torch.from_numpy(rng.standard_normal((t, 16)).astype(np.float32))
-    y0 = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
-    alpha = torch.tensor(np.float32(0.37))
-    ys, fin, loaded, consumed = _mirror(y0, alpha, b)
-    assert loaded == list(range(t)) and consumed == list(range(t))
-    want, wfin = ema.ema_scan_plain(y0, alpha, b)
-    assert torch.equal(ys, want) and torch.equal(fin, wfin)
