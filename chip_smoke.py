@@ -161,7 +161,18 @@ them.  Phases, in order, one line each; the first failure ends the run:
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
    call launches, read from the trace.
-26. breakdown: per-stage device times of the enhanced stencil batch
+26. bench: ``python -m emspec_torch bench`` as a user runs it, each a
+   subprocess on the card that must exit 0 and print its JSON report:
+   ``--soak --duration 30 --quick`` (while it runs, ``--sustained
+   --duration 3`` and ``--trace DIR``), then ``--quick`` and ``--stages``
+   alone on the card.  Every throughput configuration has columns/s and
+   device ms a call above 0 and each roofline share in (0, 105]; the
+   primary metric's device frames/s is within 10% of t_count over
+   ``device_ms`` of the batch phase's cell timed here the same way; both
+   sustained runs keep up (≥ 0.95); the soak's churn counts no error;
+   the trace holds the card's kernels.  The primary metric is printed on
+   its own line with the card's name and power limit.
+27. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
    of a live hop of each path and each raster (torch.profiler busy time
@@ -225,6 +236,9 @@ except ModuleNotFoundError as e:
                      f"checkout of the repository, beside emspec_torch/)")
 
 from emspec_torch import Settings, kernels_build
+from emspec_torch.bench.measure import cuda_ms, device_ms
+from emspec_torch.bench.roofline import (
+    b1_bound, b1_window_bound, bound, dft_ops, frame_bytes)
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, signal_blocks
 from emspec_torch.dsp.kernels import ema
@@ -281,8 +295,6 @@ CHANNELS = 16
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
 NATURAL_POWER_TOL = 1e-4         # · peak
-PEAK_BYTES_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FP32_S = 67e12              # H100 SXM float32 outside the tensor cores
 KERNELS = (
     ("deposits_ids", deposits_ids, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:404"),
@@ -392,50 +404,6 @@ def signal(seconds: float, channels: int = 1, seed: int = 0,
     return out[0] if channels == 1 else np.stack(out)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, calls: int = 20) -> float:
-    """The device's own time per call of ``fn`` in ms: CUDA events around
-    ``calls`` back-to-back calls queued behind a device-side sleep, so the
-    host's dispatch (ctypes, argument checks, allocation) overlaps the
-    sleep and not the calls.  Fails unless the queueing ended well inside
-    the sleep.  (torch.profiler cannot serve here: it leaves every later
-    launch slower on the host, and late in a long run it drops kernel
-    records.)"""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 50_000_000
-    for _ in range(3):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        marks[0].record()
-        torch.cuda._sleep(cycles)
-        marks[1].record()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        queued_ms = (time.perf_counter() - t0) * 1e3
-        marks[2].record()
-        torch.cuda.synchronize()
-        if queued_ms < 0.5 * marks[0].elapsed_time(marks[1]):
-            return marks[1].elapsed_time(marks[2]) / calls
-        cycles *= 4
-    fail(f"device_ms: queueing {calls} calls took {queued_ms:.3f} ms, "
-         f"longer than the sleep in front of them")
-
-
 def times(fn, plain, library=None, iters: int = 20, warmup: int = 3,
           calls: int = 20) -> dict:
     """The kernel's, its plain version's and the library call's ms by CUDA
@@ -449,19 +417,6 @@ def times(fn, plain, library=None, iters: int = 20, warmup: int = 3,
         device_ms=device_ms(fn, calls),
         library_device_ms=None if library is None else device_ms(library,
                                                                  calls))
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """Roofline bound: the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
-def dft_ops(n: int) -> float:
-    """A complex n-point DFT counted as 5·n·log2 n, however it runs."""
-    return 5.0 * n * math.log2(n)
 
 
 def reset_counters() -> None:
@@ -559,27 +514,6 @@ def check_b1_single(label: str, frames, ik, ck, scal, kw, **route) -> None:
     check(torch.equal(i1, ik.reshape(-1, k)[0])
           and torch.equal(c1, ck.reshape(-1, k)[0]),
           f"{label} n={n}: b = 1 differs from frame 0 of the batch")
-
-
-def frame_bytes(frames) -> float:
-    """Bytes of the distinct float32 samples a framing view covers: its
-    frames overlap where the hop is below N, and each input byte counts
-    once."""
-    n = frames.shape[-1]
-    f = frames.reshape((-1,) + tuple(frames.shape[-2:]) if frames.dim() > 1
-                       else (1, 1, n))
-    return 4.0 * f.shape[0] * ((f.shape[1] - 1) * min(f.stride(1), n) + n)
-
-
-def b1_bound(frames) -> dict:
-    """B1's roofline bound on these frames: their distinct samples read,
-    ids and contrib written, the t·h and twiddle tables; two real n-point
-    DFTs (half a complex one each), the t·h window and ~40 operations a
-    bin for stencils, corrections and quantization."""
-    n = frames.shape[-1]
-    b, k = frames.numel() // n, n // 2 + 1
-    return bound(frame_bytes(frames) + 8 * b * k + 4 * n + 4 * n + 12,
-                 b * (dft_ops(n) + n + 40 * k))
 
 
 def kernels_b123(dev, pipe: Pipeline, p) -> dict:
@@ -1160,18 +1094,6 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
             res["hist_variant"]["variants_ms_batch_ids"] = variant_ms
     print("kernels B6 and probe: " + "; ".join(lines), flush=True)
     return res
-
-
-def b1_window_bound(frames, width: int) -> dict:
-    """B1's roofline bound with a window of ``width`` bins: the frames'
-    distinct samples read, ids and contrib written for the window, the
-    t·h, twiddle and band tables; the whole frame's two real DFTs (the
-    window does not shrink the FFT), the t·h window and ~40 operations a
-    bin of the window."""
-    n = frames.shape[-1]
-    b = frames.numel() // n
-    return bound(frame_bytes(frames) + 8 * b * width + 8 * n + 4 * width + 12,
-                 b * (dft_ops(n) + n + 40 * width))
 
 
 def kernels_multires(dev) -> dict:
@@ -2615,6 +2537,115 @@ def trace_phase(dev, x: np.ndarray) -> None:
           f"{len(launched)} kernels: {launched}", flush=True)
 
 
+BENCH_KEEPUP = 0.95       # ``emspec/bench/harness.py:503-505``'s band
+BENCH_DEVICE_TOL = 0.10
+
+
+def bench_phase(dev, x: np.ndarray) -> None:
+    """``python -m emspec_torch bench`` in subprocesses on the card (see
+    the module docstring, phase 26); the soak runs beside the two runs
+    that time no device work, the timed runs alone."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        procs = []
+
+        def start(args):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "emspec_torch", "bench", *args],
+                cwd=d, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            procs.append(p)
+            return p
+
+        def finish(label, p):
+            t0 = time.perf_counter()
+            try:
+                out, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                fail(f"bench {label}: no exit within 300 s: {err[-2000:]}")
+            check(p.returncode == 0,
+                  f"bench {label}: exit {p.returncode}: {err[-2000:]}")
+            try:
+                rep = json.loads(out)
+            except json.JSONDecodeError:
+                fail(f"bench {label}: no JSON report: {out[-2000:]}")
+            print(f"bench {label} (waited {time.perf_counter() - t0:.1f} "
+                  f"s): {json.dumps(rep)}", flush=True)
+            return rep
+
+        try:
+            soak = start(["--soak", "--duration", "30", "--quick"])
+            sustained = finish("--sustained --duration 3", start(
+                ["--sustained", "--duration", "3"]))
+            traced = finish("--trace", start(["--trace", str(d / "trace")]))
+            soaked = finish("--soak --duration 30 --quick", soak)
+            quick = finish("--quick", start(["--quick"]))
+            stages = finish("--stages", start(["--stages"]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        files = list((d / "trace").glob("trace_*.json"))
+        check(len(files) == 1 and traced["profiler_trace"] == str(
+            d / "trace"), f"bench --trace: {len(files)} trace files")
+        events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    check(bool(kernels), "bench --trace: the trace holds no CUDA kernel")
+
+    configs = quick["configs"]
+    for name, rep in configs.items():
+        if "columns_per_sec" in rep:
+            shares = [rep["roofline"][k] for k in ("pct_h100_f32_peak",
+                                                   "pct_h100_hbm_peak")]
+            check(rep["columns_per_sec"] > 0 and rep["device_ms_per_call"] > 0
+                  and all(s is not None and 0 < s <= 105 for s in shares),
+                  f"bench --quick {name}: columns/s "
+                  f"{rep['columns_per_sec']}, device ms a call "
+                  f"{rep['device_ms_per_call']}, roofline shares {shares}")
+        else:
+            check(rep["p50_ms"] > 0 and rep["device_scan_ms_per_hop"] > 0,
+                  f"bench --quick {name}: {rep}")
+    primary = quick["primary"]
+    pipe = Pipeline(SETTINGS, dev)
+    p, xg = pipe.params(), pipe.to_device(x)
+    t = pipe.num_columns(x.shape[-1])
+    state = [PostState.init((pipe.rows,), dev)]
+
+    def chained():
+        state[0] = pipe._batch_vis(xg, p, state[0], t)[2]
+    own = t / (device_ms(chained, calls=10) / 1e3)
+    rel = abs(primary["device_frames_per_sec"] - own) / own
+    check(primary["t_count"] == t and rel <= BENCH_DEVICE_TOL,
+          f"bench: primary device frames/s {primary['device_frames_per_sec']}"
+          f" at t = {primary['t_count']} vs {own:.1f} at t = {t} here "
+          f"({rel:.3f} apart)")
+    for name, rep in sustained.items():
+        check(rep["keepup_ratio"] >= BENCH_KEEPUP,
+              f"bench --sustained {name}: keep-up {rep['keepup_ratio']}")
+    check(soaked["churn"]["errors"] == 0 and soaked["final_frame_nonblack"],
+          f"bench --soak: churn {soaked['churn']}, final frame non-black "
+          f"{soaked['final_frame_nonblack']}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"bench primary ({smi}): {primary['metric']} {primary['value']} "
+          f"{primary['unit']}, device {primary['device_frames_per_sec']} "
+          f"(this script's batch cell by device_ms: {own:.1f}, "
+          f"{rel:.3f} apart)", flush=True)
+    print(f"bench: {len(configs)} configurations, stages "
+          f"{ {k: v['stage_us'] for k, v in stages.items()} }, keep-up "
+          f"{ {k: v['keepup_ratio'] for k, v in sustained.items()} }, soak "
+          f"churn {soaked['churn']}, trace {len(kernels)} kernel names; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def device_busy(fn, reps: int):
     """Device busy time per call of ``fn`` (ms) and its split by kernel:
     the sums of kernel and copy times in torch.profiler (one stream, so
@@ -2758,6 +2789,7 @@ def main() -> None:
     parallel_phase(dev, xs, xs_live, vis_sl, x, vis_m)
     checkpoint_phase(dev, x)
     trace_phase(dev, x)
+    bench_phase(dev, x)
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),

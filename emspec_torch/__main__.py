@@ -12,7 +12,8 @@ the live path into a scrolling waterfall, snapshotted to PNG),
 terminal waterfall of a WAV or of captured audio), ``gui`` (the web
 shell, or ``--native`` the desktop window), ``presets`` (preset CRUD),
 ``doctor`` (an environment self-check; ``--kernels`` validates the CUDA
-kernels on the card) and ``note`` (frequency → musical note).  A bare
+kernels on the card), ``bench`` (the performance harness,
+``emspec_torch.bench``) and ``note`` (frequency → musical note).  A bare
 ``python -m emspec_torch`` opens ``gui``.  Each command that analyses
 audio runs on the card; ``--device cpu`` asks for the CPU.  Without a
 card and without it, the command prints one line and exits 2: it never
@@ -537,6 +538,62 @@ def cmd_doctor(args) -> int:
     return 1 if fails else 0
 
 
+def cmd_bench(args) -> int:
+    """The performance harness on the card (``emspec_torch.bench``): the
+    full throughput and latency report after ``validate_kernels``, or
+    ``--stages``, ``--soak``, ``--sustained``, ``--trace DIR``.  A kernel
+    that fails validation, a failed ``device_ms`` or a failed graph replay
+    ends the command with a traceback and a non-zero code."""
+    from emspec_torch.config import Settings
+
+    dev = _device(args)
+    if args.trace:
+        from emspec_torch.bench.harness import write_profiler_trace
+        out = write_profiler_trace(
+            Settings(mode="enhanced", multires=False, fft_size=8192),
+            args.trace, device=dev)
+        print(json.dumps({"profiler_trace": out}))
+        return 0
+    if args.stages:
+        from emspec_torch.bench.stages import stage_breakdown
+        report = {
+            "8192_enhanced": stage_breakdown(
+                Settings(mode="enhanced", multires=False, fft_size=8192),
+                device=dev),
+            "multires": stage_breakdown(
+                Settings(mode="enhanced", multires=True), device=dev),
+            "stress_16ch": stage_breakdown(
+                Settings(mode="enhanced", multires=False, fft_size=32768,
+                         sample_rate=96_000, channels=16), device=dev),
+        }
+        print(json.dumps(report, indent=2))
+        return 0
+    if args.soak:
+        from emspec_torch.bench.soak import soak
+        report = soak(
+            settings=Settings(mode=args.soak_mode, multires=True),
+            seconds=args.duration or 600.0,
+            inject_nonfinite=args.soak_inject_nonfinite, device=dev)
+        if args.quick:
+            report.pop("raw", None)
+        print(json.dumps(report, indent=2))
+        return 0
+    if args.sustained:
+        from emspec_torch.bench.harness import sustained_display
+        report = {
+            "default_multires": sustained_display(
+                seconds=args.duration or 8.0, device=dev),
+            "north_star_32768": sustained_display(
+                Settings(mode="enhanced", multires=False, fft_size=32768),
+                seconds=args.duration or 8.0, device=dev),
+        }
+        print(json.dumps(report, indent=2))
+        return 0
+    from emspec_torch.bench.harness import run_benchmarks
+    print(json.dumps(run_benchmarks(quick=args.quick, device=dev), indent=2))
+    return 0
+
+
 def cmd_note(args) -> int:
     from emspec_torch.utils.notes import describe_frequency
     try:
@@ -677,6 +734,39 @@ def _parser() -> argparse.ArgumentParser:
     pd.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the checks run (default: the card)")
     pd.set_defaults(fn=cmd_doctor)
+
+    pb = sub.add_parser("bench", help="run the performance harness")
+    pb.add_argument("--quick", action="store_true",
+                    help="the small report: configurations 0-4, short "
+                         "chains, quick kernel validation")
+    pb.add_argument("--stages", action="store_true",
+                    help="per-stage device-cost breakdown instead of the "
+                         "full throughput report")
+    pb.add_argument("--trace", metavar="DIR", default=None,
+                    help="write a torch.profiler trace of the streaming hot "
+                         "loop to DIR instead of running the harness")
+    pb.add_argument("--sustained", action="store_true",
+                    help="wall-clock sustained-display check: real-time "
+                         "capture thread → ring → streaming step → "
+                         "waterfall, drained at 60 Hz (the north-star "
+                         "'sustain 60 fps' as a product-level measurement)")
+    pb.add_argument("--soak", action="store_true",
+                    help="long leak soak: live shell + settings/preset "
+                         "churn thread, tracking RSS / device memory / "
+                         "keep-up drift (default 600 s; see --duration)")
+    pb.add_argument("--duration", type=float, default=0.0,
+                    help="seconds per --sustained or --soak run "
+                         "(defaults 8 / 600)")
+    pb.add_argument("--soak-mode", choices=["enhanced", "natural"],
+                    default="enhanced",
+                    help="display mode for the --soak run")
+    pb.add_argument("--soak-inject-nonfinite", action="store_true",
+                    help="corrupt every 40th capture block with one "
+                         "NaN/Inf sample during the soak — drives the "
+                         "non-finite guard at product scale")
+    pb.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the harness runs (default: the card)")
+    pb.set_defaults(fn=cmd_bench)
     return ap
 
 

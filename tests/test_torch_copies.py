@@ -3,9 +3,10 @@ JAX package (``emspec_torch.config`` with ``PresetStore``,
 ``dsp.windows``, ``io.ring``, ``post._cmap_data``, ``dsp.multires``'s
 tables, ``utils.notes``, ``render.png``, ``render.apng``, ``io.wav``,
 ``io.synth``, ``io.resample``, ``io.capture``, ``utils.update``,
-``integrations.live_state``, ``shell.page``): each is held here to its
-original, and the port is held to importing nothing of the JAX package —
-not JAX, not ``emspec`` nor any ``emspec.*`` module."""
+``integrations.live_state``, ``shell.page``, the bench's ``_signal``):
+each is held here to its original, and the port is held to importing
+nothing of the JAX package — not JAX, not ``emspec`` nor any
+``emspec.*`` module."""
 
 import ast
 import dataclasses
@@ -228,6 +229,18 @@ def test_preset_store_copy_source_and_files():
                     if isinstance(n, ast.ClassDef) and n.name == "PresetStore")
         return ast.get_source_segment(text, node)
     assert segment("emspec_torch/config.py") == segment("emspec/config.py")
+
+
+def test_bench_signal_copy_source():
+    """The bench's test signal (``emspec_torch.bench.harness._signal``) is
+    the original function, verbatim."""
+    def segment(path):
+        text = (ROOT / path).read_text()
+        node = next(n for n in ast.parse(text).body
+                    if isinstance(n, ast.FunctionDef) and n.name == "_signal")
+        return ast.get_source_segment(text, node)
+    assert segment("emspec_torch/bench/harness.py") == \
+        segment("emspec/bench/harness.py")
 
 
 def test_preset_files_load_both_ways(tmp_path):

@@ -1219,3 +1219,28 @@ def test_cuda_time_parallel_render_across_cards(cuda, tmp_path, channels,
     print(f"{cards} cards, {channels} ch {extra}: {one.shape}, colormap "
           f"steps {steps}, share {share:.3e}")
     assert many.shape == one.shape and steps <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_bench_timers_and_peaks(cuda):
+    """The bench's device timer on the card: a call that waits on the card
+    is refused, never timed as a guess; a queue of small launches gives a
+    positive time.  The peaks: the data sheet for an H100's name, and the
+    measured copy and float32 matmul rates below 105% of it."""
+    from emspec_torch.bench.measure import chain_marginal_ms, device_ms
+    from emspec_torch.bench.roofline import peaks
+
+    x = torch.ones(1024, device=cuda)
+    with pytest.raises(RuntimeError, match="device_ms"):
+        device_ms(lambda: x.sum().item(), calls=3)
+    assert device_ms(lambda: x.add_(1.0), calls=20) > 0
+    assert chain_marginal_ms(lambda c: c * 0.5, lambda: x.clone(),
+                             reps=3) > 0
+    pk = peaks(cuda)
+    print(pk)
+    assert pk["name"] == torch.cuda.get_device_name(cuda)
+    assert pk["measured_hbm_bytes_s"] > 0 and pk["measured_f32_flops_s"] > 0
+    if "H100" in pk["name"] and pk["data_sheet"] is not None:
+        assert pk["source"] == "data sheet"
+        assert pk["measured_hbm_bytes_s"] <= 1.05 * pk["hbm_bytes_s"]
+        assert pk["measured_f32_flops_s"] <= 1.05 * pk["f32_flops_s"]
