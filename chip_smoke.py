@@ -17,10 +17,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
    its roofline bound: B1 deposits (its block route; device time also
    at b = 1, a live hop), B2 histogram at every path's real ids (batch,
    batch16, live, stress, stress live, north, north live, ext262144,
-   wide, wide live), by its route and by each route forced, beside the
-   parent's one-block-a-row design (the probe's ``full``), with
-   ``index_add_`` as its library call, the routes and the parent in turns
-   at the batch and north-live shapes, NaN/Inf behind dropped ids at
+   wide, wide live), by its route and by each route forced, with
+   ``index_add_`` as its library call, the routes in turns at the batch
+   and north-live shapes, NaN/Inf behind dropped ids at
    every route and hot-cell cases (runs of 32 equal ids, a row in one
    cell, every deposit in one cell),
    B3 colormap lookup (enhanced 8192, hop 2048, 512 rows) in both forms,
@@ -38,11 +37,17 @@ them.  Phases, in order, one line each; the first failure ends the run:
    once, timed in turns against the three-launch route it replaced
    (forced), both held to plain, both at b = 1; B1's large-frame route
    at 65536, 131072 and 262144 (8 frames), each also at b = 1; B6, the fused
-   deposits histogram, against its plain version and against B1 → B2
-   composed, at the batch shape (372 × 8192) and the stress shape
-   (688 × 32768), with and without the streaming mask; the probe's B2
-   variants at the probe's shape (688 × 16512 → 2560, half the ids −1)
-   and at the batch path's ids; B1's windowed form (a bin window and a
+   deposits histogram, by each route that takes the shape — the block
+   route at the batch shape (372 × 8192), the cluster route (one launch:
+   no pack, B4 or finish may launch) and the forced three-launch large
+   route at the stress shape (688 × 32768) — against its plain version
+   and against B1 → B2 composed, with and without the streaming mask, and
+   timed in turns with composed; the probe's B2 variants (each B2's own
+   code with one stage taken out) at the probe's shape (688 × 16512 →
+   2560, half the ids −1), the batch path's ids (both B2's row route)
+   and the multires batch ids (1 × 2,267,934 → 3,039,744, the global
+   route), its ``full`` timed in turns with ``histogram()`` on the same
+   ids and within 3% of it; B1's windowed form (a bin window and a
    band weight) at each bank of the display default (8192/2048/512 at
    hop 128, 5,937 frames, and b = 1 bit-equal to frame 0) against its
    plain version, beside the pruned-DFT product that could replace it
@@ -198,10 +203,10 @@ B1 (every route and form) additionally ≥ 99.99% equal ids, every other
 valid deposit moved by one cell only, bins 0 and N/2 exact (where its
 window holds them), and contrib within 1e-5·peak wherever both are
 valid, and b = 1 bit-equal to frame 0 of the batch; the three batch
-scatters of the display default against each other by the grid rule; B2 (each route; exact zeros), B6 (against B1 → B2 composed, with
-exact zeros below min_id) and the probe's ``full`` (against B2) ≤ 1e-5
-relative per nonzero bin; the other probe variants within 1e-5 of their
-own plain versions; B3 (both forms), B5 and the post chain's three
+scatters of the display default against each other by the grid rule; B2 (each route; exact zeros), B6 (each route, against B1 → B2 composed, with
+exact zeros below min_id) and the probe's ``full`` and ``no_merge``
+(against B2) ≤ 1e-5 relative per nonzero bin; every probe variant within
+1e-5·max of its own plain version; B3 (both forms), B5 and the post chain's three
 kernels bit-equal;
 B2's sorted route bit-equal to the plain sum on the CPU; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
@@ -219,6 +224,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from statistics import fmean
 from pathlib import Path
 
 import numpy as np
@@ -248,7 +254,7 @@ from emspec_torch.dsp.kernels.post import (
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain,
-    quantize_deposits)
+    hist_route_of, quantize_deposits)
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import (
@@ -272,7 +278,7 @@ from emspec_torch.render.apng import read_apng
 from emspec_torch.render.png import read_png
 from emspec_torch.tables import lut
 from emspec_torch.probes.scatter_ablation import (
-    VARIANTS, hist_variant, hist_variant_plain)
+    ROW_ONLY, VARIANTS, hist_variant, hist_variant_plain)
 from emspec_torch.stream import Stream
 from emspec_torch.validate import compare_grids, compare_vis
 
@@ -314,6 +320,8 @@ KERNELS = (
      "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
     ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:616"),
+    ("deposits_hist_cluster", deposits_hist, "emspec_torch/csrc/deposits.cu",
+     "emspec/dsp/pallas/fft4.py:616"),
     ("hist_variant", hist_variant, "emspec_torch/csrc/scatter_ablation.cu",
      "bench_probes/scatter_ablation.py:93"),
     ("deposits_ids_window", deposits_ids, "emspec_torch/csrc/deposits.cu",
@@ -328,7 +336,9 @@ KERNELS = (
      "emspec/post/chain.py:149"),
 )
 # a kernel counted by another counter than its wrapper's ``launches``
-COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"]}
+COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
+          "deposits_hist_cluster":
+              lambda: deposits_hist.route_launches["cluster"]}
 MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
                  "lut_values")
 CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
@@ -617,11 +627,8 @@ def kernels_b3(dev, p, b: int, rows: int) -> dict:
 
 # B2 at each path's real ids (rows × m → cells): the shape and the B1
 # call that makes them.  The live hops take one frame of their batch.
-# "parent" is B2's earlier design — one block a row, an atomic a deposit,
-# no warp merging, 4-byte loads — which the probe keeps as its "full"
-# variant (scatter_ablation.cu).
 B2_IN_TURNS = ("batch", "north_live")
-B2_TURNS = ("global", "row", "parent", "parent", "row", "global")
+B2_TURNS = ("global", "row", "row", "global")
 
 
 def relative_ids(dev, settings: Settings, x: np.ndarray):
@@ -658,14 +665,23 @@ def b2_cases(dev, ik, ck, S) -> list:
     # the display default: the batch sums every bank's deposits into the
     # absolute (t, rows) grid in one row, a live hop one frame's into the
     # relative space
-    pipe = Pipeline(MULTIRES, dev)
-    t = pipe.num_columns(int(SECONDS * SR))
     mi, mc, ms = relative_ids(dev, MULTIRES, signal(SECONDS, seed=1))
     mid = mi.shape[0] // 2
-    cases += [("multires", pipe._absolute_ids(mi, t, pipe.reach).reshape(-1),
-               mc.reshape(-1), t * pipe.rows),
+    cases += [("multires", *multires_batch_ids(dev, mi, mc)),
               ("multires_live", mi[mid], mc[mid], ms)]
     return cases
+
+
+def multires_batch_ids(dev, mi=None, mc=None):
+    """The display default's batch B2 call: every bank's deposits of the
+    16 s signal in one row of the absolute (t, rows) grid → (ids, vals,
+    cells)."""
+    pipe = Pipeline(MULTIRES, dev)
+    t = pipe.num_columns(int(SECONDS * SR))
+    if mi is None:
+        mi, mc, _ = relative_ids(dev, MULTIRES, signal(SECONDS, seed=1))
+    return (pipe._absolute_ids(mi, t, pipe.reach).reshape(-1),
+            mc.reshape(-1), t * pipe.rows)
 
 
 def check_b2(label: str, ids, vals, S: int, route=None) -> float:
@@ -705,21 +721,11 @@ def clustered_cases(dev, rows: int, m: int, S: int) -> list:
                                                   vals), ("one_cell", one, vals)]
 
 
-def b2_call(ids, vals, cells: int, route: str):
-    """One B2 call by ``route``; "parent" is the probe's ``full``."""
-    if route == "parent":
-        m = ids.shape[-1]
-        return hist_variant(ids.reshape(-1, m), vals.reshape(-1, m), cells,
-                            "full")
-    return histogram(ids, vals, cells, route=route)
-
-
 def kernels_b2(dev, ik, ck, S) -> dict:
     """B2 at every path's shape, by its route and by each route forced
-    (each held to plain, and with NaN/Inf behind dropped ids), the
-    parent's one-block-a-row design beside them; times, bound and
-    ``index_add_`` per shape; the routes and the parent in turns at the
-    batch and north-live shapes; hot-cell cases at the batch shape."""
+    (each held to plain, and with NaN/Inf behind dropped ids); times,
+    bound and ``index_add_`` per shape; the routes in turns at the batch
+    and north-live shapes; hot-cell cases at the batch shape."""
     shapes, lines, worst = {}, [], 0.0
     for label, ids, vals, cells in b2_cases(dev, ik, ck, S):
         m = ids.shape[-1]
@@ -734,9 +740,6 @@ def kernels_b2(dev, ik, ck, S) -> dict:
                 check_b2_dropped(label, ids, vals, cells, r)
                 route_dev[r] = device_ms(
                     lambda: histogram(ids, vals, cells, route=r))
-        if cells <= SMEM_BINS:
-            route_dev["parent"] = device_ms(
-                lambda: b2_call(ids, vals, cells, "parent"))
         ok_ids = (ids >= 0) & (ids < cells)
         flat = (torch.where(ok_ids, ids, cells).long().reshape(rows, m)
                 + (torch.arange(rows, device=dev) * (cells + 1))[:, None]
@@ -756,7 +759,7 @@ def kernels_b2(dev, ik, ck, S) -> dict:
             turns = {}
             for r in B2_TURNS:
                 turns.setdefault(r, []).append(device_ms(
-                    lambda: b2_call(ids, vals, cells, r)))
+                    lambda: histogram(ids, vals, cells, route=r)))
             row["in_turns_device_ms"] = turns
         shapes[label] = row
         lines.append(
@@ -990,12 +993,58 @@ def kernels_large(dev) -> dict:
     return res
 
 
-def kernels_fused(dev, pipe: Pipeline, p) -> dict:
-    """B6 against plain and B1 → B2 composed at the batch shape and the
-    stress shape; the probe's variants at the probe's shape and at the
-    batch path's ids."""
-    res, lines, rows_b6 = {}, [], {}
-    x = torch.from_numpy(signal(SECONDS, seed=1)).to(dev)
+# B6's routes at each shape, timed in turns with B1 → B2 composed; the
+# probe's ``full`` in turns with B2 itself, within PROBE_TOL of it
+B6_TURNS = {"block": ("composed", "block", "block", "composed"),
+            "cluster": ("composed", "cluster", "large", "large", "cluster",
+                        "composed")}
+B6_ROUTES = {"block": ("block",), "cluster": ("cluster", "large")}
+PROBE_TURNS = ("histogram", "full", "full", "histogram")
+PROBE_TOL = 0.03
+
+
+def check_b6(label: str, frames, scal, kw, route: str, ids, contrib,
+             S: int) -> tuple:
+    """B6 by ``route`` against B1 → B2 composed (1e-5 relative per nonzero
+    bin, exact zeros, below min_id too) and against its plain version
+    (the grid rule), with and without the streaming mask; one launch of
+    the route, and no pack, B4 or finish launch on the on-chip routes →
+    (largest relative error, largest abs error)."""
+    rel_worst, abs_worst = 0.0, 0.0
+    for min_id in (-2**30, 2 * kw["rows"]):
+        before = (dict(deposits_hist.route_launches), fft4_steps123.launches)
+        got = deposits_hist(frames, *scal, min_id, **kw, route=route)
+        torch.cuda.synchronize()
+        after = (dict(deposits_hist.route_launches), fft4_steps123.launches)
+        rises = {r: after[0][r] - before[0][r] for r in after[0]}
+        check(rises == {r: int(r == route) for r in rises}
+              and (route == "large" or after[1] == before[1]),
+              f"B6 {label} route {route}: launches by route {rises}, B4 "
+              f"launches {after[1] - before[1]} (the on-chip routes launch "
+              f"no pack, B4 or finish)")
+        want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
+        nz = want > 0
+        rel = float(((got - want).abs()[nz] / want[nz]).max())
+        rel_worst = max(rel_worst, rel)
+        abs_worst = max(abs_worst, float((got - want).abs().max()))
+        check(rel <= 1e-5 and bool((got[~nz] == 0).all())
+              and (min_id < 0 or float(got[..., :min_id].abs().max()) == 0),
+              f"B6 {label} route {route} min_id={min_id} vs B1 → B2: rel "
+              f"{rel}")
+        rows = kw["rows"]
+        g = compare_grids(deposits_hist_plain(
+            frames, *scal, min_id, **kw).reshape(-1, S // rows, rows),
+            got.reshape(-1, S // rows, rows))
+        check(g.ok, f"B6 {label} route {route} min_id={min_id} vs plain: {g}")
+    return rel_worst, abs_worst
+
+
+def kernels_b6(dev, pipe: Pipeline, p, x) -> dict:
+    """B6 by each route that takes the shape, against plain and B1 → B2
+    composed, at the batch shape and the stress shape; times by route in
+    turns with composed, and with every deposit masked (``min_id`` = the
+    cell count: the kernel without its adds)."""
+    res, lines = {}, []
     cases = [("batch", frame_signal(x, pipe.n_max, pipe.hop), p,
               dict(n=pipe.n_max, hop=pipe.hop, sr=float(SR), rows=pipe.rows,
                    reach=pipe.reach))]
@@ -1005,94 +1054,143 @@ def kernels_fused(dev, pipe: Pipeline, p) -> dict:
                        reach=spipe.reach)))
     for label, frames, pp, kw in cases:
         scal = (pp.logmap_a, pp.logmap_b, pp.power_floor)
-        n, rows = kw["n"], kw["rows"]
-        S = (2 * kw["reach"] + 1) * rows
-        ids, contrib = deposits_ids(frames, *scal, **kw)
-        worst = 0.0
-        for min_id in (-2**30, 2 * rows):
-            got = deposits_hist(frames, *scal, min_id, **kw)
-            want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
-            nz = want > 0
-            rel = float(((got - want).abs()[nz] / want[nz]).max())
-            worst = max(worst, rel)
-            check(rel <= 1e-5 and bool((got[~nz] == 0).all())
-                  and (min_id < 0 or float(got[..., :min_id].abs().max()) == 0),
-                  f"B6 {label} min_id={min_id} vs B1 → B2: rel {rel}")
-            g = compare_grids(deposits_hist_plain(
-                frames, *scal, min_id, **kw).reshape(-1, S // rows, rows),
-                got.reshape(-1, S // rows, rows))
-            check(g.ok, f"B6 {label} min_id={min_id} vs plain: {g}")
+        n = kw["n"]
+        S = (2 * kw["reach"] + 1) * kw["rows"]
         b = frames.numel() // n
-        row = dict(
-            at=f"frames ({b}, {n}) → {S} bins", max_abs_err=worst,
-            **times(lambda: deposits_hist(frames, *scal, -2**30, **kw),
-                    lambda: deposits_hist_plain(frames, *scal, -2**30, **kw),
-                    iters=5, warmup=2),
-            composed_ms=cuda_ms(lambda: histogram(
-                *deposits_ids(frames, *scal, **kw), S), 5, 2),
-            **bound(frame_bytes(frames) + 4 * b * S + 8 * n + 12,
-                    b * (dft_ops(n) + n + 40 * (n // 2 + 1))
-                    + float((contrib > 0).sum())))
-        lines.append(f"B6 {label} {row['ms']:.4f} ms vs B1 → B2 "
-                     f"{row['composed_ms']:.4f} ms (plain "
-                     f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                     f"{row['bound_by']}, rel err {worst:.2e})")
-        rows_b6[label] = row
-    res["deposits_hist"] = dict(rows_b6["stress"], at_batch=rows_b6["batch"])
+        first = hist_route_of(n, S)
+        routes = B6_ROUTES[first]
+        ids, contrib = deposits_ids(frames, *scal, **kw)
+        errs = {r: check_b6(label, frames, scal, kw, r, ids, contrib, S)
+                for r in routes}
 
-    # the probe: B2's stages stubbed one at a time
+        def composed():
+            return histogram(*deposits_ids(frames, *scal, **kw), S)
+
+        def fused(r, min_id=-2**30):
+            return lambda: deposits_hist(frames, *scal, min_id, **kw, route=r)
+
+        turns = {}
+        for who in B6_TURNS[first]:
+            turns.setdefault(who, []).append(device_ms(
+                composed if who == "composed" else fused(who)))
+        bnd = bound(frame_bytes(frames) + 4 * b * S + 8 * n + 12,
+                    b * (dft_ops(n) + n + 40 * (n // 2 + 1))
+                    + float((contrib > 0).sum()))
+        for r in routes:
+            res[label, r] = dict(
+                at=f"frames ({b}, {n}) → {S} bins", hist_route=r,
+                max_abs_err=errs[r][1], max_rel_err=errs[r][0],
+                **times(fused(r), lambda: deposits_hist_plain(
+                    frames, *scal, -2**30, **kw), iters=5, warmup=2),
+                composed_ms=cuda_ms(composed, 5, 2),
+                composed_device_ms=fmean(turns["composed"]),
+                in_turns_device_ms=turns,
+                masked_device_ms=device_ms(fused(r, S)), **bnd)
+        lines.append(
+            f"B6 {label} ({b} × {n} → {S}), device ms in turns {turns}; "
+            + ", ".join(f"{r}: device {res[label, r]['device_ms']:.4f} "
+                        f"(every deposit masked "
+                        f"{res[label, r]['masked_device_ms']:.4f}), events "
+                        f"{res[label, r]['ms']:.4f}, rel err "
+                        f"{errs[r][0]:.2e}" for r in routes)
+            + f"; composed events {res[label, routes[0]]['composed_ms']:.4f}"
+            f", plain {res[label, routes[0]]['plain_ms']:.4f}, bound "
+            f"{bnd['bound_ms']:.4f} {bnd['bound_by']}")
+    print("kernels B6: " + "; ".join(lines), flush=True)
+    return dict(
+        deposits_hist=dict(res["batch", "block"],
+                           at_stress_large=res["stress", "large"]),
+        deposits_hist_cluster=res["stress", "cluster"])
+
+
+def kernels_probe(dev, pipe: Pipeline, p, x) -> dict:
+    """The probe's variants at its three shapes, each against its plain
+    version, ``full`` and ``no_merge`` against B2; each variant's device
+    time and its gap to ``full``; ``full`` in turns with ``histogram()``
+    on the same ids, within ``PROBE_TOL``."""
     rng = np.random.default_rng(0)
     b, m, S = 688, 16512, 2560                    # scatter_ablation.py:134-139
     pid = rng.integers(0, S, size=(b, m)).astype(np.int32)
     pid[rng.random((b, m)) < 0.5] = -1
-    probe_cases = [("probe", torch.from_numpy(pid).to(dev),
-                    torch.from_numpy(rng.random((b, m)).astype(
-                        np.float32)).to(dev), S)]
+    cases = [("probe", torch.from_numpy(pid).to(dev),
+              torch.from_numpy(rng.random((b, m)).astype(np.float32)).to(dev),
+              S)]
     n = pipe.n_max
     ik, ck = deposits_ids(frame_signal(x, n, pipe.hop), p.logmap_a,
                           p.logmap_b, p.power_floor, n=n, hop=pipe.hop,
                           sr=float(SR), rows=pipe.rows, reach=pipe.reach)
-    probe_cases.append(("batch ids", ik, ck, (2 * pipe.reach + 1) * pipe.rows))
-    for label, ids, vals, S in probe_cases:
-        variant_ms = {}
+    cases.append(("batch ids", ik, ck, (2 * pipe.reach + 1) * pipe.rows))
+    mi, mv, mcells = multires_batch_ids(dev)
+    cases.append(("multires batch ids", mi.reshape(1, -1),
+                  mv.reshape(1, -1), mcells))
+    shapes, lines = {}, []
+    for label, ids, vals, S in cases:
+        rows, m = ids.shape
+        route = route_of(rows, m, S)
+        variant_dev, worst = {}, 0.0
         for variant in VARIANTS:
+            if variant in ROW_ONLY and route != "row":
+                continue
             got = hist_variant(ids, vals, S, variant)
             want = hist_variant_plain(ids, vals, S, variant)
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
             check(err <= 1e-5 * scale, f"probe {variant} at {label}: "
                   f"{err} vs 1e-5·{scale}")
-            if variant == "full":
+            if variant in ("full", "no_merge"):
                 hb = histogram(ids, vals, S)
                 nz = hb > 0
                 rel = float(((got - hb).abs()[nz] / hb[nz]).max())
                 check(rel <= 1e-5 and bool((got[~nz] == 0).all()),
-                      f"probe full at {label} vs B2: rel {rel}")
-            variant_ms[variant] = cuda_ms(
+                      f"probe {variant} at {label} vs B2: rel {rel}")
+                worst = max(worst, float((got - hb).abs().max()))
+            variant_dev[variant] = device_ms(
                 lambda: hist_variant(ids, vals, S, variant))
-        lines.append(f"probe at {label} ({ids.shape[0]} × {ids.shape[1]} → "
-                     f"{S}): " + ", ".join(f"{v} {t:.4f} ms"
-                                           for v, t in variant_ms.items()))
-        if label == "probe":
-            ok_ids = (ids >= 0) & (ids < S)
-            flat = (torch.where(ok_ids, ids, S).long()
-                    + (torch.arange(ids.shape[0], device=dev)
-                       * (S + 1))[:, None]).reshape(-1)
-            vals0 = torch.where(ok_ids, vals, 0.0).reshape(-1)
-            res["hist_variant"] = dict(
-                at=f"ids ({ids.shape[0]}, {ids.shape[1]}) → {S} bins, half −1",
-                max_abs_err=rel,
-                **times(lambda: hist_variant(ids, vals, S, "full"),
-                        lambda: hist_variant_plain(ids, vals, S, "full"),
-                        lambda: torch.zeros(
-                            ids.shape[0] * (S + 1), device=dev).index_add_(
-                                0, flat, vals0)),
-                variants_ms=variant_ms,
-                **bound(8 * ids.numel() + 4 * ids.shape[0] * S,
-                        float(ok_ids.sum())))
-        else:
-            res["hist_variant"]["variants_ms_batch_ids"] = variant_ms
-    print("kernels B6 and probe: " + "; ".join(lines), flush=True)
+        turns = {}
+        for who in PROBE_TURNS:
+            turns.setdefault(who, []).append(device_ms(
+                (lambda: histogram(ids, vals, S)) if who == "histogram"
+                else (lambda: hist_variant(ids, vals, S, "full")), 50))
+        off = fmean(turns["full"]) / fmean(turns["histogram"]) - 1.0
+        check(abs(off) <= PROBE_TOL, f"probe full at {label} is {off:+.2%} "
+              f"off histogram()'s device time (turns {turns})")
+        ok_ids = (ids >= 0) & (ids < S)
+        shapes[label] = dict(
+            at=f"ids ({rows}, {m}) → {S} bins", hist_route=route,
+            max_abs_err=worst, variants_device_ms=variant_dev,
+            gap_to_full_device_ms={v: variant_dev["full"] - t
+                                   for v, t in variant_dev.items()
+                                   if v != "full"},
+            in_turns_device_ms=turns, full_off_histogram=off,
+            **bound(8 * ids.numel() + 4 * rows * S, float(ok_ids.sum())))
+        lines.append(
+            f"probe at {label} ({rows} × {m} → {S}, route {route}): device "
+            + ", ".join(f"{v} {t:.4f}" for v, t in variant_dev.items())
+            + f" ms; full vs histogram() in turns {turns} ({off:+.2%}); "
+            f"bound {shapes[label]['bound_ms']:.4f} "
+            f"{shapes[label]['bound_by']}")
+    ids, vals, S = cases[0][1:]
+    ok_ids = (ids >= 0) & (ids < S)
+    flat = (torch.where(ok_ids, ids, S).long()
+            + (torch.arange(ids.shape[0], device=dev) * (S + 1))[:, None]
+            ).reshape(-1)
+    vals0 = torch.where(ok_ids, vals, 0.0).reshape(-1)
+    print("kernels probe (B2 with one stage out): " + "; ".join(lines),
+          flush=True)
+    return dict(
+        shapes["probe"],
+        **times(lambda: hist_variant(ids, vals, S, "full"),
+                lambda: hist_variant_plain(ids, vals, S, "full"),
+                lambda: torch.zeros(ids.shape[0] * (S + 1),
+                                    device=dev).index_add_(0, flat, vals0)),
+        shapes=shapes)
+
+
+def kernels_fused(dev, pipe: Pipeline, p) -> dict:
+    """B6 by route, and the probe, on the 16 s signal's frames and ids."""
+    x = torch.from_numpy(signal(SECONDS, seed=1)).to(dev)
+    res = kernels_b6(dev, pipe, p, x)
+    res["hist_variant"] = kernels_probe(dev, pipe, p, x)
     return res
 
 

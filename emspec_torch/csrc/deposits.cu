@@ -1,8 +1,9 @@
 // Kernel B1: fused single-bank enhanced analysis — frames → reassigned
 // deposits (ids, contrib), each frame's spectra held on chip from the read
 // of its samples to the write of its deposits, for N = 512 … 32768
-// (larger frames: deposits_large.cu).  Also kernel B6 at N <= 16384: the
-// same block histograms its deposits instead of writing them.
+// (larger frames: deposits_large.cu).  Also kernel B6 at N <= 32768: the
+// same block, or the same cluster, histograms its deposits instead of
+// writing them.
 //
 // Replaces emspec/dsp/pallas/fft4.py::fft4_deposits (with its
 // _deposits_kernel and _frame_quantized).  Same function, GPU formulation:
@@ -29,11 +30,27 @@
 // the large-frame route; the FFT is kernel B4's (radix_common.cuh).
 //
 // Kernel B6 replaces emspec/dsp/pallas/fft4.py::fft4_hist (_hist_kernel,
-// _tile_hist): B1 and B2 fused.  The block's deposits go by shared-memory
-// atomicAdd into a float32 relative histogram of P·rows cells placed after
-// the spectra (ids below min_id, the streaming mask, and outside the
-// histogram are dropped), and the row is written once: the deposits never
-// reach device memory.
+// _tile_hist): B1 and B2 fused.  The deposits go into a float32 relative
+// histogram of P·rows cells in shared memory, placed after the spectra
+// (ids below min_id, the streaming mask, and outside the histogram are
+// dropped), and each output cell is stored once: the deposits never
+// reach device memory, and no output is zeroed.  They add through B2's
+// warp_add (histogram_common.cuh), merging every warp step as B2's global
+// route does: the relative histogram of real audio is hot (a steady tone
+// keeps δ at 0, the log raster folds tens of high bins into each of its
+// top rows), and a shared float atomicAdd is a compare-and-swap loop whose
+// lanes on one cell retry in turn.  B2's row route merges only hot steps
+// because four blocks an SM hide those retries; B6 runs one block (or one
+// rank) of 16 warps an SM, its spectra filling shared memory, and there
+// B2's hot-step test measured slower than merging every step.
+//   * block route (N <= 16384): the histogram after the block's two tiles;
+//   * cluster route (N = 32768, num_bins <= kClusterHistCells = 6,912):
+//     each rank of B1's cluster adds its bins' deposits into a histogram
+//     of its own after its staged columns; a third cluster sync, then rank
+//     0 stores cells [0, S/2) and rank 1 cells [S/2, S), each its own
+//     cell plus the other rank's, read through distributed shared memory;
+//     a fourth sync keeps both histograms alive until both are read.
+//   Larger N or more cells: deposits_large.cu's three launches.
 //
 // Design.  With m = n1·n2 (n1, n2 = emspec_torch/dsp/fourstep.py
 // _FACTORS[m]), a signal's z lies in a shared tile of n1 rows padded to
@@ -70,7 +87,9 @@
 // 8·(N/2 + 1) out, far below what the card takes; the pace is set on chip
 // by the FFT's shared-memory passes, the epilogue's arithmetic and, at
 // 32768, the copy between the ranks — one or two blocks an SM, whose
-// phases run one after another.
+// phases run one after another.  B6 writes 4·P·rows bytes a frame instead
+// of the deposits' 8·(N/2 + 1), and adds the shared atomics and the warp
+// merge of its histogram to the epilogue.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, never --use_fast_math (log2f and the division must
@@ -82,6 +101,7 @@
 #include <cstdint>
 
 #include "deposits_common.cuh"
+#include "histogram_common.cuh"
 #include "radix_common.cuh"
 
 namespace {
@@ -100,6 +120,8 @@ constexpr int kCopyBatch = 4;              // remote reads in flight a thread
 constexpr int kMaxSmem = 232448;           // a block's most on the H100
 constexpr int kClusterSmem =               // table, tile, staged columns
     (int)sizeof(float2) * (kTable + 128 * (128 + 1) + 128 * kStageStride);
+constexpr int kClusterHistCells =          // B6's histogram beside them
+    (kMaxSmem - kClusterSmem) / (int)sizeof(float);
 
 // Everything a launch reads and writes; the frame f of the batch starts at
 // x + (f div frames_per_lead)·lead_stride + (f mod frames_per_lead)·frame_stride.
@@ -237,7 +259,10 @@ __device__ __forceinline__ void tile_fft(float2* tiles, const float2* w,
 
 // Bins k0 <= k < k1 of frame f (inside the launch's window [k_lo, k_hi))
 // from the packed raw spectrum Zx and the packed t·h spectrum Zy: B1
-// writes ids and contrib at column k − k_lo, B6 adds into `hist`.
+// writes ids and contrib at column k − k_lo, B6 adds into `hist` through
+// warp_add, which all 32 lanes call: a lane without a bin of its own
+// (lanes 0 and 31, k >= k1) or whose deposit does not land offers the
+// dropped key ~lane.
 // A warp takes 30 consecutive bins at a time: lane l unpacks X at
 // k = base − 1 + l and Y at k (each clamped to what the bins need: X on
 // k0 − 1 … k1, Y on k0 … k1 − 1, within 0…m) and lanes 1…30 take
@@ -272,7 +297,8 @@ __device__ __forceinline__ void deposits_of(const Spectrum& Zx,
     for (int j = 0; j < kBatch; ++j) {
       const int k = b0 + j * stride + lane;
       const float2 xm = shfl(X[j], 1, true), xp = shfl(X[j], 1, false);
-      if (lane == 0 || lane == 31 || k >= k1) continue;
+      const bool own = lane != 0 && lane != 31 && k < k1;
+      if (!kHist && !own) continue;
       const float2 Am1 = k == 0 ? make_float2(xp.x, -xp.y) : xm;
       const float2 Ap1 = k == m ? make_float2(xm.x, -xm.y) : xp;
       int id;
@@ -280,8 +306,9 @@ __device__ __forceinline__ void deposits_of(const Spectrum& Zx,
       const float band = a.band == nullptr ? 1.0f : __ldg(a.band + k - a.k_lo);
       emspec::deposit_at(k, X[j], Am1, Ap1, Y[j], band, c, &id, &contrib);
       if (kHist) {
-        if (emspec::lands(id, a.min_id, a.num_bins))
-          atomicAdd(&hist[id], contrib);
+        const bool ok = own && emspec::lands(id, a.min_id, a.num_bins);
+        emspec::hist::warp_add<false, unsigned>(
+            hist, ok ? (unsigned)id : ~(unsigned)lane, ok, contrib);
       } else {
         a.ids[out0 + k] = id;
         a.out[out0 + k] = contrib;
@@ -353,6 +380,9 @@ __device__ __forceinline__ void copy_columns(float2* stage,
 // memory, the cluster syncs once more (after which neither tile is read
 // remotely), and the epilogue reads only local shared memory.  A bin
 // window cuts each rank's ranges (the staged columns cover them still).
+// B6 (kHist): each rank's deposits go into its own histogram, then each
+// rank stores half of the frame's cells, the two histograms summed.
+template <bool kHist>
 __global__ void __launch_bounds__((1 << kClusterLog2M) / kClusterP, 1)
     cluster_kernel(const Args a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -362,10 +392,14 @@ __global__ void __launch_bounds__((1 << kClusterLog2M) / kClusterP, 1)
   float2* tile = sm + kTable;
   const int n2 = 1 << a.log2n2, q = n2 >> 2;
   float2* stage = tile + (n2 + 1) * (1 << a.log2n1);
+  float* hist =                              // B6 only
+      reinterpret_cast<float*>(stage + kStageStride * (1 << a.log2n1));
   const int m = 1 << (a.log2n1 + a.log2n2);
   const long long f = blockIdx.x >> 1;
   load_table(w, a.w512);
   load_frame(rank == 0 ? tile : nullptr, rank == 0 ? nullptr : tile, a, f);
+  if (kHist)
+    for (int i = threadIdx.x; i < a.num_bins; i += blockDim.x) hist[i] = 0.0f;
   __syncthreads();
   tile_fft<kClusterP>(tile, w, a, 0);
   const int c0 = rank == 0 ? 3 * q : q - 1;
@@ -376,12 +410,21 @@ __global__ void __launch_bounds__((1 << kClusterLog2M) / kClusterP, 1)
   const Spectrum own{tile, n2 + 1, 0}, staged{stage, kStageStride, c0};
   const int lo = a.k_lo, hi = a.k_hi;
   if (rank == 0) {
-    deposits_of<false>(own, staged, lo, min(hi, m / 4), a, f, nullptr);
-    deposits_of<false>(own, staged, max(lo, 3 * m / 4 + 1), hi, a, f,
-                       nullptr);
+    deposits_of<kHist>(own, staged, lo, min(hi, m / 4), a, f, hist);
+    deposits_of<kHist>(own, staged, max(lo, 3 * m / 4 + 1), hi, a, f, hist);
   } else {
-    deposits_of<false>(staged, own, max(lo, m / 4), min(hi, 3 * m / 4 + 1),
-                       a, f, nullptr);
+    deposits_of<kHist>(staged, own, max(lo, m / 4), min(hi, 3 * m / 4 + 1),
+                       a, f, hist);
+  }
+  if (kHist) {
+    cluster.sync();                          // both histograms complete
+    const float* other = cluster.map_shared_rank(hist, rank ^ 1);
+    const int half = a.num_bins >> 1;
+    const int c1 = rank == 0 ? half : a.num_bins;
+    float* row = a.out + f * (long long)a.num_bins;
+    for (int i = (rank == 0 ? 0 : half) + threadIdx.x; i < c1; i += blockDim.x)
+      row[i] = hist[i] + other[i];
+    cluster.sync();                          // neither is read any more
   }
 }
 
@@ -443,12 +486,12 @@ int launch_block(const Args& a, long long frames, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-cudaLaunchConfig_t cluster_config(long long frames, cudaStream_t st,
+cudaLaunchConfig_t cluster_config(long long frames, int smem, cudaStream_t st,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(2 * frames));
   cfg.blockDim = dim3((1 << kClusterLog2M) / kClusterP);
-  cfg.dynamicSmemBytes = kClusterSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 2;
@@ -499,25 +542,28 @@ extern "C" int emspec_deposits_cluster(
                  reach, 0, 0, k_lo, k_hi, band)
       || a.log2n1 + a.log2n2 != kClusterLog2M)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = allow_smem(cluster_kernel, kClusterSmem);
+  static const cudaError_t attr =
+      allow_smem(cluster_kernel<false>, kClusterSmem);
   if (attr != cudaSuccess) return (int)attr;
   const long long frames = num_lead * frames_per_lead;
   if (frames == 0) return 0;
   cudaLaunchAttribute cluster;
   const cudaLaunchConfig_t cfg =
-      cluster_config(frames, (cudaStream_t)stream, &cluster);
-  return (int)cudaLaunchKernelEx(&cfg, cluster_kernel, a);
+      cluster_config(frames, kClusterSmem, (cudaStream_t)stream, &cluster);
+  return (int)cudaLaunchKernelEx(&cfg, cluster_kernel<false>, a);
 }
 
 // How many two-CTA clusters of the cluster route the card holds at once
 // (cudaOccupancyMaxActiveClusters) → *clusters.
 extern "C" int emspec_deposits_cluster_occupancy(int* clusters) {
-  static const cudaError_t attr = allow_smem(cluster_kernel, kClusterSmem);
+  static const cudaError_t attr =
+      allow_smem(cluster_kernel<false>, kClusterSmem);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = cluster_config(1024, nullptr, &cluster);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1024, kClusterSmem, nullptr, &cluster);
   return (int)cudaOccupancyMaxActiveClusters(clusters,
-                                              cluster_kernel, &cfg);
+                                              cluster_kernel<false>, &cfg);
 }
 
 // B6, block route (N <= 16384): hist (frames, num_bins) float32, every
@@ -538,4 +584,34 @@ extern "C" int emspec_deposits_hist(
     return (int)cudaErrorInvalidValue;
   return launch_block<true>(a, num_lead * frames_per_lead,
                             (cudaStream_t)stream);
+}
+
+// B6, cluster route (N = 32768, num_bins <= kClusterHistCells): the
+// arguments of emspec_deposits_hist; hist (frames, num_bins) float32,
+// every cell stored once.
+extern "C" int emspec_deposits_hist_cluster(
+    const float* x, long long num_lead, long long frames_per_lead,
+    long long lead_stride, long long frame_stride, const float* th,
+    const void* w512, const void* tw4, const void* tw,
+    const float* logmap_a, const float* logmap_b, const float* power_floor,
+    float* hist, int n, int n1, int n2, int hop, float c_dh, float bin_scale,
+    float hz_per_bin, float inv_n2, int rows, int reach, int min_id,
+    int num_bins, void* stream) {
+  Args a;
+  if (!make_args(&a, x, frames_per_lead, lead_stride, frame_stride, th, w512,
+                 tw4, tw, logmap_a, logmap_b, power_floor, nullptr, hist, n,
+                 n1, n2, hop, c_dh, bin_scale, hz_per_bin, inv_n2, rows,
+                 reach, min_id, num_bins, 0, n / 2 + 1, nullptr)
+      || a.log2n1 + a.log2n2 != kClusterLog2M || num_bins <= 0
+      || num_bins > kClusterHistCells)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = allow_smem(cluster_kernel<true>, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long frames = num_lead * frames_per_lead;
+  if (frames == 0) return 0;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      frames, kClusterSmem + (int)sizeof(float) * num_bins,
+      (cudaStream_t)stream, &cluster);
+  return (int)cudaLaunchKernelEx(&cfg, cluster_kernel<true>, a);
 }

@@ -1,7 +1,7 @@
 // Device code shared by every route of kernel B1 (deposits.cu, one block
 // a frame for N <= 16384 and a two-CTA cluster a frame at 32768;
 // deposits_large.cu above) and by kernel B6 (the fused histogram, built on
-// the block and the large route): the real-input unpack of
+// the block, the cluster and the large route): the real-input unpack of
 // an even/odd-packed half-size spectrum and the per-bin epilogue
 // (stencils, Auger–Flandrin corrections, quantization, id packing).  One
 // definition, so the routes cannot drift apart.

@@ -28,6 +28,16 @@ of ``emspec/pipeline.py:420``; the edge bins read their true neighbours
 k_lo − 1 and k_hi.  Without them the output is the whole spectrum, bit
 for bit as before the window existed.
 
+B6 (``deposits_hist``) has three routes too, chosen by ``(n, num_bins)``
+alone (``hist_route_of``), each counted in ``deposits_hist.route_launches``:
+"block" (N ≤ 16384, B1's block with the histogram after its tiles),
+"cluster" (N = 32768 and at most ``CLUSTER_HIST_CELLS`` cells: B1's
+cluster, a histogram in each rank's shared memory, each rank storing
+half of the cells) and "large" (the three launches of
+``deposits_large.cu``, their finish blocks adding into a zeroed output).
+Both on-chip routes add through B2's warp merge
+(``csrc/histogram_common.cuh``).
+
 ``quantize_deposits`` is the single definition of the quantization
 contract (``emspec.pipeline.Pipeline._deposits_banked``,
 ``pipeline.py:409-423``): the pipeline's unfused paths and the kernels'
@@ -48,7 +58,7 @@ from emspec_torch.dsp.kernels import (
     counted, launch_stream, require, require_cuda)
 from emspec_torch.dsp.kernels.fourstep import (
     device_radix_tables, fft4_steps123)
-from emspec_torch.dsp.kernels.scatter import SMEM_BINS, histogram_plain
+from emspec_torch.dsp.kernels.scatter import histogram_plain
 from emspec_torch.dsp.reassign import reassignment_corrections
 from emspec_torch.dsp.stft import stft_triple_stencil, th_window
 
@@ -57,6 +67,9 @@ SMALL_MAX_N = 16384    # block route: two (n1, n2 + 1) tiles in one block
 CLUSTER_N = 32768      # cluster route: one 132 KB tile in each of two CTAs
 MAX_N = 262144         # the large route: N/2 must have a B4 factorization
 ROUTES = ("block", "cluster", "large")
+SMEM_BYTES = 232448    # a block's shared memory on the H100 (deposits.cu kMaxSmem)
+CLUSTER_SMEM = 8 * (512 + 128 * 129 + 128 * 67)    # deposits.cu kClusterSmem
+CLUSTER_HIST_CELLS = (SMEM_BYTES - CLUSTER_SMEM) // 4   # kClusterHistCells
 
 
 def supported(n: int) -> bool:
@@ -68,6 +81,16 @@ def route_of(n: int) -> str:
     """B1's route for frames of n points: by size only, never by batch."""
     return ("block" if n <= SMALL_MAX_N else "cluster" if n == CLUSTER_N
             else "large")
+
+
+def hist_route_of(n: int, num_bins: int) -> str:
+    """B6's route for frames of n points into ``num_bins`` cells: by shape
+    only, never by batch."""
+    if n <= SMALL_MAX_N:
+        return "block"
+    if n == CLUSTER_N and num_bins <= CLUSTER_HIST_CELLS:
+        return "cluster"
+    return "large"
 
 
 def block_smem(n: int, num_bins: int = 0) -> int:
@@ -352,45 +375,60 @@ def deposits_ids_large(frames: torch.Tensor, logmap_a, logmap_b,
 @counted
 def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
                   min_id: int, *, n: int, hop: int, sr: float, rows: int,
-                  reach: int) -> torch.Tensor:
+                  reach: int, route: str | None = None) -> torch.Tensor:
     """Kernel B6: frames (..., n) → per-frame relative histograms
     (..., (2·reach+1)·rows) float32, bin (δ + reach)·rows + row — B1 and
     B2 fused, the deposits never in device memory.  Deposits whose id is
     below ``min_id`` (a host int: the streaming mask (R − t)·rows; batch
     callers pass −2³⁰) are dropped, and ids outside the histogram add
-    nothing.  N ≤ 16384: B1's block route with the histogram in shared
-    memory after the tiles; larger N: the large route, whose finish
-    blocks add their histograms atomically into the zeroed output."""
+    nothing.  The route is ``hist_route_of(n, num_bins)`` (module
+    docstring); ``route`` forces one, for timing the routes against each
+    other, and is refused where its shared memory or frame size does not
+    take the shape."""
+    num_bins = (2 * reach + 1) * rows
+    what = "deposits_hist"
+    require(supported(n), what, f"n={n} outside the kernel's power-of-two "
+            f"range [{MIN_N}, {MAX_N}]")
+    route = route or hist_route_of(n, num_bins)
+    require(route in ROUTES, what, f"route {route!r} not in {ROUTES}")
+    require((route == "block") == (n <= SMALL_MAX_N)
+            and (route != "cluster" or n == CLUSTER_N), what,
+            f"route {route!r} does not take n={n}")
+    limit = ((SMEM_BYTES - block_smem(n)) // 4 if route == "block"
+             else CLUSTER_HIST_CELLS if route == "cluster"
+             else SMEM_BYTES // 4)
+    require(num_bins <= limit, what,
+            f"{num_bins} histogram cells at n={n}: the {route} route holds "
+            f"at most {limit} in shared memory")
     if frames.device.type == "cpu":
         return deposits_hist_plain(frames, logmap_a, logmap_b, power_floor,
                                    min_id, n=n, hop=hop, sr=sr, rows=rows,
                                    reach=reach)
-    what = "deposits_hist"
     f3, th, tw, scal, consts = _launch_args(
         frames, (logmap_a, logmap_b, power_floor), what, n=n, sr=sr)
-    num_bins = (2 * reach + 1) * rows
-    small = n <= SMALL_MAX_N
-    smem = block_smem(n, num_bins) if small else 4 * num_bins
-    require(num_bins <= SMEM_BINS and smem <= 4 * SMEM_BINS, what,
-            f"{num_bins} histogram cells at n={n} need {smem} B of shared "
-            f"memory, over {4 * SMEM_BINS}")
-    frames_n = f3.shape[0] * f3.shape[1]
     lead = frames.shape[:-1]
     with torch.cuda.device(frames.device):
-        if small:
+        if route == "large":
+            out = torch.zeros(lead + (num_bins,), dtype=torch.float32,
+                              device=frames.device)
+            xr, xi = _packed_spectra(f3, th, n, what)
+            _finish(xr, xi, tw, scal, consts, None, out,
+                    frames=f3.shape[0] * f3.shape[1], n=n, hop=hop,
+                    rows=rows, reach=reach, min_id=min_id,
+                    num_bins=num_bins, win=(0, n // 2 + 1, 0), what=what)
+        else:
             out = torch.empty(lead + (num_bins,), dtype=torch.float32,
                               device=frames.device)
-            rc = kernels_build.library().emspec_deposits_hist(
+            entry = ("emspec_deposits_hist" if route == "block"
+                     else "emspec_deposits_hist_cluster")
+            rc = getattr(kernels_build.library(), entry)(
                 *_frame_args(f3, th, tw, n), *scal, out.data_ptr(), n,
                 *_FACTORS[n // 2], hop, *consts, rows, reach, min_id,
                 num_bins, launch_stream(frames))
             kernels_build.check(rc, what)
-        else:
-            out = torch.zeros(lead + (num_bins,), dtype=torch.float32,
-                              device=frames.device)
-            xr, xi = _packed_spectra(f3, th, n, what)
-            _finish(xr, xi, tw, scal, consts, None, out, frames=frames_n,
-                    n=n, hop=hop, rows=rows, reach=reach, min_id=min_id,
-                    num_bins=num_bins, win=(0, n // 2 + 1, 0), what=what)
     deposits_hist.launches += 1
+    deposits_hist.route_launches[route] += 1
     return out
+
+
+deposits_hist.route_launches = dict.fromkeys(ROUTES, 0)

@@ -41,7 +41,7 @@ from emspec_torch.dsp.kernels import (
     counted, launch_stream, require, require_cuda)
 
 # float32 cells one block's shared memory holds (227 KB on the H100):
-# the bound of B2's row route, and of B6's and the probe's histogram
+# the bound of B2's row route and of B6's large route
 SMEM_BINS = 232448 // 4
 ROUTES = ("row", "global")    # the atomic routes, chosen by route_of
 SORTED = "sorted"             # the deterministic route, on request

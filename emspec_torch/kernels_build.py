@@ -44,13 +44,17 @@ _SIGNATURES = {
     "emspec_deposits_hist": [_P, _LL, _LL, _LL, _LL] + [_P] * 8
                             + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I,
                                _I, _P],
+    "emspec_deposits_hist_cluster": [_P, _LL, _LL, _LL, _LL] + [_P] * 8
+                                    + [_I, _I, _I, _I, _F, _F, _F, _F, _I,
+                                       _I, _I, _I, _P],
     "emspec_deposits_pack": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P],
     "emspec_deposits_finish": [_P] * 8 + [_LL, _I, _I, _I, _I, _F, _F, _F,
                                           _F, _I, _I, _I, _I, _I, _I, _I,
                                           _P, _P],
     "emspec_ema_scan": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _LL, _LL, _LL,
                         _P],
-    "emspec_hist_variant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "emspec_hist_variant": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                            _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P],
     "emspec_histogram_sorted": [_P, _I, _P, _P, _LL, _I, _P],
     "emspec_post_head": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],

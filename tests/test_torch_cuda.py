@@ -50,6 +50,7 @@ from emspec_torch.dsp.kernels.post import post_head, post_tail, post_tail_plain
 from emspec_torch.dsp.kernels.deposits import (
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
+from emspec_torch.dsp.kernels.deposits import hist_route_of as hist_route_of_b6
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import (
@@ -312,25 +313,52 @@ def test_cuda_deposits_cluster_matches_large_route(cuda, b):
     assert cluster_occupancy(cuda) >= 1
 
 
+def _b6_case(cuda, n, b, signal):
+    """B1's case, or a steady 1 kHz tone in 1e-4 noise (hot cells: its
+    bins near the tone all land on one cell of the relative histogram)."""
+    fr, sc, kw = _b1_case(cuda, n, b)
+    if signal == "tone":
+        rng = np.random.default_rng(n % 89)
+        samples = (b - 1) * kw["hop"] + n
+        x = (np.sin(2 * np.pi * 1000.0 * np.arange(samples) / kw["sr"])
+             + 1e-4 * rng.standard_normal(samples)).astype(np.float32)
+        fr = frame_signal(torch.from_numpy(x).to(cuda), n, kw["hop"])
+    return fr, sc, kw
+
+
+def _b6_counts():
+    return (deposits_hist.launches, dict(deposits_hist.route_launches),
+            fft4_steps123.launches)
+
+
+def _assert_b6_composed(got, fr, sc, kw, min_id):
+    """B6 against B1 → B2 on the same frames: 1e-5 relative per nonzero
+    bin, exact zeros (below min_id too)."""
+    S = 5 * kw["rows"]
+    ids, contrib = deposits_ids(fr, *sc, **kw)
+    want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
+    _assert_hist_close(got, want)
+    if min_id > 0:
+        assert float(got[..., :min_id].abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [8192, 16384, 32768, 262144])
 @pytest.mark.parametrize("masked", [False, True])
-def test_cuda_deposits_hist_matches_composed(cuda, n, masked):
-    """B6 against B1 → B2 on the same frames: 1e-5 relative per nonzero
-    bin, exact zeros below min_id."""
-    fr, sc, kw = _b1_case(cuda, n, 3)
+@pytest.mark.parametrize("signal", ["chirp", "tone"])
+def test_cuda_deposits_hist_matches_composed(cuda, n, masked, signal):
+    """B6 on its route against B1 → B2 on the same frames: 1e-5 relative
+    per nonzero bin, exact zeros below min_id; one launch of its route."""
+    fr, sc, kw = _b6_case(cuda, n, 3, signal)
     S = 5 * kw["rows"]
     min_id = 2 * kw["rows"] if masked else -2**30
-    before = deposits_hist.launches
+    route = hist_route_of_b6(n, S)
+    before = _b6_counts()
     got = deposits_hist(fr, *sc, min_id, **kw)
-    assert deposits_hist.launches == before + 1 and got.shape == (3, S)
-    ids, contrib = deposits_ids(fr, *sc, **kw)
-    want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
-    nz = want > 0
-    assert float(((got - want).abs()[nz] / want[nz]).max()) <= 1e-5
-    assert bool((got[~nz] == 0).all())
-    if masked:
-        assert float(got[:, :min_id].abs().max()) == 0.0
+    after = _b6_counts()
+    assert after[0] == before[0] + 1 and got.shape == (3, S)
+    assert after[1][route] == before[1][route] + 1
+    _assert_b6_composed(got, fr, sc, kw, min_id)
     plain = deposits_hist_plain(fr, *sc, min_id, **kw)
     cmp = compare_grids(plain.reshape(3, 5, -1).cpu(),
                         got.reshape(3, 5, -1).cpu())
@@ -338,20 +366,77 @@ def test_cuda_deposits_hist_matches_composed(cuda, n, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("signal", ["chirp", "tone"])
+def test_cuda_deposits_hist_cluster_route(cuda, b, masked, signal):
+    """At 32768 the cluster route is one launch (no pack, B4 or finish),
+    held to the three-launch large route and to B1 → B2 composed."""
+    fr, sc, kw = _b6_case(cuda, 32768, b, signal)
+    S = 5 * kw["rows"]
+    min_id = 2 * kw["rows"] if masked else -2**30
+    assert hist_route_of_b6(32768, S) == "cluster"
+    before = _b6_counts()
+    got = deposits_hist(fr, *sc, min_id, **kw)
+    after = _b6_counts()
+    assert after[0] == before[0] + 1 and after[2] == before[2]
+    assert after[1]["cluster"] == before[1]["cluster"] + 1
+    assert after[1]["large"] == before[1]["large"]
+    assert got.shape == (b, S)
+    _assert_hist_close(got, deposits_hist(fr, *sc, min_id, **kw,
+                                          route="large"))
+    _assert_b6_composed(got, fr, sc, kw, min_id)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_cuda_deposits_hist_single_frame_is_frame_zero(cuda, n):
+    """Routes by shape only: b = 1 takes the batch's route and gives
+    frame 0 of a batch of 5, within 1e-5 relative per nonzero cell with
+    the same zero cells.  Not bit for bit: the shared float atomics add a
+    cell's deposits in the order the warps reach them, which changes from
+    run to run (two runs of one batch differ in the last bit as well)."""
+    fr, sc, kw = _b6_case(cuda, n, 5, "tone")
+    route = hist_route_of_b6(n, 5 * kw["rows"])
+    batch = deposits_hist(fr, *sc, -2**30, **kw)
+    for one in (fr[:1], fr[0]):
+        before = deposits_hist.route_launches[route]
+        got = deposits_hist(one, *sc, -2**30, **kw)
+        assert deposits_hist.route_launches[route] == before + 1
+        _assert_hist_close(got.reshape(1, -1), batch[:1])
+
+
+# (rows, m, cells) of the probe on each of B2's routes: the probe's
+# stress shape (row) and a few rows of it (global)
+PROBE_SHAPES = {"row": (688, 16512, 2560), "global": (37, 16512, 2560)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(PROBE_SHAPES))
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_cuda_probe_variants(cuda, variant):
-    """Each variant against its own plain version; ``full`` against B2."""
+def test_cuda_probe_variants(cuda, variant, route):
+    """Each variant on B2's route for the shape against its own plain
+    version; ``full`` and ``no_merge`` against B2; no_zero only where
+    the route is the row route."""
+    rows, m, cells = PROBE_SHAPES[route]
+    assert hist_route_of(rows, m, cells) == route
     rng = np.random.default_rng(6)
-    ids = rng.integers(0, 2560, (37, 16512)).astype(np.int32)
+    ids = rng.integers(0, cells, (rows, m)).astype(np.int32)
     ids[rng.random(ids.shape) < 0.5] = -1
     ids = torch.from_numpy(ids).to(cuda)
-    vals = torch.from_numpy(rng.random((37, 16512)).astype(np.float32)).to(cuda)
-    got = hist_variant(ids, vals, 2560, variant)
-    want = hist_variant_plain(ids, vals, 2560, variant)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    if variant == "full":
-        torch.testing.assert_close(got, histogram(ids, vals, 2560),
-                                   rtol=1e-5, atol=1e-5)
+    vals = torch.from_numpy(rng.random((rows, m)).astype(np.float32)).to(cuda)
+    if variant == "no_zero" and route == "global":
+        with pytest.raises(ValueError, match="row-route"):
+            hist_variant(ids, vals, cells, variant)
+        return
+    before = hist_variant.launches
+    got = hist_variant(ids, vals, cells, variant)
+    assert hist_variant.launches == before + 1
+    want = hist_variant_plain(ids, vals, cells, variant)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    if variant in ("full", "no_merge"):
+        _assert_hist_close(got, histogram(ids, vals, cells))
 
 
 def _hist_case(dev, kind, rows, m, cells, seed):

@@ -295,6 +295,15 @@ def _epilogue(Zx, Zy, k0, k1, warps, scal, *, n, l1, l2, **kw):
     bin clamped to k0 − 1 … k1 and Y clamped to k0 … k1 − 1, X[k ∓ 1]
     come from lanes l ∓ 1 (``shfl``), the Hermitian conjugates at k = 0
     and m → (bins, ids, contrib)."""
+    K, own, ids, contrib = _epilogue_lanes(Zx, Zy, k0, k1, warps, scal, n=n,
+                                           l1=l1, l2=l2, **kw)
+    return K[own], ids[:, own], contrib[:, own]
+
+
+def _epilogue_lanes(Zx, Zy, k0, k1, warps, scal, *, n, l1, l2, **kw):
+    """``_epilogue`` on every lane of every warp step: (K, own, ids,
+    contrib), the last two (frames, rounds, 32), lanes without a bin of
+    their own included (B6's warp_add takes all 32)."""
     m = n // 2
     K, own = _warp_map(k0, k1, warps)
     X = _spectrum_at(Zx, K.clamp(max(k0 - 1, 0), min(k1, m)), n, l1, l2)
@@ -304,11 +313,12 @@ def _epilogue(Zx, Zy, k0, k1, warps, scal, *, n, l1, l2, **kw):
     Am1 = torch.where(K == 0, torch.conj(xp), xm)
     Ap1 = torch.where(K == m, torch.conj(xm), xp)
     ids, contrib = _deposit_at(K, X, Am1, Ap1, Y, scal, n=n, **kw)
-    return K[own], ids[:, own], contrib[:, own]
+    return K, own, ids, contrib
 
 
-def _mirror(frames, scal, *, n, vec=True, **kw):
-    """B1 on its route at n (block or cluster), in plain PyTorch."""
+def _route_parts(frames, *, n, vec=True):
+    """The epilogue calls of B1's route at n (block or cluster) on the
+    transformed tiles: [(rank, Zx, Zy, k0, k1, warps)], and (l1, l2)."""
     m = n // 2
     n1, n2 = _FACTORS[m]
     l1, l2 = _log2(n1), _log2(n2)
@@ -322,16 +332,24 @@ def _mirror(frames, scal, *, n, vec=True, **kw):
             staged = (_copy_columns(tiles[:, 1 - rank], c0, width, l1, l2),
                       STAGE_STRIDE, c0)
             zx, zy = (own, staged) if rank == 0 else (staged, own)
-            parts += [(zx, zy, k0, k1, THREADS // 32) for k0, k1 in ranges]
+            parts += [(rank, zx, zy, k0, k1, THREADS // 32)
+                      for k0, k1 in ranges]
     else:                               # both tiles in one block
         tiles = _fft(tiles, n1, n2, count=2)
         P = 16 if _log2(m) < BLOCK_MAX_LOG2M else 32
-        parts = [((tiles[:, 0], whole, 0), (tiles[:, 1], whole, 0), 0, m + 1,
-                  2 * m // P // 32)]
+        parts = [(0, (tiles[:, 0], whole, 0), (tiles[:, 1], whole, 0), 0,
+                  m + 1, 2 * m // P // 32)]
+    return parts, (l1, l2)
+
+
+def _mirror(frames, scal, *, n, vec=True, **kw):
+    """B1 on its route at n (block or cluster), in plain PyTorch."""
+    m = n // 2
+    parts, (l1, l2) = _route_parts(frames, n=n, vec=vec)
     ids = torch.full((frames.shape[0], m + 1), -2, dtype=torch.int32)
     contrib = torch.full((frames.shape[0], m + 1), float("nan"))
     written = []
-    for zx, zy, k0, k1, warps in parts:
+    for _, zx, zy, k0, k1, warps in parts:
         ks, i, c = _epilogue(zx, zy, k0, k1, warps, scal, n=n, l1=l1, l2=l2,
                              **kw)
         ids[:, ks], contrib[:, ks] = i, c

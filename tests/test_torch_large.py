@@ -16,6 +16,9 @@ scatter-ablation probe: the port against the JAX package on the CPU.
 * Each probe variant's plain version against a direct numpy count.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,12 +39,13 @@ from emspec_torch.dsp.kernels.deposits import (
     _twiddles, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_large, deposits_ids_plain, quantize_deposits)
 from emspec_torch.dsp.kernels.fourstep import fft4_steps123_plain
-from emspec_torch.dsp.kernels.scatter import histogram_plain
+from emspec_torch.dsp.kernels.scatter import (
+    GLOBAL_THREADS, ROW_THREADS, global_blocks, histogram_plain, route_of)
 from emspec_torch.dsp.reassign import reassignment_corrections
 from emspec_torch.dsp.stft import stencil_from_raw, th_window
 from emspec_torch.pipeline import Pipeline
 from emspec_torch.probes.scatter_ablation import (
-    NO_ZERO_ROWS, THREADS, VARIANTS, hist_variant, hist_variant_plain)
+    NO_ZERO_ROWS, VARIANTS, alignment, hist_variant, hist_variant_plain)
 from emspec_torch.stream import Stream, stream_signal
 from emspec_torch.validate import compare_grids, compare_vis
 
@@ -295,6 +299,10 @@ def test_new_wrappers_raise_on_other_devices():
 
 
 # ----------------------------------------------------------------- the probe
+# (b, m, S) that B2's route_of sends to each route
+PROBE_SHAPES = {"row": (264, 37, 50), "global": (9, 1300, 700)}
+
+
 def _probe_case(b=9, m=1300, S=700, seed=0):
     rng = np.random.default_rng(seed)
     ids = rng.integers(-5, S + 5, (b, m)).astype(np.int32)
@@ -304,7 +312,21 @@ def _probe_case(b=9, m=1300, S=700, seed=0):
     return ids, vals, S
 
 
-def _probe_numpy(ids, vals, S, variant):
+def _consume_threads(n, head, vec, threads):
+    """``consume``'s thread for each element of a range of n: 16-byte
+    path — the head (up to the 16-byte boundary) to lanes 0–2, vector j
+    to thread j mod T, the tail to lanes 4–6; 4-byte path — element j to
+    thread j mod T."""
+    j = np.arange(n)
+    if not vec:
+        return j % threads
+    head = min(n, head)
+    t0 = head + 4 * ((n - head) // 4)
+    return np.where(j < head, j, np.where(j < t0, (j - head) // 4 % threads,
+                                          4 + j - t0))
+
+
+def _probe_numpy(ids, vals, S, variant, a0=0, vec=True):
     b, m = ids.shape
     ok = (ids >= 0) & (ids < S)
     h = np.zeros((b, S), np.float64)
@@ -312,25 +334,92 @@ def _probe_numpy(ids, vals, S, variant):
     for r in range(b):
         np.add.at(h[r], ids[r][ok[r]], vals[r][ok[r]])
         hit[r, ids[r][ok[r] & (vals[r] >= 0)]] = True
-    if variant == "full":
+    if variant in ("full", "no_merge"):
         return h
     if variant == "no_atomic":
         return hit.astype(np.float64)
     if variant == "no_zero":
         return np.concatenate([np.cumsum(h[g:g + NO_ZERO_ROWS], 0)
                                for g in range(0, b, NO_ZERO_ROWS)])
-    lane = np.arange(m) % THREADS
-    s = np.zeros((b, THREADS))
-    for r in range(b):
-        np.add.at(s[r], lane[ok[r]], vals[r][ok[r]])
-    return s[:, np.arange(S) % THREADS]
+    v = np.where(ok, vals, 0.0)
+    if route_of(b, m, S) == "global":       # one range: the flat stream
+        threads = global_blocks(b, m) * GLOBAL_THREADS
+        s = np.zeros(threads)
+        np.add.at(s, _consume_threads(b * m, (4 - a0) & 3, vec, threads),
+                  v.reshape(-1))
+        return s[np.arange(b * S) % threads].reshape(b, S)
+    out = np.zeros((b, S))
+    for r in range(b):                      # a block a row
+        s = np.zeros(ROW_THREADS)
+        np.add.at(s, _consume_threads(m, (4 - (a0 + r * m)) & 3, vec,
+                                      ROW_THREADS), v[r])
+        out[r] = s[np.arange(S) % ROW_THREADS]
+    return out
 
 
+@pytest.mark.parametrize("route", sorted(PROBE_SHAPES))
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_probe_variant_plain_matches_numpy(variant):
-    ids, vals, S = _probe_case()
+def test_probe_variant_plain_matches_numpy(variant, route):
+    ids, vals, S = _probe_case(*PROBE_SHAPES[route])
+    assert route_of(*ids.shape, S) == route
+    a0, vec = alignment(*map(torch.from_numpy, (ids, vals)))
     got = hist_variant_plain(torch.from_numpy(ids), torch.from_numpy(vals), S,
-                             variant).numpy()
-    want = _probe_numpy(ids, vals, S, variant)
+                             variant, a0=a0, vec=vec).numpy()
+    want = _probe_numpy(ids, vals, S, variant, a0, vec)
     assert got.shape == want.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", sorted(PROBE_SHAPES))
+@pytest.mark.parametrize("a0,vec", [(0, True), (1, True), (2, True),
+                                    (3, True), (1, False)])
+def test_probe_io_only_lane_map_at_every_alignment(route, a0, vec):
+    """io_only's thread map follows the 16-byte vector map from every
+    start alignment of the ids (and the 4-byte map where ids and vals are
+    aligned apart)."""
+    ids, vals, S = _probe_case(*PROBE_SHAPES[route], seed=a0 + 3)
+    got = hist_variant_plain(torch.from_numpy(ids), torch.from_numpy(vals), S,
+                             "io_only", a0=a0, vec=vec).numpy()
+    want = _probe_numpy(ids, vals, S, "io_only", a0, vec)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if vec and a0:                           # the map moves with the head
+        other = _probe_numpy(ids, vals, S, "io_only", 0, True)
+        assert not np.allclose(want, other)
+
+
+@pytest.mark.parametrize("route", sorted(PROBE_SHAPES))
+def test_probe_full_and_no_merge_equal_histogram_plain(route):
+    ids, vals, S = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                    for a in _probe_case(*PROBE_SHAPES[route], seed=2))
+    want = histogram_plain(ids, vals, S)
+    for variant in ("full", "no_merge"):
+        assert torch.equal(hist_variant_plain(ids, vals, S, variant), want)
+        assert torch.equal(hist_variant(ids, vals, S, variant), want)
+
+
+def test_probe_no_zero_is_refused_on_the_global_route():
+    ids, vals, S = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                    for a in _probe_case(*PROBE_SHAPES["global"]))
+    with pytest.raises(ValueError, match="row-route variant"):
+        hist_variant(ids, vals, S, "no_zero")
+    rows = torch.from_numpy(_probe_case(*PROBE_SHAPES["row"])[0])
+    assert hist_variant(rows, torch.ones(rows.shape), 50,
+                        "no_zero").shape == (264, 50)
+
+
+def test_kernels_share_histogram_common():
+    """B2, B6 and the probe include one copy of the warp merge; none
+    defines it (or the sinks and the range walk) itself."""
+    csrc = Path(__file__).resolve().parents[1] / "emspec_torch" / "csrc"
+    common = (csrc / "histogram_common.cuh").read_text()
+    defs = (r"void\s+warp_add\s*\(", r"bool\s+reduce_peers\s*\(",
+            r"struct\s+Sink\b", r"void\s+consume\s*\(",
+            r"unsigned\s+bucket_bit\s*\(")
+    for d in defs:
+        assert re.search(d, common), d
+    for name in ("histogram.cu", "deposits.cu", "scatter_ablation.cu"):
+        src = (csrc / name).read_text()
+        assert '#include "histogram_common.cuh"' in src, name
+        assert "warp_add" in src, name
+        for d in defs:
+            assert not re.search(d, src), (name, d)
