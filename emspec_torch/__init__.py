@@ -8,7 +8,8 @@ nothing of the JAX package: the host-only code it needs is copied
 ``io.resample``, ``io.capture``, ``post._cmap_data``, ``render.png``,
 ``render.apng``, ``utils.notes``, ``utils.update``,
 ``integrations.live_state``, ``shell.page``, the numpy table functions
-in ``tables``), each copy pinned to its original by the tests.
+in ``tables``, the native runtime's C++ source and the Max for Live
+device), each copy pinned to its original by the tests.
 
 Ported so far: enhanced and natural mode, each on one bank or on the
 multires banks — the display default ``Settings()`` is enhanced multires
@@ -25,9 +26,11 @@ sharding on ``torch.distributed`` (``parallel``, ``render
 --time-parallel``); the stencil and direct methods, every frame size
 512–262144 on one bank, the ``xla`` (``torch.fft``) and ``fourstep`` FFT engines; through
 hand-written CUDA kernels (``emspec_torch/csrc``), one for each Pallas
-kernel of the JAX package and one for the batch post chain's EMA scan.
-ROADMAP.md lists the rest.  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+kernel of the JAX package and one for the batch post chain's EMA scan;
+the native ingest runtime (``native``: the C++ ring the live path reads
+through, framing, the WAV decoder, built at first use) and the examples
+(``python -m emspec_torch.examples.<name>``).  Entry points run on the
+card unless the caller passes ``device="cpu"``.
 
 >>> from emspec_torch import Settings, get_pipeline, Stream
 >>> pipe = get_pipeline(Settings())

@@ -449,9 +449,10 @@ def _smi(query: str) -> str | None:
 def cmd_doctor(args) -> int:
     """Environment self-check, one ``ok``/``WARN``/``FAIL`` line a
     subsystem: torch and CUDA versions, the card's name and power limit,
-    ``nvcc``, the kernel library, audio capture, the native window and
-    the update manifest; ``--kernels`` also validates every CUDA kernel
-    against its plain version on the card (``--full``: every shape).
+    ``nvcc``, the kernel library, the native ring, audio capture, the
+    native window and the update manifest; ``--kernels`` also validates
+    every CUDA kernel against its plain version on the card (``--full``:
+    every shape).
     Exits 1 on any FAIL: on ``--device cuda`` (the default) without a
     card, and ``--kernels`` with ``--device cpu``."""
     import os
@@ -497,6 +498,16 @@ def cmd_doctor(args) -> int:
         row("FAIL" if on_card else "WARN", "kernel library",
             "not built, and no nvcc to build it (set CUDA_HOME)")
     row("ok" if nvcc else "WARN", "nvcc", nvcc or "not found")
+
+    from emspec_torch.native import lib as native
+    if native.available():
+        row("ok", "native ring", f"C++ seqlock SPSC ring loaded (built: "
+            f"{native.library_path()})")
+    else:
+        error = (native.build_error() or "").strip().splitlines()
+        row("WARN", "native ring", "numpy fallback: emspec_torch/native "
+            "builds at first use with $CXX (default g++), which failed"
+            + (f": {error[0]}" if error else ""))
 
     try:
         import sounddevice as sd
@@ -724,8 +735,8 @@ def _parser() -> argparse.ArgumentParser:
     pd = sub.add_parser(
         "doctor",
         help="environment self-check (torch/CUDA, the card, nvcc, the "
-             "kernel library, capture, window shell; --kernels validates "
-             "the CUDA kernels)")
+             "kernel library, the native ring, capture, window shell; "
+             "--kernels validates the CUDA kernels)")
     pd.add_argument("--kernels", action="store_true",
                     help="check every CUDA kernel against its plain version "
                          "on the card")

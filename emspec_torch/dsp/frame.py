@@ -9,6 +9,7 @@ contiguous rows copies.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -43,3 +44,17 @@ def frame_signal(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
     if t <= 0:
         return x.new_zeros(x.shape[:-1] + (0, n))
     return x[..., :(t - 1) * hop + n].unfold(-1, n, hop)
+
+
+def frame_signal_np(x: np.ndarray, n: int, hop: int) -> np.ndarray:
+    """Host-side zero-copy framing via stride tricks (for the ingest path)."""
+    t = num_frames(x.shape[-1], n, hop)
+    if t <= 0:
+        return np.zeros(x.shape[:-1] + (0, n), x.dtype)
+    s = x.strides[-1]
+    return np.lib.stride_tricks.as_strided(
+        x,
+        shape=x.shape[:-1] + (t, n),
+        strides=x.strides[:-1] + (hop * s, s),
+        writeable=False,
+    )

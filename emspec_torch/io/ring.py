@@ -3,9 +3,9 @@ numpy ``RingBuffer`` of ``emspec.io.ring``).
 
 Any producer (a WAV reader, a synthetic generator, a capture callback)
 pushes samples; ``Stream`` pulls fixed-size analysis windows.  Single
-writer, single reader.  The JAX package's lock-free native ring
-(``emspec/native``) is not ported: ``tests/test_torch_copies.py`` holds
-this copy to the numpy original on random push sequences.
+writer, single reader.  ``make_ring`` gives the lock-free C++ ring of
+``emspec_torch.native`` (the same contract, wait-free for a capture
+callback) where the library builds, else this numpy ring.
 """
 
 from __future__ import annotations
@@ -84,3 +84,17 @@ class RingBuffer:
     def latest(self, n: int) -> np.ndarray:
         """(channels, n) copy of the most recent n samples."""
         return self.window_at(max(self.total_written - n, 0), min(n, self.total_written))
+
+
+def make_ring(capacity: int, channels: int = 1, prefer_native: bool = True):
+    """Ring factory: the lock-free C++ SPSC ring when the native library is
+    available (real capture callbacks need the wait-free producer), else
+    the numpy implementation — identical contract either way."""
+    if prefer_native:
+        try:
+            from emspec_torch.native import lib as native
+            if native.available():
+                return native.NativeRingBuffer(capacity, channels)
+        except Exception:
+            pass
+    return RingBuffer(capacity, channels)

@@ -19,9 +19,15 @@ import numpy as np
 def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
     """Read a WAV file → (samples float32 (channels, n), sample_rate).
 
-    The pure-Python decoder (stdlib ``wave`` with its own RIFF chunk walk):
-    the port has no native decoder.
+    Uses the native C++ decoder when available (proper RIFF chunk walking
+    + format-tag handling, emspec/native); falls back to stdlib ``wave``.
     """
+    try:
+        from emspec_torch.native import lib as native
+        if native.available():
+            return native.read_wav(path)
+    except Exception:
+        pass  # any native hiccup falls through to the pure-Python path
     return _read_wav_py(path)
 
 

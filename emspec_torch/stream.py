@@ -1,8 +1,11 @@
 """Streaming: the live hop→raster loop (``emspec.stream``).
 
-Samples arrive in a host ring (``emspec_torch.io.ring.RingBuffer``); each
-hop stages only the ``hop`` new samples to the device (the analysis
-window of ``n_max`` samples — the largest bank's — is device carry state,
+Samples arrive in a host ring (``emspec_torch.io.ring.make_ring``: the
+lock-free C++ ring of ``emspec_torch.native`` by default, the numpy
+``RingBuffer`` with ``native_ring=False`` or where the library does not
+build; one contract, bit-equal output); each hop stages only the
+``hop`` new samples to the device (the analysis window of ``n_max``
+samples — the largest bank's — is device carry state,
 ``Pipeline._stream_step_rolling``), one step adds the frame's deposits
 (enhanced) or merged column (natural) to the pending ring and emits one
 display column.
@@ -38,7 +41,7 @@ import torch
 from emspec_torch.config import Settings
 from emspec_torch.device import CARD_LOCK, as_device
 from emspec_torch.dsp.kernels import add_launch_counts, launch_counts
-from emspec_torch.io.ring import RingBuffer
+from emspec_torch.io.ring import make_ring
 from emspec_torch.pipeline import Pipeline, PipelineParams, get_pipeline
 from emspec_torch.post.chain import PostState
 
@@ -96,7 +99,7 @@ class Stream:
 
     def __init__(self, settings: Settings, device="cuda",
                  params: PipelineParams | None = None,
-                 ring_seconds: float = 4.0):
+                 ring_seconds: float = 4.0, native_ring: bool = True):
         self.device = as_device(device)
         self.pipe: Pipeline = get_pipeline(settings, self.device)
         self.settings = settings
@@ -109,7 +112,7 @@ class Stream:
         self._params = _clone(params or self.pipe.params(settings))
         capacity = max(int(ring_seconds * s.sample_rate),
                        self.pipe.n_max + 8 * self.pipe.hop)
-        self.ring = RingBuffer(capacity, s.channels)
+        self.ring = make_ring(capacity, s.channels, prefer_native=native_ring)
         self.dropped_frames = 0
         self._carry = self.pipe.init_roll_carry(self._lead)
         self._block = torch.zeros(self._lead + (self.pipe.hop,),

@@ -1,12 +1,14 @@
 """The port keeps its own copies of the host-only code it needs from the
 JAX package (``emspec_torch.config`` with ``PresetStore``,
-``dsp.windows``, ``io.ring``, ``post._cmap_data``, ``dsp.multires``'s
-tables, ``utils.notes``, ``render.png``, ``render.apng``, ``io.wav``,
+``dsp.windows``, ``io.ring`` with ``make_ring``, ``post._cmap_data``,
+``dsp.multires``'s tables, ``dsp.frame.frame_signal_np``,
+``utils.notes``, ``render.png``, ``render.apng``, ``io.wav``,
 ``io.synth``, ``io.resample``, ``io.capture``, ``utils.update``,
-``integrations.live_state``, ``shell.page``, the bench's ``_signal``):
-each is held here to its original, and the port is held to importing
-nothing of the JAX package — not JAX, not ``emspec`` nor any
-``emspec.*`` module."""
+``integrations.live_state``, ``shell.page``, the bench's ``_signal``,
+and byte for byte the native runtime's C++ source and the Max for Live
+device): each is held here to its original, and the port — its native
+runtime and its examples included — is held to importing nothing of the
+JAX package — not JAX, not ``emspec`` nor any ``emspec.*`` module."""
 
 import ast
 import dataclasses
@@ -174,13 +176,12 @@ def test_merge_columns_matches_jax():
 # ------------------------------------------------------------ verbatim copies
 # (copy, original, functions whose body differs): the copies' source is
 # the original's with ``emspec.`` imports read as ``emspec_torch.``;
-# ``io.wav.read_wav`` drops the native decoder the port does not have;
 # ``utils.update.check_for_update`` reads ``emspec_torch.__version__``.
 VERBATIM = [("emspec_torch/utils/notes.py", "emspec/utils/notes.py", ()),
             ("emspec_torch/render/png.py", "emspec/render/png.py", ()),
             ("emspec_torch/render/apng.py", "emspec/render/apng.py", ()),
             ("emspec_torch/io/synth.py", "emspec/io/synth.py", ()),
-            ("emspec_torch/io/wav.py", "emspec/io/wav.py", ("read_wav",)),
+            ("emspec_torch/io/wav.py", "emspec/io/wav.py", ()),
             ("emspec_torch/io/resample.py", "emspec/io/resample.py", ()),
             ("emspec_torch/io/capture.py", "emspec/io/capture.py", ()),
             ("emspec_torch/integrations/live_state.py",
@@ -204,6 +205,45 @@ def test_verbatim_copy_source(copy, orig, differs):
         return [ast.get_source_segment(text, n) for n in ast.parse(text).body
                 if not (isinstance(n, ast.FunctionDef) and n.name in differs)]
     assert kept(got) == kept(want)
+
+
+# files copied byte for byte: the native runtime's source (the port builds
+# its own copy) and the Max for Live device that reads ``live_state.json``
+BYTE_COPIES = ["native/src/emspec_native.cpp",
+               "integrations/m4l/EM-Spec.maxpat",
+               "integrations/m4l/emspec_state.js",
+               "integrations/m4l/README.md"]
+
+
+@pytest.mark.parametrize("rel", BYTE_COPIES)
+def test_byte_for_byte_copy(rel):
+    assert (ROOT / "emspec_torch" / rel).read_bytes() == \
+        (ROOT / "emspec" / rel).read_bytes()
+
+
+# top-level definitions copied into a port module that is otherwise its
+# own: (copy, original, name), the source segments equal after the
+# ``emspec.`` → ``emspec_torch.`` import rename
+DEFINITIONS = [("emspec_torch/io/ring.py", "emspec/io/ring.py", "RingBuffer"),
+               ("emspec_torch/io/ring.py", "emspec/io/ring.py", "make_ring"),
+               ("emspec_torch/dsp/frame.py", "emspec/dsp/frame.py",
+                "frame_signal_np"),
+               ("emspec_torch/dsp/frame.py", "emspec/dsp/frame.py",
+                "num_frames")]
+
+
+@pytest.mark.parametrize("copy,orig,name", DEFINITIONS,
+                         ids=[f"{v[0]}::{v[2]}" for v in DEFINITIONS])
+def test_copied_definition_source(copy, orig, name):
+    def segment(path, rename=False):
+        text = (ROOT / path).read_text()
+        if rename:
+            text = text.replace("from emspec.", "from emspec_torch.")
+        node = next(n for n in ast.parse(text).body
+                    if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and n.name == name)
+        return ast.get_source_segment(text, node)
+    assert segment(copy) == segment(orig, rename=True)
 
 
 def test_update_copy_differs_only_in_its_version():
@@ -340,10 +380,21 @@ def test_importing_every_port_module_loads_no_emspec_or_jax():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (ROOT / "emspec_torch").rglob("*.py"))
+    # beyond the imports: the native library built and used (a ring, a
+    # WAV decoded natively) and an example run, then the same check
     code = (
-        "import importlib, sys\n"
+        "import importlib, sys, tempfile\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from emspec_torch.io import ring, wav\n"
+        "from emspec_torch.native import lib\n"
+        "from emspec_torch.examples import streaming\n"
+        "assert type(ring.make_ring(64)) is lib.NativeRingBuffer\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    wav.write_wav(d + '/a.wav', np.zeros(100, np.float32), 8000)\n"
+        "    assert lib.read_wav(d + '/a.wav')[1] == 8000\n"
+        "streaming.main(['--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m == 'emspec' "
         "or m.startswith('emspec.') or m.startswith('jax')]\n"
         "assert not bad, bad\n"
@@ -352,3 +403,6 @@ def test_importing_every_port_module_loads_no_emspec_or_jax():
                        text=True, timeout=120, cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert len(mods) >= 25
+    assert {"emspec_torch.native.lib", "emspec_torch.examples.animate",
+            "emspec_torch.examples.time_parallel_render"} <= set(mods)
+    assert "columns; first rgba" in r.stdout

@@ -480,7 +480,8 @@ def test_doctor_on_the_cpu(capsys):
     rc = main(["doctor", *CPU])
     out = capsys.readouterr().out
     for name in ("emspec_torch", "torch", "cuda device", "kernel library",
-                 "nvcc", "audio capture", "native window", "update check"):
+                 "nvcc", "native ring", "audio capture", "native window",
+                 "update check"):
         assert f" {name} " in out or out.startswith(f"ok    {name}"), name
     assert rc == 0 and "doctor: all checks passed" in out
     rc = main(["doctor", "--kernels", *CPU])
