@@ -43,8 +43,13 @@ them.  Phases, in order, one line each; the first failure ends the run:
    aligned and a misaligned framing view; B1's cluster route at 32768
    (the stress call's 688 frames), with the clusters the card holds at
    once, timed in turns against the three-launch route it replaced
-   (forced), both held to plain, both at b = 1; B1's large-frame route
-   at 65536, 131072 and 262144 (8 frames), each also at b = 1; B6, the fused
+   (forced), both held to plain, both at b = 1; B1's cluster_large route
+   (one launch, a frame a cluster of 8 or 16 CTAs) at 65536, 131072 and
+   262144 (8 frames), held to plain and to the three-launch large route
+   (forced), each also at b = 1, the two timed in turns (medians of
+   three rounds; the route ``route_of`` takes must be the faster), and at
+   65536 also at the bench's 184 frames, beside ``torch.fft.rfft`` of the
+   raw and the t·h frames (the spectra alone); B6, the fused
    deposits histogram, by each route that takes the shape — the block
    route at the batch shape (372 × 8192), the cluster route (one launch:
    no pack, B4 or finish may launch) and the forced three-launch large
@@ -78,8 +83,12 @@ them.  Phases, in order, one line each; the first failure ends the run:
    0 and 0.6), batch and batch16 paths' own power, the tail also with
    every chunk forced to repair, and the batch chain bit-equal to the
    live step's column-by-column chain on the same power; B2's sorted route at the single-bank
-   raster's ids, bit-equal to the plain sum and the same on a second run,
-   beside the global route, ``index_add_`` and the deterministic
+   raster's ids in both forms — the tiles form (the raster's: a tile of
+   columns a block, the frames within R of it walked in order) and the
+   global-sort form it replaced — each bit-equal to the plain sum, added
+   into an output too, and the same on a second run, timed in turns
+   (medians of three rounds; the tiles form must be the faster), beside
+   the global route, ``index_add_`` and the deterministic
    ``index_put_(accumulate=True)``.
 4. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise; the result must
@@ -112,8 +121,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
    hops); must match its batch; p50/p99 beside the 10 ms budget and the
    16.7 ms hop.
 15. ext262144: enhanced 262144 at 96 kHz, hop 65536, 8 s mono (8
-   frames) — batch; B1's large route (with B4 inside it), B2 and B3 must
-   launch; matches the CPU path.
+   frames) — batch; B1's cluster_large route, B2 and B3 must launch;
+   matches the CPU path.
 16. wide: enhanced 8192 at hop 64 (R = 64: 66,048 relative cells, above
    a block's shared memory), 2 s mono — batch, then through ``Stream``;
    B1, B2 (on its global route) and B3 must launch; the batch matches
@@ -127,8 +136,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
    (5,937 hops of 128); must match its batch; p50/p99 per hop, and the
    p50 must be below the hop's 2.67 ms of audio.
 19. raster: the single-bank raster (``render.raster.render_image``) on
-   16 s mono, enhanced 8192 at hop 2048 (B5, B2's sorted route, the scan
-   kernel and B3 must launch) and natural 2048 at hop 512; the image is
+   16 s mono, enhanced 8192 at hop 2048 (B5, B2's sorted route in its
+   tiles form, the scan kernel and B3 must launch) and natural 2048 at
+   hop 512; the image is
    the colormap of ``render_vis``, which is the same on a second run
    (and, measured beside it, how many pixels five more runs change when
    its sum takes B2's atomic global route instead); the power grid and
@@ -270,19 +280,22 @@ from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.post import (
     post_head, post_head_plain, post_tail, post_tail_plain)
 from emspec_torch.dsp.kernels.deposits import (
+    CLUSTER_LARGE_N, cluster_large_occupancy, cluster_large_plan,
     cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
-    deposits_ids_cluster, deposits_ids_large, deposits_ids_plain,
-    hist_route_of, quantize_deposits)
+    deposits_ids_cluster, deposits_ids_cluster_large, deposits_ids_large,
+    deposits_ids_plain, hist_route_of, quantize_deposits)
+from emspec_torch.dsp.kernels.deposits import route_of as b1_route_of
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, SORTED, histogram, histogram_plain, route_of)
+    ROUTES, SMEM_BINS, SORTED, SORTED_TILES, histogram, histogram_plain,
+    route_of, tile_plan)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
-    stft_triple_stencil_blocks, stft_triple_stencil_sliced)
+    stft_triple_stencil_blocks, stft_triple_stencil_sliced, th_window)
 from emspec_torch.dsp.reassign import (
     reassigned_bins, reassignment_corrections)
 from emspec_torch.dsp.stft import stft_triple
@@ -339,6 +352,10 @@ KERNELS = (
      "emspec_torch/csrc/deposits.cu", "emspec/dsp/pallas/fft4.py:404"),
     ("deposits_ids_large", deposits_ids_large,
      "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
+    ("deposits_ids_cluster_large", deposits_ids_cluster_large,
+     "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
+    ("histogram_sorted_tiles", histogram, "emspec_torch/csrc/histogram.cu",
+     "emspec/dsp/pallas/scatter.py:135"),
     ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:616"),
     ("deposits_hist_cluster", deposits_hist, "emspec_torch/csrc/deposits.cu",
@@ -358,13 +375,14 @@ KERNELS = (
 )
 # a kernel counted by another counter than its wrapper's ``launches``
 COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
+          "histogram_sorted_tiles":
+              lambda: histogram.route_launches[SORTED_TILES],
           "deposits_hist_cluster":
               lambda: deposits_hist.route_launches["cluster"]}
 MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
                  "lut_values")
 CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
-LARGE_PATH = ("deposits_ids_large", "fft4_steps123", "histogram",
-              "lut_values")
+LARGE_PATH = ("deposits_ids_cluster_large", "histogram", "lut_values")
 SCAN = ("post_head", "ema_scan", "post_tail")   # every batch post chain
 PATH_KERNELS = {        # kernels each path must launch
     "batch": ("deposits_ids", "histogram", "lut_values") + SCAN,
@@ -386,7 +404,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "wide_live": ("deposits_ids", "histogram", "lut_values"),
     "multires": MULTIRES_PATH + SCAN,
     "multires_live": MULTIRES_PATH,
-    "raster": ("windowed_frames", "histogram", "lut_values") + SCAN,
+    "raster": ("windowed_frames", "histogram_sorted_tiles",
+               "lut_values") + SCAN,
     "raster_natural": ("lut_values",) + SCAN,
     # the shell on the display default, then 4096 single-bank, then natural
     "app": MULTIRES_PATH,
@@ -1084,12 +1103,32 @@ def kernels_b5(dev) -> dict:
 # hop N/4 on the large route (262144: the ext262144 call)
 LARGE_CASES = ((32768, None), (65536, 8), (131072, 8), (262144, 8))
 CLUSTER_ROUTES = ("cluster", "large", "large", "cluster")     # in turns
+LARGE_TURNS = ("large", "cluster_large", "cluster_large", "large") * 3
 
 
 def stress_frames(dev, n: int = 32768, seconds: float = 4.0):
     pipe = Pipeline(STRESS.replace(channels=1, fft_size=n), dev)
     x = torch.from_numpy(signal(seconds, CHANNELS, seed=11, sr=96000)).to(dev)
     return pipe, frame_signal(x, n, pipe.hop)                # (16, 43, n)
+
+
+def spectra_alone(frames, n: int):
+    """B1's library yardstick: ``torch.fft.rfft`` of the raw and of the
+    t·h-windowed frames, the two spectra alone (no stencil, no
+    corrections, no deposits)."""
+    th = th_window(n, frames.device)
+    return lambda: (torch.fft.rfft(frames), torch.fft.rfft(frames * th))
+
+
+def route_turns(frames, scal, kw, turns) -> dict:
+    """B1's device ms by route, timed in ``turns``, and each route's
+    median."""
+    got: dict = {}
+    for r in turns:
+        got.setdefault(r, []).append(device_ms(
+            lambda: deposits_ids(frames, *scal, **kw, route=r)))
+    return dict(turns_device_ms=got, median={r: float(np.median(v))
+                                             for r, v in got.items()})
 
 
 def kernels_large(dev) -> dict:
@@ -1116,18 +1155,21 @@ def kernels_large(dev) -> dict:
         row = dict(at=f"frames ({bf}, {n})", max_abs_err=err,
                    **times(lambda: deposits_ids(frames, *scal, **kw),
                            lambda: deposits_ids_plain(frames, *scal, **kw),
-                           iters=5, warmup=2),
+                           spectra_alone(frames, n), iters=5, warmup=2),
+                   library="torch.fft.rfft of the raw and the t·h frames "
+                           "(the spectra alone)",
                    **b1_bound(frames),
                    ms_b1=cuda_ms(lambda: deposits_ids(flat[0], *scal, **kw),
                                  10, 2),
                    device_ms_b1=device_ms(
                        lambda: deposits_ids(flat[0], *scal, **kw)),
                    bound_ms_b1=b1_bound(flat[0])["bound_ms"])
-        lines.append(f"n={n} b={bf} {row['ms']:.4f} ms (device "
-                     f"{row['device_ms']:.4f}, b=1 {row['ms_b1']:.4f} / "
-                     f"device {row['device_ms_b1']:.4f}, plain "
-                     f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                     f"{row['bound_by']})")
+        lines.append(f"n={n} b={bf} {b1_route_of(n)} {row['ms']:.4f} ms "
+                     f"(device {row['device_ms']:.4f}, b=1 {row['ms_b1']:.4f}"
+                     f" / device {row['device_ms_b1']:.4f}, plain "
+                     f"{row['plain_ms']:.4f}, rfft of both spectra device "
+                     f"{row['library_device_ms']:.4f}, bound "
+                     f"{row['bound_ms']:.4f} {row['bound_by']})")
         if n == 32768:
             # the three-launch route it replaced, forced: held to plain
             # and to b = 1, then both routes in turns
@@ -1153,8 +1195,63 @@ def kernels_large(dev) -> dict:
                          f"{route_dev1}; {row['clusters_at_once']} two-CTA "
                          f"clusters at once")
             res["deposits_ids_cluster"] = row
-        if n == EXT.fft_size:
-            res["deposits_ids_large"] = row
+            continue
+        # cluster_large, the default at n: held to the three-launch route
+        # it replaced (forced), which is held to plain and to b = 1 too;
+        # the two in turns (and, at 65536, at the bench's 184 frames too)
+        check(b1_route_of(n) == "cluster_large",
+              f"B1 n={n} takes {b1_route_of(n)}, not cluster_large")
+        il, cl = deposits_ids(frames, *scal, **kw, route="large")
+        err_l = check_b1(f"B1 forced large route n={n} b={bf}", il, cl, ip,
+                         cp, n=n, rows=pipe.rows, R=pipe.reach)
+        check_b1_single("B1 forced large route", frames, il, cl, scal, kw,
+                        route="large")
+        check_b1(f"B1 cluster_large vs the large route n={n} b={bf}", ik, ck,
+                 il, cl, n=n, rows=pipe.rows, R=pipe.reach)
+        plan = cluster_large_plan(n)
+        turns = route_turns(frames, scal, kw, LARGE_TURNS)
+        row.update(turns, clusters=plan["ctas"], cta_smem=plan["smem"],
+                   clusters_at_once=cluster_large_occupancy(n, dev),
+                   bit_equal_to_large=bool(torch.equal(ik, il)
+                                           and torch.equal(ck, cl)))
+        med = turns["median"]
+        check(med[b1_route_of(n)] <= min(med.values()),
+              f"B1 n={n}: route_of takes {b1_route_of(n)}, slower than "
+              f"another route by median device ms {med}")
+        large = dict(at=row["at"], max_abs_err=err_l,
+                     **times(lambda: deposits_ids(frames, *scal, **kw,
+                                                  route="large"),
+                             lambda: deposits_ids_plain(frames, *scal, **kw),
+                             spectra_alone(frames, n), iters=5, warmup=2),
+                     library=row["library"], **b1_bound(frames),
+                     device_ms_b1=device_ms(lambda: deposits_ids(
+                         flat[0], *scal, **kw, route="large")))
+        lines.append(f"n={n} b={bf} cluster_large ({plan['ctas']} CTAs, "
+                     f"{row['clusters_at_once']} clusters at once, bit-equal "
+                     f"to large {row['bit_equal_to_large']}) vs large in turns "
+                     f"{LARGE_TURNS}: medians {med}; large alone "
+                     f"{large['ms']:.4f} ms (device {large['device_ms']:.4f},"
+                     f" b=1 {large['device_ms_b1']:.4f})")
+        if n == 65536:
+            # bench configuration 5: 32 s at 96 kHz, 184 frames
+            x = torch.from_numpy(signal(32.0, seed=5, sr=96000)).to(dev)
+            f184 = frame_signal(x, n, pipe.hop)
+            row["bench_config_5"] = dict(
+                at=f"frames ({f184.shape[0]}, {n})",
+                **route_turns(f184, scal, kw, LARGE_TURNS),
+                **b1_bound(f184))
+            med5 = row["bench_config_5"]["median"]
+            check(med5["cluster_large"] <= med5["large"],
+                  f"B1 n={n} at {f184.shape[0]} frames: cluster_large "
+                  f"slower than large by median device ms {med5}")
+            lines.append(f"n={n} b={f184.shape[0]} medians {med5}")
+        res.setdefault("deposits_ids_cluster_large", {})
+        res["deposits_ids_cluster_large"][n] = row
+        res.setdefault("deposits_ids_large", {})[n] = large
+    # each kernel's row at the extension cell's size, every size beside it
+    for name in ("deposits_ids_cluster_large", "deposits_ids_large"):
+        sizes = res[name]
+        res[name] = dict(sizes[EXT.fft_size], sizes=sizes)
     print("kernels B1 above 16384: " + "; ".join(lines), flush=True)
     return res
 
@@ -1767,11 +1864,70 @@ def raster_ids(dev, settings: Settings, x: np.ndarray):
         t * (n // 2 + 1)
 
 
+SORTED_TURNS = ("sort", "tiles", "tiles", "sort") * 3
+
+
+def kernels_b2_tiles(dev, ids, vals, cells: int, want) -> dict:
+    """B2's sorted route in its tiles form (the raster's, at its reach)
+    at the raster's ids: bit-equal to the plain sum on the CPU, added
+    into an output too, the same on a second run; timed in turns with the
+    global-sort form it replaced (medians of three rounds), which must be
+    the slower."""
+    n, hop = RASTER.fft_size, RASTER.hop_samples
+    k, reach = n // 2 + 1, -(-n // (2 * hop))
+    bound_kw = dict(reach=reach, frame_len=k)
+
+    def tiles(out=None):
+        return histogram(ids, vals, cells, route=SORTED, out=out, **bound_kw)
+    before = histogram.route_launches[SORTED_TILES]
+    got = tiles()
+    check(histogram.route_launches[SORTED_TILES] == before + 1,
+          "B2 sorted tiles: no launch of the tiles form")
+    check(torch.equal(got.cpu(), want),
+          "B2 sorted tiles differ from the plain sum in deposit order")
+    check(torch.equal(tiles(), got), "B2 sorted tiles differ between two runs")
+    base = torch.rand(cells, device=dev)
+    check(torch.equal(tiles(base.clone()).cpu(), histogram_plain(
+        ids.cpu(), vals.cpu(), cells, out=base.cpu())),
+          "B2 sorted tiles added into an output differ from the plain sum")
+    turns: dict = {}
+    for r in SORTED_TURNS:
+        turns.setdefault(r, []).append(device_ms(
+            tiles if r == "tiles"
+            else lambda: histogram(ids, vals, cells, route=SORTED)))
+    med = {r: float(np.median(v)) for r, v in turns.items()}
+    check(med["tiles"] < med["sort"],
+          f"B2 sorted: the tiles form is not faster than the sort form "
+          f"({med})")
+    flat = torch.where(ids >= 0, ids, cells).long()
+    vals0 = torch.where(ids >= 0, vals, 0.0)
+    plan = tile_plan(cells // k, k, reach)
+    row = dict(
+        at=f"ids (1, {ids.numel()}) → {cells} bins, reach {reach}",
+        max_abs_err=0.0,
+        **times(tiles, lambda: histogram_plain(ids, vals, cells),
+                lambda: torch.zeros(cells + 1, device=dev).index_add_(
+                    0, flat, vals0), iters=10),
+        **bound(8.0 * ids.numel() + 4.0 * cells, float((ids >= 0).sum())),
+        turns_device_ms=turns, median=med,
+        tile=f"{plan['cols']} × {plan['cells']}, {plan['col_tiles']} "
+             f"tiles, {plan['walk']} frames walked")
+    print(f"kernels B2 sorted tiles at the raster's ids ({ids.numel()} → "
+          f"{cells}, reach {reach}, tiles {row['tile']}): bit-equal to the "
+          f"plain sum, added into an output and run to run; device "
+          f"{row['device_ms']:.4f} ms, in turns with the sort form "
+          f"{SORTED_TURNS}: medians {med}; index_add_ "
+          f"{row['library_device_ms']:.4f}, bound {row['bound_ms']:.4f}",
+          flush=True)
+    return row
+
+
 def kernels_b2_sorted(dev) -> dict:
-    """B2's sorted route at the raster's ids (8192, hop 2048, 16 s):
-    bit-equal to the plain sum on the CPU (each cell in deposit order),
-    the same on a second run; its time beside the global route's (atomics:
-    another order each run) and index_add_."""
+    """B2's sorted route at the raster's ids (8192, hop 2048, 16 s) in
+    the global-sort form (no window bound): bit-equal to the plain sum on
+    the CPU (each cell in deposit order), the same on a second run; its
+    time beside the global route's (atomics: another order each run) and
+    index_add_.  Then the tiles form (``kernels_b2_tiles``)."""
     ids, vals, cells = raster_ids(dev, RASTER, signal(SECONDS, seed=17))
     got = histogram(ids, vals, cells, route=SORTED)
     want = histogram_plain(ids.cpu(), vals.cpu(), cells)
@@ -1811,7 +1967,7 @@ def kernels_b2_sorted(dev) -> dict:
           f"{row['index_put_equals_plain']}, to itself on a second run "
           f"{row['index_put_repeats']}), bound {row['bound_ms']:.4f} ms",
           flush=True)
-    return row
+    return row, kernels_b2_tiles(dev, ids, vals, cells, want)
 
 
 def phase_kernels(dev, pipe: Pipeline, p) -> dict:
@@ -1824,7 +1980,8 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res.update(kernels_fused(dev, pipe, p))
     res["ema_scan"] = kernels_ema(dev)
     res.update(kernels_post(dev))
-    res["histogram"]["raster_sorted"] = kernels_b2_sorted(dev)
+    res["histogram"]["raster_sorted"], res["histogram_sorted_tiles"] = \
+        kernels_b2_sorted(dev)
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
         f"{k} {v['ms']:.4f} ms at {v['at']} (device {v['device_ms']:.4f} ms, "

@@ -71,7 +71,20 @@ class EmSpecApp:
         """Feed captured samples; paints finished columns into the
         waterfall. Returns the number of columns painted."""
         self.watcher.poll()
-        cols = self.stream.push(samples)
+        return self._paint(self.stream.push(samples))
+
+    def _drain_until(self, deadline: float) -> tuple[int, bool]:
+        """The web shell's drain tick: the pending hops up to the first
+        hop boundary past ``deadline`` (a ``time.perf_counter`` value,
+        one hop at least), painted → (columns painted, whether hops are
+        still pending).  ``push_audio`` drains them all."""
+        self.watcher.poll()
+        st = self.stream
+        if st._paused:
+            return 0, False
+        return self._paint(st._drain(deadline)), st.hop_pending()
+
+    def _paint(self, cols) -> int:
         ch = self.settings.display_channel
         for c in cols:
             # single view: display_channel is continuous, a slice of the

@@ -14,7 +14,9 @@
 //
 // Two atomic routes, chosen by the wrapper from (rows, m, num_bins) alone
 // (emspec_torch/dsp/kernels/scatter.py route_of), and a deterministic one
-// a caller asks for (sorted, at the end of this file):
+// a caller asks for ("sorted", at the end of this file, in two forms: the
+// tiles kernel where the caller bounds how far a deposit lands from its
+// frame, sorted_kernel after a global sort where it does not):
 //   row     one block of 512 threads a row: a float32 histogram of
 //           num_bins cells in shared memory, then one coalesced store of
 //           the row (no zeroed output needed).  Taken where the rows
@@ -95,16 +97,17 @@ __global__ void __launch_bounds__(kGlobalThreads) global_kernel(
                      blockIdx.x == 0 && threadIdx.x < 32u);
 }
 
-// The sorted route, deterministic: ``keys`` (row·num_bins + id) of every
-// deposit sorted stably by the wrapper (torch.sort), −1 for a dropped id,
-// and ``vals`` in the same order.  The first deposit of each run of equal
-// keys sums its run in order onto the cell (0, or the value of an output
-// added into) and stores the total.  No atomics, so a cell's sum is the
-// same on every run, and, since the stable sort keeps each cell's
-// deposits in deposit order, equal bit for bit to the plain version's
-// (index_add_, which adds them in that order).  A run is one thread's
-// sequential loop: fine for the raster's few deposits a cell; a cell of
-// thousands of deposits would serialise on its thread.
+// The sorted route without a window bound, deterministic: ``keys``
+// (row·num_bins + id) of every deposit sorted stably by the wrapper
+// (torch.sort), −1 for a dropped id, and ``vals`` in the same order.  The
+// first deposit of each run of equal keys sums its run in order onto the
+// cell (0, or the value of an output added into) and stores the total.
+// No atomics, so a cell's sum is the same on every run, and, since the
+// stable sort keeps each cell's deposits in deposit order, equal bit for
+// bit to the plain version's (index_add_, which adds them in that order).
+// A run is one thread's sequential loop.  The global sort costs ~25× the
+// bytes' bound; callers whose deposits land near their frame (the raster)
+// take tiles_kernel below.
 template <typename Key>
 __global__ void __launch_bounds__(kGlobalThreads) sorted_kernel(
     const Key* __restrict__ keys, const float* __restrict__ vals,
@@ -117,6 +120,184 @@ __global__ void __launch_bounds__(kGlobalThreads) sorted_kernel(
     for (long long j = i; j < n && keys[j] == k; ++j)
       s = __fadd_rn(s, vals[j]);
     out[k] = s;
+  }
+}
+
+// The sorted route with a window bound (tiles): deposits come in frames
+// of K (a row holds T frames, T·K deposits, deposit s·K + k), each id is
+// a cell c·K + f of T columns of K cells, and a deposit of frame s lands
+// in a column c with |c − s| <= R (the caller guarantees it: the raster
+// drops every deposit with |Δt| > N/2, so R = ceil(N / 2·hop)).  A block
+// owns a tile of TT columns × FF cells of one row in shared memory, read
+// once from ``out`` (add) or zeroed, and written once at the end: no
+// zero-fill, no global atomics, no sort.  Its 16 warps each own a band of
+// consecutive cells of every column of the tile (warp ((f − f0)·M) >> 16,
+// M = 2^20 div FF).  The block walks the frames s that can reach the tile
+// (t0 − R … t0 + TT − 1 + R) in order, each frame in pieces of PC chunks
+// of 32 bins (one piece where K <= 4608), one piece a step:
+//   * stage (piece p + 1's loads issued before the walk of p, stored after
+//     it): each deposit's key — its owning warp and tile cell, or −1
+//     where it does not land in the tile (the column by a float64
+//     reciprocal, corrected: no integer division) — and value, and for
+//     each chunk the mask of warps that own a deposit of it
+//     (__reduce_or_sync);
+//   * walk (piece p): each warp takes the chunks whose mask holds its
+//     bit, in bin order.  The lanes whose deposit it owns OR their bit
+//     into their cell's word of a claim array in shared memory, which
+//     then holds the lanes of that cell (what __match_any_sync finds, at
+//     a fraction of its cost on this card), and the group's lowest lane
+//     adds the group's values onto the cell one after another in lane
+//     order (shuffles, __fadd_rn), stores it and clears the claim.
+// A cell is only ever written by its warp, which meets the cell's deposits
+// in (frame, bin) order, so every cell adds its deposits in deposit order:
+// the plain version's sum (index_add_), bit for bit, the same on every
+// run.  Bounded by the bytes: each deposit read (TT + 2R)/TT times (from
+// L2 after the first), each cell read (add) and written once.
+constexpr int kTileThreads = 512;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kPieceSlots = 9;                 // chunks a warp stages a piece
+constexpr int kPieceChunks = kPieceSlots * kTileWarps;
+
+struct TileGeom {
+  int T, K, R, t0, f0, tt, ff, pc, pieces;
+  unsigned owner_mul;
+  double inv_k;
+  const int* ids;
+  const float* vals;
+};
+
+// The key of deposit id for the tile: its warp << 16 | tile cell, or −1.
+__device__ __forceinline__ int tile_key(const TileGeom& g, int id) {
+  if (id < 0 || id >= g.T * g.K) return -1;
+  int c = (int)((double)id * g.inv_k);
+  if (c * g.K > id) --c;
+  else if ((c + 1) * g.K <= id) ++c;
+  const int f = id - c * g.K;
+  if (c < g.t0 || c >= g.t0 + g.tt || f < g.f0 || f >= g.f0 + g.ff)
+    return -1;
+  const unsigned warp = ((unsigned)(f - g.f0) * g.owner_mul) >> 16;
+  return (int)(warp << 16) | ((c - g.t0) * g.ff + f - g.f0);
+}
+
+// Piece p of the walk: frame s0 + p div pieces, bins from
+// (p mod pieces)·pc·32 on.  A thread's slot i is chunk warp + 16·i.
+struct Piece {
+  int id[kPieceSlots];
+  float v[kPieceSlots];
+};
+
+__device__ __forceinline__ void piece_load(const TileGeom& g, int s0, int p,
+                                           Piece* pc) {
+  const int k0 = (p % g.pieces) * g.pc * 32;
+  const long long at = (long long)(s0 + p / g.pieces) * g.K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kPieceSlots; ++i) {
+    const int ch = warp + i * kTileWarps;
+    const int k = k0 + (ch << 5) + lane;
+    const bool in = ch < g.pc && k < g.K;
+    pc->id[i] = in ? __ldg(g.ids + at + k) : -1;
+    pc->v[i] = in ? __ldg(g.vals + at + k) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void piece_store(const TileGeom& g,
+                                            const Piece& pc, int* keys,
+                                            float* vals, unsigned* masks) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kPieceSlots; ++i) {
+    const int ch = warp + i * kTileWarps;
+    if (ch >= g.pc) break;                     // warp-uniform
+    const int key = tile_key(g, pc.id[i]);
+    keys[(ch << 5) + lane] = key;
+    vals[(ch << 5) + lane] = pc.v[i];
+    const unsigned bits =
+        __reduce_or_sync(kFull, key < 0 ? 0u : 1u << (key >> 16));
+    if (lane == 0) masks[ch] = bits;
+  }
+}
+
+// Each warp's chunks of the staged piece, in bin order, onto the tile.
+__device__ __forceinline__ void piece_walk(const TileGeom& g, float* tile,
+                                           unsigned* claim, const int* keys,
+                                           const float* vals,
+                                           const unsigned* masks) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < g.pc; c0 += 32) {
+    const bool mine = c0 + lane < g.pc && ((masks[c0 + lane] >> warp) & 1u);
+    unsigned todo = __ballot_sync(kFull, mine);
+    while (todo != 0u) {
+      const int at = ((c0 + __ffs(todo) - 1) << 5) + lane;
+      todo &= todo - 1u;
+      const int key = keys[at];
+      const float v = vals[at];
+      const bool own = key >= 0 && (key >> 16) == warp;
+      const int cell = key & 0xffff;
+      if (own) atomicOr(claim + cell, 1u << lane);
+      __syncwarp();
+      const unsigned peers = own ? claim[cell] : 0u;
+      const bool leader = own && (peers & ((1u << lane) - 1u)) == 0u;
+      float acc = leader ? __fadd_rn(tile[cell], v) : 0.0f;
+      unsigned more = leader ? peers & (peers - 1u) : 0u;
+      while (__any_sync(kFull, more != 0u)) {
+        const float u = __shfl_sync(kFull, v, more ? __ffs(more) - 1 : lane);
+        if (more != 0u) {
+          acc = __fadd_rn(acc, u);
+          more &= more - 1u;
+        }
+      }
+      if (leader) {
+        tile[cell] = acc;
+        claim[cell] = 0u;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads) tiles_kernel(
+    const int* __restrict__ ids, const float* __restrict__ vals,
+    float* __restrict__ out, int T, int K, int R, int TT, int FF, int pc,
+    int col_tiles, int row_tiles, int add) {
+  extern __shared__ float sm[];
+  const int rest = (int)(blockIdx.x % ((long long)col_tiles * row_tiles));
+  const long long row = blockIdx.x / ((long long)col_tiles * row_tiles);
+  const long long base = row * (long long)T * K;
+  TileGeom g;
+  g.T = T, g.K = K, g.R = R;
+  g.t0 = (rest / row_tiles) * TT, g.f0 = (rest % row_tiles) * FF;
+  g.tt = min(TT, T - g.t0), g.ff = min(FF, K - g.f0);
+  g.owner_mul = (1u << 20) / (unsigned)g.ff;
+  g.inv_k = 1.0 / K;
+  g.pc = pc, g.pieces = ((K + 31) / 32 + pc - 1) / pc;
+  g.ids = ids + base, g.vals = vals + base;
+  float* tile = sm;                                         // TT·FF
+  unsigned* claim = reinterpret_cast<unsigned*>(sm + TT * FF);    // TT·FF
+  int* keys = reinterpret_cast<int*>(claim + TT * FF);      // pc·32
+  float* pv = reinterpret_cast<float*>(keys + pc * 32);     // pc·32
+  unsigned* masks = reinterpret_cast<unsigned*>(pv + pc * 32);    // pc
+  float* rout = out + base;
+  for (int i = threadIdx.x; i < g.tt * g.ff; i += kTileThreads) {
+    const int c = i / g.ff;
+    tile[i] = add ? rout[(long long)(g.t0 + c) * K + g.f0 + i - c * g.ff]
+                  : 0.0f;
+    claim[i] = 0u;
+  }
+  const int s0 = max(g.t0 - R, 0), s1 = min(g.t0 + g.tt - 1 + R, T - 1);
+  const int steps = (s1 - s0 + 1) * g.pieces;
+  Piece next;
+  piece_load(g, s0, 0, &next);
+  for (int p = 0; p < steps; ++p) {
+    piece_store(g, next, keys, pv, masks);
+    __syncthreads();
+    if (p + 1 < steps) piece_load(g, s0, p + 1, &next);
+    piece_walk(g, tile, claim, keys, pv, masks);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < g.tt * g.ff; i += kTileThreads) {
+    const int c = i / g.ff;
+    rout[(long long)(g.t0 + c) * K + g.f0 + i - c * g.ff] = tile[i];
   }
 }
 
@@ -139,6 +320,31 @@ extern "C" int emspec_histogram_sorted(const void* keys, int key_bytes,
   else
     sorted_kernel<long long><<<(unsigned)blocks, kGlobalThreads, 0, st>>>(
         static_cast<const long long*>(keys), vals, out, n);
+  return (int)cudaGetLastError();
+}
+
+// The tiles form of the sorted route: ids, vals (rows, T·K), out (rows,
+// T·K) float32, each cell written once (add = 1: out's value first);
+// reach R; TT columns and FF cells a tile, pieces of pc chunks (the
+// wrapper's tile_plan).
+extern "C" int emspec_histogram_tiles(const int* ids, const float* vals,
+                                      float* out, long long rows, int T,
+                                      int K, int R, int TT, int FF, int pc,
+                                      int add, void* stream) {
+  if (T <= 0 || K <= 0 || R < 0 || TT <= 0 || FF <= 0 || FF > K
+      || TT * FF > 0xffff || pc <= 0 || pc > kPieceChunks
+      || (long long)T * K >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = 8LL * TT * FF + pc * (32 * 8 + 4);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int col_tiles = (T + TT - 1) / TT, row_tiles = (K + FF - 1) / FF;
+  tiles_kernel<<<(unsigned)(rows * col_tiles * row_tiles), kTileThreads,
+                 (size_t)smem, (cudaStream_t)stream>>>(
+      ids, vals, out, T, K, R, TT, FF, pc, col_tiles, row_tiles, add);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,8 @@
 and kernel B6, the same analysis fused with the relative histogram
 (counterpart of ``fft4_hist``).
 
-B1 has three routes on the card, chosen by the frame size alone
-(``route_of``), each with its own launch counter:
+B1 has four routes on the card; ``route_of`` picks one by the frame size
+alone, each with its own launch counter:
 
 * "block", N ≤ 16384 (``SMALL_MAX_N``): ``csrc/deposits.cu``, one block a
   frame holding both signals' spectra in shared memory (kernel B4's
@@ -15,11 +15,18 @@ B1 has three routes on the card, chosen by the frame size alone
   two-CTA thread-block cluster a frame, the raw and the t·h spectrum one
   CTA each, read across by distributed shared memory —
   ``deposits_ids_cluster.launches``;
-* "large", N > 16384: ``csrc/deposits_large.cu`` — a pack kernel, kernel
-  B4's steps 1–3 on the packed half-size sequences (``fft4_steps123``,
-  which counts its own launches), then a finish kernel for the unpack and
-  the epilogue — ``deposits_ids_large.launches``.  It is the route above
-  32768, and ``deposits_ids(..., route="large")`` forces it at 32768.
+* "cluster_large", N = 65536, 131072, 262144 (``CLUSTER_LARGE_N``):
+  ``csrc/deposits_large.cu``, one launch, a frame a cluster of 8, 16 and
+  16 CTAs holding both spectra in shared memory, each signal's FFT a
+  four-step transform whose transpose crosses the CTAs through
+  distributed shared memory (``cluster_large_plan``) —
+  ``deposits_ids_cluster_large.launches``;
+* "large", N > 16384: ``csrc/deposits_large.cu``'s three launches — a
+  pack kernel, kernel B4's steps 1–3 on the packed half-size sequences
+  (``fft4_steps123``, which counts its own launches), then a finish
+  kernel for the unpack and the epilogue — ``deposits_ids_large.launches``.
+  ``deposits_ids(..., route="large")`` forces it at 32768–262144, for
+  timing the cluster routes against it.
 
 Every route takes an optional bin window ``[k_lo, k_hi)`` and a per-bin
 band weight (a band-sliced multires bank): only the window's bins are
@@ -66,7 +73,9 @@ MIN_N = 512
 SMALL_MAX_N = 16384    # block route: two (n1, n2 + 1) tiles in one block
 CLUSTER_N = 32768      # cluster route: one 132 KB tile in each of two CTAs
 MAX_N = 262144         # the large route: N/2 must have a B4 factorization
-ROUTES = ("block", "cluster", "large")
+CLUSTER_LARGE_N = (65536, 131072, 262144)   # cluster_large's sizes
+ROUTES = ("block", "cluster", "cluster_large", "large")
+HIST_ROUTES = ("block", "cluster", "large")     # B6's
 SMEM_BYTES = 232448    # a block's shared memory on the H100 (deposits.cu kMaxSmem)
 CLUSTER_SMEM = 8 * (512 + 128 * 129 + 128 * 67)    # deposits.cu kClusterSmem
 CLUSTER_HIST_CELLS = (SMEM_BYTES - CLUSTER_SMEM) // 4   # kClusterHistCells
@@ -80,7 +89,34 @@ def supported(n: int) -> bool:
 def route_of(n: int) -> str:
     """B1's route for frames of n points: by size only, never by batch."""
     return ("block" if n <= SMALL_MAX_N else "cluster" if n == CLUSTER_N
-            else "large")
+            else "cluster_large" if n in CLUSTER_LARGE_N else "large")
+
+
+def cluster_large_plan(n: int) -> dict:
+    """Route cluster_large at n (``deposits_large.cu`` ``xplan``): each
+    CTA holds ``points`` complex values of both signals in ``threads``
+    threads of 16 points (8192 up to 131072, 16384 at 262144), C =
+    n/points CTAs a cluster, (n1, n2) = _FACTORS[n/2]; before the exchange
+    each rank holds ``cols`` = n2/C columns of both signals, row-major at
+    stride ``stride_before`` (W'), after it ``rows`` = n1/C rows of every
+    column, column-major at stride ``stride_after`` (Q), with rows·W' =
+    cols·Q so that both layouts of one block fill the same values; a
+    signal's tile is n1·W' = n2·Q values, and a CTA's shared memory B4's
+    W_512 table and both tiles."""
+    require(n in CLUSTER_LARGE_N, "cluster_large_plan",
+            f"n={n}: the route takes {CLUSTER_LARGE_N}")
+    n1, n2 = _FACTORS[n // 2]
+    points = 8192 if n <= 131072 else 16384
+    ctas = n // points
+    cols, rows = n2 // ctas, n1 // ctas
+    if cols % rows == 0:
+        before, after = cols + cols // rows, rows + 1
+    else:
+        before, after = cols + 1, rows + rows // cols
+    tile = n1 * before
+    return dict(points=points, threads=points // 16, ctas=ctas, n1=n1,
+                n2=n2, cols=cols, rows=rows, stride_before=before,
+                stride_after=after, tile=tile, smem=8 * (512 + 2 * tile))
 
 
 def hist_route_of(n: int, num_bins: int) -> str:
@@ -282,10 +318,11 @@ def deposits_ids(frames: torch.Tensor, logmap_a, logmap_b, power_floor, *,
     given.  Invalid deposits carry contrib 0 (and, from the kernel, id
     −1).  On CUDA the scalars and the band must be float32 tensors on the
     frames' device: the kernel reads them from device memory, so a slider
-    move causes no host sync.  ``route`` ("block", "cluster" or "large")
-    overrides ``route_of(n)``, for timing the cluster route against the
-    large one at 32768; the block route takes n ≤ ``SMALL_MAX_N`` only,
-    the cluster route n = ``CLUSTER_N`` only."""
+    move causes no host sync.  ``route`` (one of ``ROUTES``) overrides
+    ``route_of(n)``, for timing the cluster routes against the large one;
+    the block route takes n ≤ ``SMALL_MAX_N`` only, the cluster route
+    n = ``CLUSTER_N`` only, cluster_large the sizes of
+    ``CLUSTER_LARGE_N``."""
     kw = dict(n=n, hop=hop, sr=sr, rows=rows, reach=reach, k_lo=k_lo,
               k_hi=k_hi, band=band)
     if frames.device.type == "cpu":
@@ -294,13 +331,16 @@ def deposits_ids(frames: torch.Tensor, logmap_a, logmap_b, power_floor, *,
     what = "deposits_ids"
     route = route or route_of(n)
     require(route in ROUTES and (route == "block") == (n <= SMALL_MAX_N)
-            and (route != "cluster" or n == CLUSTER_N), what,
+            and (route != "cluster" or n == CLUSTER_N)
+            and (route != "cluster_large" or n in CLUSTER_LARGE_N), what,
             f"route {route!r} does not take n={n}")
     scal = (logmap_a, logmap_b, power_floor)
     if route == "large":
         return deposits_ids_large(frames, *scal, **kw)
     if route == "cluster":
         return deposits_ids_cluster(frames, *scal, **kw)
+    if route == "cluster_large":
+        return deposits_ids_cluster_large(frames, *scal, **kw)
     out = _on_chip("emspec_deposits", frames, scal, what=what, **kw)
     deposits_ids.launches += 1
     deposits_ids.form_launches[
@@ -343,6 +383,50 @@ def cluster_occupancy(device) -> int:
             ctypes.byref(got))
     kernels_build.check(rc, "cluster_occupancy")
     return got.value
+
+
+@counted
+def deposits_ids_cluster_large(frames: torch.Tensor, logmap_a, logmap_b,
+                               power_floor, *, n: int, hop: int, sr: float,
+                               rows: int, reach: int, k_lo: int = 0,
+                               k_hi: int | None = None, band=None):
+    """B1's route cluster_large, N in ``CLUSTER_LARGE_N``: the contract of
+    ``deposits_ids`` (a CPU tensor takes the plain version).  One launch,
+    no scratch: each frame's spectra stay in its cluster's shared memory.
+    Raises where the card holds no cluster of the size
+    (``cluster_large_occupancy``)."""
+    kw = dict(n=n, hop=hop, sr=sr, rows=rows, reach=reach, k_lo=k_lo,
+              k_hi=k_hi, band=band)
+    if frames.device.type == "cpu":
+        return deposits_ids_plain(frames, logmap_a, logmap_b, power_floor,
+                                  **kw)
+    what = "deposits_ids_cluster_large"
+    require(n in CLUSTER_LARGE_N, what, f"n={n}: the route takes "
+            f"{CLUSTER_LARGE_N}")
+    require_cuda(frames, what)
+    require(cluster_large_occupancy(n, frames.device) > 0, what,
+            f"the card holds no cluster of {cluster_large_plan(n)['ctas']} "
+            f"CTAs")
+    out = _on_chip("emspec_deposits_cluster_large", frames,
+                   (logmap_a, logmap_b, power_floor), what=what, **kw)
+    deposits_ids_cluster_large.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_large_occupancy(n: int, device: str) -> int:
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = kernels_build.library().emspec_deposits_cluster_large_occupancy(
+            n, *_FACTORS[n // 2], ctypes.byref(got))
+    kernels_build.check(rc, "cluster_large_occupancy")
+    return got.value
+
+
+def cluster_large_occupancy(n: int, device) -> int:
+    """Clusters of route cluster_large at n the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: the card refuses the size)."""
+    return _cluster_large_occupancy(n, str(torch.device(device)))
 
 
 @counted
@@ -390,7 +474,8 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
     require(supported(n), what, f"n={n} outside the kernel's power-of-two "
             f"range [{MIN_N}, {MAX_N}]")
     route = route or hist_route_of(n, num_bins)
-    require(route in ROUTES, what, f"route {route!r} not in {ROUTES}")
+    require(route in HIST_ROUTES, what,
+            f"route {route!r} not in {HIST_ROUTES}")
     require((route == "block") == (n <= SMALL_MAX_N)
             and (route != "cluster" or n == CLUSTER_N), what,
             f"route {route!r} does not take n={n}")
@@ -431,4 +516,4 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
     return out
 
 
-deposits_hist.route_launches = dict.fromkeys(ROUTES, 0)
+deposits_hist.route_launches = dict.fromkeys(HIST_ROUTES, 0)

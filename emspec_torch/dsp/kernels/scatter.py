@@ -23,11 +23,22 @@ The thresholds are card timings (PERF.md §6).
 Float atomics add a cell's deposits in an order that changes from run to
 run, so two runs can differ in the last bit of a cell.  A caller that
 needs the same sums on every run asks for the third route, ``"sorted"``
-(``SORTED``): the wrapper sorts the deposits by (row, id), stably, and
-the kernel sums each cell's run of deposits in deposit order on one
-thread, with no atomics — deterministic, and bit-equal to the plain
-version.  The single-bank raster takes it (``dsp.reassign``), so an
-export and a render of the same file agree pixel for pixel.
+(``SORTED``): every cell adds its deposits in deposit order, with no
+atomics — deterministic, and bit-equal to the plain version.  It has two
+forms, each with its own count in ``histogram.route_launches``:
+
+* ``"sorted_tiles"`` (``SORTED_TILES``), where the caller says how far a
+  deposit lands from its frame (``reach=R, frame_len=K``: a row holds
+  frames of K deposits, ids are cells column·K + f of as many columns,
+  and frame s lands in columns s − R … s + R).  One launch, no sort: a
+  block owns a tile of ``tile_plan``'s columns × cells in shared memory
+  and walks the frames that reach it in order, each of its warps adding
+  the deposits of its own cells one after another in (frame, bin) order.
+  The single-bank raster takes it (``dsp.reassign.scatter_segment_sum``,
+  R = ceil(N / 2·hop)), so an export and a render of the same file
+  agree pixel for pixel;
+* ``"sorted"``, without that bound: a stable ``torch.sort`` of the keys
+  (row, id), then one thread sums each cell's run of deposits.
 """
 
 from __future__ import annotations
@@ -45,12 +56,17 @@ from emspec_torch.dsp.kernels import (
 SMEM_BINS = 232448 // 4
 ROUTES = ("row", "global")    # the atomic routes, chosen by route_of
 SORTED = "sorted"             # the deterministic route, on request
+SORTED_TILES = "sorted_tiles"     # ... its form with a window bound
 ROW_THREADS = 512         # histogram.cu kRowThreads
 GLOBAL_THREADS = 256      # histogram.cu kGlobalThreads
 SMS = 132                 # the H100's streaming multiprocessors
 ROW_MIN_ROWS = 2 * SMS    # row: two blocks an SM from the rows alone
 ROW_MAX_BINS = SMEM_BINS // 4     # row: four blocks of 512 an SM
 GLOBAL_BLOCKS = 8 * SMS   # global: blocks at most (8 of 256 an SM)
+TILE_WARPS = 16           # histogram.cu kTileWarps: the sorted tiles' warps
+TILE_COLS = 3             # columns a tile by default (the raster's best)
+TILE_CELLS = 24320        # cells a tile at most (95 KB, and 95 KB of claims)
+PIECE_CHUNKS = 144        # histogram.cu kPieceChunks: 32-bin chunks a piece
 
 
 def route_of(rows: int, m: int, num_bins: int) -> str:
@@ -67,6 +83,28 @@ def global_blocks(rows: int, m: int) -> int:
     at most ``GLOBAL_BLOCKS`` blocks (a grid-stride loop beyond)."""
     vectors = -(-(rows * m) // 4)
     return max(1, min(-(-vectors // GLOBAL_THREADS), GLOBAL_BLOCKS))
+
+
+def tile_plan(frames: int, k: int, reach: int,
+              tile_cols: int | None = None) -> dict:
+    """The sorted tiles' grid for ``frames`` columns of ``k`` cells at
+    reach R: ``cols`` × ``cells`` a tile (at most ``TILE_CELLS`` cells;
+    a column of more than that is cut into row tiles), cell f − f0 of a
+    column owned by warp ((f − f0)·``owner_mul``) >> 16, the frames a
+    tile walks (``cols`` + 2R, fewer at the ends), each in ``pieces``
+    pieces of ``piece_chunks`` chunks of 32 bins (at most
+    ``PIECE_CHUNKS``), and the shared memory: the tile and its claim
+    words, then one piece's keys, values and chunk masks.  ``tile_cols``
+    stands in for ``TILE_COLS`` (the CPU mirror walks other widths)."""
+    cols = min(tile_cols or TILE_COLS, max(TILE_CELLS // k, 1), frames)
+    cells = min(k, TILE_CELLS // cols)
+    chunks = -(-k // 32)
+    pc = -(-chunks // -(-chunks // PIECE_CHUNKS))
+    return dict(cols=cols, cells=cells, col_tiles=-(-frames // cols),
+                row_tiles=-(-k // cells), owner_mul=(1 << 20) // cells,
+                walk=cols + 2 * reach, chunks=chunks, piece_chunks=pc,
+                pieces=-(-chunks // pc),
+                smem=8 * cols * cells + pc * (32 * 8 + 4))
 
 
 def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
@@ -98,7 +136,8 @@ def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
 @counted
 def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
               passes: int = 2, *, route: str | None = None,
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              out: torch.Tensor | None = None, reach: int | None = None,
+              frame_len: int | None = None) -> torch.Tensor:
     """ids (..., M) int32, vals (..., M) float32 → (..., num_bins) float32.
 
     An id outside [0, num_bins) contributes nothing, even when its value
@@ -109,8 +148,21 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     asks for the deterministic route.  ``out``, a
     contiguous float32 (..., num_bins) tensor, is added into in place and
     returned (the global route: its atomics add into whatever the output
-    holds) — the live step's ring; the sorted route adds into it too."""
+    holds) — the live step's ring; the sorted route adds into it too.
+    ``reach`` and ``frame_len`` (the sorted route only) bound where a
+    deposit lands, for its tiles form (module docstring): the ids'
+    last axis is ``num_bins`` = T·``frame_len`` deposits, and frame s's
+    ids lie in columns s − reach … s + reach (a deposit outside them is
+    not added)."""
     del passes
+    if reach is not None or frame_len is not None:
+        require(route == SORTED and reach is not None and reach >= 0
+                and frame_len is not None and 0 < frame_len
+                and num_bins % frame_len == 0
+                and ids.shape[-1:] == (num_bins,), "histogram",
+                f"reach and frame_len bound the sorted route's deposits: "
+                f"ids (..., {num_bins}) in frames of frame_len cells "
+                f"(reach {reach}, frame_len {frame_len})")
     if ids.device.type == "cpu":
         return histogram_plain(ids, vals, num_bins, out)
     what = "histogram"
@@ -128,6 +180,9 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     lead = ids.shape[:-1]
     rows = math.prod(lead)
     m = ids.shape[-1] if ids.dim() else 1
+    if route == SORTED and reach is not None:
+        return _sorted_tiles(ids, vals, num_bins, out, lead, rows,
+                             reach=reach, k=frame_len)
     if route == SORTED:
         return _sorted(ids, vals, num_bins, out, lead, rows)
     route = route or ("global" if out is not None
@@ -157,23 +212,48 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     return out
 
 
-histogram.route_launches = dict.fromkeys(ROUTES + (SORTED,), 0)
+histogram.route_launches = dict.fromkeys(
+    ROUTES + (SORTED, SORTED_TILES), 0)
+
+
+def _sorted_out(ids, num_bins: int, out, lead: tuple, alloc):
+    if out is None:
+        return alloc(lead + (num_bins,), dtype=torch.float32,
+                     device=ids.device)
+    require(out.dtype == torch.float32 and out.is_contiguous()
+            and out.shape == lead + (num_bins,)
+            and out.device == ids.device, "histogram",
+            f"out must be a contiguous float32 {lead + (num_bins,)} "
+            f"tensor on the ids' device")
+    return out
+
+
+def _sorted_tiles(ids, vals, num_bins: int, out, lead: tuple, rows: int, *,
+                  reach: int, k: int):
+    """The sorted route's tiles form (module docstring): one launch, each
+    cell written once."""
+    frames = num_bins // k
+    plan = tile_plan(frames, k, reach)
+    add = out is not None
+    out = _sorted_out(ids, num_bins, out, lead, torch.empty)
+    with torch.cuda.device(ids.device):
+        rc = kernels_build.library().emspec_histogram_tiles(
+            ids.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, frames, k,
+            reach, plan["cols"], plan["cells"], plan["piece_chunks"],
+            int(add), launch_stream(ids))
+    kernels_build.check(rc, "histogram")
+    histogram.launches += 1
+    histogram.route_launches[SORTED_TILES] += 1
+    return out
 
 
 def _sorted(ids, vals, num_bins: int, out, lead: tuple, rows: int):
-    """B2's sorted route (see the module docstring): keys row·num_bins + id
-    (−1 where dropped) sorted stably, the values gathered into that order,
-    one launch that sums each cell's run."""
+    """B2's sorted route without a window bound (see the module
+    docstring): keys row·num_bins + id (−1 where dropped) sorted stably,
+    the values gathered into that order, one launch that sums each
+    cell's run."""
     what = "histogram"
-    if out is None:
-        out = torch.zeros(lead + (num_bins,), dtype=torch.float32,
-                          device=ids.device)
-    else:
-        require(out.dtype == torch.float32 and out.is_contiguous()
-                and out.shape == lead + (num_bins,)
-                and out.device == ids.device, what,
-                f"out must be a contiguous float32 {lead + (num_bins,)} "
-                f"tensor on the ids' device")
+    out = _sorted_out(ids, num_bins, out, lead, torch.zeros)
     kt = torch.int32 if rows * num_bins < 2**31 else torch.int64
     base = (torch.arange(rows, dtype=kt, device=ids.device)
             * num_bins).reshape(lead + (1,))

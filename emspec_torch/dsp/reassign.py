@@ -4,8 +4,10 @@ Auger–Flandrin corrections from the three window STFTs, each bin's power
 quantized to its reassigned cell ``(round(t + Δt/hop), round(k +
 Δω·N/2π))`` of the (frames, bins) grid, and summed there.  The sum is
 kernel B2 (``dsp.kernels.scatter.histogram``) over the absolute grid on
-the card, ids ``t_bin·K + f_bin``, by its sorted route: each cell adds
-its deposits in (frame, bin) order, with no atomics, so two runs give the
+the card, ids ``t_bin·K + f_bin``, by its sorted route's tiles form (a
+deposit lands within R = ceil(N / 2·hop) columns of its frame, since
+``reassigned_bins`` drops every |Δt| > N/2): each cell adds its deposits
+in (frame, bin) order, with no atomics and no sort, so two runs give the
 same grid, bit for bit, and so the same image.  Its plain version on the
 CPU adds in the same order, as the JAX package's ``segment_sum`` does.
 """
@@ -63,18 +65,22 @@ def reassigned_bins(power: torch.Tensor, dt: torch.Tensor, dw: torch.Tensor,
 
 def scatter_segment_sum(t_bin: torch.Tensor, f_bin: torch.Tensor,
                         power: torch.Tensor, num_frames: int,
-                        k_count: int) -> torch.Tensor:
+                        k_count: int, reach: int | None = None
+                        ) -> torch.Tensor:
     """Σ power into the (..., num_frames, k_count) grid at (t_bin, f_bin),
     per leading row: one launch of B2's sorted route over every row on the
-    card (the same sums on every run).  A deposit of zero power (an
-    invalid one) takes id −1 and adds nothing: adding +0.0 changes no
-    cell, and the sort then leaves the clamped edge cells, where every
-    invalid deposit lands, out of the cells' runs."""
+    card (the same sums on every run) — its tiles form where ``reach``
+    bounds |t_bin − frame| of every deposit of nonzero power, whose
+    (num_frames, k_count) deposits are the grid's own shape.  A deposit of
+    zero power (an invalid one) takes id −1 and adds nothing: adding +0.0
+    changes no cell, and the clamped edge cells, where every invalid
+    deposit lands, never see it."""
     lead = t_bin.shape[:-2]
     ids = torch.where(power != 0, t_bin * k_count + f_bin, -1)
+    bound = {} if reach is None else dict(reach=reach, frame_len=k_count)
     out = histogram(ids.reshape(lead + (-1,)).contiguous(),
                     power.reshape(lead + (-1,)).contiguous(),
-                    num_frames * k_count, route=SORTED)
+                    num_frames * k_count, route=SORTED, **bound)
     return out.reshape(lead + (num_frames, k_count))
 
 
@@ -95,4 +101,5 @@ def reassigned_spectrogram(x: torch.Tensor, n: int, hop: int,
     t = X_h.shape[-2]
     power, dt, dw = reassignment_corrections(X_h, X_th, X_dh)
     t_bin, f_bin, p = reassigned_bins(power, dt, dw, n, hop, t, power_floor)
-    return scatter_segment_sum(t_bin, f_bin, p, t, n // 2 + 1)
+    return scatter_segment_sum(t_bin, f_bin, p, t, n // 2 + 1,
+                               reach=-(-n // (2 * hop)))

@@ -41,6 +41,10 @@ _SIGNATURES = {
                                + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                                   _I, _I, _P, _P],
     "emspec_deposits_cluster_occupancy": [_P],
+    "emspec_deposits_cluster_large": [_P, _LL, _LL, _LL, _LL] + [_P] * 9
+                                     + [_I, _I, _I, _I, _F, _F, _F, _F, _I,
+                                        _I, _I, _I, _P, _P],
+    "emspec_deposits_cluster_large_occupancy": [_I, _I, _I, _P],
     "emspec_deposits_hist": [_P, _LL, _LL, _LL, _LL] + [_P] * 8
                             + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I,
                                _I, _P],
@@ -57,6 +61,8 @@ _SIGNATURES = {
                             _P],
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P],
     "emspec_histogram_sorted": [_P, _I, _P, _P, _LL, _I, _P],
+    "emspec_histogram_tiles": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                               _P],
     "emspec_post_head": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "emspec_post_tail": [_P] * 15 + [_I, _LL, _LL, _LL, _LL, _P],
     "emspec_lut": [_P, _P, _P, _LL, _I, _I, _P],

@@ -12,7 +12,11 @@ producer; one worker thread drains analysis hops (a CUDA graph replay
 each on the card) and paints the waterfall; HTTP handler threads only
 read snapshots or apply settings — every ``EmSpecApp`` mutation happens
 under one lock, so a structural change's new ``Stream`` (its warm-up
-hops and graph capture) never overlaps a drain tick.  A prewarm job runs
+hops and graph capture) never overlaps a drain tick.  A tick holds the
+lock for the pending hops up to ``DRAIN_HOLD_S`` (one hop at least),
+then lets every thread waiting for the lock take it before the next
+batch: a backlog (a host that fell behind, a stall) never keeps a
+settings POST or ``/api/frame`` waiting for more than one batch.  A prewarm job runs
 outside that lock and takes turns with a capture through
 ``device.CARD_LOCK``.  The drain worker keeps the wall of each tick that
 painted (``tick_ms``, the most recent 10,000) and counts the columns it
@@ -51,6 +55,35 @@ class _QuietServer(ThreadingHTTPServer):
         super().handle_error(request, client_address)
 
 
+DRAIN_HOLD_S = 0.004        # a drain batch: hops until 4 ms have passed
+STEP_ASIDE_S = 0.05         # ... then the most it waits for waiting threads
+
+
+class _AppLock:
+    """The app lock: a re-entrant lock that counts the threads waiting
+    for it, so the drain worker can step aside for them between
+    batches (a plain lock may be taken again by the thread that just
+    released it, before a waiter wakes)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._count = threading.Lock()
+        self.waiting = 0
+
+    def __enter__(self):
+        with self._count:
+            self.waiting += 1
+        try:
+            self._lock.acquire()
+        finally:
+            with self._count:
+                self.waiting -= 1
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
 class ShellServer:
     """Owns the app, the feeder, the drain worker, and the HTTP server."""
 
@@ -67,7 +100,7 @@ class ShellServer:
         dev = self.app.device
         self.device_name = (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu")
-        self.lock = threading.RLock()
+        self.lock = _AppLock()
         self._stop = threading.Event()
         # frame push: the drain worker bumps the sequence whenever new
         # columns landed; /api/stream connections wait on the condition
@@ -91,20 +124,28 @@ class ShellServer:
     # --------------------------------------------------------------- feeding
     def _drain_loop(self) -> None:
         while not self._stop.is_set():
-            with self.lock:
-                t0 = time.perf_counter()
-                ch = self.app.settings.channels   # may change structurally
-                empty = (np.zeros((ch, 0), np.float32) if ch > 1
-                         else np.zeros(0, np.float32))
-                emitted = self.app.push_audio(empty)
+            pending = True
+            while pending and not self._stop.is_set():
+                with self.lock:
+                    t0 = time.perf_counter()
+                    emitted, pending = self.app._drain_until(
+                        t0 + DRAIN_HOLD_S)
+                    if emitted:
+                        self.columns_emitted += emitted
+                        self.tick_ms.append((time.perf_counter() - t0) * 1e3)
                 if emitted:
-                    self.columns_emitted += emitted
-                    self.tick_ms.append((time.perf_counter() - t0) * 1e3)
-            if emitted:
-                with self._frame_cv:
-                    self._frame_seq += 1
-                    self._frame_cv.notify_all()
+                    with self._frame_cv:
+                        self._frame_seq += 1
+                        self._frame_cv.notify_all()
+                self._step_aside()
             time.sleep(1.0 / 60.0)
+
+    def _step_aside(self) -> None:
+        """Wait (at most ``STEP_ASIDE_S``) until no thread waits for the
+        app lock, so a request is served between two drain batches."""
+        end = time.perf_counter() + STEP_ASIDE_S
+        while self.lock.waiting and time.perf_counter() < end:
+            time.sleep(0.0002)
 
     # --------------------------------------------------------------- control
     def start(self) -> None:

@@ -33,6 +33,7 @@ graph's private memory pool when an app drops the stream.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -282,11 +283,22 @@ class Stream:
             self._next_frame += 1
             return block, self.dropped_frames, w_init
 
-    def _drain(self) -> list[Column]:
+    def _drain(self, deadline: float | None = None) -> list[Column]:
+        """Analyze the pending hops; with a ``deadline`` (a
+        ``time.perf_counter`` value) stop at the first hop boundary past
+        it, after one hop at least (``hop_pending`` says whether any is
+        left)."""
         out = []
         while (staged := self._stage_one()) is not None:
             out.extend(self._dispatch(*staged))
+            if deadline is not None and time.perf_counter() >= deadline:
+                break
         return out
+
+    def hop_pending(self) -> bool:
+        """Whether the ring holds the window of the next hop to analyze."""
+        return (self.ring.total_written
+                >= self._next_frame * self.pipe.hop + self.pipe.n_max)
 
     def _dispatch(self, block: np.ndarray, dropped: int,
                   w_init=None) -> list[Column]:

@@ -33,8 +33,14 @@ included), ``post_head`` bit-equal to ``_boost_db_peak``'s peak,
 ``post_tail`` to its plain version, and the batch post chain bit-equal to
 the card's own column-by-column chain, the associative form within
 4·⌈log2 t⌉·ε·max|y|; B2's sorted route bit-equal to the plain sum on the
-CPU; the single-bank raster against the CPU path by ``compare_grids`` and
-``compare_vis``, the same on two runs."""
+CPU, in both forms (the tiles form at the raster's ids, at reach 1, 2
+and 8, added into an output too, the same on a second run); B1's route
+cluster_large at 65536–262144 by the B1 criteria against plain (float64
+plain settling float32 plain's rounding flips) and against the
+three-launch route it replaced, and with a bin window and band weight
+by the criteria that hold for a window; the single-bank raster against
+the CPU path by ``compare_grids`` and ``compare_vis``, the same on two
+runs."""
 
 import math
 
@@ -48,8 +54,10 @@ from emspec_torch.dsp.kernels import ema
 from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.post import post_head, post_tail, post_tail_plain
 from emspec_torch.dsp.kernels.deposits import (
-    cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
-    deposits_ids_cluster, deposits_ids_large, deposits_ids_plain, route_of)
+    CLUSTER_LARGE_N, cluster_large_occupancy, cluster_occupancy,
+    deposits_hist, deposits_hist_plain, deposits_ids, deposits_ids_cluster,
+    deposits_ids_cluster_large, deposits_ids_large, deposits_ids_plain,
+    route_of)
 from emspec_torch.dsp.kernels.deposits import hist_route_of as hist_route_of_b6
 from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, fft4_steps123, fft4_steps123_plain)
@@ -57,7 +65,7 @@ from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, SORTED, histogram, histogram_plain)
+    ROUTES, SMEM_BINS, SORTED, SORTED_TILES, histogram, histogram_plain)
 from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
@@ -311,6 +319,66 @@ def test_cuda_deposits_cluster_matches_large_route(cuda, b):
     il, cl = deposits_ids(fr, *sc, **kw, route="large")
     _assert_b1(ik, ck, il, cl, n=32768, rows=kw["rows"])
     assert cluster_occupancy(cuda) >= 1
+
+
+def _agree(ik, ck, ip, cp, rows, band):
+    """The B1 criteria that hold for a bin window too: ≥ 99.99% equal ids,
+    other valid deposits moved one cell, invalid ones −1 (a valid deposit
+    of band weight 0 keeps its id and carries contrib 0), contrib within
+    1e-5·peak."""
+    vk, vp = ck > 0, cp > 0
+    both = vk & vp
+    agree = (both & (ik == ip)) | (~vk & ~vp)
+    assert float(agree.float().mean()) >= 0.9999
+    moved = (ik - ip).abs()[both & (ik != ip)]
+    assert bool(torch.isin(moved, torch.tensor(
+        [1, rows - 1, rows, rows + 1], device=ik.device)).all())
+    assert bool((ik[~vk & (band != 0)] == -1).all())
+    assert float((ck - cp)[both].abs().max()) <= 1e-5 * float(cp.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CLUSTER_LARGE_N)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("win", [False, True], ids=["whole", "window"])
+def test_cuda_deposits_cluster_large_route(cuda, n, b, win):
+    """Route cluster_large, the default at 65536–262144: one launch of
+    its own and no pack, B4 or finish launch; the B1 criteria against
+    plain (float64 plain deciding where float32 plain's rounding flipped,
+    as at a half-integer Δt/hop) and against the three-launch route it
+    replaced; b = 1 bit-equal to frame 0.  With a bin window across the
+    ranks' rows and a band weight from a seed (a fifth of it zero), the
+    same against the forced large route and plain on that window."""
+    fr, sc, kw = _b1_case(cuda, n, b)
+    assert route_of(n) == "cluster_large"
+    assert cluster_large_occupancy(n, cuda) >= 1
+    if win:
+        k_lo, k_hi = n // 8 - 37, 3 * n // 8 + 41
+        rng = np.random.default_rng(n + b)
+        band = rng.uniform(0.0, 1.0, k_hi - k_lo).astype(np.float32)
+        band[::5] = 0.0
+        kw = dict(kw, k_lo=k_lo, k_hi=k_hi,
+                  band=torch.from_numpy(band).to(cuda))
+    before = (deposits_ids_cluster_large.launches, _counts())
+    ik, ck = deposits_ids(fr, *sc, **kw)
+    assert (deposits_ids_cluster_large.launches, _counts()) == (
+        before[0] + 1, before[1])
+    il, cl = deposits_ids(fr, *sc, **kw, route="large")
+    ip, cp = deposits_ids_plain(fr, *sc, **kw)
+    i64, c64 = deposits_ids_plain(fr.double(), *sc, **kw)
+    settled = (ik != ip) & (ik == i64) & ((ck > 0) == (c64 > 0))
+    ip = torch.where(settled, i64, ip)
+    cp = torch.where(settled, c64.float(), cp)
+    if win:
+        _agree(ik, ck, ip, cp, kw["rows"], kw["band"])
+        _agree(ik, ck, il, cl, kw["rows"], kw["band"])
+    else:
+        _assert_b1(ik, ck, ip, cp, n=n, rows=kw["rows"])
+        _assert_b1(ik, ck, il, cl, n=n, rows=kw["rows"])
+    for one in (fr[:1], fr[0]):
+        i1, c1 = deposits_ids(one, *sc, **kw)
+        assert torch.equal(i1.reshape(1, -1), ik[:1])
+        assert torch.equal(c1.reshape(1, -1), ck[:1])
 
 
 def _b6_case(cuda, n, b, signal):
@@ -723,7 +791,7 @@ WINDOW_CASES = ([(n, w) for n in (512, 2048, 8192)
 def test_cuda_windowed_deposits_match_plain(cuda, n, win):
     """B1 with a bin window and a band weight against its plain version:
     at the display default's bank sizes on the block route, and at 32768
-    (the cluster route) and 65536 (the large route); the bank's own band
+    (the cluster route) and 65536 (the cluster_large route); the bank's own band
     support, a window holding bin 0, one holding N/2 up to the
     spectrum's edge, the single bin N/2, and one across the cluster
     ranks' split at N/8 and 3N/8.  The B1 criteria over the display
@@ -738,12 +806,15 @@ def test_cuda_windowed_deposits_match_plain(cuda, n, win):
     hop 128)."""
     fr, sc, kw = _window_case(cuda, n, win)
     k_lo, k_hi, rows, R = kw["k_lo"], kw["k_hi"], kw["rows"], kw["reach"]
-    before = _counts() + (deposits_ids.form_launches["window"],)
+    before = _counts() + (deposits_ids.form_launches["window"],
+                          deposits_ids_cluster_large.launches)
     ik, ck = deposits_ids(fr, *sc, **kw)
-    step = {"block": (1, 0, 0), "cluster": (0, 1, 0),
-            "large": (0, 0, 1)}[route_of(n)]
+    step = {"block": (1, 0, 0), "cluster": (0, 1, 0), "large": (0, 0, 1),
+            "cluster_large": (0, 0, 0)}[route_of(n)]
     assert _counts()[:3] == tuple(b + s for b, s in zip(before, step))
     assert deposits_ids.form_launches["window"] == before[4] + step[0]
+    assert deposits_ids_cluster_large.launches == before[5] + (
+        route_of(n) == "cluster_large")
     assert ik.shape == ck.shape == (fr.shape[0], k_hi - k_lo)
     ip, cp = deposits_ids_plain(fr, *sc, **kw)
     i64, c64 = deposits_ids_plain(fr.double(), *sc, **kw)
@@ -1031,18 +1102,67 @@ def test_cuda_histogram_sorted_route_bit_equal_to_cpu_plain(cuda, rows, m,
                                                     cells, out=base.cpu()))
 
 
+def _raster_ids(cuda, n, hop, seconds, rows=1):
+    """The single-bank raster's ids t_bin·K + f_bin (−1 where dropped) and
+    powers, as ``dsp.reassign`` makes them on the card, ``rows`` signals."""
+    from emspec_torch.dsp.reassign import (
+        reassigned_bins, reassignment_corrections)
+    from emspec_torch.dsp.stft import stft_triple
+    x = torch.from_numpy(np.stack([_tone_noise(int(48000 * seconds), 5 + r)
+                                   for r in range(rows)])).to(cuda)
+    X = stft_triple(x, n, hop, "direct")
+    t = X[0].shape[-2]
+    t_bin, f_bin, p = reassigned_bins(*reassignment_corrections(*X), n, hop,
+                                      t)
+    ids = torch.where(p != 0, t_bin * (n // 2 + 1) + f_bin, -1)
+    return (ids.reshape(rows, -1).contiguous(),
+            p.reshape(rows, -1).contiguous(), t, n // 2 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hop,rows", [
+    (8192, 2048, 1), (8192, 2048, 3), (2048, 1024, 1), (1024, 64, 2),
+    (32768, 8192, 1)])
+def test_cuda_histogram_sorted_tiles_bit_equal_to_cpu_plain(
+        cuda, n, hop, rows):
+    """The sorted route's tiles form at the raster's ids (8192 at hop 2048
+    on 16 s is the raster's 372 × 4097 deposits, R = 2; R = 1 and 8, and
+    32768's column of 16,385 cells, one column a tile, beside it):
+    one launch of the tiles form, bit-equal to the CPU plain sum, added
+    into an output too, and the same on a second run."""
+    ids, vals, t, k = _raster_ids(cuda, n, hop, 16.0 if n == 8192 else 6.0,
+                                  rows)
+    cells, reach = t * k, -(-n // (2 * hop))
+    bound = dict(reach=reach, frame_len=k)
+    before = (histogram.route_launches[SORTED_TILES],
+              histogram.route_launches[SORTED])
+    got = histogram(ids, vals, cells, route=SORTED, **bound)
+    assert (histogram.route_launches[SORTED_TILES],
+            histogram.route_launches[SORTED]) == (before[0] + 1, before[1])
+    want = histogram_plain(ids.cpu(), vals.cpu(), cells)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(histogram(ids, vals, cells, route=SORTED, **bound),
+                       got)
+    base = torch.rand(rows, cells, device=cuda)
+    added = histogram(ids, vals, cells, route=SORTED, out=base.clone(),
+                      **bound)
+    assert torch.equal(added.cpu(), histogram_plain(
+        ids.cpu(), vals.cpu(), cells, out=base.cpu()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,n", [("enhanced", 8192), ("natural", 2048),
                                     ("enhanced", 1024)])
 def test_cuda_raster_matches_cpu_and_repeats(cuda, mode, n):
     s = Settings(mode=mode, multires=False, fft_size=n)
     x = _tone_noise(48000 * 4, 21)
-    before = (windowed_frames.launches, histogram.route_launches[SORTED],
-              post_head.launches, ema_scan.launches, post_tail.launches)
+    before = (windowed_frames.launches,
+              histogram.route_launches[SORTED_TILES], post_head.launches,
+              ema_scan.launches, post_tail.launches)
     vis = raster.render_vis(x, s, cuda)
     if mode == "enhanced":
         assert windowed_frames.launches == before[0] + 1
-        assert histogram.route_launches[SORTED] == before[1] + 1
+        assert histogram.route_launches[SORTED_TILES] == before[1] + 1
     assert (post_head.launches, ema_scan.launches, post_tail.launches) == (
         before[2] + 1, before[3] + 1, before[4] + 1)
     assert np.array_equal(raster.render_vis(x, s, cuda), vis)

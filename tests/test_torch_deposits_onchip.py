@@ -476,7 +476,7 @@ def test_mirror_matches_pallas_interpret():
 # ---------------------------------------------------------------- routing
 def test_routes_by_size_only():
     assert [route_of(n) for n in SIZES + (65536, 262144)] == (
-        ["block"] * 6 + ["cluster", "large", "large"])
+        ["block"] * 6 + ["cluster", "cluster_large", "cluster_large"])
     assert SMALL_MAX_N == 1 << (BLOCK_MAX_LOG2M + 1) and CLUSTER_N == 32768
     # the block route's shared memory: 70,656 B at 8192 (three blocks an
     # SM by memory), 136,192 B at 16384, within a block's 227 KB with B6's

@@ -10,6 +10,12 @@
 * The step leaves the process's intra-op thread count as it found it.
 * A structural ``EmSpecApp.apply_settings`` whose colormap lookup fails
   leaves the app on its old settings, stream and waterfall.
+* The web shell's drain tick holds the app lock for a bounded batch of
+  hops, then steps aside: with a backlog of 3 s of audio and each hop
+  taking 20 ms (a loaded host: the six-process load above once took a
+  hop 140 ms), a settings POST and ``/api/frame`` each answer within
+  ``SHELL_BOUND_S``.  The tick used to drain every pending hop under the
+  lock, and the load keeps hops pending, so neither request answered.
 
 ``python tests/test_torch_repairs.py [processes]`` prints each process's
 median hop (ms) for that many processes at once (default six).
@@ -18,6 +24,8 @@ median hop (ms) for that many processes at once (default six).
 import json
 import subprocess
 import sys
+import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +35,7 @@ import torch
 from emspec_torch.app import EmSpecApp
 from emspec_torch.config import Settings
 from emspec_torch.io import synth
+from emspec_torch.shell import ShellServer
 from emspec_torch.stream import Stream
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -118,6 +127,60 @@ def test_structural_change_with_a_failing_colormap_changes_nothing(
         assert all(a is b for a, b in zip(after, before))
         assert not app.stream._finished
         np.testing.assert_array_equal(np.array(app.image()), image)
+
+
+HOP_LOAD_S = 0.020           # a hop's wall on the loaded host
+BACKLOG_S = 3.0              # audio waiting in the ring when the drain starts
+SHELL_BOUND_S = 1.0          # a request's answer, backlog or not
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def test_shell_requests_answer_while_the_drain_has_a_backlog(tmp_path):
+    srv = ShellServer(Settings(**KW), port=0, source="synthetic",
+                      user_dir=tmp_path / "userdir", device="cpu")
+    st = srv.app.stream
+    dispatch = st._dispatch
+
+    def loaded(*args):
+        time.sleep(HOP_LOAD_S)
+        return dispatch(*args)
+
+    st._dispatch = loaded
+    st.ring.push(synth.tone(440.0, BACKLOG_S, 48_000))
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def post(gain):
+        req = urllib.request.Request(
+            base + "/api/settings", data=json.dumps({"gain": gain}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return json.loads(r.read())["kind"]
+
+    def frame():
+        with urllib.request.urlopen(base + "/api/frame", timeout=10) as r:
+            return len(r.read())
+
+    srv.start()
+    try:
+        time.sleep(0.3)                       # the drain is into the backlog
+        walls = []
+        for gain in (2.0, 3.0, 4.0):
+            kind, wall = _timed(lambda: post(gain))
+            assert kind == "continuous"
+            walls.append(wall)
+            size, wall = _timed(frame)
+            assert size == KW["raster_height"] * KW["raster_width"] * 4 + 8
+            walls.append(wall)
+        assert st.hop_pending()               # the backlog is still there
+        assert srv.columns_emitted > 0        # and the drain is painting it
+        assert max(walls) < SHELL_BOUND_S, walls
+    finally:
+        srv.stop()
 
 
 if __name__ == "__main__":
