@@ -53,9 +53,16 @@ them.  Phases, in order, one line each; the first failure ends the run:
    deposits histogram, by each route that takes the shape — the block
    route at the batch shape (372 × 8192), the cluster route (one launch:
    no pack, B4 or finish may launch) and the forced three-launch large
-   route at the stress shape (688 × 32768) — against its plain version
-   and against B1 → B2 composed, with and without the streaming mask, and
-   timed in turns with composed; the probe's B2 variants (each B2's own
+   route at the stress shape (688 × 32768), route cluster_large (one
+   launch) in each design of its cells (a copy in each CTA, a band in
+   each, forced) and the forced large route at the bench's configurations
+   5–7 (184 × 65536, 8 × 131072, 8 × 262144 at 96 kHz) and at the north
+   star (32768 at hop 800, 20,992 cells) — against its plain version
+   and against B1 → B2 composed, with and without the streaming mask, b =
+   1 against frame 0, and timed in turns with composed (medians of three
+   rounds where cluster_large takes the shape: the design
+   ``cluster_large_bands`` picks must be the fastest of the designs and
+   the large route); the probe's B2 variants (each B2's own
    code with one stage taken out) at the probe's shape (688 × 16512 →
    2560, half the ids −1), the batch path's ids (both B2's row route)
    and the multires batch ids (1 × 2,267,934 → 3,039,744, the global
@@ -144,12 +151,21 @@ them.  Phases, in order, one line each; the first failure ends the run:
    its sum takes B2's atomic global route instead); the power grid and
    vis match the port's CPU path; wall per call.
 20. cli: ``python -m emspec_torch`` in subprocesses on a 16 s WAV written
-   with the port's ``io.wav`` — render (8192, and --multires), export
-   (``apply_lut`` of its vis equals render's PNG pixel for pixel), stream,
+   with the port's ``io.wav`` — render (8192; with the CLI's defaults
+   twice and --multires twice, each pair byte-equal), export (``apply_lut``
+   of its vis equals render's PNG pixel for pixel; with --multires, render
+   --multires's), stream,
    animate over the first 4 s at 10 fps (its last frame equals stream's
    PNG of the same 4 s) and note 443 — each must exit 0; walls; and render --multires
    --time-parallel (world size 1 under NCCL), whose PNG must be render
-   --multires's within one colormap step a pixel.
+   --multires's within one colormap step a pixel.  Then in this process
+   the display default's file render (``render_image_multires``, counted:
+   its sum must take B2's sorted tiles): the image the same on two calls,
+   its grid before the post chain bit-equal on two calls and to the CPU
+   plain sum of its deposits, the global route's grid on two calls (cells
+   that differ), and the sum's device time, tiles against global, in
+   turns.  At the end every path but the raster and this render must
+   have launched no sorted route.
 21. app: the live app as a user opens it — ``ShellServer(Settings(),
    source="wav")`` on the card looping the 16 s signal over HTTP, a
    viewer polling ``/api/frame`` at 15 Hz, one continuous POST and two
@@ -280,8 +296,8 @@ from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.post import (
     post_head, post_head_plain, post_tail, post_tail_plain)
 from emspec_torch.dsp.kernels.deposits import (
-    CLUSTER_LARGE_N, cluster_large_occupancy, cluster_large_plan,
-    cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
+    CLUSTER_LARGE_N, cluster_large_bands, cluster_large_occupancy,
+    cluster_large_plan, cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster, deposits_ids_cluster_large, deposits_ids_large,
     deposits_ids_plain, hist_route_of, quantize_deposits)
 from emspec_torch.dsp.kernels.deposits import route_of as b1_route_of
@@ -303,7 +319,7 @@ from emspec_torch.io.ring import RingBuffer
 from emspec_torch.io.wav import _read_wav_py, write_wav
 from emspec_torch.native import lib as native
 from emspec_torch.native.lib import NativeRingBuffer
-from emspec_torch.pipeline import Pipeline
+from emspec_torch.pipeline import Pipeline, render_image_multires
 from emspec_torch.post import chain
 from emspec_torch.post.chain import PostState, postprocess_batch
 from emspec_torch.post.colormap import apply_lut
@@ -360,6 +376,8 @@ KERNELS = (
      "emspec/dsp/pallas/fft4.py:616"),
     ("deposits_hist_cluster", deposits_hist, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:616"),
+    ("deposits_hist_cluster_large", deposits_hist,
+     "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:616"),
     ("hist_variant", hist_variant, "emspec_torch/csrc/scatter_ablation.cu",
      "bench_probes/scatter_ablation.py:93"),
     ("deposits_ids_window", deposits_ids, "emspec_torch/csrc/deposits.cu",
@@ -378,7 +396,9 @@ COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "histogram_sorted_tiles":
               lambda: histogram.route_launches[SORTED_TILES],
           "deposits_hist_cluster":
-              lambda: deposits_hist.route_launches["cluster"]}
+              lambda: deposits_hist.route_launches["cluster"],
+          "deposits_hist_cluster_large":
+              lambda: deposits_hist.route_launches["cluster_large"]}
 MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
                  "lut_values")
 CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
@@ -407,6 +427,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "raster": ("windowed_frames", "histogram_sorted_tiles",
                "lut_values") + SCAN,
     "raster_natural": ("lut_values",) + SCAN,
+    # the display default's file render: its sum on B2's sorted tiles
+    "render_multires": MULTIRES_PATH + ("histogram_sorted_tiles",) + SCAN,
     # the shell on the display default, then 4096 single-bank, then natural
     "app": MULTIRES_PATH,
     "sharded_pipeline": CLUSTER_PATH + SCAN,
@@ -426,6 +448,9 @@ LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 SM_CLOCK_HZ = [0.0]     # the card's top SM clock (nvidia-smi), phase device
 STEP_CYCLES = 8         # one scan step: a dependent multiply and add
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
+EXACT_PATHS = ("raster", "render_multires")   # the paths on B2's sorted route
+EXACT: dict = {}        # the multires file render's sum (phase cli)
+EXACT_TURNS = ("global", "tiles", "tiles", "global") * 3
 
 
 def fail(msg: str):
@@ -728,7 +753,10 @@ def kernels_b123(dev, pipe: Pipeline, p) -> dict:
     res["deposits_ids"] = dict(
         at=f"frames ({b}, {n})", max_abs_err=err_b1,
         **times(lambda: deposits_ids(frames, *scal, **kw),
-                lambda: deposits_ids_plain(frames, *scal, **kw)),
+                lambda: deposits_ids_plain(frames, *scal, **kw),
+                spectra_alone(frames, n)),
+        library="torch.fft.rfft of the raw and the t·h frames (the "
+                "spectra alone)",
         **b1_bound(frames),
         device_ms_b1=device_ms(lambda: deposits_ids(frames[0], *scal, **kw)),
         bound_ms_b1=b1_bound(frames[0])["bound_ms"])
@@ -1214,6 +1242,8 @@ def kernels_large(dev) -> dict:
                    clusters_at_once=cluster_large_occupancy(n, dev),
                    bit_equal_to_large=bool(torch.equal(ik, il)
                                            and torch.equal(ck, cl)))
+        check(row["bit_equal_to_large"],
+              f"B1 n={n}: cluster_large is not bit-equal to the large route")
         med = turns["median"]
         check(med[b1_route_of(n)] <= min(med.values()),
               f"B1 n={n}: route_of takes {b1_route_of(n)}, slower than "
@@ -1263,8 +1293,15 @@ def kernels_large(dev) -> dict:
 # every other run; cause not known) moves neither median
 B6_TURNS = {"block": ("composed", "block", "block", "composed"),
             "cluster": ("composed", "cluster", "large", "large", "cluster",
-                        "composed")}
-B6_ROUTES = {"block": ("block",), "cluster": ("cluster", "large")}
+                        "composed"),
+            "cluster_large": ("composed", "copies", "bands", "large",
+                              "large", "bands", "copies", "composed") * 3}
+B6_ROUTES = {"block": ("block",), "cluster": ("cluster", "large"),
+             "cluster_large": ("copies", "bands", "large")}
+# route cluster_large's two designs of its cells, each forced: a private
+# copy in each CTA, or a band in each (``cluster_large_bands`` picks one)
+B6_DESIGNS = {"copies": False, "bands": True}
+B6_EXT = ((65536, 184), (131072, 8), (262144, 8))   # bench configs 5-7
 PROBE_TURNS = ("histogram", "full", "full", "histogram") * 3
 PROBE_TOL = 0.03
 
@@ -1273,13 +1310,18 @@ def check_b6(label: str, frames, scal, kw, route: str, ids, contrib,
              S: int) -> tuple:
     """B6 by ``route`` against B1 → B2 composed (1e-5 relative per nonzero
     bin, exact zeros, below min_id too) and against its plain version
-    (the grid rule), with and without the streaming mask; one launch of
-    the route, and no pack, B4 or finish launch on the on-chip routes →
+    (the grid rule), with and without the streaming mask, and b = 1 ≡
+    frame 0 (1e-5 relative, the same zeros); one launch of the route,
+    and no pack, B4 or finish launch on the one-launch routes →
     (largest relative error, largest abs error)."""
     rel_worst, abs_worst = 0.0, 0.0
+    force = dict(route=route)
+    if route in B6_DESIGNS:
+        force = dict(route="cluster_large", bands=B6_DESIGNS[route])
+        route = "cluster_large"
     for min_id in (-2**30, 2 * kw["rows"]):
         before = (dict(deposits_hist.route_launches), fft4_steps123.launches)
-        got = deposits_hist(frames, *scal, min_id, **kw, route=route)
+        got = deposits_hist(frames, *scal, min_id, **kw, **force)
         torch.cuda.synchronize()
         after = (dict(deposits_hist.route_launches), fft4_steps123.launches)
         rises = {r: after[0][r] - before[0][r] for r in after[0]}
@@ -1302,13 +1344,26 @@ def check_b6(label: str, frames, scal, kw, route: str, ids, contrib,
             frames, *scal, min_id, **kw).reshape(-1, S // rows, rows),
             got.reshape(-1, S // rows, rows))
         check(g.ok, f"B6 {label} route {route} min_id={min_id} vs plain: {g}")
+        one = deposits_hist(frames.reshape(-1, kw["n"])[:1], *scal, min_id,
+                            **kw, **force)
+        first = got.reshape(-1, S)[:1]
+        nz1 = first != 0
+        rel1 = float(((one - first).abs()[nz1] / first[nz1]).max()) \
+            if bool(nz1.any()) else 0.0
+        check(rel1 <= 1e-5 and bool((one[~nz1] == 0).all()),
+              f"B6 {label} route {route} min_id={min_id}: b = 1 vs frame 0 "
+              f"of the batch, rel {rel1}")
     return rel_worst, abs_worst
 
 
 def kernels_b6(dev, pipe: Pipeline, p, x) -> dict:
     """B6 by each route that takes the shape, against plain and B1 → B2
-    composed, at the batch shape and the stress shape; times by route in
-    turns with composed, and with every deposit masked (``min_id`` = the
+    composed, at the batch shape, the stress shape, the bench's
+    configurations 5–7 (``ext``: 184 × 65536, 8 × 131072, 8 × 262144 at
+    96 kHz) and the north star (32768 at hop 800, 20,992 cells); times by
+    route in turns with composed (medians of three rounds where route
+    cluster_large takes the shape, which must be no slower than the
+    three-launch route), and with every deposit masked (``min_id`` = the
     cell count: the kernel without its adds)."""
     res, lines = {}, []
     cases = [("batch", frame_signal(x, pipe.n_max, pipe.hop), p,
@@ -1318,6 +1373,18 @@ def kernels_b6(dev, pipe: Pipeline, p, x) -> dict:
     cases.append(("stress", sframes, spipe.params(),
                   dict(n=32768, hop=spipe.hop, sr=96000.0, rows=spipe.rows,
                        reach=spipe.reach)))
+    for n, b in B6_EXT:
+        epipe = Pipeline(EXT.replace(fft_size=n), dev)
+        xe = torch.from_numpy(signal(((b - 1) * epipe.hop + n) / 96000,
+                                     seed=n % 89, sr=96000)).to(dev)
+        cases.append((f"ext{n}", frame_signal(xe, n, epipe.hop),
+                      epipe.params(),
+                      dict(n=n, hop=epipe.hop, sr=96000.0, rows=epipe.rows,
+                           reach=epipe.reach)))
+    npipe = Pipeline(NORTH, dev)
+    cases.append(("north", frame_signal(x, 32768, npipe.hop), npipe.params(),
+                  dict(n=32768, hop=npipe.hop, sr=float(SR), rows=npipe.rows,
+                       reach=npipe.reach)))
     for label, frames, pp, kw in cases:
         scal = (pp.logmap_a, pp.logmap_b, pp.power_floor)
         n = kw["n"]
@@ -1333,12 +1400,24 @@ def kernels_b6(dev, pipe: Pipeline, p, x) -> dict:
             return histogram(*deposits_ids(frames, *scal, **kw), S)
 
         def fused(r, min_id=-2**30):
-            return lambda: deposits_hist(frames, *scal, min_id, **kw, route=r)
+            force = (dict(route="cluster_large", bands=B6_DESIGNS[r])
+                     if r in B6_DESIGNS else dict(route=r))
+            return lambda: deposits_hist(frames, *scal, min_id, **kw,
+                                         **force)
 
         turns = {}
         for who in B6_TURNS[first]:
             turns.setdefault(who, []).append(device_ms(
                 composed if who == "composed" else fused(who)))
+        med = {r: float(np.median(v)) for r, v in turns.items()}
+        if first == "cluster_large":
+            own = "bands" if cluster_large_bands(n, S) else "copies"
+            med["cluster_large"] = med[own]
+            check(med[own] <= min(med["large"], med["copies"],
+                                  med["bands"]),
+                  f"B6 {label} ({b} × {n} → {S}): route cluster_large "
+                  f"({own}) slower than another route or design by median "
+                  f"device ms {med}")
         bnd = bound(frame_bytes(frames) + 4 * b * S + 8 * n + 12,
                     b * (dft_ops(n) + n + 40 * (n // 2 + 1))
                     + float((contrib > 0).sum()))
@@ -1350,10 +1429,11 @@ def kernels_b6(dev, pipe: Pipeline, p, x) -> dict:
                     frames, *scal, -2**30, **kw), iters=5, warmup=2),
                 composed_ms=cuda_ms(composed, 5, 2),
                 composed_device_ms=fmean(turns["composed"]),
-                in_turns_device_ms=turns,
+                in_turns_device_ms=turns, median_device_ms=med,
                 masked_device_ms=device_ms(fused(r, S)), **bnd)
         lines.append(
-            f"B6 {label} ({b} × {n} → {S}), device ms in turns {turns}; "
+            f"B6 {label} ({b} × {n} → {S}), device ms in turns {turns}, "
+            f"medians {med}; "
             + ", ".join(f"{r}: device {res[label, r]['device_ms']:.4f} "
                         f"(every deposit masked "
                         f"{res[label, r]['masked_device_ms']:.4f}), events "
@@ -1366,7 +1446,15 @@ def kernels_b6(dev, pipe: Pipeline, p, x) -> dict:
     return dict(
         deposits_hist=dict(res["batch", "block"],
                            at_stress_large=res["stress", "large"]),
-        deposits_hist_cluster=res["stress", "cluster"])
+        deposits_hist_cluster=res["stress", "cluster"],
+        deposits_hist_cluster_large=dict(
+            res["north", "bands"],
+            at_north_copies=res["north", "copies"],
+            at_north_large=res["north", "large"],
+            at_ext={label: dict(res[label, "copies"],
+                                bands=res[label, "bands"],
+                                large=res[label, "large"])
+                    for label in (f"ext{n}" for n, _ in B6_EXT)}))
 
 
 def kernels_probe(dev, pipe: Pipeline, p, x) -> dict:
@@ -2254,13 +2342,82 @@ def raster_phase(name: str, dev, settings: Settings, x: np.ndarray,
     return call, wall
 
 
-def cli_phase(x: np.ndarray) -> None:
+def exact_sums(dev, x: np.ndarray) -> str:
+    """The display default's file render (``render_image_multires``)
+    driven once (counters: its sum must take B2's sorted tiles) and its
+    image the same on a second call; its grid before the post chain
+    (``exact_sums``) bit-equal on two calls and to the CPU plain sum of
+    the same deposits; the default batch grid (B2's global route: the
+    app's and the bench's) on two calls, cells that differ counted; the
+    sum's device ms, the tiles form against the global route at these ids,
+    and the whole ``process`` call with and without ``exact_sums``, in
+    turns (medians of three rounds) → the phase's line."""
+    img = drive("render_multires",
+                lambda: render_image_multires(x, MULTIRES, dev))
+    check(np.array_equal(render_image_multires(x, MULTIRES, dev), img),
+          "render_image_multires: the image differs between two calls")
+    pipe = Pipeline(MULTIRES, dev)
+    p = pipe.params()
+    xg = torch.from_numpy(x).to(dev)
+    t = pipe.num_columns(x.size)
+    g1 = pipe._enhanced_power(xg, t, p, exact_sums=True)
+    g2 = pipe._enhanced_power(xg, t, p, exact_sums=True)
+    check(torch.equal(g1, g2), "multires file render: the grid differs "
+          "between two calls")
+    ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_inputs(xg, t), p)
+    ids = pipe._absolute_ids(ids_rel, t, pipe.reach)
+    cells = t * pipe.rows
+    fi, fc = ids.reshape(-1).contiguous(), contrib.reshape(-1).contiguous()
+    check(torch.equal(g1.reshape(-1).cpu(),
+                      histogram_plain(fi.cpu(), fc.cpu(), cells)),
+          "multires file render: the grid is not the CPU plain sum of its "
+          "deposits")
+    a1 = pipe._enhanced_power(xg, t, p)
+    a2 = pipe._enhanced_power(xg, t, p)
+    differ = int((a1 != a2).sum())
+    bound = dict(route=SORTED, reach=pipe.reach, frame_len=ids.shape[-1],
+                 column_len=pipe.rows)
+    turns, calls = {}, {}
+    for who in EXACT_TURNS:
+        turns.setdefault(who, []).append(device_ms(
+            (lambda: histogram(fi, fc, cells)) if who == "global"
+            else (lambda: histogram(fi, fc, cells, **bound))))
+        calls.setdefault(who, []).append(device_ms(
+            lambda: pipe.process(xg, p, exact_sums=who == "tiles"), 5))
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    med_calls = {k: float(np.median(v)) for k, v in calls.items()}
+    plan = tile_plan(t, ids.shape[-1], pipe.reach, column=pipe.rows)
+    EXACT.update(at=f"ids ({t}, {ids.shape[-1]}) → {cells} cells, R = "
+                 f"{pipe.reach}", plan=plan, turns_device_ms=turns,
+                 median_device_ms=med, process_turns_device_ms=calls,
+                 process_median_device_ms=med_calls,
+                 global_route_cells_differing=differ,
+                 **bound_of_sum(fi, fc, cells))
+    return (f"multires file render: grid bit-equal on two calls and to the "
+            f"CPU plain sum; the global route's grid differs in {differ} "
+            f"cells between two calls; sum device ms (medians of three "
+            f"rounds) tiles {med['tiles']:.4f} vs global "
+            f"{med['global']:.4f} ({plan['cols']}-column tiles, "
+            f"{plan['col_tiles']} of them); process device ms exact "
+            f"{med_calls['tiles']:.4f} vs default {med_calls['global']:.4f};"
+            f" launches {LAUNCHES['render_multires']}, B2 routes "
+            f"{ROUTE_LAUNCHES['render_multires']}")
+
+
+def bound_of_sum(ids, vals, cells: int) -> dict:
+    """B2's bound: each deposit read once, each cell written once."""
+    return bound(8 * ids.numel() + 4 * cells, ids.numel())
+
+
+def cli_phase(dev, x: np.ndarray) -> None:
     """``python -m emspec_torch`` as a user runs it, each command a
-    subprocess on the card that must exit 0: render (single bank 8192, and
-    --multires), export (its vis through the colormap must equal that
-    render's PNG pixel for pixel), stream, animate over the first 4 s at
-    10 fps (its last frame must equal stream's PNG of the same 4 s), and
-    note 443.  The WAVs are written with the port's io.wav."""
+    subprocess on the card that must exit 0: render (single bank 8192;
+    with the CLI's defaults twice, byte-equal PNGs; --multires twice,
+    byte-equal), export (its vis through the colormap must equal that
+    render's PNG pixel for pixel; with --multires, equal to render
+    --multires's), stream, animate over the first 4 s at 10 fps (its last
+    frame must equal stream's PNG of the same 4 s), and note 443.  The
+    WAVs are written with the port's io.wav.  Then ``exact_sums``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2290,6 +2447,26 @@ def cli_phase(x: np.ndarray) -> None:
             check(r.returncode == 0, f"cli {label}: exit {r.returncode}: "
                   f"{r.stderr[-2000:]}")
             outs[label] = r.stdout.strip()
+        # the equal-run pairs, started together (each wall then shares the
+        # host with the other three)
+        together = (("render (defaults)", ["render", "s16.wav", "d1.png"]),
+                    ("render (defaults), again", ["render", "s16.wav",
+                                                  "d2.png"]),
+                    ("render --multires, again", ["render", "s16.wav",
+                                                  "m2.png", "--multires"]),
+                    ("export --multires", ["export", "s16.wav", "em.npz",
+                                           "--multires"]))
+        t0 = time.perf_counter()
+        procs = [(label, subprocess.Popen(
+            [sys.executable, "-m", "emspec_torch", *args], cwd=d, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for label, args in together]
+        for label, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            walls[label + " (together)"] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"cli {label}: exit "
+                  f"{proc.returncode}: {err[-2000:]}")
+            outs[label] = out.strip()
         z = np.load(d / "e.npz", allow_pickle=False)
         s = json.loads(str(z["settings_json"]))
         rgba = apply_lut(torch.from_numpy(z["vis"].T.copy()),
@@ -2298,6 +2475,16 @@ def cli_phase(x: np.ndarray) -> None:
                              read_png(d / "r.png")),
               "cli: export's vis through the colormap differs from render's "
               "PNG")
+        for a, b in (("d1.png", "d2.png"), ("m.png", "m2.png")):
+            check((d / a).read_bytes() == (d / b).read_bytes(),
+                  f"cli: two renders differ ({a}, {b})")
+        zm = np.load(d / "em.npz", allow_pickle=False)
+        rgba_m = apply_lut(torch.from_numpy(zm["vis"].T.copy()),
+                           torch.from_numpy(lut(s["colormap"]).copy())).numpy()
+        check(np.array_equal(rgba_m.transpose(1, 0, 2)[::-1],
+                             read_png(d / "m.png")),
+              "cli: export --multires's vis through the colormap differs "
+              "from render --multires's PNG")
         frames, fps = read_apng(d / "a.png")
         check(frames.shape[0] == 40 and fps == 10,
               f"cli animate: {frames.shape[0]} frames at {fps} fps")
@@ -2312,9 +2499,11 @@ def cli_phase(x: np.ndarray) -> None:
     print("cli: python -m emspec_torch, each a subprocess that exited 0, "
           "wall s (process start, import and kernel library load included): "
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
-          + "; export ≡ render pixel for pixel; animate's last frame ≡ "
-          f"stream's PNG; render --time-parallel vs --multires: at most "
+          + "; export ≡ render pixel for pixel, and with --multires; two "
+          "renders byte-equal (defaults, --multires); animate's last frame "
+          f"≡ stream's PNG; render --time-parallel vs --multires: at most "
           f"{steps} colormap step, {share:.2e} of the pixels; outputs: " + " | ".join(outs.values()), flush=True)
+    print("cli: " + exact_sums(dev, x), flush=True)
 
 
 SWAP_SIZES = (512, 1024, 2048, 4096, 8192, 16384, 32768)   # the dropdown
@@ -3332,7 +3521,7 @@ def main() -> None:
     rasters = {name: raster_phase(name, dev, s, x)
                for name, s in (("raster", RASTER),
                                ("raster_natural", RASTER_NATURAL))}
-    cli_phase(x)
+    cli_phase(dev, x)
     app_phase(dev, x)
     swap_phase(dev, x)
     live_cli_phase(x)
@@ -3353,6 +3542,12 @@ def main() -> None:
          "north_live": (NORTH, x), "wide_live": (WIDE, xw),
          "multires_live": (MULTIRES, x)}, rasters)
 
+    for path, routes in ROUTE_LAUNCHES.items():
+        check(path in EXACT_PATHS
+              or routes[SORTED] == routes[SORTED_TILES] == 0,
+              f"{path}: B2's sorted route launched off the file renders "
+              f"({routes})")
+    res["histogram_sorted_tiles"]["multires_file_render"] = EXACT
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [

@@ -231,7 +231,7 @@ def cmd_export(args) -> int:
         s = s.replace(display_channel=0)
         x = audio if all_ch else audio[_pick_channel(audio, args.channel)]
         pipe = get_pipeline(s, dev)
-        v, _, _ = pipe.process(x, params=pipe.params(s))
+        v, _, _ = pipe.process(x, params=pipe.params(s), exact_sums=True)
         vis = np.moveaxis(v.cpu().numpy(), 0, -1)     # ([ch,] rows, t)
         freq_hz = np.asarray(pipe._axis(s.freq_scale), np.float64)
         hop, n_win = pipe.hop, pipe.n_max

@@ -125,16 +125,26 @@ __global__ void __launch_bounds__(kGlobalThreads) sorted_kernel(
 
 // The sorted route with a window bound (tiles): deposits come in frames
 // of K (a row holds T frames, T·K deposits, deposit s·K + k), each id is
-// a cell c·K + f of T columns of K cells, and a deposit of frame s lands
-// in a column c with |c − s| <= R (the caller guarantees it: the raster
-// drops every deposit with |Δt| > N/2, so R = ceil(N / 2·hop)).  A block
-// owns a tile of TT columns × FF cells of one row in shared memory, read
-// once from ``out`` (add) or zeroed, and written once at the end: no
-// zero-fill, no global atomics, no sort.  Its 16 warps each own a band of
-// consecutive cells of every column of the tile (warp ((f − f0)·M) >> 16,
-// M = 2^20 div FF).  The block walks the frames s that can reach the tile
-// (t0 − R … t0 + TT − 1 + R) in order, each frame in pieces of PC chunks
-// of 32 bins (one piece where K <= 4608), one piece a step:
+// a cell c·C + f of T columns of C cells (C = K for the raster, whose
+// frame's bins are its column's cells; the display pipeline's grid has
+// C = 512 rows a column and K = 382 deposits a frame at the display
+// default), and a deposit of frame s lands in a column c with |c − s| <=
+// R (the caller guarantees it: the raster drops every deposit with |Δt| >
+// N/2, so R = ceil(N / 2·hop); the display pipeline's ids carry δ within
+// its reach).  A block owns a tile of TT columns × FF cells of one row in
+// shared memory, read once from ``out`` (add) or zeroed, and written once
+// at the end: no zero-fill, no global atomics, no sort.  Its 16 warps each
+// own a band of consecutive cells of every column of the tile (warp
+// ((f − f0)·M) >> 16, M = 2^20 div FF).  The block walks the deposits of
+// the frames s that can reach the tile (t0 − R … t0 + TT − 1 + R) in
+// (frame, bin) order, one piece a step: FP whole frames a piece where
+// they fit 4,608 deposits (FP = 4608 div K: one frame of the raster at
+// 8192, twelve of the display grid's 382), else each frame in pieces of
+// PC chunks of 32 bins (32768's 16,385 bins in four).  A piece starts on
+// a frame: a piece holding the end of one frame and the start of the
+// next gives the warps that own both ends twice the chunks of the others
+// (at the raster's ids such pieces measured 0.041 ms against 0.033 in two
+// runs of three, PERF.md §6);
 //   * stage (piece p + 1's loads issued before the walk of p, stored after
 //     it): each deposit's key — its owning warp and tile cell, or −1
 //     where it does not land in the tile (the column by a float64
@@ -159,45 +169,61 @@ constexpr int kPieceSlots = 9;                 // chunks a warp stages a piece
 constexpr int kPieceChunks = kPieceSlots * kTileWarps;
 
 struct TileGeom {
-  int T, K, R, t0, f0, tt, ff, pc, pieces;
+  int T, K, C, R, t0, f0, tt, ff, pc;
+  int fp, ppf;                   // frames a piece (0: a frame in ppf pieces)
+  int s0, s1;                    // the frames walked, s0 … s1
   unsigned owner_mul;
-  double inv_k;
+  double inv_c;
   const int* ids;
   const float* vals;
 };
 
 // The key of deposit id for the tile: its warp << 16 | tile cell, or −1.
 __device__ __forceinline__ int tile_key(const TileGeom& g, int id) {
-  if (id < 0 || id >= g.T * g.K) return -1;
-  int c = (int)((double)id * g.inv_k);
-  if (c * g.K > id) --c;
-  else if ((c + 1) * g.K <= id) ++c;
-  const int f = id - c * g.K;
+  if (id < 0 || id >= g.T * g.C) return -1;
+  int c = (int)((double)id * g.inv_c);
+  if (c * g.C > id) --c;
+  else if ((c + 1) * g.C <= id) ++c;
+  const int f = id - c * g.C;
   if (c < g.t0 || c >= g.t0 + g.tt || f < g.f0 || f >= g.f0 + g.ff)
     return -1;
   const unsigned warp = ((unsigned)(f - g.f0) * g.owner_mul) >> 16;
   return (int)(warp << 16) | ((c - g.t0) * g.ff + f - g.f0);
 }
 
-// Piece p of the walk: frame s0 + p div pieces, bins from
-// (p mod pieces)·pc·32 on.  A thread's slot i is chunk warp + 16·i.
+// Piece p of the walk: frames s0 + p·fp … (fp > 0), or bins from
+// (p mod ppf)·pc·32 of frame s0 + p div ppf; its deposits [lo, hi) of the
+// row.  A thread's slot i is chunk warp + 16·i.
+__device__ __forceinline__ void piece_range(const TileGeom& g, int p,
+                                            long long* lo, long long* hi) {
+  if (g.fp > 0) {
+    const int s = g.s0 + p * g.fp;
+    *lo = (long long)s * g.K;
+    *hi = (long long)min(s + g.fp, g.s1 + 1) * g.K;
+  } else {
+    const long long f0 = (long long)(g.s0 + p / g.ppf) * g.K;
+    *lo = f0 + (p % g.ppf) * g.pc * 32;
+    *hi = min(*lo + g.pc * 32, f0 + g.K);
+  }
+}
+
 struct Piece {
   int id[kPieceSlots];
   float v[kPieceSlots];
 };
 
-__device__ __forceinline__ void piece_load(const TileGeom& g, int s0, int p,
+__device__ __forceinline__ void piece_load(const TileGeom& g, int p,
                                            Piece* pc) {
-  const int k0 = (p % g.pieces) * g.pc * 32;
-  const long long at = (long long)(s0 + p / g.pieces) * g.K;
+  long long at, hi;
+  piece_range(g, p, &at, &hi);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < kPieceSlots; ++i) {
     const int ch = warp + i * kTileWarps;
-    const int k = k0 + (ch << 5) + lane;
-    const bool in = ch < g.pc && k < g.K;
-    pc->id[i] = in ? __ldg(g.ids + at + k) : -1;
-    pc->v[i] = in ? __ldg(g.vals + at + k) : 0.0f;
+    const long long k = at + (ch << 5) + lane;
+    const bool in = ch < g.pc && k < hi;
+    pc->id[i] = in ? __ldg(g.ids + k) : -1;
+    pc->v[i] = in ? __ldg(g.vals + k) : 0.0f;
   }
 }
 
@@ -258,46 +284,47 @@ __device__ __forceinline__ void piece_walk(const TileGeom& g, float* tile,
 
 __global__ void __launch_bounds__(kTileThreads) tiles_kernel(
     const int* __restrict__ ids, const float* __restrict__ vals,
-    float* __restrict__ out, int T, int K, int R, int TT, int FF, int pc,
-    int col_tiles, int row_tiles, int add) {
+    float* __restrict__ out, int T, int K, int C, int R, int TT, int FF,
+    int pc, int fp, int col_tiles, int row_tiles, int add) {
   extern __shared__ float sm[];
   const int rest = (int)(blockIdx.x % ((long long)col_tiles * row_tiles));
   const long long row = blockIdx.x / ((long long)col_tiles * row_tiles);
   const long long base = row * (long long)T * K;
   TileGeom g;
-  g.T = T, g.K = K, g.R = R;
+  g.T = T, g.K = K, g.C = C, g.R = R;
   g.t0 = (rest / row_tiles) * TT, g.f0 = (rest % row_tiles) * FF;
-  g.tt = min(TT, T - g.t0), g.ff = min(FF, K - g.f0);
+  g.tt = min(TT, T - g.t0), g.ff = min(FF, C - g.f0);
   g.owner_mul = (1u << 20) / (unsigned)g.ff;
-  g.inv_k = 1.0 / K;
-  g.pc = pc, g.pieces = ((K + 31) / 32 + pc - 1) / pc;
+  g.inv_c = 1.0 / C;
+  g.pc = pc, g.fp = fp, g.ppf = fp > 0 ? 1 : ((K + 31) / 32 + pc - 1) / pc;
   g.ids = ids + base, g.vals = vals + base;
   float* tile = sm;                                         // TT·FF
   unsigned* claim = reinterpret_cast<unsigned*>(sm + TT * FF);    // TT·FF
   int* keys = reinterpret_cast<int*>(claim + TT * FF);      // pc·32
   float* pv = reinterpret_cast<float*>(keys + pc * 32);     // pc·32
   unsigned* masks = reinterpret_cast<unsigned*>(pv + pc * 32);    // pc
-  float* rout = out + base;
+  float* rout = out + row * (long long)T * C;
   for (int i = threadIdx.x; i < g.tt * g.ff; i += kTileThreads) {
     const int c = i / g.ff;
-    tile[i] = add ? rout[(long long)(g.t0 + c) * K + g.f0 + i - c * g.ff]
+    tile[i] = add ? rout[(long long)(g.t0 + c) * C + g.f0 + i - c * g.ff]
                   : 0.0f;
     claim[i] = 0u;
   }
   const int s0 = max(g.t0 - R, 0), s1 = min(g.t0 + g.tt - 1 + R, T - 1);
-  const int steps = (s1 - s0 + 1) * g.pieces;
+  g.s0 = s0, g.s1 = s1;
+  const int steps = fp > 0 ? (s1 - s0 + fp) / fp : (s1 - s0 + 1) * g.ppf;
   Piece next;
-  piece_load(g, s0, 0, &next);
+  piece_load(g, 0, &next);
   for (int p = 0; p < steps; ++p) {
     piece_store(g, next, keys, pv, masks);
     __syncthreads();
-    if (p + 1 < steps) piece_load(g, s0, p + 1, &next);
+    if (p + 1 < steps) piece_load(g, p + 1, &next);
     piece_walk(g, tile, claim, keys, pv, masks);
     __syncthreads();
   }
   for (int i = threadIdx.x; i < g.tt * g.ff; i += kTileThreads) {
     const int c = i / g.ff;
-    rout[(long long)(g.t0 + c) * K + g.f0 + i - c * g.ff] = tile[i];
+    rout[(long long)(g.t0 + c) * C + g.f0 + i - c * g.ff] = tile[i];
   }
 }
 
@@ -323,17 +350,20 @@ extern "C" int emspec_histogram_sorted(const void* keys, int key_bytes,
   return (int)cudaGetLastError();
 }
 
-// The tiles form of the sorted route: ids, vals (rows, T·K), out (rows,
-// T·K) float32, each cell written once (add = 1: out's value first);
-// reach R; TT columns and FF cells a tile, pieces of pc chunks (the
-// wrapper's tile_plan).
+// The tiles form of the sorted route: ids, vals (rows, T·K) — T frames of
+// K deposits — out (rows, T·C) float32 — T columns of C cells — each cell
+// written once (add = 1: out's value first); reach R; TT columns and FF
+// cells a tile, pieces of fp frames (fp > 0) or of pc chunks of a frame,
+// pc chunks staged a piece (the wrapper's tile_plan).
 extern "C" int emspec_histogram_tiles(const int* ids, const float* vals,
                                       float* out, long long rows, int T,
-                                      int K, int R, int TT, int FF, int pc,
-                                      int add, void* stream) {
-  if (T <= 0 || K <= 0 || R < 0 || TT <= 0 || FF <= 0 || FF > K
-      || TT * FF > 0xffff || pc <= 0 || pc > kPieceChunks
-      || (long long)T * K >= (1LL << 31))
+                                      int K, int C, int R, int TT, int FF,
+                                      int pc, int fp, int add, void* stream) {
+  if (T <= 0 || K <= 0 || C <= 0 || R < 0 || TT <= 0 || FF <= 0 || FF > C
+      || TT * FF > 0xffff || pc <= 0 || pc > kPieceChunks || fp < 0
+      || (fp > 0 && (long long)fp * K > 32LL * pc)
+      || (fp == 0 && K <= 32 * pc)
+      || (long long)T * K >= (1LL << 31) || (long long)T * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const long long smem = 8LL * TT * FF + pc * (32 * 8 + 4);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -341,10 +371,11 @@ extern "C" int emspec_histogram_tiles(const int* ids, const float* vals,
   static const cudaError_t attr = cudaFuncSetAttribute(
       tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const int col_tiles = (T + TT - 1) / TT, row_tiles = (K + FF - 1) / FF;
+  const int col_tiles = (T + TT - 1) / TT, row_tiles = (C + FF - 1) / FF;
   tiles_kernel<<<(unsigned)(rows * col_tiles * row_tiles), kTileThreads,
                  (size_t)smem, (cudaStream_t)stream>>>(
-      ids, vals, out, T, K, R, TT, FF, pc, col_tiles, row_tiles, add);
+      ids, vals, out, T, K, C, R, TT, FF, pc, fp, col_tiles, row_tiles,
+      add);
   return (int)cudaGetLastError();
 }
 

@@ -16,10 +16,11 @@ alone, each with its own launch counter:
   CTA each, read across by distributed shared memory —
   ``deposits_ids_cluster.launches``;
 * "cluster_large", N = 65536, 131072, 262144 (``CLUSTER_LARGE_N``):
-  ``csrc/deposits_large.cu``, one launch, a frame a cluster of 8, 16 and
-  16 CTAs holding both spectra in shared memory, each signal's FFT a
-  four-step transform whose transpose crosses the CTAs through
-  distributed shared memory (``cluster_large_plan``) —
+  ``csrc/xcluster.cuh`` (built in ``csrc/deposits_large.cu``), one
+  launch, a frame a cluster of 8, 16 and 16 CTAs holding both spectra in
+  shared memory, each signal's FFT a four-step transform whose transpose
+  crosses the CTAs through distributed shared memory
+  (``cluster_large_plan``) —
   ``deposits_ids_cluster_large.launches``;
 * "large", N > 16384: ``csrc/deposits_large.cu``'s three launches — a
   pack kernel, kernel B4's steps 1–3 on the packed half-size sequences
@@ -35,15 +36,23 @@ of ``emspec/pipeline.py:420``; the edge bins read their true neighbours
 k_lo − 1 and k_hi.  Without them the output is the whole spectrum, bit
 for bit as before the window existed.
 
-B6 (``deposits_hist``) has three routes too, chosen by ``(n, num_bins)``
+B6 (``deposits_hist``) has four routes, chosen by ``(n, num_bins)``
 alone (``hist_route_of``), each counted in ``deposits_hist.route_launches``:
 "block" (N ≤ 16384, B1's block with the histogram after its tiles),
 "cluster" (N = 32768 and at most ``CLUSTER_HIST_CELLS`` cells: B1's
 cluster, a histogram in each rank's shared memory, each rank storing
-half of the cells) and "large" (the three launches of
-``deposits_large.cu``, their finish blocks adding into a zeroed output).
-Both on-chip routes add through B2's warp merge
-(``csrc/histogram_common.cuh``).
+half of the cells), "cluster_large" (N = 65536 … 262144, and 32768 above
+the cluster route's cells: B1's route cluster_large with the histogram
+in the cluster's shared memory, one launch, a 4-CTA cluster a frame at
+32768; its cells a private copy in each CTA, each rank storing its share
+summed over the copies, or a band in each CTA that the other ranks add
+into through distributed shared memory, by shape:
+``cluster_large_bands``) and "large" (the three launches of
+``deposits_large.cu``, their finish blocks adding into a zeroed output):
+no shape routes there — cluster_large's bands hold more cells at every
+size (``cluster_large_hist_cells``) than its 58,112 — and
+``route="large"`` forces it, for timing.  The three one-launch routes
+add through B2's warp merge (``csrc/histogram_common.cuh``).
 
 ``quantize_deposits`` is the single definition of the quantization
 contract (``emspec.pipeline.Pipeline._deposits_banked``,
@@ -74,11 +83,13 @@ SMALL_MAX_N = 16384    # block route: two (n1, n2 + 1) tiles in one block
 CLUSTER_N = 32768      # cluster route: one 132 KB tile in each of two CTAs
 MAX_N = 262144         # the large route: N/2 must have a B4 factorization
 CLUSTER_LARGE_N = (65536, 131072, 262144)   # cluster_large's sizes
+CLUSTER_LARGE_HIST_N = (CLUSTER_N,) + CLUSTER_LARGE_N   # ... B6's
 ROUTES = ("block", "cluster", "cluster_large", "large")
-HIST_ROUTES = ("block", "cluster", "large")     # B6's
+HIST_ROUTES = ("block", "cluster", "cluster_large", "large")     # B6's
 SMEM_BYTES = 232448    # a block's shared memory on the H100 (deposits.cu kMaxSmem)
 CLUSTER_SMEM = 8 * (512 + 128 * 129 + 128 * 67)    # deposits.cu kClusterSmem
 CLUSTER_HIST_CELLS = (SMEM_BYTES - CLUSTER_SMEM) // 4   # kClusterHistCells
+TWO_CTA_SMEM = 228 * 1024 // 2 - 1024   # a CTA's most for two an SM (1 KB kept)
 
 
 def supported(n: int) -> bool:
@@ -93,7 +104,8 @@ def route_of(n: int) -> str:
 
 
 def cluster_large_plan(n: int) -> dict:
-    """Route cluster_large at n (``deposits_large.cu`` ``xplan``): each
+    """Route cluster_large at n (``xcluster.cuh`` ``xplan``; 32768
+    for B6 alone, in four CTAs): each
     CTA holds ``points`` complex values of both signals in ``threads``
     threads of 16 points (8192 up to 131072, 16384 at 262144), C =
     n/points CTAs a cluster, (n1, n2) = _FACTORS[n/2]; before the exchange
@@ -103,8 +115,8 @@ def cluster_large_plan(n: int) -> dict:
     cols·Q so that both layouts of one block fill the same values; a
     signal's tile is n1·W' = n2·Q values, and a CTA's shared memory B4's
     W_512 table and both tiles."""
-    require(n in CLUSTER_LARGE_N, "cluster_large_plan",
-            f"n={n}: the route takes {CLUSTER_LARGE_N}")
+    require(n in CLUSTER_LARGE_HIST_N, "cluster_large_plan",
+            f"n={n}: the route takes {CLUSTER_LARGE_HIST_N} (32768: B6)")
     n1, n2 = _FACTORS[n // 2]
     points = 8192 if n <= 131072 else 16384
     ctas = n // points
@@ -119,6 +131,27 @@ def cluster_large_plan(n: int) -> dict:
                 stride_after=after, tile=tile, smem=8 * (512 + 2 * tile))
 
 
+def cluster_large_hist_cells(n: int, bands: bool = True) -> int:
+    """B6's cells at most on route cluster_large at n: a CTA's shared
+    memory beside its table and tiles holds 40,192 at 32768, 39,680 at
+    65536 and 131072, 22,272 at 262144 — the copies' limit — and a band
+    of C times as many (``bands``)."""
+    plan = cluster_large_plan(n)
+    return (SMEM_BYTES - plan["smem"]) // 4 * (plan["ctas"] if bands else 1)
+
+
+def cluster_large_bands(n: int, num_bins: int) -> bool:
+    """B6's cells on route cluster_large, by shape: a band in each CTA
+    where a private copy in each would not fit or would cut two CTAs an SM
+    to one while bands keep two (``TWO_CTA_SMEM``); else the copies, whose
+    adds stay in their CTA (the H100's times, PERF.md §6)."""
+    plan = cluster_large_plan(n)
+    copies = plan["smem"] + 4 * num_bins
+    bands = plan["smem"] + 4 * -(-num_bins // plan["ctas"])
+    return copies > SMEM_BYTES or (copies > TWO_CTA_SMEM
+                                   and bands <= TWO_CTA_SMEM)
+
+
 def hist_route_of(n: int, num_bins: int) -> str:
     """B6's route for frames of n points into ``num_bins`` cells: by shape
     only, never by batch."""
@@ -126,7 +159,7 @@ def hist_route_of(n: int, num_bins: int) -> str:
         return "block"
     if n == CLUSTER_N and num_bins <= CLUSTER_HIST_CELLS:
         return "cluster"
-    return "large"
+    return "cluster_large"     # holds more cells than "large" at every n
 
 
 def block_smem(n: int, num_bins: int = 0) -> int:
@@ -414,19 +447,36 @@ def deposits_ids_cluster_large(frames: torch.Tensor, logmap_a, logmap_b,
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_large_occupancy(n: int, device: str) -> int:
+def _cluster_large_occupancy(n: int, device: str, num_bins: int,
+                             bands: bool) -> int:
     got = ctypes.c_int(0)
+    lib = kernels_build.library()
     with torch.cuda.device(device):
-        rc = kernels_build.library().emspec_deposits_cluster_large_occupancy(
-            n, *_FACTORS[n // 2], ctypes.byref(got))
+        if num_bins == 0:                               # B1's kernel
+            rc = lib.emspec_deposits_cluster_large_occupancy(
+                n, *_FACTORS[n // 2], ctypes.byref(got))
+        else:
+            rc = getattr(lib, f"{_hist_entry(bands)}_occupancy")(
+                n, *_FACTORS[n // 2], num_bins, ctypes.byref(got))
     kernels_build.check(rc, "cluster_large_occupancy")
     return got.value
 
 
-def cluster_large_occupancy(n: int, device) -> int:
+def _hist_entry(bands: bool) -> str:
+    """B6's C entry on route cluster_large for a design of its cells
+    (``csrc/deposits_hist_copies.cu``, ``deposits_hist_bands.cu``)."""
+    return ("emspec_deposits_hist_cluster_large_"
+            + ("bands" if bands else "copies"))
+
+
+def cluster_large_occupancy(n: int, device, num_bins: int = 0,
+                            bands: bool = False) -> int:
     """Clusters of route cluster_large at n the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; 0: the card refuses the size)."""
-    return _cluster_large_occupancy(n, str(torch.device(device)))
+    (``cudaOccupancyMaxActiveClusters``; 0: the card refuses the size):
+    B1's, or B6's with ``num_bins`` histogram cells in each CTA, or a band
+    of them (``bands``)."""
+    return _cluster_large_occupancy(n, str(torch.device(device)), num_bins,
+                                    bands)
 
 
 @counted
@@ -459,7 +509,8 @@ def deposits_ids_large(frames: torch.Tensor, logmap_a, logmap_b,
 @counted
 def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
                   min_id: int, *, n: int, hop: int, sr: float, rows: int,
-                  reach: int, route: str | None = None) -> torch.Tensor:
+                  reach: int, route: str | None = None,
+                  bands: bool | None = None) -> torch.Tensor:
     """Kernel B6: frames (..., n) → per-frame relative histograms
     (..., (2·reach+1)·rows) float32, bin (δ + reach)·rows + row — B1 and
     B2 fused, the deposits never in device memory.  Deposits whose id is
@@ -468,7 +519,13 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
     nothing.  The route is ``hist_route_of(n, num_bins)`` (module
     docstring); ``route`` forces one, for timing the routes against each
     other, and is refused where its shared memory or frame size does not
-    take the shape."""
+    take the shape.  Route cluster_large takes 32768–262144 up to
+    ``cluster_large_hist_cells(n)`` cells (160,768 at 32768, 317,440 at
+    65536 and 131072, 356,352 at 262144), its cells a copy in each CTA or
+    a band in each (``cluster_large_bands``; ``bands`` forces one, for
+    timing; refused on the other routes); the three-launch route "large"
+    takes every N above 16384 up to 58,112 cells, fewer than cluster_large
+    holds at every size, so it runs only where forced."""
     num_bins = (2 * reach + 1) * rows
     what = "deposits_hist"
     require(supported(n), what, f"n={n} outside the kernel's power-of-two "
@@ -477,14 +534,23 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
     require(route in HIST_ROUTES, what,
             f"route {route!r} not in {HIST_ROUTES}")
     require((route == "block") == (n <= SMALL_MAX_N)
-            and (route != "cluster" or n == CLUSTER_N), what,
-            f"route {route!r} does not take n={n}")
+            and (route != "cluster" or n == CLUSTER_N)
+            and (route != "cluster_large" or n in CLUSTER_LARGE_HIST_N),
+            what, f"route {route!r} does not take n={n}")
+    require(bands is None or route == "cluster_large", what,
+            f"bands picks the cells of route cluster_large, not {route!r}")
+    if route == "cluster_large":
+        bands = (cluster_large_bands(n, num_bins) if bands is None
+                 else bool(bands))
     limit = ((SMEM_BYTES - block_smem(n)) // 4 if route == "block"
              else CLUSTER_HIST_CELLS if route == "cluster"
-             else SMEM_BYTES // 4)
+             else cluster_large_hist_cells(n, bands)
+             if route == "cluster_large" else SMEM_BYTES // 4)
     require(num_bins <= limit, what,
             f"{num_bins} histogram cells at n={n}: the {route} route holds "
-            f"at most {limit} in shared memory")
+            f"at most {limit} in shared memory"
+            + (" as private copies" if route == "cluster_large"
+               and not bands else ""))
     if frames.device.type == "cpu":
         return deposits_hist_plain(frames, logmap_a, logmap_b, power_floor,
                                    min_id, n=n, hop=hop, sr=sr, rows=rows,
@@ -502,10 +568,17 @@ def deposits_hist(frames: torch.Tensor, logmap_a, logmap_b, power_floor,
                     rows=rows, reach=reach, min_id=min_id,
                     num_bins=num_bins, win=(0, n // 2 + 1, 0), what=what)
         else:
+            if route == "cluster_large":
+                require(cluster_large_occupancy(n, frames.device,
+                                                num_bins, bands) > 0, what,
+                        f"the card holds no cluster of "
+                        f"{cluster_large_plan(n)['ctas']} CTAs with "
+                        f"{num_bins} cells each")
             out = torch.empty(lead + (num_bins,), dtype=torch.float32,
                               device=frames.device)
-            entry = ("emspec_deposits_hist" if route == "block"
-                     else "emspec_deposits_hist_cluster")
+            entry = {"block": "emspec_deposits_hist",
+                     "cluster": "emspec_deposits_hist_cluster"
+                     }.get(route) or _hist_entry(bands)
             rc = getattr(kernels_build.library(), entry)(
                 *_frame_args(f3, th, tw, n), *scal, out.data_ptr(), n,
                 *_FACTORS[n // 2], hop, *consts, rows, reach, min_id,

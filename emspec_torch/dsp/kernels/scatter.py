@@ -28,15 +28,19 @@ atomics — deterministic, and bit-equal to the plain version.  It has two
 forms, each with its own count in ``histogram.route_launches``:
 
 * ``"sorted_tiles"`` (``SORTED_TILES``), where the caller says how far a
-  deposit lands from its frame (``reach=R, frame_len=K``: a row holds
-  frames of K deposits, ids are cells column·K + f of as many columns,
-  and frame s lands in columns s − R … s + R).  One launch, no sort: a
-  block owns a tile of ``tile_plan``'s columns × cells in shared memory
-  and walks the frames that reach it in order, each of its warps adding
-  the deposits of its own cells one after another in (frame, bin) order.
+  deposit lands from its frame (``reach=R, frame_len=K``, and
+  ``column_len=C``, K by default: a row holds frames of K deposits, ids
+  are cells column·C + f of as many columns, and frame s lands in columns
+  s − R … s + R).  One launch, no sort: a block owns a tile of
+  ``tile_plan``'s columns × cells in shared memory and walks the deposits
+  of the frames that reach it in order, each of its warps adding the
+  deposits of its own cells one after another in (frame, bin) order.
   The single-bank raster takes it (``dsp.reassign.scatter_segment_sum``,
-  R = ceil(N / 2·hop)), so an export and a render of the same file
-  agree pixel for pixel;
+  R = ceil(N / 2·hop), C = K), and so do the display pipeline's file
+  renders (``Pipeline.process(..., exact_sums=True)``: the absolute (t,
+  rows) grid, C = rows, K the banks' deposits a frame, R the pipeline's
+  reach), so an export and a render of the same file agree pixel for
+  pixel;
 * ``"sorted"``, without that bound: a stable ``torch.sort`` of the keys
   (row, id), then one thread sums each cell's run of deposits.
 """
@@ -86,24 +90,39 @@ def global_blocks(rows: int, m: int) -> int:
 
 
 def tile_plan(frames: int, k: int, reach: int,
-              tile_cols: int | None = None) -> dict:
-    """The sorted tiles' grid for ``frames`` columns of ``k`` cells at
-    reach R: ``cols`` × ``cells`` a tile (at most ``TILE_CELLS`` cells;
-    a column of more than that is cut into row tiles), cell f − f0 of a
-    column owned by warp ((f − f0)·``owner_mul``) >> 16, the frames a
-    tile walks (``cols`` + 2R, fewer at the ends), each in ``pieces``
-    pieces of ``piece_chunks`` chunks of 32 bins (at most
-    ``PIECE_CHUNKS``), and the shared memory: the tile and its claim
-    words, then one piece's keys, values and chunk masks.  ``tile_cols``
-    stands in for ``TILE_COLS`` (the CPU mirror walks other widths)."""
-    cols = min(tile_cols or TILE_COLS, max(TILE_CELLS // k, 1), frames)
-    cells = min(k, TILE_CELLS // cols)
-    chunks = -(-k // 32)
-    pc = -(-chunks // -(-chunks // PIECE_CHUNKS))
+              tile_cols: int | None = None,
+              column: int | None = None) -> dict:
+    """The sorted tiles' grid for ``frames`` frames of ``k`` deposits into
+    as many columns of ``column`` cells (``k`` by default) at reach R:
+    ``cols`` × ``cells`` a tile (at most ``TILE_CELLS`` cells; a column of
+    more than that is cut into row tiles), cell f − f0 of a column owned
+    by warp ((f − f0)·``owner_mul``) >> 16, the frames a tile walks
+    (``cols`` + 2R, fewer at the ends) in at most ``pieces`` pieces: of
+    ``frames_per_piece`` whole frames where they fit ``PIECE_CHUNKS``
+    chunks of 32, else each frame (``chunks`` chunks) in pieces of
+    ``piece_chunks`` chunks; and the shared memory: the tile and its
+    claim words, then one piece's keys, values and chunk masks.  A tile is
+    ``TILE_COLS`` columns wide, or wider where that leaves more tiles than
+    the card has SMs (a tile of c columns re-reads (c + 2R)/c frames: at
+    the display default's R = 32 and 5,937 columns, 45 columns a tile
+    where 3 would walk 67 frames for 3 columns).  ``tile_cols`` stands in
+    for that width (the CPU mirror walks other widths)."""
+    c_len = column or k
+    width = tile_cols or max(TILE_COLS, -(-frames // SMS))
+    cols = min(width, max(TILE_CELLS // c_len, 1), frames)
+    cells = min(c_len, TILE_CELLS // cols)
+    walk = min(cols + 2 * reach, frames)
+    fp = min(PIECE_CHUNKS * 32 // k, walk)
+    chunks = -(-k // 32)                      # a frame's
+    if fp > 0:
+        pc, pieces = -(-fp * k // 32), -(-walk // fp)
+    else:
+        pc = -(-chunks // -(-chunks // PIECE_CHUNKS))
+        pieces = walk * -(-chunks // pc)
     return dict(cols=cols, cells=cells, col_tiles=-(-frames // cols),
-                row_tiles=-(-k // cells), owner_mul=(1 << 20) // cells,
-                walk=cols + 2 * reach, chunks=chunks, piece_chunks=pc,
-                pieces=-(-chunks // pc),
+                row_tiles=-(-c_len // cells), owner_mul=(1 << 20) // cells,
+                walk=walk, chunks=chunks, frames_per_piece=fp,
+                piece_chunks=pc, pieces=pieces,
                 smem=8 * cols * cells + pc * (32 * 8 + 4))
 
 
@@ -137,7 +156,8 @@ def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
 def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
               passes: int = 2, *, route: str | None = None,
               out: torch.Tensor | None = None, reach: int | None = None,
-              frame_len: int | None = None) -> torch.Tensor:
+              frame_len: int | None = None,
+              column_len: int | None = None) -> torch.Tensor:
     """ids (..., M) int32, vals (..., M) float32 → (..., num_bins) float32.
 
     An id outside [0, num_bins) contributes nothing, even when its value
@@ -149,20 +169,24 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     contiguous float32 (..., num_bins) tensor, is added into in place and
     returned (the global route: its atomics add into whatever the output
     holds) — the live step's ring; the sorted route adds into it too.
-    ``reach`` and ``frame_len`` (the sorted route only) bound where a
-    deposit lands, for its tiles form (module docstring): the ids'
-    last axis is ``num_bins`` = T·``frame_len`` deposits, and frame s's
-    ids lie in columns s − reach … s + reach (a deposit outside them is
-    not added)."""
+    ``reach``, ``frame_len`` and ``column_len`` (the sorted route only)
+    bound where a deposit lands, for its tiles form (module docstring):
+    ``num_bins`` = T·``column_len`` cells (``column_len`` defaults to
+    ``frame_len``), the ids' last axis T·``frame_len`` deposits, and frame
+    s's ids lie in columns s − reach … s + reach (a deposit outside them
+    is not added)."""
     del passes
-    if reach is not None or frame_len is not None:
+    if reach is not None or frame_len is not None or column_len is not None:
+        c_len = column_len or frame_len
         require(route == SORTED and reach is not None and reach >= 0
                 and frame_len is not None and 0 < frame_len
-                and num_bins % frame_len == 0
-                and ids.shape[-1:] == (num_bins,), "histogram",
+                and c_len > 0 and num_bins % c_len == 0
+                and ids.shape[-1:] == (num_bins // c_len * frame_len,),
+                "histogram",
                 f"reach and frame_len bound the sorted route's deposits: "
-                f"ids (..., {num_bins}) in frames of frame_len cells "
-                f"(reach {reach}, frame_len {frame_len})")
+                f"ids (..., T·frame_len) in frames of frame_len deposits "
+                f"into {num_bins} cells, T columns of column_len (reach "
+                f"{reach}, frame_len {frame_len}, column_len {column_len})")
     if ids.device.type == "cpu":
         return histogram_plain(ids, vals, num_bins, out)
     what = "histogram"
@@ -182,7 +206,8 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     m = ids.shape[-1] if ids.dim() else 1
     if route == SORTED and reach is not None:
         return _sorted_tiles(ids, vals, num_bins, out, lead, rows,
-                             reach=reach, k=frame_len)
+                             reach=reach, k=frame_len,
+                             c_len=column_len or frame_len)
     if route == SORTED:
         return _sorted(ids, vals, num_bins, out, lead, rows)
     route = route or ("global" if out is not None
@@ -229,18 +254,18 @@ def _sorted_out(ids, num_bins: int, out, lead: tuple, alloc):
 
 
 def _sorted_tiles(ids, vals, num_bins: int, out, lead: tuple, rows: int, *,
-                  reach: int, k: int):
+                  reach: int, k: int, c_len: int):
     """The sorted route's tiles form (module docstring): one launch, each
     cell written once."""
-    frames = num_bins // k
-    plan = tile_plan(frames, k, reach)
+    frames = num_bins // c_len
+    plan = tile_plan(frames, k, reach, column=c_len)
     add = out is not None
     out = _sorted_out(ids, num_bins, out, lead, torch.empty)
     with torch.cuda.device(ids.device):
         rc = kernels_build.library().emspec_histogram_tiles(
             ids.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, frames, k,
-            reach, plan["cols"], plan["cells"], plan["piece_chunks"],
-            int(add), launch_stream(ids))
+            c_len, reach, plan["cols"], plan["cells"], plan["piece_chunks"],
+            plan["frames_per_piece"], int(add), launch_stream(ids))
     kernels_build.check(rc, "histogram")
     histogram.launches += 1
     histogram.route_launches[SORTED_TILES] += 1

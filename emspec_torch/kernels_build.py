@@ -51,6 +51,12 @@ _SIGNATURES = {
     "emspec_deposits_hist_cluster": [_P, _LL, _LL, _LL, _LL] + [_P] * 8
                                     + [_I, _I, _I, _I, _F, _F, _F, _F, _I,
                                        _I, _I, _I, _P],
+    **{f"emspec_deposits_hist_cluster_large_{design}":
+       [_P, _LL, _LL, _LL, _LL] + [_P] * 8
+       + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P]
+       for design in ("copies", "bands")},
+    **{f"emspec_deposits_hist_cluster_large_{design}_occupancy":
+       [_I, _I, _I, _I, _P] for design in ("copies", "bands")},
     "emspec_deposits_pack": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P],
     "emspec_deposits_finish": [_P] * 8 + [_LL, _I, _I, _I, _I, _F, _F, _F,
                                           _F, _I, _I, _I, _I, _I, _I, _I,
@@ -62,7 +68,7 @@ _SIGNATURES = {
     "emspec_histogram": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P],
     "emspec_histogram_sorted": [_P, _I, _P, _P, _LL, _I, _P],
     "emspec_histogram_tiles": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
-                               _P],
+                               _I, _I, _P],
     "emspec_post_head": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "emspec_post_tail": [_P] * 15 + [_I, _LL, _LL, _LL, _LL, _P],
     "emspec_lut": [_P, _P, _P, _LL, _I, _I, _P],

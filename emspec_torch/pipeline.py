@@ -38,7 +38,13 @@ the relative histogram) sums per frame into (2R+1)·rows cells and folds;
 the absolute grid on the CPU, the relative histogram for one bank on the
 card, and in batch the absolute grid for several banks on the card
 (``use_relative_batch``), live the relative histogram.  Every sum is
-kernel B2 on the card.
+kernel B2 on the card.  ``process(..., exact_sums=True)`` — the file
+renders and export (``render_image_multires``,
+``render_images_channels``, ``__main__``'s export) — sums into the
+absolute grid through B2's sorted route (its tiles form, bounded by the
+reach): every cell adds its deposits in (frame, bin) order, the CPU's
+order, so two runs give the same image bit for bit; the app, the live
+step, the bench and ``parallel.py`` keep the atomic routes.
 
 ``prewarm`` warms the live app's structural variants ahead of a swap
 (a ``WarmHandle`` over the queued jobs, one worker thread).
@@ -59,7 +65,7 @@ from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels import deposits
 from emspec_torch.dsp.kernels.deposits import deposits_ids, quantize_deposits
-from emspec_torch.dsp.kernels.scatter import histogram
+from emspec_torch.dsp.kernels.scatter import SORTED, histogram
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
@@ -307,14 +313,21 @@ class Pipeline:
                               device=ids_rel.device) - R) * self.rows)
         return torch.where(ids_rel >= 0, ids_rel + base[:, None], -1)
 
-    def _scatter_absolute(self, ids_abs, contrib, t_count: int):
+    def _scatter_absolute(self, ids_abs, contrib, t_count: int,
+                          exact: bool = False):
         """One sum (B2 on the card) of each lead row's deposits into its
         absolute (t, rows) grid; on the CPU each cell adds its deposits in
-        (frame, bin) order, as the live step's ring does."""
+        (frame, bin) order, as the live step's ring does.  ``exact``: on
+        the card too, through B2's sorted route in its tiles form (frame
+        s's deposits land in columns s − R … s + R), so the sums are the
+        same on every run."""
         lead = ids_abs.shape[:-2]
+        bound = (dict(route=SORTED, reach=self.reach,
+                      frame_len=ids_abs.shape[-1], column_len=self.rows)
+                 if exact else {})
         out = histogram(ids_abs.reshape(lead + (-1,)),
                         contrib.reshape(lead + (-1,)), t_count * self.rows,
-                        passes=self.settings.scatter_passes)
+                        passes=self.settings.scatter_passes, **bound)
         return out.reshape(lead + (t_count, self.rows))
 
     def _scatter_relative(self, ids_rel, contrib, t_count, R=None):
@@ -338,7 +351,7 @@ class Pipeline:
         return out.movedim(0, -2)                            # (..., t, rows)
 
     def _enhanced_power(self, x, t_count, p: PipelineParams,
-                        frame_valid=None):
+                        frame_valid=None, exact_sums: bool = False):
         """Reassigned 2-D histogram on the (t, rows) display grid.
 
         ``frame_valid``: an optional (t,) mask; the deposits of a frame
@@ -346,23 +359,25 @@ class Pipeline:
         (``parallel.TimeParallelRenderer``) analyses halo frames past the
         signal's frame range to recompute the deposits that cross its
         chunk's edges, and a trailing partial frame, which the whole
-        batch never analyses, must not deposit."""
+        batch never analyses, must not deposit.  ``exact_sums``: the
+        absolute grid through B2's sorted route whatever the scatter
+        setting (``process``)."""
         ids_rel, contrib = self._deposit_ids_rel(
             self._bank_inputs(x, t_count), p)
         if frame_valid is not None:
             ids_rel = torch.where(frame_valid[:, None] > 0, ids_rel, -1)
-        if self.use_relative_batch:
+        if self.use_relative_batch and not exact_sums:
             return self._scatter_relative(ids_rel, contrib, t_count)
         return self._scatter_absolute(
             self._absolute_ids(ids_rel, t_count, self.reach), contrib,
-            t_count)
+            t_count, exact=exact_sums)
 
     # ---------------- full batch path ----------------
     def _batch_vis(self, x, p: PipelineParams, state: PostState,
-                   t_count: int, peak_reduce=None):
+                   t_count: int, peak_reduce=None, exact_sums: bool = False):
         """``peak_reduce``: the global AGC's peak across channel shards
-        (``post.chain._couple``)."""
-        power = (self._enhanced_power(x, t_count, p)
+        (``post.chain._couple``); ``exact_sums``: as in ``process``."""
+        power = (self._enhanced_power(x, t_count, p, exact_sums=exact_sums)
                  if self.settings.mode == MODE_ENHANCED
                  else self._natural_power(x, t_count, p))    # (..., t, rows)
         cols_first = power.movedim(-2, 0).contiguous()       # (t, ..., rows)
@@ -411,9 +426,14 @@ class Pipeline:
         return describe_frequency(self.frequency_at_row(row, freq_scale))
 
     def process(self, x, params: PipelineParams | None = None,
-                state: PostState | None = None):
+                state: PostState | None = None, *, exact_sums: bool = False):
         """Whole-signal batch processing: x (..., samples) →
-        (vis (t, ..., rows), rgba uint8 (t, ..., rows, 4), final PostState)."""
+        (vis (t, ..., rows), rgba uint8 (t, ..., rows, 4), final PostState).
+
+        ``exact_sums``: the enhanced grid's cells add their deposits in
+        (frame, bin) order on every device (the absolute grid, B2's sorted
+        route on the card), so two runs give the same bits — what a file
+        render or export promises; the default keeps the atomic routes."""
         x = self.to_device(x)
         t_count = self.num_columns(x.shape[-1])
         if t_count <= 0:
@@ -421,7 +441,7 @@ class Pipeline:
                 f"need at least {self.n_max} samples, got {x.shape[-1]}")
         p = params or self.params()
         st = state or PostState.init(x.shape[:-1] + (self.rows,), self.device)
-        return self._batch_vis(x, p, st, t_count)
+        return self._batch_vis(x, p, st, t_count, exact_sums=exact_sums)
 
     # ---------------- streaming path ----------------
     def _stream_step(self, carry, window, p: PipelineParams,
@@ -654,9 +674,11 @@ def render_image_multires(x, settings: Settings, device="cuda") -> np.ndarray:
     """Audio → (rows, t, 4) uint8 RGBA log-frequency image, on ``device``.
 
     Multichannel input renders ``settings.display_channel`` (the single
-    view of the app; ``render_images_channels`` gives every channel)."""
+    view of the app; ``render_images_channels`` gives every channel).
+    The same image on every run (``process(..., exact_sums=True)``)."""
     pipe = get_pipeline(settings, device)
-    _, rgba, _ = pipe.process(x, params=pipe.params(settings))
+    _, rgba, _ = pipe.process(x, params=pipe.params(settings),
+                              exact_sums=True)
     img = rgba.cpu().numpy()                           # (t, [ch,] rows, 4)
     if img.ndim == 4:
         img = img[:, settings.display_channel]
@@ -666,13 +688,14 @@ def render_image_multires(x, settings: Settings, device="cuda") -> np.ndarray:
 def render_images_channels(x, settings: Settings,
                            device="cuda") -> list[np.ndarray]:
     """Multichannel audio (ch, samples) → one (rows, t, 4) log-frequency
-    image per channel, from one batched pass on ``device``."""
+    image per channel, from one batched pass on ``device``, the same on
+    every run (``process(..., exact_sums=True)``)."""
     x = np.asarray(x, np.float32)
     if x.ndim == 1:
         x = x[None]
     s = settings.replace(channels=x.shape[0], display_channel=0)
     pipe = get_pipeline(s, device)
-    _, rgba, _ = pipe.process(x, params=pipe.params(s))
+    _, rgba, _ = pipe.process(x, params=pipe.params(s), exact_sums=True)
     img = rgba.cpu().numpy()                           # (t, [ch,] rows, 4)
     if img.ndim == 3:
         img = img[:, None]

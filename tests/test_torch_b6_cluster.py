@@ -56,8 +56,8 @@ CSRC = Path(__file__).resolve().parents[1] / "emspec_torch" / "csrc"
 @pytest.mark.parametrize("n,num_bins,route", [
     (512, 640, "block"), (8192, 2560, "block"), (16384, 2560, "block"),
     (32768, 2560, "cluster"), (32768, 6912, "cluster"),
-    (32768, 6913, "large"), (32768, 20992, "large"),
-    (65536, 2560, "large"), (262144, 640, "large")])
+    (32768, 6913, "cluster_large"), (32768, 20992, "cluster_large"),
+    (65536, 2560, "cluster_large"), (262144, 640, "cluster_large")])
 def test_hist_route_of_by_shape_only(n, num_bins, route):
     assert hist_route_of(n, num_bins) == route
 

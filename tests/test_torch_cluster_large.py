@@ -35,7 +35,7 @@ from emspec.pipeline import Pipeline as JaxPipeline
 from emspec_torch.dsp.fourstep import _FACTORS
 from emspec_torch.dsp.kernels.deposits import (
     CLUSTER_LARGE_N, HIST_ROUTES, ROUTES, SMEM_BYTES, _twiddles,
-    cluster_large_plan, deposits_hist, deposits_ids,
+    cluster_large_plan, deposits_hist, deposits_hist_plain, deposits_ids,
     deposits_ids_cluster_large, deposits_ids_large, deposits_ids_plain,
     route_of)
 from emspec_torch.dsp.kernels.scatter import histogram_plain
@@ -239,9 +239,12 @@ def test_plan_and_routing_at_every_size():
     assert [route_of(n) for n in sizes] == (
         ["block"] * 6 + ["cluster"] + ["cluster_large"] * 3)
     assert ROUTES == ("block", "cluster", "cluster_large", "large")
-    assert "cluster_large" not in HIST_ROUTES
+    # B6 takes the route at 32768 too (tests/test_torch_b6_xcluster.py);
+    # B1 stays on its two-CTA cluster there
+    assert HIST_ROUTES == ("block", "cluster", "cluster_large", "large")
+    assert cluster_large_plan(32768)["ctas"] == 4
     with pytest.raises(ValueError, match="cluster_large_plan"):
-        cluster_large_plan(32768)
+        cluster_large_plan(16384)
 
 
 @pytest.mark.parametrize("n", CLUSTER_LARGE_N)
@@ -418,5 +421,11 @@ def test_wrapper_routes_cpu_to_plain_and_checks_size():
         deposits_ids(meta, s, s, s, **kw32, route="cluster_large")
     with pytest.raises(ValueError, match="deposits_ids_cluster_large"):
         deposits_ids_cluster_large(meta, s, s, s, **kw32)
+    # B6 takes the route too (tests/test_torch_b6_xcluster.py): on a CPU
+    # tensor its plain version; below 32768 it is refused
+    assert torch.equal(deposits_hist(fr, *scal, 0, **kw,
+                                     route="cluster_large"),
+                       deposits_hist_plain(fr, *scal, 0, **kw))
     with pytest.raises(ValueError, match="deposits_hist"):
-        deposits_hist(fr, *scal, 0, **kw, route="cluster_large")
+        deposits_hist(fr[:, :16384], *scal, 0, **dict(kw, n=16384),
+                      route="cluster_large")

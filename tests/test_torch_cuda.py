@@ -381,9 +381,29 @@ def test_cuda_deposits_cluster_large_route(cuda, n, b, win):
         assert torch.equal(c1.reshape(1, -1), ck[:1])
 
 
+def _north_case(cuda, b):
+    """(b, 32768) frames at hop 800, 48 kHz, 512 rows: R = 20, 20,992
+    cells (the north star's shape)."""
+    hop, n = 800, 32768
+    x = torch.from_numpy(_tone_noise((b - 1) * hop + n, 17)).to(cuda)
+    kw = dict(n=n, hop=hop, sr=48000.0, rows=512, reach=20)
+    return frame_signal(x, n, hop), _scalars(cuda, 512, 48000.0), kw
+
+
 def _b6_case(cuda, n, b, signal):
     """B1's case, or a steady 1 kHz tone in 1e-4 noise (hot cells: its
-    bins near the tone all land on one cell of the relative histogram)."""
+    bins near the tone all land on one cell of the relative histogram);
+    n = "north": the north star's shape."""
+    if n == "north":
+        fr, sc, kw = _north_case(cuda, b)
+        if signal == "chirp":
+            return fr, sc, kw
+        n = 32768
+        samples = (b - 1) * kw["hop"] + n
+        rng = np.random.default_rng(n % 89)
+        x = (np.sin(2 * np.pi * 1000.0 * np.arange(samples) / kw["sr"])
+             + 1e-4 * rng.standard_normal(samples)).astype(np.float32)
+        return frame_signal(torch.from_numpy(x).to(cuda), n, kw["hop"]), sc, kw
     fr, sc, kw = _b1_case(cuda, n, b)
     if signal == "tone":
         rng = np.random.default_rng(n % 89)
@@ -402,7 +422,7 @@ def _b6_counts():
 def _assert_b6_composed(got, fr, sc, kw, min_id):
     """B6 against B1 → B2 on the same frames: 1e-5 relative per nonzero
     bin, exact zeros (below min_id too)."""
-    S = 5 * kw["rows"]
+    S = (2 * kw["reach"] + 1) * kw["rows"]
     ids, contrib = deposits_ids(fr, *sc, **kw)
     want = histogram(torch.where(ids >= min_id, ids, -1), contrib, S)
     _assert_hist_close(got, want)
@@ -411,26 +431,64 @@ def _assert_b6_composed(got, fr, sc, kw, min_id):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8192, 16384, 32768, 262144])
+@pytest.mark.parametrize("n", [8192, 16384, 32768, 65536, 131072, 262144,
+                               "north"])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("signal", ["chirp", "tone"])
 def test_cuda_deposits_hist_matches_composed(cuda, n, masked, signal):
     """B6 on its route against B1 → B2 on the same frames: 1e-5 relative
-    per nonzero bin, exact zeros below min_id; one launch of its route."""
+    per nonzero bin, exact zeros below min_id; one launch of its route
+    (route cluster_large at 65536–262144 and at the north star's 32768 ×
+    20,992 cells)."""
     fr, sc, kw = _b6_case(cuda, n, 3, signal)
-    S = 5 * kw["rows"]
+    P = 2 * kw["reach"] + 1
+    S = P * kw["rows"]
     min_id = 2 * kw["rows"] if masked else -2**30
-    route = hist_route_of_b6(n, S)
+    route = hist_route_of_b6(kw["n"], S)
+    assert (route == "cluster_large") == (kw["n"] > 32768 or n == "north")
     before = _b6_counts()
     got = deposits_hist(fr, *sc, min_id, **kw)
     after = _b6_counts()
     assert after[0] == before[0] + 1 and got.shape == (3, S)
     assert after[1][route] == before[1][route] + 1
+    assert sum(after[1].values()) == sum(before[1].values()) + 1
     _assert_b6_composed(got, fr, sc, kw, min_id)
     plain = deposits_hist_plain(fr, *sc, min_id, **kw)
-    cmp = compare_grids(plain.reshape(3, 5, -1).cpu(),
-                        got.reshape(3, 5, -1).cpu())
+    cmp = compare_grids(plain.reshape(3, P, -1).cpu(),
+                        got.reshape(3, P, -1).cpu())
     assert cmp.ok, cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 131072, 262144, "north"])
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bands", [None, False, True],
+                         ids=["by_shape", "copies", "bands"])
+def test_cuda_deposits_hist_cluster_large_route(cuda, n, b, masked, bands):
+    """Route cluster_large is one launch (no pack, B4 or finish), within
+    1e-5 relative per nonzero bin of the three-launch route forced, with
+    exact zeros below min_id; b = 1 is frame 0 of the batch within 1e-5
+    (the same zero cells), at two batch sizes; in the design its shape
+    takes and in each design forced."""
+    fr, sc, kw = _b6_case(cuda, n, b, "chirp")
+    S = (2 * kw["reach"] + 1) * kw["rows"]
+    min_id = 2 * kw["rows"] if masked else -2**30
+    assert hist_route_of_b6(kw["n"], S) == "cluster_large"
+    before = _b6_counts()
+    got = deposits_hist(fr, *sc, min_id, **kw, bands=bands)
+    after = _b6_counts()
+    assert after[0] == before[0] + 1 and after[2] == before[2]
+    assert after[1]["cluster_large"] == before[1]["cluster_large"] + 1
+    assert after[1]["large"] == before[1]["large"]
+    assert got.shape == (b, S)
+    _assert_hist_close(got, deposits_hist(fr, *sc, min_id, **kw,
+                                          route="large"))
+    if masked:
+        assert float(got[..., :min_id].abs().max()) == 0.0
+    for one in (fr[:1], fr[0]):
+        _assert_hist_close(deposits_hist(one, *sc, min_id, **kw,
+                                         bands=bands).reshape(1, -1), got[:1])
 
 
 @pytest.mark.cuda
@@ -1449,3 +1507,77 @@ def test_cuda_bench_timers_and_peaks(cuda):
         assert pk["source"] == "data sheet"
         assert pk["measured_hbm_bytes_s"] <= 1.05 * pk["hbm_bytes_s"]
         assert pk["measured_f32_flops_s"] <= 1.05 * pk["f32_flops_s"]
+
+
+# ------------------------------------------- equal runs for the file renders
+def _cli(tmp_path, *args):
+    """``python -m emspec_torch`` in its own process on the card."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-m", "emspec_torch", *args],
+                       cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(root)),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_cuda_file_renders_repeat_and_export_matches_render(cuda, tmp_path):
+    """Two processes of ``render`` with the CLI's defaults, and two of
+    ``render --multires``, give byte-equal PNGs; ``export --multires``'s
+    vis through the colormap is ``render --multires``'s PNG pixel for
+    pixel (the sums take B2's sorted route: the same on every run)."""
+    from emspec_torch.io.wav import write_wav
+    from emspec_torch.post.colormap import apply_lut
+    from emspec_torch.render.png import read_png
+    from emspec_torch.tables import lut
+
+    write_wav(tmp_path / "in.wav", _tone_noise(48000 * 8, 33), 48000)
+    for out, extra in (("d1.png", []), ("d2.png", []),
+                       ("m1.png", ["--multires"]), ("m2.png", ["--multires"])):
+        _cli(tmp_path, "render", "in.wav", out, *extra)
+    _cli(tmp_path, "export", "in.wav", "e.npz", "--multires")
+    assert (tmp_path / "d1.png").read_bytes() == \
+        (tmp_path / "d2.png").read_bytes()
+    assert (tmp_path / "m1.png").read_bytes() == \
+        (tmp_path / "m2.png").read_bytes()
+    vis = np.load(tmp_path / "e.npz", allow_pickle=False)["vis"]
+    rgba = apply_lut(torch.from_numpy(vis.T.copy()),
+                     torch.from_numpy(lut("inferno").copy())).numpy()
+    assert np.array_equal(rgba.transpose(1, 0, 2)[::-1],
+                          read_png(tmp_path / "m1.png"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+def test_cuda_multires_render_grid_is_the_cpu_sum(cuda, channels):
+    """``render_image_multires``'s grid before the post chain (the display
+    default, ``exact_sums``): bit-equal on two calls and to the CPU plain
+    sum of the same deposits (each cell in (frame, bin) order); one launch
+    of B2's sorted tiles a call, none of its global route."""
+    from emspec_torch.pipeline import render_image_multires
+
+    pipe = Pipeline(Settings(), cuda)
+    p = pipe.params()
+    x = np.stack([_tone_noise(48000 * 6, 40 + c) for c in range(channels)])
+    xg = torch.from_numpy(x if channels > 1 else x[0]).to(cuda)
+    t = pipe.num_columns(xg.shape[-1])
+    before = dict(histogram.route_launches)
+    g1 = pipe._enhanced_power(xg, t, p, exact_sums=True)
+    rises = {k: histogram.route_launches[k] - before[k] for k in before}
+    assert rises == {k: int(k == SORTED_TILES) for k in rises}
+    assert torch.equal(pipe._enhanced_power(xg, t, p, exact_sums=True), g1)
+    ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_inputs(xg, t), p)
+    ids = pipe._absolute_ids(ids_rel, t, pipe.reach)
+    lead = ids.shape[:-2]
+    want = histogram_plain(ids.reshape(lead + (-1,)).cpu(),
+                           contrib.reshape(lead + (-1,)).cpu(),
+                           t * pipe.rows)
+    assert torch.equal(g1.reshape(lead + (-1,)).cpu(), want)
+    if channels == 1:
+        img = render_image_multires(x[0], Settings(), cuda)
+        assert np.array_equal(render_image_multires(x[0], Settings(), cuda),
+                              img)

@@ -1,7 +1,8 @@
 """Kernel B2's sorted route, its tiles form (``csrc/histogram.cu``
 ``tiles_kernel``), mirrored in numpy on the CPU: ``tile_plan``'s grid,
-the block's walk over the frames that reach its tile, piece by piece
-(each piece's keys, values and chunk masks staged), each warp's band of
+the block's walk over the frames that reach its tile, piece by piece —
+whole frames a piece where they fit, else a frame in several (each
+piece's keys, values and chunk masks staged) — each warp's band of
 cells, and the in-frame collision rule — the lanes of one cell grouped
 (the claim word's OR), the group's lowest lane adding the values one
 after another in lane order.  Held bit for bit (tolerance 0) against the
@@ -9,7 +10,9 @@ plain version (``histogram_plain``: ``index_add_``, each cell in deposit
 order) on seeded raster-like ids with ids of −1, hot cells and R = 0, 1,
 2 and 8, on the raster's own ids (``reassigned_bins``), adding into an
 output, and with a column cut into row tiles; every cell of the grid is
-written once.  The values are chosen so that another order of the adds
+written once.  The form with K deposits a frame into columns of C ≠ K
+cells (the display pipeline's file renders) is held the same way in
+``tests/test_torch_exact_sums.py``, through this mirror.  The values are chosen so that another order of the adds
 gives other bits (checked), so the mirror's equality tests the order."""
 
 import numpy as np
@@ -24,51 +27,61 @@ from emspec_torch.dsp.reassign import (
 from emspec_torch.dsp.stft import stft_triple
 
 
-def _tiles_mirror(ids, vals, K, R, out=None, tile_cols=None):
+def _tiles_mirror(ids, vals, K, R, out=None, tile_cols=None, C=None):
     """``tiles_kernel`` in numpy float32, its loops and index expressions
-    verbatim → (out, times each cell was stored)."""
+    verbatim → (out, times each cell was stored): frames of K deposits
+    into columns of C cells (K by default)."""
+    C = C or K
     lead = ids.shape[:-1]
     M = ids.shape[-1]
     T = M // K
     ids2 = ids.reshape(-1, M).numpy()
     vals2 = vals.reshape(-1, M).numpy().astype(np.float32)
-    res = (np.zeros_like(vals2) if out is None
-           else out.reshape(-1, M).numpy().astype(np.float32).copy())
+    res = (np.zeros((ids2.shape[0], T * C), np.float32) if out is None
+           else out.reshape(-1, T * C).numpy().astype(np.float32).copy())
     stored = np.zeros(res.shape, np.int64)
-    plan = tile_plan(T, K, R, tile_cols)
+    plan = tile_plan(T, K, R, tile_cols, column=C)
     TT, FF, pc = plan["cols"], plan["cells"], plan["piece_chunks"]
-    pieces = -(-plan["chunks"] // pc)
-    assert pieces == plan["pieces"] and pc <= PIECE_CHUNKS
+    fp = plan["frames_per_piece"]
+    assert pc <= PIECE_CHUNKS and (fp * K <= 32 * pc if fp else K > 32 * pc)
+    ppf = 1 if fp else -(-plan["chunks"] // pc)
     for row in range(ids2.shape[0]):
         rid, rval, rout = ids2[row], vals2[row], res[row]
         for block in range(plan["col_tiles"] * plan["row_tiles"]):
             t0 = (block // plan["row_tiles"]) * TT
             f0 = (block % plan["row_tiles"]) * FF
-            tt, ff = min(TT, T - t0), min(FF, K - f0)
+            tt, ff = min(TT, T - t0), min(FF, C - f0)
             mul = (1 << 20) // ff
             assert TT * FF <= 0xffff
             assert mul >= plan["owner_mul"] and ((ff - 1) * mul) >> 16 < 16
-            tile = [np.float32(rout[(t0 + i // ff) * K + f0 + i % ff])
+            tile = [np.float32(rout[(t0 + i // ff) * C + f0 + i % ff])
                     if out is not None else np.float32(0.0)
                     for i in range(tt * ff)]
 
             def tile_key(i):
-                if i < 0 or i >= T * K:
+                if i < 0 or i >= T * C:
                     return -1
-                c, f = i // K, i - (i // K) * K
+                c, f = i // C, i - (i // C) * C
                 if c < t0 or c >= t0 + tt or f < f0 or f >= f0 + ff:
                     return -1
                 return ((((f - f0) * mul) >> 16) << 16) \
                     | ((c - t0) * ff + f - f0)
 
             s0, s1 = max(t0 - R, 0), min(t0 + tt - 1 + R, T - 1)
-            for p in range((s1 - s0 + 1) * pieces):
+            steps = ((s1 - s0 + fp) // fp if fp
+                     else (s1 - s0 + 1) * ppf)
+            assert steps <= plan["pieces"]
+            for p in range(steps):
                 # stage: piece p's keys, values and chunk masks
-                k0 = (p % pieces) * pc * 32
-                at = (s0 + p // pieces) * K
-                keys = [tile_key(int(rid[at + k0 + i])) if k0 + i < K
+                if fp:                            # ``piece_range``
+                    s = s0 + p * fp
+                    at, hi = s * K, min(s + fp, s1 + 1) * K
+                else:
+                    at = (s0 + p // ppf) * K + (p % ppf) * pc * 32
+                    hi = min(at + pc * 32, (s0 + p // ppf + 1) * K)
+                keys = [tile_key(int(rid[at + i])) if at + i < hi
                         else -1 for i in range(pc * 32)]
-                pv = [np.float32(rval[at + k0 + i]) if k0 + i < K
+                pv = [np.float32(rval[at + i]) if at + i < hi
                       else np.float32(0.0) for i in range(pc * 32)]
                 masks = [0] * pc
                 for i, key in enumerate(keys):
@@ -91,11 +104,11 @@ def _tiles_mirror(ids, vals, K, R, out=None, tile_cols=None):
                                 acc = np.float32(acc + v)
                             tile[cell] = acc
             for i in range(tt * ff):
-                at = (t0 + i // ff) * K + f0 + i % ff
+                at = (t0 + i // ff) * C + f0 + i % ff
                 rout[at] = tile[i]
                 stored[row, at] += 1
-    return (torch.from_numpy(res.reshape(lead + (M,))),
-            stored.reshape(lead + (M,)))
+    return (torch.from_numpy(res.reshape(lead + (T * C,))),
+            stored.reshape(lead + (T * C,)))
 
 
 def _raster_ids(T, K, R, lead=(), seed=0, hot=True):
@@ -249,12 +262,16 @@ def test_tile_plan_fits_shared_memory_and_covers_the_grid():
             assert p["piece_chunks"] <= PIECE_CHUNKS
     raster = tile_plan(372, 4097, 2)              # the raster at 8192
     assert (raster["cols"], raster["cells"], raster["col_tiles"],
-            raster["walk"], raster["pieces"]) == (3, 4097, 124, 7, 1)
+            raster["walk"], raster["frames_per_piece"],
+            raster["piece_chunks"], raster["pieces"]) == (
+        3, 4097, 124, 7, 1, 129, 7)
     assert tile_plan(60, 16385, 2)["row_tiles"] == 1   # 32768: one tile
     # every warp owns cells of each column: the bands split the column
     owners = {((f * raster["owner_mul"]) >> 16) for f in range(4097)}
     assert owners == set(range(TILE_WARPS))
-    assert tile_plan(60, 16385, 2)["pieces"] == 4
+    big = tile_plan(60, 16385, 2)                 # a frame in four pieces
+    assert (big["frames_per_piece"], big["piece_chunks"],
+            big["pieces"]) == (0, 129, 20)
 
 
 def test_wrapper_checks_the_bound_and_takes_plain_on_the_cpu():
