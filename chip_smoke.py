@@ -96,6 +96,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
    into an output too, and the same on a second run, timed in turns
    (medians of three rounds; the tiles form must be the faster), beside
    the global route, ``index_add_`` and the deterministic
+   ``index_put_(accumulate=True)``; B2's ring form (one live hop into
+   the pending ring in place, each cell in bin order) at the hop of each
+   enhanced live cell (8192, the display default, the north star, stress
+   16 ch, wide), bit-equal to its plain version on the CPU into a ring of
+   random values, with NaN/Inf behind dropped and out-of-range ids, the
+   same on a second run and at each band count that fits from a quarter
+   to twice the plan's, timed in turns with the atomic route the default
+   hop takes (medians of three rounds), beside ``index_add_`` and
    ``index_put_(accumulate=True)``.
 4. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise; the result must
@@ -106,6 +114,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
    phase runs one CUDA graph replay a hop (one capture a stream, checked),
    and prints first the eager step's p50/p99 on 200 hops driven straight
    through ``Pipeline._stream_step_rolling`` (the A/B inside one run).
+   Every enhanced live phase (live, direct_live, stress_live, north_live,
+   wide_live, multires_live) then drives an exact ``Stream``
+   (``exact_sums=True``, the CLI's ``stream`` and ``animate``; path
+   ``<phase>_exact``): one capture, B2's ring form once a hop and no other
+   B2 route, its columns bit-equal on a second run and to
+   ``Pipeline.process(..., exact_sums=True)`` bit for bit; and its hop
+   beside the default's in turns (default, exact, exact, default, three
+   rounds; medians of host p50/p99 and device ms a replay).
 7. natural: P-natural batch — ``Settings(mode="natural",
    fft_impl="fourstep")``, the multires banks 8192/2048/512, hop 128,
    512 rows — on 16 s mono; B4 and B3 must launch; matches the CPU path.
@@ -154,18 +170,20 @@ them.  Phases, in order, one line each; the first failure ends the run:
    with the port's ``io.wav`` — render (8192; with the CLI's defaults
    twice and --multires twice, each pair byte-equal), export (``apply_lut``
    of its vis equals render's PNG pixel for pixel; with --multires, render
-   --multires's), stream,
+   --multires's), stream twice (byte-equal),
    animate over the first 4 s at 10 fps (its last frame equals stream's
    PNG of the same 4 s) and note 443 — each must exit 0; walls; and render --multires
-   --time-parallel (world size 1 under NCCL), whose PNG must be render
-   --multires's within one colormap step a pixel.  Then in this process
+   --time-parallel (world size 1 under NCCL) twice, byte-equal, whose PNG
+   must be render --multires's within one colormap step a pixel (the
+   pairs started together).  Then in this process
    the display default's file render (``render_image_multires``, counted:
    its sum must take B2's sorted tiles): the image the same on two calls,
    its grid before the post chain bit-equal on two calls and to the CPU
    plain sum of its deposits, the global route's grid on two calls (cells
    that differ), and the sum's device time, tiles against global, in
-   turns.  At the end every path but the raster and this render must
-   have launched no sorted route.
+   turns.  At the end every path but the raster, this render, the exact
+   live drives and the time renderer must have launched no sorted route
+   (no tiles, sort or ring form).
 21. app: the live app as a user opens it — ``ShellServer(Settings(),
    source="wav")`` on the card looping the 16 s signal over HTTP, a
    viewer polling ``/api/frame`` at 15 Hz, one continuous POST and two
@@ -200,7 +218,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
    configuration (4 s, 16 ch; with and without the global AGC),
    ``ShardedStream`` through ``stream_signal_sharded`` on it for 16 s,
    ``TimeParallelRenderer`` on the display default (16 s mono) and on a
-   1×1 (ch × t) mesh over the 16-channel stress signal (global AGC).
+   1×1 (ch × t) mesh over the 16-channel stress signal (global AGC); the
+   time renderer's grid before the post chain bit-equal on two renders
+   (its sum B2's sorted tiles), the sum timed in turns with the global
+   route at the same ids.
 27. checkpoint: a graphed ``Stream`` (the live phase's settings and
    signal) saved at hop 187 (``utils.checkpoint.save_stream``), loaded
    into a fresh graphed ``Stream``, which must not re-capture; its
@@ -251,7 +272,9 @@ exact zeros below min_id) and the probe's ``full`` and ``no_merge``
 (against B2) ≤ 1e-5 relative per nonzero bin; every probe variant within
 1e-5·max of its own plain version; B3 (both forms), B5 and the post chain's three
 kernels bit-equal;
-B2's sorted route bit-equal to the plain sum on the CPU; B4 (either route) within
+B2's sorted route (its tiles, sort and ring forms) bit-equal to the plain
+sum on the CPU; an exact stream bit-equal to itself on a second run and
+to the exact batch; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
 of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
@@ -306,8 +329,9 @@ from emspec_torch.dsp.kernels.fourstep import (
 from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, SORTED, SORTED_TILES, histogram, histogram_plain,
-    route_of, tile_plan)
+    ROUTES, SMEM_BINS, SORTED, SORTED_RING, SORTED_TILES, ring_offsets,
+    histogram, histogram_plain, histogram_ring, histogram_ring_plain,
+    ring_plan, route_of, tile_plan)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
@@ -372,6 +396,8 @@ KERNELS = (
      "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
     ("histogram_sorted_tiles", histogram, "emspec_torch/csrc/histogram.cu",
      "emspec/dsp/pallas/scatter.py:135"),
+    ("histogram_sorted_ring", histogram, "emspec_torch/csrc/histogram.cu",
+     "emspec/dsp/pallas/scatter.py:135"),
     ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:616"),
     ("deposits_hist_cluster", deposits_hist, "emspec_torch/csrc/deposits.cu",
@@ -395,6 +421,8 @@ KERNELS = (
 COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "histogram_sorted_tiles":
               lambda: histogram.route_launches[SORTED_TILES],
+          "histogram_sorted_ring":
+              lambda: histogram.route_launches[SORTED_RING],
           "deposits_hist_cluster":
               lambda: deposits_hist.route_launches["cluster"],
           "deposits_hist_cluster_large":
@@ -439,6 +467,15 @@ PATH_KERNELS = {        # kernels each path must launch
     "time_parallel_2d": CLUSTER_PATH + ("ema_scan",),
     "checkpoint": ("deposits_ids", "histogram", "lut_values"),
 }
+# the enhanced live phases, each also driven through an exact Stream
+# (path ``<phase>_exact``): its B2 the ring form alone
+EXACT_LIVE = ("live", "direct_live", "stress_live", "north_live",
+              "wide_live", "multires_live")
+PATH_KERNELS.update({
+    f"{path}_exact": tuple(k for k in PATH_KERNELS[path] if k != "histogram")
+    + ("histogram_sorted_ring",) for path in EXACT_LIVE})
+PATH_KERNELS["time_parallel"] += ("histogram_sorted_tiles",)
+PATH_KERNELS["time_parallel_2d"] += ("histogram_sorted_tiles",)
 # the post chain's stage on each batch path when it was a loop of two
 # launches a column, before the scan kernel (PERF.md §5, the same card
 # model and power limit), printed beside this run's
@@ -448,8 +485,13 @@ LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 SM_CLOCK_HZ = [0.0]     # the card's top SM clock (nvidia-smi), phase device
 STEP_CYCLES = 8         # one scan step: a dependent multiply and add
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
-EXACT_PATHS = ("raster", "render_multires")   # the paths on B2's sorted route
+# the paths on B2's sorted route (its tiles or ring form)
+EXACT_PATHS = ("raster", "render_multires", "time_parallel",
+               "time_parallel_2d") + tuple(f"{p}_exact" for p in EXACT_LIVE)
+LIVE_TURNS = ("default", "exact", "exact", "default") * 3
 EXACT: dict = {}        # the multires file render's sum (phase cli)
+EXACT_LIVE_TURNS: dict = {}   # live phase → its hop, default vs exact
+EXACT_TP: dict = {}     # the time renderer's sum (phase parallel)
 EXACT_TURNS = ("global", "tiles", "tiles", "global") * 3
 
 
@@ -2058,6 +2100,118 @@ def kernels_b2_sorted(dev) -> dict:
     return row, kernels_b2_tiles(dev, ids, vals, cells, want)
 
 
+# the live cells whose hops B2 sums: settings, the signal's channels,
+# seconds and rate (``kernels_b2_ring``)
+RING_CELLS = (("live", SETTINGS, 1, SECONDS, SR),
+              ("multires_live", MULTIRES, 1, 4.0, SR),
+              ("north_live", NORTH, 1, 4.0, SR),
+              ("stress_live", STRESS, CHANNELS, 4.0, 96000),
+              ("wide_live", WIDE, 1, 2.0, SR))
+B2_RING_TURNS = ("atomic", "ring", "ring", "atomic") * 3
+
+
+def kernels_b2_ring(dev) -> dict:
+    """B2's ring form at each live cell's hop (frame ``mid`` of the batch's
+    B1 ids, bit-equal to B1 at b = 1, made ring ids as the exact step
+    makes them): bit-equal to its plain version on the CPU into a ring of
+    random values, with NaN/Inf behind dropped and out-of-range ids, and
+    the same on a second run; its device time in turns with the atomic
+    route the default live step takes at the same hop (its relative
+    histogram, medians of three rounds), at each band count that fits
+    from a quarter to twice the plan's; beside ``index_add_`` and the
+    deterministic ``index_put_(accumulate=True)`` at the same ring
+    offsets."""
+    shapes, lines = {}, []
+    for name, s, ch, seconds, sr in RING_CELLS:
+        ids_rel, contrib, S = relative_ids(dev, s, signal(
+            seconds, ch, seed=21, sr=sr))
+        pipe = Pipeline(s.replace(channels=ch), dev)
+        mid = ids_rel.shape[-2] // 2
+        rel = ids_rel[..., mid, :].contiguous()
+        vals = contrib[..., mid, :].contiguous()
+        ids = pipe._ring_ids(rel, mid).contiguous()
+        P, C, k = 2 * pipe.reach + 1, pipe.rows, ids.shape[-1]
+        ring0 = torch.rand((P,) + ids.shape[:-1] + (C,), device=dev)
+        want = histogram_ring_plain(ids.cpu(), vals.cpu(),
+                                    ring0.cpu().clone())
+        before = histogram.route_launches[SORTED_RING]
+        got = histogram_ring(ids, vals, ring0.clone())
+        check(histogram.route_launches[SORTED_RING] == before + 1,
+              f"B2 ring form at {name}: no launch of the ring form")
+        check(torch.equal(got.cpu(), want), f"B2 ring form at {name} "
+              f"differs from the plain sum in deposit order")
+        check(torch.equal(histogram_ring(ids, vals, ring0.clone()), got),
+              f"B2 ring form at {name} differs between two runs")
+        rng = np.random.default_rng(len(name))
+        pick = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1).to(dev)
+        bad_ids = torch.where(pick, torch.where(ids % 2 == 0, -1, P * C + 7),
+                              ids).to(torch.int32)
+        bad_vals = torch.where(pick | (ids < 0), torch.where(
+            ids % 3 == 0, float("inf"), float("nan")), vals)
+        spoiled = histogram_ring(bad_ids, bad_vals, ring0.clone())
+        check(bool(torch.isfinite(spoiled).all()) and torch.equal(
+            spoiled.cpu(), histogram_ring_plain(
+                bad_ids.cpu(), bad_vals.cpu(), ring0.cpu().clone())),
+              f"B2 ring form at {name}: NaN/Inf behind dropped ids landed "
+              f"or the sum differs from plain")
+        plan = ring_plan(k, P, C, lanes=ids[..., 0].numel())
+        bands = [b for b in (plan["bands"] // 4, plan["bands"] // 2,
+                             plan["bands"], 2 * plan["bands"])
+                 if ring_plan(k, P, C, b)["fits"]]
+        for b in bands:
+            check(torch.equal(histogram_ring(ids, vals, ring0.clone(),
+                                             bands=b).cpu(), want),
+                  f"B2 ring form at {name}, {b} blocks a lane, differs "
+                  f"from plain")
+        ring = ring0.clone()
+        min_id = max(pipe.reach - mid, 0) * C
+        rel_m = torch.where(rel >= min_id, rel, -1)
+        turns: dict = {}
+        for who in B2_RING_TURNS:
+            turns.setdefault(who, []).append(device_ms(
+                (lambda: histogram_ring(ids, vals, ring)) if who == "ring"
+                else (lambda: histogram(rel_m, vals, S))))
+        by_bands = {b: device_ms(lambda: histogram_ring(ids, vals, ring,
+                                                        bands=b))
+                    for b in bands}
+        med = {w: float(np.median(v)) for w, v in turns.items()}
+        flat = ring_offsets(ids, ring).reshape(-1)
+        ok = flat >= 0
+        safe = torch.where(ok, flat, ring.numel()).long()
+        v0 = torch.where(ok, vals.reshape(-1), 0.0)
+        spare = torch.zeros(ring.numel() + 1, device=dev)
+
+        def index_put():
+            return spare.index_put_((safe,), v0, accumulate=True)
+        touched = int(torch.unique(flat[ok]).numel())
+        row = dict(
+            at=f"{name}: ids {tuple(ids.shape)} → a ring ({P}, "
+               f"{ring[0].numel() // C}, {C}), {plan['bands']} blocks a "
+               f"lane", max_abs_err=0.0,
+            **times(lambda: histogram_ring(ids, vals, ring),
+                    lambda: histogram_ring_plain(ids, vals, ring),
+                    lambda: spare.index_add_(0, safe, v0), iters=10),
+            **bound(8.0 * ids.numel() + 8.0 * touched, float(touched)),
+            touched_cells=touched, plan=plan,
+            in_turns_device_ms=turns, median_device_ms=med,
+            device_ms_by_bands=by_bands,
+            index_put_ms=cuda_ms(index_put, iters=10),
+            index_put_device_ms=device_ms(index_put))
+        shapes[name] = row
+        lines.append(
+            f"{name} ({tuple(ids.shape)} → {P} × {C} a lane, {touched} "
+            f"cells touched): device {row['device_ms']:.4f} ms, in turns "
+            f"with the atomic route at the hop (medians) ring "
+            f"{med['ring']:.4f} vs atomic {med['atomic']:.4f}; by blocks a "
+            f"lane {by_bands}; index_add_ {row['library_device_ms']:.4f}, "
+            f"index_put_(accumulate=True) {row['index_put_device_ms']:.4f}, "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f}")
+    print("kernels B2 ring form (each cell in bin order onto the ring; "
+          "bit-equal to plain, run to run, NaN/Inf behind dropped ids): "
+          + "; ".join(lines), flush=True)
+    return dict(shapes["multires_live"], shapes=shapes)
+
+
 def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res = kernels_b123(dev, pipe, p)
     res["histogram"]["multires_scatter"] = multires_scatter(dev)
@@ -2070,6 +2224,7 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res.update(kernels_post(dev))
     res["histogram"]["raster_sorted"], res["histogram_sorted_tiles"] = \
         kernels_b2_sorted(dev)
+    res["histogram_sorted_ring"] = kernels_b2_ring(dev)
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
         f"{k} {v['ms']:.4f} ms at {v['at']} (device {v['device_ms']:.4f} ms, "
@@ -2268,6 +2423,107 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
     if keep_up:
         check(p50 < hop_ms, f"{name}: graphed p50 {p50:.3f} ms is not below "
               f"the hop's {hop_ms:.3f} ms of audio")
+    if name in EXACT_LIVE:
+        print(exact_live(name, dev, settings, x, chunk, keep_up), flush=True)
+
+
+def stream_run(st: Stream, x: np.ndarray, chunk: int, lat=None) -> list:
+    """``x`` pushed through ``st`` in ``chunk``-sample pushes, then the
+    flush → the columns; each push's host ms a column into ``lat``."""
+    cols = []
+    for i in range(0, x.shape[-1], chunk):
+        t0 = time.perf_counter()
+        got = st.push(x[..., i:i + chunk])
+        if got and lat is not None:
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) / len(got))
+        cols.extend(got)
+    return cols + st.flush()
+
+
+def hop_turns(streams: dict, x: np.ndarray, chunk: int, hops: int = 200
+              ) -> dict:
+    """The graphed hop of each stream, in the turns of ``LIVE_TURNS``: a
+    turn pushes ``x`` on from the stream's own place (from its start again
+    at its end) until ``hops`` columns came out → per stream and turn the
+    host p50 / p99 a hop (push → synchronize) and the device ms a hop (its
+    graph replayed, ``device_ms``)."""
+    at = dict.fromkeys(streams, 0)
+    out: dict = {k: dict(p50=[], p99=[], device_ms=[]) for k in streams}
+    for who in LIVE_TURNS:
+        st, lat = streams[who], []
+        while len(lat) < hops:
+            i = at[who]
+            at[who] = i + chunk if i + chunk < x.shape[-1] else 0
+            t0 = time.perf_counter()
+            got = st.push(x[..., i:i + chunk])
+            if got:
+                torch.cuda.synchronize()
+                lat += [(time.perf_counter() - t0) / len(got)] * len(got)
+        out[who]["p50"].append(float(np.percentile(lat, 50)) * 1e3)
+        out[who]["p99"].append(float(np.percentile(lat, 99)) * 1e3)
+        out[who]["device_ms"].append(device_ms(lambda: st._graph.replay(),
+                                               100))
+    return out
+
+
+def exact_live(name: str, dev, settings: Settings, x: np.ndarray,
+               chunk: int, keep_up: bool) -> str:
+    """A live phase's exact ``Stream`` (the CLI's ``stream`` and
+    ``animate``): driven once (counters: B2's ring form alone), one capture
+    and one graph replay a hop, its columns bit-equal on a second run and
+    to ``Pipeline.process(..., exact_sums=True)`` of the same audio; then
+    its graphed hop beside the default's in turns (``hop_turns``, medians
+    of three rounds), the exact p50 below the hop's audio time where the
+    phase keeps up → the phase's line."""
+    s = settings.replace(channels=1 if x.ndim == 1 else x.shape[0])
+    path = f"{name}_exact"
+    runs = []
+    for i in range(2):
+        st = Stream(s, dev, exact_sums=True)
+        check(st.captures == 1, f"{path}: {st.captures} graph captures")
+        cols = (drive(path, lambda: stream_run(st, x, chunk)) if i == 0
+                else stream_run(st, x, chunk))
+        check(st.captures == 1, f"{path}: {st.captures} graph captures")
+        runs.append(torch.stack([c.vis for c in cols]))
+        st.close()
+    routes = ROUTE_LAUNCHES[path]
+    check(routes[SORTED_RING] == len(cols) + st.reach and all(
+        n == 0 for r, n in routes.items() if r != SORTED_RING),
+          f"{path}: B2 launched other than its ring form once a hop "
+          f"({routes}, {len(cols) + st.reach} hops)")
+    differ = int((runs[0] != runs[1]).sum())
+    check(differ == 0, f"{path}: two exact streams differ in {differ} "
+          f"cells")
+    vis_x = Pipeline(s, dev).process(x, exact_sums=True)[0]
+    check(runs[0].shape == vis_x.shape, f"{path}: {tuple(runs[0].shape)} "
+          f"columns against the batch's {tuple(vis_x.shape)}")
+    parted = int((runs[0] != vis_x).sum())
+    check(parted == 0, f"{path} ≠ process(..., exact_sums=True) in {parted} "
+          f"cells (max |Δvis| {float((runs[0] - vis_x).abs().max()):.3g})")
+    timed = {"default": Stream(s, dev),
+             "exact": Stream(s, dev, exact_sums=True)}
+    turns = hop_turns(timed, x, chunk)
+    for st in timed.values():
+        st.close()
+    med = {who: {k: float(np.median(v)) for k, v in t.items()}
+           for who, t in turns.items()}
+    EXACT_LIVE_TURNS[name] = dict(turns=turns, median=med)
+    hop_ms = s.hop_samples / s.sample_rate * 1e3
+    if keep_up:
+        check(med["exact"]["p50"] < hop_ms, f"{path}: graphed p50 "
+              f"{med['exact']['p50']:.3f} ms is not below the hop's "
+              f"{hop_ms:.3f} ms of audio")
+    return (f"{path}: one capture, one replay a hop, the ring form "
+            f"{routes[SORTED_RING]} times and no other B2 route; two runs "
+            f"bit-equal; ≡ process(..., exact_sums=True) bit for bit "
+            f"({tuple(vis_x.shape)}); a hop in turns {LIVE_TURNS[:4]} ×3 "
+            f"(medians): exact p50 {med['exact']['p50']:.3f} / p99 "
+            f"{med['exact']['p99']:.3f} ms, device "
+            f"{med['exact']['device_ms']:.4f} ms; default p50 "
+            f"{med['default']['p50']:.3f} / p99 {med['default']['p99']:.3f}"
+            f" ms, device {med['default']['device_ms']:.4f} ms; launches "
+            f"{LAUNCHES[path]}")
 
 
 def raster_phase(name: str, dev, settings: Settings, x: np.ndarray,
@@ -2428,12 +2684,8 @@ def cli_phase(dev, x: np.ndarray) -> None:
                             "8192"]),
                 ("render --multires", ["render", "s16.wav", "m.png",
                                        "--multires"]),
-                ("render --multires --time-parallel",
-                 ["render", "s16.wav", "tp.png", "--multires",
-                  "--time-parallel"]),
                 ("export", ["export", "s16.wav", "e.npz", "--fft-size",
                             "8192"]),
-                ("stream", ["stream", "s16.wav", "s.png"]),
                 ("stream 4 s", ["stream", "s4.wav", "s4.png"]),
                 ("animate", ["animate", "s4.wav", "a.png", "--fps", "10"]),
                 ("note", ["note", "443"]))
@@ -2455,7 +2707,15 @@ def cli_phase(dev, x: np.ndarray) -> None:
                     ("render --multires, again", ["render", "s16.wav",
                                                   "m2.png", "--multires"]),
                     ("export --multires", ["export", "s16.wav", "em.npz",
-                                           "--multires"]))
+                                           "--multires"]),
+                    ("stream", ["stream", "s16.wav", "s.png"]),
+                    ("stream, again", ["stream", "s16.wav", "s2.png"]),
+                    ("render --multires --time-parallel",
+                     ["render", "s16.wav", "tp.png", "--multires",
+                      "--time-parallel"]),
+                    ("render --multires --time-parallel, again",
+                     ["render", "s16.wav", "tp2.png", "--multires",
+                      "--time-parallel"]))
         t0 = time.perf_counter()
         procs = [(label, subprocess.Popen(
             [sys.executable, "-m", "emspec_torch", *args], cwd=d, env=env,
@@ -2475,9 +2735,10 @@ def cli_phase(dev, x: np.ndarray) -> None:
                              read_png(d / "r.png")),
               "cli: export's vis through the colormap differs from render's "
               "PNG")
-        for a, b in (("d1.png", "d2.png"), ("m.png", "m2.png")):
+        for a, b in (("d1.png", "d2.png"), ("m.png", "m2.png"),
+                     ("s.png", "s2.png"), ("tp.png", "tp2.png")):
             check((d / a).read_bytes() == (d / b).read_bytes(),
-                  f"cli: two renders differ ({a}, {b})")
+                  f"cli: two runs of a file output differ ({a}, {b})")
         zm = np.load(d / "em.npz", allow_pickle=False)
         rgba_m = apply_lut(torch.from_numpy(zm["vis"].T.copy()),
                            torch.from_numpy(lut(s["colormap"]).copy())).numpy()
@@ -2500,7 +2761,8 @@ def cli_phase(dev, x: np.ndarray) -> None:
           "wall s (process start, import and kernel library load included): "
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
           + "; export ≡ render pixel for pixel, and with --multires; two "
-          "renders byte-equal (defaults, --multires); animate's last frame "
+          "runs byte-equal (render with the defaults and --multires, stream, "
+          "render --multires --time-parallel); animate's last frame "
           f"≡ stream's PNG; render --time-parallel vs --multires: at most "
           f"{steps} colormap step, {share:.2e} of the pixels; outputs: " + " | ".join(outs.values()), flush=True)
     print("cli: " + exact_sums(dev, x), flush=True)
@@ -3164,8 +3426,56 @@ def parallel_phase(dev, xs: np.ndarray, xs_live: np.ndarray, vis_sl,
             dm = float((got[0] - vis_m).abs().max())
             check(dm <= STREAM_VIS_ATOL, f"{name} ≠ the multires phase's "
                   f"vis: {dm}")
+            print(time_parallel_sums(r, sig), flush=True)
     if created:
         dist.destroy_process_group()
+
+
+def time_parallel_sums(r, sig: np.ndarray) -> str:
+    """Two ``render`` calls of the time renderer ``r``: its grid before
+    the post chain (``_enhanced_power``, ``exact_sums``) bit-equal and its
+    columns too; its sum (the ``histogram`` call it makes, B2's sorted
+    tiles) against the global route at the same ids in turns (medians of
+    three rounds) → the line."""
+    from emspec_torch import pipeline as plm
+
+    grids, sums, vis = [], [], []
+    power, hist = r.pipe._enhanced_power, plm.histogram
+
+    def keep_grid(*args, **kw):
+        grids.append(power(*args, **kw))
+        return grids[-1]
+
+    def keep_sum(*args, **kw):
+        sums.append((args, kw))
+        return hist(*args, **kw)
+    r.pipe._enhanced_power = keep_grid
+    plm.histogram = keep_sum
+    try:
+        for _ in range(2):
+            vis.append(r.render(sig)[0])
+    finally:
+        del r.pipe._enhanced_power
+        plm.histogram = hist
+    differ = int((grids[0] != grids[1]).sum())
+    check(differ == 0 and torch.equal(vis[0], vis[1]), f"time_parallel: "
+          f"two renders' grids differ in {differ} cells")
+    (ids, vals, cells), kw = sums[0][0][:3], sums[0][1]
+    check(kw.get("route") == SORTED and kw.get("reach") == r.pipe.reach,
+          f"time_parallel: its sum is not B2's sorted tiles ({kw})")
+    turns: dict = {}
+    for who in EXACT_TURNS:
+        turns.setdefault(who, []).append(device_ms(
+            (lambda: histogram(ids, vals, cells)) if who == "global"
+            else (lambda: histogram(ids, vals, cells, **kw))))
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    EXACT_TP.update(at=f"ids {tuple(ids.shape)} → {cells} cells, R = "
+                    f"{r.pipe.reach}", turns_device_ms=turns,
+                    median_device_ms=med, **bound_of_sum(ids, vals, cells))
+    return (f"parallel time_parallel: grid bit-equal on two renders, "
+            f"columns too; its sum ({tuple(ids.shape)} → {cells} cells) in "
+            f"turns (medians): tiles {med['tiles']:.4f} vs the global "
+            f"route {med['global']:.4f} ms")
 
 
 def checkpoint_phase(dev, x: np.ndarray) -> None:
@@ -3544,10 +3854,13 @@ def main() -> None:
 
     for path, routes in ROUTE_LAUNCHES.items():
         check(path in EXACT_PATHS
-              or routes[SORTED] == routes[SORTED_TILES] == 0,
-              f"{path}: B2's sorted route launched off the file renders "
+              or routes[SORTED] == routes[SORTED_TILES]
+              == routes[SORTED_RING] == 0,
+              f"{path}: B2's sorted route launched off the file outputs "
               f"({routes})")
     res["histogram_sorted_tiles"]["multires_file_render"] = EXACT
+    res["histogram_sorted_tiles"]["time_parallel_render"] = EXACT_TP
+    res["histogram_sorted_ring"]["live_hops"] = EXACT_LIVE_TURNS
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [

@@ -272,7 +272,9 @@ def cmd_stream(args) -> int:
     x = (audio if tiled else
          audio[0 if args.channel == "all"
                else _pick_channel(audio, args.channel)])
-    stream = Stream(s, dev)
+    # the same PNG on every run: each hop's sums in bin order (B2's ring
+    # form), as animate's frames are
+    stream = Stream(s, dev, exact_sums=True)
     wfs = [Waterfall(args.width, s.raster_height, s.scroll_speed,
                      lut_table=lut(s.colormap), device=dev)
            for _ in range(nch)]

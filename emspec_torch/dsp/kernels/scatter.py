@@ -42,7 +42,15 @@ forms, each with its own count in ``histogram.route_launches``:
   reach), so an export and a render of the same file agree pixel for
   pixel;
 * ``"sorted"``, without that bound: a stable ``torch.sort`` of the keys
-  (row, id), then one thread sums each cell's run of deposits.
+  (row, id), then one thread sums each cell's run of deposits;
+* ``"sorted_ring"`` (``SORTED_RING``, ``histogram_ring``): one hop of the
+  live step added into its pending ring (P, ..., C) in place, each cell
+  adding the hop's deposits in bin order onto the value it holds — so a
+  stream sums every column in the batch's (frame, bin) order, and the
+  exact stream (``Stream(..., exact_sums=True)``: the CLI's ``stream``
+  and ``animate``) gives ``process(..., exact_sums=True)``'s columns.
+  One launch a hop at a grid fixed by the shape (``ring_plan``), so the
+  hop's CUDA graph captures it.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ SMEM_BINS = 232448 // 4
 ROUTES = ("row", "global")    # the atomic routes, chosen by route_of
 SORTED = "sorted"             # the deterministic route, on request
 SORTED_TILES = "sorted_tiles"     # ... its form with a window bound
+SORTED_RING = "sorted_ring"       # ... its form for one hop into a ring
 ROW_THREADS = 512         # histogram.cu kRowThreads
 GLOBAL_THREADS = 256      # histogram.cu kGlobalThreads
 SMS = 132                 # the H100's streaming multiprocessors
@@ -71,6 +80,9 @@ TILE_WARPS = 16           # histogram.cu kTileWarps: the sorted tiles' warps
 TILE_COLS = 3             # columns a tile by default (the raster's best)
 TILE_CELLS = 24320        # cells a tile at most (95 KB, and 95 KB of claims)
 PIECE_CHUNKS = 144        # histogram.cu kPieceChunks: 32-bin chunks a piece
+RING_MAX_BANDS = 64       # histogram.cu kRingMaxBands
+RING_CELLS = 1 << 16      # a ring block's cells at most (16-bit keys)
+SMEM_BYTES = 232448       # a block's shared memory (histogram.cu kMaxSmem)
 
 
 def route_of(rows: int, m: int, num_bins: int) -> str:
@@ -124,6 +136,45 @@ def tile_plan(frames: int, k: int, reach: int,
                 walk=walk, chunks=chunks, frames_per_piece=fp,
                 piece_chunks=pc, pieces=pieces,
                 smem=8 * cols * cells + pc * (32 * 8 + 4))
+
+
+def ring_plan(k: int, slots: int, column: int, bands: int | None = None,
+              lanes: int = 1) -> dict:
+    """The ring form's grid for a hop of ``k`` deposits a lane into a ring
+    of ``slots`` × ``column`` cells a lane, ``lanes`` lanes: ``bands``
+    blocks a lane (a power of two), nw = 16·bands warps, row r owned by
+    warp r mod nw, ``cells`` = slots × ``rb`` cells a block (a slot's owned
+    rows, ``rb``, padded to whole rounds of nw rows), ``chunks`` of 32
+    deposits staged, and the shared memory: the cells and their claim
+    words, then the hop's keys, values and chunk masks.  ``fits``: within
+    the kernel's limits.  By default the most blocks a lane while every
+    warp owns a row and the lanes' blocks run in one wave on the card
+    (``SMS``), and at least the fewest whose cells and staged hop fit a
+    block: each block stages the whole hop but walks only its rows'
+    chunks, so more blocks shorten the walk until a second wave costs
+    more (on the H100 32 blocks ran each mono live hop fastest and 8 a
+    lane the 16-channel one, PERF.md §6).  ``bands`` stands in for that
+    count, for tests and timing."""
+    chunks = -(-k // 32)
+
+    def plan(b: int) -> dict:
+        nw = TILE_WARPS * b
+        rb = (-(-column // nw)) * TILE_WARPS
+        cells = slots * rb
+        smem = 8 * cells + chunks * (32 * 8 + 4)
+        return dict(bands=b, warps=nw, rb=rb, cells=cells, chunks=chunks,
+                    smem=smem, fits=cells <= RING_CELLS
+                    and smem <= SMEM_BYTES and 0 < b <= RING_MAX_BANDS
+                    and b & (b - 1) == 0)
+    if bands is not None:
+        return plan(bands)
+    b = 1
+    while b < RING_MAX_BANDS and not plan(b)["fits"]:
+        b *= 2
+    while (2 * b <= min(RING_MAX_BANDS, column // TILE_WARPS)
+           and lanes * 2 * b <= SMS):
+        b *= 2
+    return plan(b)
 
 
 def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
@@ -238,7 +289,7 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
 
 
 histogram.route_launches = dict.fromkeys(
-    ROUTES + (SORTED, SORTED_TILES), 0)
+    ROUTES + (SORTED, SORTED_TILES, SORTED_RING), 0)
 
 
 def _sorted_out(ids, num_bins: int, out, lead: tuple, alloc):
@@ -296,3 +347,73 @@ def _sorted(ids, vals, num_bins: int, out, lead: tuple, rows: int):
     histogram.launches += 1
     histogram.route_launches[SORTED] += 1
     return out
+
+
+def ring_offsets(ids: torch.Tensor, ring: torch.Tensor) -> torch.Tensor:
+    """Ring ids slot·C + row of each lane (ids (..., K), ring (P, ..., C))
+    → offsets into the flat ring, −1 where an id is outside [0, P·C)."""
+    P, C = ring.shape[0], ring.shape[-1]
+    lanes = ring[0].numel() // C
+    ok = (ids >= 0) & (ids < P * C)
+    lane = (torch.arange(lanes, dtype=ids.dtype, device=ids.device)
+            * C).reshape(ids.shape[:-1] + (1,))
+    flat = (torch.div(ids, C, rounding_mode="floor") * (lanes * C) + lane
+            + torch.remainder(ids, C))
+    return torch.where(ok, flat, -1)
+
+
+def histogram_ring_plain(ids: torch.Tensor, vals: torch.Tensor,
+                         ring: torch.Tensor) -> torch.Tensor:
+    """The ring form's plain version: ``histogram_plain(..., out=)`` of
+    the deposits' ring offsets into the flat ring, in place (each cell in
+    deposit order; a dropped id adds nothing)."""
+    histogram_plain(ring_offsets(ids, ring).reshape(-1), vals.reshape(-1),
+                    ring.numel(), out=ring.view(-1))
+    return ring
+
+
+def histogram_ring(ids: torch.Tensor, vals: torch.Tensor,
+                   ring: torch.Tensor, *,
+                   bands: int | None = None) -> torch.Tensor:
+    """B2's sorted route, ring form (module docstring): ids (..., K) int32
+    name cells slot·C + row of their lane's ring, vals (..., K) float32;
+    ``ring`` (P, ..., C) float32, contiguous, its lanes the ids' leading
+    axes, is added into in place and returned.  Each cell adds its
+    deposits in deposit order onto the value it holds — the plain
+    version's sum bit for bit, the same on every run; an id outside [0,
+    P·C) adds nothing, even when its value is NaN or Inf.  ``bands``
+    forces the blocks a lane (``ring_plan``), for tests and timing.
+    Counted as B2's: ``histogram.launches`` and
+    ``histogram.route_launches["sorted_ring"]``."""
+    what = "histogram_ring"
+    require(ring.dim() >= 2 and ring.shape[1:-1] == ids.shape[:-1]
+            and ids.shape == vals.shape and ids.dim() >= 1, what,
+            f"ids and vals (..., K) and a ring (P, ..., C) with the same "
+            f"leading axes; got ids {tuple(ids.shape)}, vals "
+            f"{tuple(vals.shape)}, ring {tuple(ring.shape)}")
+    if ids.device.type == "cpu":
+        return histogram_ring_plain(ids, vals, ring)
+    require_cuda(ids, what)
+    require(ids.dtype == torch.int32 and vals.dtype == torch.float32
+            and ring.dtype == torch.float32, what,
+            "ids must be int32, vals and the ring float32")
+    require(ids.is_contiguous() and vals.is_contiguous()
+            and ring.is_contiguous(), what,
+            "ids, vals and the ring must be contiguous")
+    require(vals.device == ids.device and ring.device == ids.device, what,
+            "ids, vals and the ring must share a device")
+    P, C, k = ring.shape[0], ring.shape[-1], ids.shape[-1]
+    lanes = math.prod(ids.shape[:-1])
+    plan = ring_plan(k, P, C, bands, lanes)
+    require(plan["fits"] and k > 0 and P * C < 2**31, what,
+            f"a ring of {P} × {C} cells a lane and {k} deposits a hop at "
+            f"{plan['bands']} blocks a lane exceed a block "
+            f"({plan['cells']} cells, {plan['smem']} bytes)")
+    with torch.cuda.device(ids.device):
+        rc = kernels_build.library().emspec_histogram_ring(
+            ids.data_ptr(), vals.data_ptr(), ring.data_ptr(), lanes, k, P, C,
+            plan["bands"], launch_stream(ids))
+    kernels_build.check(rc, what)
+    histogram.launches += 1
+    histogram.route_launches[SORTED_RING] += 1
+    return ring

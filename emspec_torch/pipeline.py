@@ -40,11 +40,16 @@ card, and in batch the absolute grid for several banks on the card
 (``use_relative_batch``), live the relative histogram.  Every sum is
 kernel B2 on the card.  ``process(..., exact_sums=True)`` — the file
 renders and export (``render_image_multires``,
-``render_images_channels``, ``__main__``'s export) — sums into the
-absolute grid through B2's sorted route (its tiles form, bounded by the
-reach): every cell adds its deposits in (frame, bin) order, the CPU's
-order, so two runs give the same image bit for bit; the app, the live
-step, the bench and ``parallel.py`` keep the atomic routes.
+``render_images_channels``, ``__main__``'s export) and the time-sharded
+render (``parallel.TimeParallelRenderer``) — sums into the absolute grid
+through B2's sorted route (its tiles form, bounded by the reach): every
+cell adds its deposits in (frame, bin) order, the CPU's order, so two
+runs give the same image bit for bit.  The live step's ``exact_sums``
+(``stream.Stream(..., exact_sums=True)``: the CLI's ``stream`` and
+``animate``) adds each hop into its ring through B2's ring form, each
+cell in bin order, so the exact stream's columns are the exact batch's.
+The app, the default ``Stream``, the bench, ``ShardedPipeline`` and
+``ShardedStream`` keep the atomic routes.
 
 ``prewarm`` warms the live app's structural variants ahead of a swap
 (a ``WarmHandle`` over the queued jobs, one worker thread).
@@ -65,7 +70,8 @@ from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels import deposits
 from emspec_torch.dsp.kernels.deposits import deposits_ids, quantize_deposits
-from emspec_torch.dsp.kernels.scatter import SORTED, histogram
+from emspec_torch.dsp.kernels.scatter import (
+    SORTED, histogram, histogram_ring)
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
@@ -445,7 +451,7 @@ class Pipeline:
 
     # ---------------- streaming path ----------------
     def _stream_step(self, carry, window, p: PipelineParams,
-                     peak_reduce=None):
+                     peak_reduce=None, exact_sums: bool = False):
         """One hop: add this frame's deposits (enhanced) or its merged
         column (natural, R = 0) to the pending ring of P = 2R+1 columns,
         then emit column t−R (no later frame can reach it).
@@ -455,7 +461,12 @@ class Pipeline:
         a fixed sequence of launches that a CUDA graph can capture
         (``stream.Stream``).  Every carry tensor (t, the ring, the post
         state) is updated in place and returned: pass each carry to one
-        step only.  ``peak_reduce``: as in :meth:`_batch_vis`."""
+        step only.  ``peak_reduce``: as in :meth:`_batch_vis`.
+        ``exact_sums``: the frame's deposits go into the ring through B2's
+        ring form whatever the scatter setting (each cell adding them in
+        bin order onto its value, so a column sums its deposits in the
+        batch's (frame, bin) order: ``process(..., exact_sums=True)``'s
+        columns); the CPU's ring update already adds in that order."""
         t, acc, post = carry                     # acc: (P, ..., rows)
         R, rows = self.reach, self.rows
         P = 2 * R + 1
@@ -466,7 +477,7 @@ class Pipeline:
                      zip(self._bank_windows(window), self.sizes)]
             col = self._merge(specs, p)
             _ring_add(acc, _slot(t, P), col.unsqueeze(0))
-        elif self.use_relative_scatter:
+        elif self.use_relative_scatter and not exact_sums:
             ids_rel, contrib = self._deposit_ids_rel(
                 self._bank_windows(window), p)
             # t + δ ≥ 0 ⟺ id ≥ (R − t)·rows (row < rows): drop the rest
@@ -481,6 +492,12 @@ class Pipeline:
             src = torch.remainder(
                 torch.arange(P, device=acc.device) - t_emit, P)
             acc.add_(torch.index_select(dep, 0, src))
+        elif exact_sums:
+            ids_rel, contrib = self._deposit_ids_rel(
+                self._bank_windows(window), p)
+            # each lane's ring cells, each adding in bin order (B2's ring
+            # form on the card)
+            histogram_ring(self._ring_ids(ids_rel, t), contrib, acc)
         else:
             ids_rel, contrib = self._deposit_ids_rel(
                 self._bank_windows(window), p)
@@ -514,14 +531,26 @@ class Pipeline:
         t.add_(1)
         return (t, acc, post), (vis, rgba, t_emit)
 
+    def _ring_ids(self, ids_rel, t):
+        """Relative ids (δ + R)·rows + row of frame ``t`` (a 0-d device
+        counter or an int) → each lane's ring ids slot·rows + row, slot =
+        (t + δ) mod P; −1 for B1's invalid deposit (an id below 0) and for
+        a column t + δ below 0."""
+        R, rows = self.reach, self.rows
+        delta = torch.div(ids_rel, rows, rounding_mode="floor") - R
+        slot = torch.remainder(t + delta, 2 * R + 1)
+        return torch.where((ids_rel >= 0) & (t + delta >= 0),
+                           slot * rows + torch.remainder(ids_rel, rows), -1)
+
     def _stream_step_rolling(self, carry, block, p: PipelineParams,
-                             peak_reduce=None):
+                             peak_reduce=None, exact_sums: bool = False):
         """Per-hop step whose analysis window is carry state: ``block`` is
         only the ``hop`` new samples, window' = concat(window[hop:], block),
         written into the carry's own window tensor."""
         window, inner = carry
         window.copy_(torch.cat([window[..., self.hop:], block], dim=-1))
-        inner, out = self._stream_step(inner, window, p, peak_reduce)
+        inner, out = self._stream_step(inner, window, p, peak_reduce,
+                                       exact_sums)
         return (window, inner), out
 
     def init_stream_carry(self, lead: tuple = ()):

@@ -96,12 +96,21 @@ class Stream:
     >>> stream = Stream(Settings(multires=False, fft_size=8192))
     >>> cols = stream.push(samples)     # list[Column] ready so far
     >>> cols += stream.flush()          # drain the pending ring
+
+    ``exact_sums=True`` (the CLI's ``stream`` and ``animate``) adds each
+    hop's deposits into the pending ring through B2's ring form, each cell
+    in bin order: the same columns on every run, and on the card the
+    columns of ``Pipeline.process(..., exact_sums=True)``.  It is how the
+    stream is built, not part of its state (``state_dict``).  The default
+    keeps B2's atomic routes (the app, ``stream_signal``).
     """
 
     def __init__(self, settings: Settings, device="cuda",
                  params: PipelineParams | None = None,
-                 ring_seconds: float = 4.0, native_ring: bool = True):
+                 ring_seconds: float = 4.0, native_ring: bool = True,
+                 exact_sums: bool = False):
         self.device = as_device(device)
+        self.exact_sums = exact_sums
         self.pipe: Pipeline = get_pipeline(settings, self.device)
         self.settings = settings
         s = settings
@@ -198,7 +207,7 @@ class Stream:
     def _step(self, block: torch.Tensor):
         """One eager step on the static carry → (vis, rgba)."""
         _, (vis, rgba, _) = self.pipe._stream_step_rolling(
-            self._carry, block, self._params)
+            self._carry, block, self._params, exact_sums=self.exact_sums)
         return vis, rgba
 
     def _capture(self) -> None:
@@ -213,8 +222,9 @@ class Stream:
             with torch.cuda.stream(side):
                 carry = _clone(self._carry)
                 for _ in range(WARMUP_HOPS):
-                    self.pipe._stream_step_rolling(carry, self._block,
-                                                   self._params)
+                    self.pipe._stream_step_rolling(
+                        carry, self._block, self._params,
+                        exact_sums=self.exact_sums)
             torch.cuda.current_stream(self.device).wait_stream(side)
             before = launch_counts()
             graph = torch.cuda.CUDAGraph()

@@ -40,7 +40,11 @@ plain settling float32 plain's rounding flips) and against the
 three-launch route it replaced, and with a bin window and band weight
 by the criteria that hold for a window; the single-bank raster against
 the CPU path by ``compare_grids`` and ``compare_vis``, the same on two
-runs."""
+runs; B2's ring form bit-equal to its plain version on the CPU at the
+five live cells' hop ids (NaN/Inf behind dropped ids, a ring that is not
+zero, the planned band count and twice it), two exact ``Stream``s
+bit-equal and equal bit for bit to ``process(..., exact_sums=True)``, the
+time renderer's grid the same on two calls."""
 
 import math
 
@@ -65,7 +69,8 @@ from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, SORTED, SORTED_TILES, histogram, histogram_plain)
+    ROUTES, SMEM_BINS, SORTED, SORTED_RING, SORTED_TILES, histogram,
+    histogram_plain, histogram_ring, histogram_ring_plain, ring_plan)
 from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
@@ -1581,3 +1586,118 @@ def test_cuda_multires_render_grid_is_the_cpu_sum(cuda, channels):
         img = render_image_multires(x[0], Settings(), cuda)
         assert np.array_equal(render_image_multires(x[0], Settings(), cuda),
                               img)
+
+
+LIVE_CELLS = {       # the live phases' settings whose hops B2 sums
+    "live": dict(mode="enhanced", multires=False, fft_size=8192),
+    "multires_live": {},
+    "north_live": dict(mode="enhanced", multires=False, fft_size=32768,
+                       hop=800),
+    "stress_live": dict(mode="enhanced", multires=False, fft_size=32768,
+                        sample_rate=96000, channels=16),
+    "wide_live": dict(mode="enhanced", multires=False, fft_size=8192, hop=64),
+}
+
+
+def _live_hop_ids(dev, s: Settings, t: int, seed: int):
+    """Hop ``t``'s ring ids and contrib on the card, as the exact live
+    step makes them (``Pipeline._ring_ids``), and the pipeline."""
+    pipe = Pipeline(s, dev)
+    x = np.stack([_tone_noise(pipe.n_max + (t + 1) * pipe.hop, seed + c)
+                  for c in range(s.channels)])
+    x = x[..., t * pipe.hop:t * pipe.hop + pipe.n_max]
+    xw = torch.from_numpy(x if s.channels > 1 else x[0]).to(dev)
+    ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_windows(xw),
+                                             pipe.params())
+    return pipe._ring_ids(ids_rel, t).contiguous(), contrib.contiguous(), \
+        pipe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIVE_CELLS))
+def test_cuda_ring_form_bit_equal_to_cpu_plain(cuda, name):
+    """B2's ring form at a live cell's hop ids (a tenth dropped or out of
+    range, NaN/Inf behind them) into a ring of random values: one launch
+    of the ring form, bit-equal to the CPU plain sum, finite, the same on
+    a second run, at the planned band count and at twice it."""
+    s = Settings(**LIVE_CELLS[name])
+    ids, vals, pipe = _live_hop_ids(cuda, s, 40 if name != "wide_live"
+                                    else 140, seed=len(name))
+    P, C = 2 * pipe.reach + 1, pipe.rows
+    rng = np.random.default_rng(len(name))
+    pick = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1).to(cuda)
+    far = torch.from_numpy(rng.integers(P * C, 2 * P * C, tuple(ids.shape))
+                           .astype(np.int32)).to(cuda)
+    ids = torch.where(pick, torch.where(far % 2 == 0, -1, far), ids)
+    vals = torch.where(pick, torch.where(far % 3 == 0, float("inf"),
+                                         float("nan")), vals)
+    base = torch.rand((P,) + ids.shape[:-1] + (C,), device=cuda)
+    want = histogram_ring_plain(ids.cpu(), vals.cpu(), base.cpu().clone())
+    plan = ring_plan(ids.shape[-1], P, C)
+    for bands in (plan["bands"], 2 * plan["bands"]):
+        before = dict(histogram.route_launches)
+        got = histogram_ring(ids, vals, base.clone(), bands=bands)
+        rises = {k: histogram.route_launches[k] - before[k] for k in before}
+        assert rises == {k: int(k == SORTED_RING) for k in rises}
+        assert torch.equal(got.cpu(), want), bands
+        assert torch.isfinite(got).all()
+        assert torch.equal(histogram_ring(ids, vals, base.clone(),
+                                          bands=bands), got)
+
+
+def _stream_columns(s, x, dev, chunk=1024):
+    st = Stream(s, dev, exact_sums=True)
+    assert st.captures == 1
+    before = dict(histogram.route_launches)
+    cols = []
+    for i in range(0, x.shape[-1], chunk):
+        cols += st.push(x[..., i:i + chunk])
+    cols += st.flush()
+    rises = {k: histogram.route_launches[k] - before[k] for k in before}
+    assert st.captures == 1
+    assert rises == {k: (len(cols) + st.reach) * (k == SORTED_RING)
+                     for k in rises}
+    return torch.stack([c.vis for c in cols]), \
+        torch.stack([c.rgba for c in cols])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, LIVE_CELLS["live"]],
+                         ids=["display", "8192"])
+def test_cuda_exact_streams_repeat_and_give_the_exact_batch(cuda, kw):
+    """Two graphed exact ``Stream``s on the same audio give the same
+    columns bit for bit, one ring-form launch a hop and no other B2 route,
+    and those columns are ``process(..., exact_sums=True)``'s bit for
+    bit (the JAX package's streaming ≡ batch)."""
+    s = Settings(**kw)
+    x = _tone_noise(48000 * 4, 51)
+    vis1, rgba1 = _stream_columns(s, x, cuda)
+    vis2, rgba2 = _stream_columns(s, x, cuda)
+    assert torch.equal(vis1, vis2) and torch.equal(rgba1, rgba2)
+    vis_b, rgba_b, _ = Pipeline(s, cuda).process(x, exact_sums=True)
+    assert torch.equal(vis1, vis_b) and torch.equal(rgba1, rgba_b)
+
+
+@pytest.mark.cuda
+def test_cuda_time_parallel_render_repeats(nccl_world_1, monkeypatch):
+    """``TimeParallelRenderer.render`` at world 1 on the display default:
+    its grid before the post chain bit-equal on two calls (B2's sorted
+    tiles, one launch a call), and so its columns."""
+    from emspec_torch import parallel
+
+    dev = nccl_world_1
+    r = parallel.TimeParallelRenderer(
+        Settings(), parallel.channel_mesh(axis="t", device=dev))
+    grids = []
+    power = r.pipe._enhanced_power
+
+    def keep(*args, **kw):
+        grids.append(power(*args, **kw))
+        return grids[-1]
+    monkeypatch.setattr(r.pipe, "_enhanced_power", keep)
+    x = _tone_noise(48000 * 4, 52)
+    before = histogram.route_launches[SORTED_TILES]
+    v1 = r.render(x)[0]
+    assert histogram.route_launches[SORTED_TILES] == before + 1
+    v2 = r.render(x)[0]
+    assert torch.equal(grids[0], grids[1]) and torch.equal(v1, v2)
