@@ -97,31 +97,43 @@ them.  Phases, in order, one line each; the first failure ends the run:
    (medians of three rounds; the tiles form must be the faster), beside
    the global route, ``index_add_`` and the deterministic
    ``index_put_(accumulate=True)``; B2's ring form (one live hop into
-   the pending ring in place, each cell in bin order) at the hop of each
-   enhanced live cell (8192, the display default, the north star, stress
-   16 ch, wide), bit-equal to its plain version on the CPU into a ring of
-   random values, with NaN/Inf behind dropped and out-of-range ids, the
-   same on a second run and at each band count that fits from a quarter
-   to twice the plan's, timed in turns with the atomic route the default
-   hop takes (medians of three rounds), beside ``index_add_`` and
-   ``index_put_(accumulate=True)``.
+   the pending ring in place, each cell in bin order, its ring cells
+   computed in the kernel from the relative ids and t) at the hop of
+   each enhanced live cell (8192 mono and stereo, direct, the display
+   default, the north star, stress 16 ch, wide), bit-equal to its plain
+   version on the CPU into a ring of random values at t = 0 … P + 1 and
+   far along, with NaN/Inf behind dropped and out-of-range ids, the same
+   on a second run and at every cluster size the card holds, timed in
+   turns with the atomic route the ``exact_sums=False`` hop takes
+   (medians of three rounds) and by cluster size, beside ``index_add_``
+   and ``index_put_(accumulate=True)``, and a default stream of 8
+   columns bit-equal to the default batch.
 4. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
-   (stencil) — the kernel launch counters must rise; the result must
-   match the port's CPU path.
-5. batch16: the same on a 16-channel batch.
+   (stencil) — the kernel launch counters must rise (its sum on B2's
+   sorted tiles, the card's default); the result must match the port's
+   CPU path.
+5. batch16: the same on a 16-channel batch (its sum on B2's global
+   sort: ``sorted_form`` weighs its 16 lanes' tiles).
 6. live: ``Stream`` fed in 1024-sample chunks (375 hops) then flushed; it
    must match the batch result; per-hop latency p50/p99.  Every live
    phase runs one CUDA graph replay a hop (one capture a stream, checked),
    and prints first the eager step's p50/p99 on 200 hops driven straight
    through ``Pipeline._stream_step_rolling`` (the A/B inside one run).
    Every enhanced live phase (live, direct_live, stress_live, north_live,
-   wide_live, multires_live) then drives an exact ``Stream``
-   (``exact_sums=True``, the CLI's ``stream`` and ``animate``; path
-   ``<phase>_exact``): one capture, B2's ring form once a hop and no other
-   B2 route, its columns bit-equal on a second run and to
-   ``Pipeline.process(..., exact_sums=True)`` bit for bit; and its hop
-   beside the default's in turns (default, exact, exact, default, three
-   rounds; medians of host p50/p99 and device ms a replay).
+   wide_live, multires_live) runs the card's default, the ordered sums:
+   B2's ring form once a hop and no other B2 route, its columns bit-equal
+   in ``vis`` and ``rgba`` to a second run, to a run in 777-sample pushes
+   and to the default ``Pipeline.process``; a whole atomic stream
+   (``Stream(..., exact_sums=False)``: B2's row or global route) within
+   1e-5 of ``process(..., exact_sums=False)``; and the default hop beside
+   the atomic one in turns (atomic, default, default, atomic, three
+   rounds; medians of host p50/p99 and device ms a replay).  Every
+   enhanced batch phase holds five more calls to the first bit for bit,
+   its default sum and the other sorted form's at the card's own ids
+   each bit-equal to the CPU plain sum, the sorted form it took (the one
+   ``sorted_form`` names) within 5% of the other in turns, and times B1
+   and its sum and the whole call against the atomic route in turns
+   (medians of three rounds).
 7. natural: P-natural batch — ``Settings(mode="natural",
    fft_impl="fourstep")``, the multires banks 8192/2048/512, hop 128,
    512 rows — on 16 s mono; B4 and B3 must launch; matches the CPU path.
@@ -179,11 +191,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
    the display default's file render (``render_image_multires``, counted:
    its sum must take B2's sorted tiles): the image the same on two calls,
    its grid before the post chain bit-equal on two calls and to the CPU
-   plain sum of its deposits, the global route's grid on two calls (cells
-   that differ), and the sum's device time, tiles against global, in
-   turns.  At the end every path but the raster, this render, the exact
-   live drives and the time renderer must have launched no sorted route
-   (no tiles, sort or ring form).
+   plain sum of its deposits, the global route's grid (``exact_sums=
+   False``) on two calls (cells that differ), and the sum's device time,
+   tiles against global, in turns.  At the end no driven path may have
+   launched B2's atomic routes (row or global): they are opt-in.
 21. app: the live app as a user opens it — ``ShellServer(Settings(),
    source="wav")`` on the card looping the 16 s signal over HTTP, a
    viewer polling ``/api/frame`` at 15 Hz, one continuous POST and two
@@ -192,7 +203,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
    arrived with no dropped frame, the kinds as expected (the slider
    re-captures nothing), every frame (512, 1024, 4); POST walls, the gap
    to a new stream's first column, drain-tick and ``/api/frame`` walls
-   p50/p99.
+   p50/p99.  Then ``EmSpecApp(Settings())`` fed the same WAV in 1024- and
+   777-sample pushes: the columns it paints bit-equal to each other and
+   to the default ``process`` of the WAV in ``vis`` and ``rgba``.
 22. swap: ``EmSpecApp.apply_settings`` wall for natural, the display
    default and each dropdown size ≤ 32768, cold and prewarmed; ten swaps
    under a running background prewarm: one capture a new stream, none
@@ -229,7 +242,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
 28. trace: ``utils.tracing.trace`` around one batch call; the trace it
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
-   call launches, read from the trace.
+   call launches, read from the trace; and one live hop's kernels in
+   launch order, on the default (B1 then B2's ring form at once: no
+   ring-id launch between them) and on the atomic route.
 29. bench: ``python -m emspec_torch bench`` as a user runs it, each a
    subprocess on the card that must exit 0 and print its JSON report:
    ``--soak --duration 30 --quick`` (while it runs, ``--sustained
@@ -273,12 +288,13 @@ exact zeros below min_id) and the probe's ``full`` and ``no_merge``
 1e-5·max of its own plain version; B3 (both forms), B5 and the post chain's three
 kernels bit-equal;
 B2's sorted route (its tiles, sort and ring forms) bit-equal to the plain
-sum on the CPU; an exact stream bit-equal to itself on a second run and
-to the exact batch; B4 (either route) within
+sum on the CPU; on the card's defaults every enhanced stream bit-equal to
+itself on a second run, in other pushes, and to the batch (vis and rgba),
+every enhanced batch call to the next; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
-of the cells; live vs batch within 1e-5 in ``vis`` (float32 atomics and
-FFT batch shapes reorder sums only).
+of the cells; natural live vs batch within 1e-5 in ``vis`` (FFT batch
+shapes reorder sums only), enhanced live ≡ batch bit for bit.
 """
 
 from __future__ import annotations
@@ -331,7 +347,7 @@ from emspec_torch.dsp.kernels.lut import (
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, SORTED, SORTED_RING, SORTED_TILES, ring_offsets,
     histogram, histogram_plain, histogram_ring, histogram_ring_plain,
-    ring_plan, route_of, tile_plan)
+    ring_ids, ring_occupancy, ring_plan, route_of, sorted_form, tile_plan)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
@@ -396,7 +412,9 @@ KERNELS = (
      "emspec_torch/csrc/deposits_large.cu", "emspec/dsp/pallas/fft4.py:404"),
     ("histogram_sorted_tiles", histogram, "emspec_torch/csrc/histogram.cu",
      "emspec/dsp/pallas/scatter.py:135"),
-    ("histogram_sorted_ring", histogram, "emspec_torch/csrc/histogram.cu",
+    ("histogram_sorted", histogram, "emspec_torch/csrc/histogram.cu",
+     "emspec/dsp/pallas/scatter.py:135"),
+    ("histogram_sorted_ring", histogram, "emspec_torch/csrc/histogram_ring.cu",
      "emspec/dsp/pallas/scatter.py:135"),
     ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
      "emspec/dsp/pallas/fft4.py:616"),
@@ -421,61 +439,64 @@ KERNELS = (
 COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "histogram_sorted_tiles":
               lambda: histogram.route_launches[SORTED_TILES],
+          "histogram_sorted": lambda: histogram.route_launches[SORTED],
           "histogram_sorted_ring":
               lambda: histogram.route_launches[SORTED_RING],
           "deposits_hist_cluster":
               lambda: deposits_hist.route_launches["cluster"],
           "deposits_hist_cluster_large":
               lambda: deposits_hist.route_launches["cluster_large"]}
-MULTIRES_PATH = ("deposits_ids", "deposits_ids_window", "histogram",
-                 "lut_values")
-CLUSTER_PATH = ("deposits_ids_cluster", "histogram", "lut_values")
-LARGE_PATH = ("deposits_ids_cluster_large", "histogram", "lut_values")
+# the card's default sums are the ordered ones: every enhanced batch path
+# sums through B2's sorted route — its tiles form, or its global sort
+# where ``sorted_form`` says so by shape — every enhanced live hop through
+# its ring form (``histogram`` counts each)
+TILES = ("histogram", "histogram_sorted_tiles")
+SORT = ("histogram", "histogram_sorted")
+RING = ("histogram", "histogram_sorted_ring")
+MULTIRES_B1 = ("deposits_ids", "deposits_ids_window")
+CLUSTER_B1 = ("deposits_ids_cluster",)
 SCAN = ("post_head", "ema_scan", "post_tail")   # every batch post chain
 PATH_KERNELS = {        # kernels each path must launch
-    "batch": ("deposits_ids", "histogram", "lut_values") + SCAN,
-    "batch16": ("deposits_ids", "histogram", "lut_values") + SCAN,
-    "live": ("deposits_ids", "histogram", "lut_values"),
+    "batch": ("deposits_ids",) + TILES + ("lut_values",) + SCAN,
+    "batch16": ("deposits_ids",) + SORT + ("lut_values",) + SCAN,
+    "live": ("deposits_ids",) + RING + ("lut_values",),
     "natural": ("fft4_steps123", "lut_values") + SCAN,
     "natural_live": ("fft4_steps123", "lut_values"),
-    "direct": ("windowed_frames", "fft4_steps123", "histogram",
-               "lut_values") + SCAN,
-    "direct_live": ("windowed_frames", "fft4_steps123", "histogram",
-                    "lut_values"),
-    "stress": CLUSTER_PATH + SCAN,
-    "stress_live_batch": CLUSTER_PATH + SCAN,
-    "stress_live": CLUSTER_PATH,
-    "north": CLUSTER_PATH + SCAN,
-    "north_live": CLUSTER_PATH,
-    "ext262144": LARGE_PATH + SCAN,
-    "wide": ("deposits_ids", "histogram", "lut_values") + SCAN,
-    "wide_live": ("deposits_ids", "histogram", "lut_values"),
-    "multires": MULTIRES_PATH + SCAN,
-    "multires_live": MULTIRES_PATH,
+    "direct": ("windowed_frames", "fft4_steps123") + TILES
+    + ("lut_values",) + SCAN,
+    "direct_live": ("windowed_frames", "fft4_steps123") + RING
+    + ("lut_values",),
+    "stress": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "stress_live_batch": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "stress_live": CLUSTER_B1 + RING + ("lut_values",),
+    "north": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "north_live": CLUSTER_B1 + RING + ("lut_values",),
+    "ext262144": ("deposits_ids_cluster_large",) + SORT + ("lut_values",)
+    + SCAN,
+    "wide": ("deposits_ids",) + SORT + ("lut_values",) + SCAN,
+    "wide_live": ("deposits_ids",) + RING + ("lut_values",),
+    "multires": MULTIRES_B1 + TILES + ("lut_values",) + SCAN,
+    "multires_live": MULTIRES_B1 + RING + ("lut_values",),
     "raster": ("windowed_frames", "histogram_sorted_tiles",
                "lut_values") + SCAN,
     "raster_natural": ("lut_values",) + SCAN,
     # the display default's file render: its sum on B2's sorted tiles
-    "render_multires": MULTIRES_PATH + ("histogram_sorted_tiles",) + SCAN,
+    "render_multires": MULTIRES_B1 + TILES + ("lut_values",) + SCAN,
     # the shell on the display default, then 4096 single-bank, then natural
-    "app": MULTIRES_PATH,
-    "sharded_pipeline": CLUSTER_PATH + SCAN,
-    "sharded_pipeline_agc": CLUSTER_PATH + SCAN,
-    "sharded_stream": CLUSTER_PATH,
+    "app": MULTIRES_B1 + RING + ("lut_values",),
+    "sharded_pipeline": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "sharded_pipeline_agc": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "sharded_stream": CLUSTER_B1 + RING + ("lut_values",),
     # the time renderer's chunk EMAs: the scan kernel alone, then a re-base
-    "time_parallel": MULTIRES_PATH + ("ema_scan",),
-    "time_parallel_2d": CLUSTER_PATH + ("ema_scan",),
-    "checkpoint": ("deposits_ids", "histogram", "lut_values"),
+    "time_parallel": MULTIRES_B1 + TILES + ("lut_values", "ema_scan"),
+    "time_parallel_2d": CLUSTER_B1 + SORT + ("lut_values", "ema_scan"),
+    "checkpoint": ("deposits_ids",) + RING + ("lut_values",),
 }
-# the enhanced live phases, each also driven through an exact Stream
-# (path ``<phase>_exact``): its B2 the ring form alone
-EXACT_LIVE = ("live", "direct_live", "stress_live", "north_live",
-              "wide_live", "multires_live")
-PATH_KERNELS.update({
-    f"{path}_exact": tuple(k for k in PATH_KERNELS[path] if k != "histogram")
-    + ("histogram_sorted_ring",) for path in EXACT_LIVE})
-PATH_KERNELS["time_parallel"] += ("histogram_sorted_tiles",)
-PATH_KERNELS["time_parallel_2d"] += ("histogram_sorted_tiles",)
+# the enhanced live phases: each default stream held bit for bit to a
+# second run and to the default batch, its hop in turns with the atomic
+# route's (``exact_sums=False``)
+ENHANCED_LIVE = ("live", "direct_live", "stress_live", "north_live",
+                 "wide_live", "multires_live")
 # the post chain's stage on each batch path when it was a loop of two
 # launches a column, before the scan kernel (PERF.md §5, the same card
 # model and power limit), printed beside this run's
@@ -485,14 +506,15 @@ LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 SM_CLOCK_HZ = [0.0]     # the card's top SM clock (nvidia-smi), phase device
 STEP_CYCLES = 8         # one scan step: a dependent multiply and add
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
-# the paths on B2's sorted route (its tiles or ring form)
-EXACT_PATHS = ("raster", "render_multires", "time_parallel",
-               "time_parallel_2d") + tuple(f"{p}_exact" for p in EXACT_LIVE)
-LIVE_TURNS = ("default", "exact", "exact", "default") * 3
+LIVE_TURNS = ("atomic", "default", "default", "atomic") * 3
 EXACT: dict = {}        # the multires file render's sum (phase cli)
-EXACT_LIVE_TURNS: dict = {}   # live phase → its hop, default vs exact
+LIVE_AB: dict = {}      # live phase → its hop, default vs atomic, in turns
+BATCH_AB: dict = {}     # batch phase → its sum's form, default vs atomic
+HOP_CENSUS: dict = {}   # a live hop's kernels in launch order (trace)
 EXACT_TP: dict = {}     # the time renderer's sum (phase parallel)
 EXACT_TURNS = ("global", "tiles", "tiles", "global") * 3
+BATCH_TURNS = ("atomic", "default", "default", "atomic") * 3
+FORM_TOL = 0.05         # a batch's sorted form at most this over the other
 
 
 def fail(msg: str):
@@ -1770,8 +1792,8 @@ def multires_scatter(dev) -> dict:
     print(f"multires batch scatter, B1 included (device ms, 16 s, in turns "
           f"a b c c b a, three rounds): {turns}; per bank, scatter alone {per_bank}; (b) "
           f"relative banks {best} (TPU choice {tpu_shaped}: "
-          f"{out['b_tpu_choice_device_ms']:.4f}); scatter=\"auto\" runs "
-          f"({auto})", flush=True)
+          f"{out['b_tpu_choice_device_ms']:.4f}); scatter=\"auto\" with "
+          f"exact_sums=False runs ({auto})", flush=True)
     check(median[auto] <= 1.05 * min(median.values()),
           f"scatter=\"auto\" runs ({auto}), medians in turns {median}")
     return out
@@ -2101,26 +2123,34 @@ def kernels_b2_sorted(dev) -> dict:
 
 
 # the live cells whose hops B2 sums: settings, the signal's channels,
-# seconds and rate (``kernels_b2_ring``)
+# seconds and rate (``kernels_b2_ring``): one lane, two (a stereo live
+# cell) and sixteen
 RING_CELLS = (("live", SETTINGS, 1, SECONDS, SR),
+              ("live_2ch", SETTINGS, 2, 4.0, SR),
+              ("direct_live", DIRECT, 1, 4.0, SR),
               ("multires_live", MULTIRES, 1, 4.0, SR),
               ("north_live", NORTH, 1, 4.0, SR),
               ("stress_live", STRESS, CHANNELS, 4.0, 96000),
               ("wide_live", WIDE, 1, 2.0, SR))
 B2_RING_TURNS = ("atomic", "ring", "ring", "atomic") * 3
+RING_SHORT_HOPS = 8     # a stream this many columns long (and the 16 s runs)
 
 
 def kernels_b2_ring(dev) -> dict:
     """B2's ring form at each live cell's hop (frame ``mid`` of the batch's
-    B1 ids, bit-equal to B1 at b = 1, made ring ids as the exact step
-    makes them): bit-equal to its plain version on the CPU into a ring of
-    random values, with NaN/Inf behind dropped and out-of-range ids, and
-    the same on a second run; its device time in turns with the atomic
-    route the default live step takes at the same hop (its relative
-    histogram, medians of three rounds), at each band count that fits
-    from a quarter to twice the plan's; beside ``index_add_`` and the
+    B1 ids, bit-equal to B1 at b = 1, the relative ids the live step hands
+    it, its ring cells computed in the kernel from them and ``t``):
+    bit-equal to its plain version (``histogram_ring_plain`` of
+    ``ring_ids``) on the CPU into a ring of random values at t = 0 … P + 1
+    and far along (the drop of the columns below 0, the slot wrap), with
+    NaN/Inf behind dropped and out-of-range ids, the same on a second run,
+    at the plan's cluster size and every other one the card holds; its
+    device time in turns with the atomic route the ``exact_sums=False``
+    hop takes at the same hop (its relative histogram, medians of three
+    rounds), and by cluster size; beside ``index_add_`` and the
     deterministic ``index_put_(accumulate=True)`` at the same ring
-    offsets."""
+    offsets.  Then a default ``Stream`` of ``RING_SHORT_HOPS`` columns
+    bit-equal to the default batch (the live phases run 16 s)."""
     shapes, lines = {}, []
     for name, s, ch, seconds, sr in RING_CELLS:
         ids_rel, contrib, S = relative_ids(dev, s, signal(
@@ -2129,52 +2159,74 @@ def kernels_b2_ring(dev) -> dict:
         mid = ids_rel.shape[-2] // 2
         rel = ids_rel[..., mid, :].contiguous()
         vals = contrib[..., mid, :].contiguous()
-        ids = pipe._ring_ids(rel, mid).contiguous()
-        P, C, k = 2 * pipe.reach + 1, pipe.rows, ids.shape[-1]
-        ring0 = torch.rand((P,) + ids.shape[:-1] + (C,), device=dev)
-        want = histogram_ring_plain(ids.cpu(), vals.cpu(),
-                                    ring0.cpu().clone())
-        before = histogram.route_launches[SORTED_RING]
-        got = histogram_ring(ids, vals, ring0.clone())
-        check(histogram.route_launches[SORTED_RING] == before + 1,
-              f"B2 ring form at {name}: no launch of the ring form")
-        check(torch.equal(got.cpu(), want), f"B2 ring form at {name} "
-              f"differs from the plain sum in deposit order")
-        check(torch.equal(histogram_ring(ids, vals, ring0.clone()), got),
-              f"B2 ring form at {name} differs between two runs")
+        P, C, k = 2 * pipe.reach + 1, pipe.rows, rel.shape[-1]
+        lanes = rel[..., 0].numel()
+        ring0 = torch.rand((P,) + rel.shape[:-1] + (C,), device=dev)
         rng = np.random.default_rng(len(name))
-        pick = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1).to(dev)
-        bad_ids = torch.where(pick, torch.where(ids % 2 == 0, -1, P * C + 7),
-                              ids).to(torch.int32)
-        bad_vals = torch.where(pick | (ids < 0), torch.where(
-            ids % 3 == 0, float("inf"), float("nan")), vals)
-        spoiled = histogram_ring(bad_ids, bad_vals, ring0.clone())
-        check(bool(torch.isfinite(spoiled).all()) and torch.equal(
-            spoiled.cpu(), histogram_ring_plain(
-                bad_ids.cpu(), bad_vals.cpu(), ring0.cpu().clone())),
-              f"B2 ring form at {name}: NaN/Inf behind dropped ids landed "
-              f"or the sum differs from plain")
-        plan = ring_plan(k, P, C, lanes=ids[..., 0].numel())
-        bands = [b for b in (plan["bands"] // 4, plan["bands"] // 2,
-                             plan["bands"], 2 * plan["bands"])
-                 if ring_plan(k, P, C, b)["fits"]]
-        for b in bands:
-            check(torch.equal(histogram_ring(ids, vals, ring0.clone(),
-                                             bands=b).cpu(), want),
-                  f"B2 ring form at {name}, {b} blocks a lane, differs "
-                  f"from plain")
+        pick = torch.from_numpy(rng.random(tuple(rel.shape)) < 0.1).to(dev)
+        bad_ids = torch.where(pick, torch.where(rel % 2 == 0, -1, P * C + 7),
+                              rel).to(torch.int32)
+        bad_vals = torch.where(pick, torch.where(
+            rel % 3 == 0, float("inf"), float("nan")), vals)
+        plan = ring_plan(k, P, C, lanes=lanes, clusters16=ring_occupancy(
+            k, P, C, 16, lanes) if ring_plan(k, P, C, 16, lanes)["fits"]
+            else 0)
+        sizes = [(c, local) for local in (False, True)
+                 for c in (1, 2, 4, 8, 16)
+                 if ring_plan(k, P, C, c, lanes, local=local)["fits"]
+                 and (local or ring_occupancy(k, P, C, c, lanes) > 0)]
+        checked = 0
+        for t in sorted({0, 1, pipe.reach, P - 1, P, P + 1, mid, 100_003}):
+            t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+            for ids, v in ((rel, vals), (bad_ids, bad_vals)):
+                want = histogram_ring_plain(ring_ids(ids.cpu(), t, P, C),
+                                            v.cpu(), ring0.cpu().clone())
+                for cluster, local in [(None, None)] + sizes:
+                    before = histogram.route_launches[SORTED_RING]
+                    got = histogram_ring(ids, v, ring0.clone(), t_dev,
+                                         cluster=cluster, local=local)
+                    check(histogram.route_launches[SORTED_RING]
+                          == before + 1, f"B2 ring form at {name}: no "
+                          f"launch of the ring form")
+                    check(torch.equal(got.cpu(), want)
+                          and bool(torch.isfinite(got).all()),
+                          f"B2 ring form at {name}, t = {t}, "
+                          f"{cluster or plan['cluster']} CTAs a lane, local "
+                          f"{local}: differs from the "
+                          f"plain sum in deposit order, or NaN/Inf behind "
+                          f"a dropped id landed")
+                    checked += 1
+            first = histogram_ring(rel, vals, ring0.clone(), t_dev)
+            check(torch.equal(histogram_ring(rel, vals, ring0.clone(),
+                                             t_dev), first),
+                  f"B2 ring form at {name} differs between two runs")
+        t_dev = torch.tensor(mid, dtype=torch.int32, device=dev)
         ring = ring0.clone()
-        min_id = max(pipe.reach - mid, 0) * C
-        rel_m = torch.where(rel >= min_id, rel, -1)
+        rel_m = torch.where(rel >= max(pipe.reach - mid, 0) * C, rel, -1)
         turns: dict = {}
         for who in B2_RING_TURNS:
             turns.setdefault(who, []).append(device_ms(
-                (lambda: histogram_ring(ids, vals, ring)) if who == "ring"
-                else (lambda: histogram(rel_m, vals, S))))
-        by_bands = {b: device_ms(lambda: histogram_ring(ids, vals, ring,
-                                                        bands=b))
-                    for b in bands}
+                (lambda: histogram_ring(rel, vals, ring, t_dev))
+                if who == "ring" else (lambda: histogram(rel_m, vals, S))))
+        by_cluster = {f"{'local' if local else 'cluster'} {c}": device_ms(
+            lambda: histogram_ring(rel, vals, ring, t_dev, cluster=c,
+                                   local=local)) for c, local in sizes}
+        # the plan's form against the other at the plan's CTAs, in turns
+        other = ring_plan(k, P, C, plan["cluster"], lanes,
+                          local=not plan["local"])
+        forms: dict = {}
+        if other["fits"]:
+            for who in ("plan", "other", "other", "plan") * 3:
+                forms.setdefault(who, []).append(device_ms(
+                    lambda: histogram_ring(
+                        rel, vals, ring, t_dev, cluster=plan["cluster"],
+                        local=plan["local"] ^ (who == "other"))))
+            fm = {w: float(np.median(v)) for w, v in forms.items()}
+            check(fm["plan"] <= 1.05 * fm["other"], f"B2 ring form at "
+                  f"{name}: the plan's form (local {plan['local']}) is not "
+                  f"the faster: medians {fm}")
         med = {w: float(np.median(v)) for w, v in turns.items()}
+        ids = ring_ids(rel, mid, P, C)
         flat = ring_offsets(ids, ring).reshape(-1)
         ok = flat >= 0
         safe = torch.where(ok, flat, ring.numel()).long()
@@ -2184,31 +2236,49 @@ def kernels_b2_ring(dev) -> dict:
         def index_put():
             return spare.index_put_((safe,), v0, accumulate=True)
         touched = int(torch.unique(flat[ok]).numel())
+        # a stream RING_SHORT_HOPS columns long against the batch
+        xs = signal(seconds, ch, seed=22, sr=sr)[
+            ..., :pipe.n_max + (RING_SHORT_HOPS - 1) * pipe.hop]
+        st = Stream(s.replace(channels=ch), dev)
+        cols = st.push(xs) + st.flush()
+        st.close()
+        vis_b, rgba_b, _ = pipe.process(xs)
+        check(len(cols) == RING_SHORT_HOPS and torch.equal(
+            torch.stack([c.vis for c in cols]), vis_b) and torch.equal(
+            torch.stack([c.rgba for c in cols]), rgba_b),
+              f"{name}: a default stream of {RING_SHORT_HOPS} columns is "
+              f"not the default batch bit for bit")
         row = dict(
-            at=f"{name}: ids {tuple(ids.shape)} → a ring ({P}, "
-               f"{ring[0].numel() // C}, {C}), {plan['bands']} blocks a "
-               f"lane", max_abs_err=0.0,
-            **times(lambda: histogram_ring(ids, vals, ring),
+            at=f"{name}: relative ids {tuple(rel.shape)} → a ring ({P}, "
+               f"{lanes}, {C}), clusters of {plan['cluster']}",
+            max_abs_err=0.0,
+            **times(lambda: histogram_ring(rel, vals, ring, t_dev),
                     lambda: histogram_ring_plain(ids, vals, ring),
                     lambda: spare.index_add_(0, safe, v0), iters=10),
-            **bound(8.0 * ids.numel() + 8.0 * touched, float(touched)),
-            touched_cells=touched, plan=plan,
+            **bound(8.0 * rel.numel() + 8.0 * touched, float(touched)),
+            touched_cells=touched, plan=plan, checked_launches=checked,
             in_turns_device_ms=turns, median_device_ms=med,
-            device_ms_by_bands=by_bands,
+            device_ms_by_cluster=by_cluster, forms_in_turns_device_ms=forms,
             index_put_ms=cuda_ms(index_put, iters=10),
             index_put_device_ms=device_ms(index_put))
         shapes[name] = row
         lines.append(
-            f"{name} ({tuple(ids.shape)} → {P} × {C} a lane, {touched} "
-            f"cells touched): device {row['device_ms']:.4f} ms, in turns "
-            f"with the atomic route at the hop (medians) ring "
-            f"{med['ring']:.4f} vs atomic {med['atomic']:.4f}; by blocks a "
-            f"lane {by_bands}; index_add_ {row['library_device_ms']:.4f}, "
-            f"index_put_(accumulate=True) {row['index_put_device_ms']:.4f}, "
-            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f}")
-    print("kernels B2 ring form (each cell in bin order onto the ring; "
-          "bit-equal to plain, run to run, NaN/Inf behind dropped ids): "
-          + "; ".join(lines), flush=True)
+            f"{name} ({tuple(rel.shape)} → {P} × {C} a lane, {touched} "
+            f"cells touched, clusters of {plan['cluster']}): device "
+            f"{row['device_ms']:.4f} ms ({'local' if plan['local'] else 'a cluster'}; "
+            f"the other form in turns {forms.get('other', ['-'])[0]}), in turns "
+            f"with the atomic route at "
+            f"the hop (medians) ring {med['ring']:.4f} vs atomic "
+            f"{med['atomic']:.4f} ({'met' if med['ring'] <= med['atomic'] else 'not met'}); "
+            f"by cluster size {by_cluster}; index_add_ "
+            f"{row['library_device_ms']:.4f}, index_put_(accumulate=True) "
+            f"{row['index_put_device_ms']:.4f}, plain {row['plain_ms']:.4f}"
+            f" ms, bound {row['bound_ms']:.5f}; {checked} launches "
+            f"bit-equal to plain; {RING_SHORT_HOPS}-column stream ≡ batch")
+    print("kernels B2 ring form (each cell in bin order onto the ring, the "
+          "ring cells computed in the kernel; bit-equal to plain, run to "
+          "run, NaN/Inf behind dropped ids): " + "; ".join(lines),
+          flush=True)
     return dict(shapes["multires_live"], shapes=shapes)
 
 
@@ -2222,7 +2292,7 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res.update(kernels_fused(dev, pipe, p))
     res["ema_scan"] = kernels_ema(dev)
     res.update(kernels_post(dev))
-    res["histogram"]["raster_sorted"], res["histogram_sorted_tiles"] = \
+    res["histogram_sorted"], res["histogram_sorted_tiles"] = \
         kernels_b2_sorted(dev)
     res["histogram_sorted_ring"] = kernels_b2_ring(dev)
     torch.cuda.synchronize()
@@ -2275,16 +2345,102 @@ def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
     check(vis_ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share "
           f"over 2/255: {vshare})")
     again = repeat_pixels(lambda: gpu.process(xg, p)[1], rgba)
+    ab = ""
+    if s.mode == "enhanced":
+        check(not any(again), f"{name}: five more default calls differ "
+              f"from the first in {again} pixels")
+        ab = "; " + batch_ab(name, gpu, xg, p, t)
     ms = cuda_ms(lambda: gpu.process(xg, p), iters=iters, warmup=2)
     frames = t * (1 if x.ndim == 1 else x.shape[0])
     print(f"{name}: {tuple(x.shape)} samples → vis {tuple(vis.shape)}; "
           f"{ms:.3f} ms/call, {frames / (ms / 1e3):.1f} frames/s ({frames} "
           f"frames/call, device-resident input); vs CPU path: {grid}, vis "
           f"maxf {vd:.2e} (share over 2/255 {vshare:.2e}); {post}; pixels "
-          f"differing from the first call in {len(again)} more: {again}; "
+          f"differing from the first call in {len(again)} more: {again}{ab}; "
           f"launches {LAUNCHES[name]}, B2 routes {ROUTE_LAUNCHES[name]}",
           flush=True)
     return vis, ms
+
+
+def batch_ab(name: str, gpu: Pipeline, xg, p, t: int) -> str:
+    """An enhanced batch cell's sum on the card's default (B2's sorted
+    route: its form, tiles or global sort, from the driven call's route
+    counts, the one ``sorted_form`` names): the default sum and the other
+    form's at the card's own ids each bit-equal to the CPU plain sum
+    (``histogram_plain``) of those ids; the two forms in turns
+    (``SORTED_TURNS``, medians of three rounds), the chosen one within
+    ``FORM_TOL`` of the other; then B2's atomic route
+    (``exact_sums=False``: the route it takes, counted around one call)
+    against the default, in turns (``BATCH_TURNS``): the device ms of
+    ``_enhanced_power`` (B1 and the sum) and of the whole ``process``
+    call → the line's part."""
+    routes = ROUTE_LAUNCHES[name]
+    form = [r for r in (SORTED_TILES, SORTED) if routes[r] > 0]
+    ids_rel, contrib = gpu._deposit_ids_rel(gpu._bank_inputs(xg, t), p)
+    ids = gpu._absolute_ids(ids_rel, t, gpu.reach)
+    lead, k = ids.shape[:-2], ids.shape[-1]
+    lanes = math.prod(lead)
+    want = sorted_form(t, k, gpu.reach, gpu.rows, lanes)
+    check(form == [SORTED_TILES if want == "tiles" else SORTED]
+          and routes["row"] == routes["global"] == 0,
+          f"{name}: the default batch's B2 routes {routes}, not the "
+          f"sorted form {want!r} its shape takes")
+    cells = t * gpu.rows
+    fi = ids.reshape(lead + (-1,)).contiguous()
+    fc = contrib.reshape(lead + (-1,)).contiguous()
+    plain = histogram_plain(fi.cpu(), fc.cpu(), cells).reshape(
+        lead + (t, gpu.rows))
+    got = gpu._scatter_absolute(ids, contrib, t, exact=True)
+    check(torch.equal(got.cpu(), plain), f"{name}: the default sum is not "
+          f"the CPU plain sum of its deposits")
+    passes = gpu.settings.scatter_passes
+    bound_kw = dict(reach=gpu.reach, frame_len=k, column_len=gpu.rows)
+    forms = {"tiles": lambda: histogram(fi, fc, cells, passes,
+                                        route=SORTED, **bound_kw),
+             "sort": lambda: histogram(fi, fc, cells, passes, route=SORTED)}
+    chosen = "tiles" if want == "tiles" else "sort"
+    other = "sort" if chosen == "tiles" else "tiles"
+    check(torch.equal(forms[other]().cpu().reshape(plain.shape), plain),
+          f"{name}: B2's {other} form is not the CPU plain sum of the "
+          f"default's deposits")
+    form_turns: dict = {}
+    for who in SORTED_TURNS:
+        form_turns.setdefault(who, []).append(device_ms(forms[who], 5))
+    med_f = {k: float(np.median(v)) for k, v in form_turns.items()}
+    check(med_f[chosen] <= (1 + FORM_TOL) * med_f[other],
+          f"{name}: the chosen sorted form ({chosen}) {med_f[chosen]:.4f} "
+          f"ms against the {other} form's {med_f[other]:.4f} ms, over "
+          f"{FORM_TOL:.0%}")
+    before = dict(histogram.route_launches)
+    gpu._enhanced_power(xg, t, p, exact_sums=False)
+    atomic = [r for r in histogram.route_launches
+              if histogram.route_launches[r] > before[r]]
+    power: dict = {}
+    calls: dict = {}
+    for who in BATCH_TURNS:
+        exact = who == "default"
+        power.setdefault(who, []).append(device_ms(
+            lambda: gpu._enhanced_power(xg, t, p, exact_sums=exact), 5))
+        calls.setdefault(who, []).append(device_ms(
+            lambda: gpu.process(xg, p, exact_sums=exact), 5))
+    med = {k: float(np.median(v)) for k, v in power.items()}
+    med_c = {k: float(np.median(v)) for k, v in calls.items()}
+    BATCH_AB[name] = dict(form=form[0], lanes=lanes, atomic_routes=atomic,
+                          form_turns_device_ms=form_turns,
+                          form_median_device_ms=med_f,
+                          power_turns_device_ms=power,
+                          process_turns_device_ms=calls,
+                          power_median_device_ms=med,
+                          process_median_device_ms=med_c)
+    return (f"sum on B2's {form[0]} ({lanes} lanes; atomic: {atomic}), "
+            f"bit-equal to the CPU plain sum, as is the {other} form; "
+            f"the sum alone in turns {SORTED_TURNS[:4]} ×3 (medians, "
+            f"device ms): tiles {med_f['tiles']:.4f} vs sort "
+            f"{med_f['sort']:.4f}; in turns {BATCH_TURNS[:4]} ×3: B1 and "
+            f"the sum default {med['default']:.4f} vs atomic "
+            f"{med['atomic']:.4f} (+{med['default'] - med['atomic']:.4f}), "
+            f"process default {med_c['default']:.4f} vs atomic "
+            f"{med_c['atomic']:.4f}")
 
 
 def repeat_pixels(fn, first, runs: int = 5) -> list:
@@ -2406,6 +2562,8 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
     vis_s = torch.stack([c.vis for c in cols])
     diff = float((vis_s - vis_batch).abs().max())
     check(diff <= STREAM_VIS_ATOL, f"{name} ≠ batch: max |Δvis| {diff}")
+    check(name not in ENHANCED_LIVE or torch.equal(vis_s, vis_batch),
+          f"{name} ≠ the default batch bit for bit: max |Δvis| {diff}")
     check(st.captures == 1, f"{name}: {st.captures} graph captures")
     p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
     hop_ms = st.pipe.hop / settings.sample_rate * 1e3
@@ -2423,8 +2581,8 @@ def live_phase(name: str, dev, settings: Settings, x: np.ndarray,
     if keep_up:
         check(p50 < hop_ms, f"{name}: graphed p50 {p50:.3f} ms is not below "
               f"the hop's {hop_ms:.3f} ms of audio")
-    if name in EXACT_LIVE:
-        print(exact_live(name, dev, settings, x, chunk, keep_up), flush=True)
+    if name in ENHANCED_LIVE:
+        print(default_live(name, dev, settings, x, chunk, cols), flush=True)
 
 
 def stream_run(st: Stream, x: np.ndarray, chunk: int, lat=None) -> list:
@@ -2467,63 +2625,76 @@ def hop_turns(streams: dict, x: np.ndarray, chunk: int, hops: int = 200
     return out
 
 
-def exact_live(name: str, dev, settings: Settings, x: np.ndarray,
-               chunk: int, keep_up: bool) -> str:
-    """A live phase's exact ``Stream`` (the CLI's ``stream`` and
-    ``animate``): driven once (counters: B2's ring form alone), one capture
-    and one graph replay a hop, its columns bit-equal on a second run and
-    to ``Pipeline.process(..., exact_sums=True)`` of the same audio; then
-    its graphed hop beside the default's in turns (``hop_turns``, medians
-    of three rounds), the exact p50 below the hop's audio time where the
-    phase keeps up → the phase's line."""
+def default_live(name: str, dev, settings: Settings, x: np.ndarray,
+                 chunk: int, cols: list) -> str:
+    """An enhanced live phase's default ``Stream`` (the ordered sums: B2's
+    ring form once a hop and no other B2 route, counted in the driven
+    run): its columns (``cols``) bit-equal in ``vis`` and ``rgba`` to a
+    second run, to a run in 777-sample pushes and to the default
+    ``Pipeline.process`` of the same audio; a whole atomic stream
+    (``Stream(..., exact_sums=False)``: B2's row or global route) within
+    ``STREAM_VIS_ATOL`` of ``process(..., exact_sums=False)``; then its
+    graphed hop beside the atomic route's in turns (``hop_turns``,
+    medians of three rounds) → the phase's line."""
     s = settings.replace(channels=1 if x.ndim == 1 else x.shape[0])
-    path = f"{name}_exact"
-    runs = []
-    for i in range(2):
-        st = Stream(s, dev, exact_sums=True)
-        check(st.captures == 1, f"{path}: {st.captures} graph captures")
-        cols = (drive(path, lambda: stream_run(st, x, chunk)) if i == 0
-                else stream_run(st, x, chunk))
-        check(st.captures == 1, f"{path}: {st.captures} graph captures")
-        runs.append(torch.stack([c.vis for c in cols]))
-        st.close()
-    routes = ROUTE_LAUNCHES[path]
-    check(routes[SORTED_RING] == len(cols) + st.reach and all(
+    routes = ROUTE_LAUNCHES[name]
+    hops = len(cols) + Pipeline(s, dev).reach
+    check(routes[SORTED_RING] == hops and all(
         n == 0 for r, n in routes.items() if r != SORTED_RING),
-          f"{path}: B2 launched other than its ring form once a hop "
-          f"({routes}, {len(cols) + st.reach} hops)")
-    differ = int((runs[0] != runs[1]).sum())
-    check(differ == 0, f"{path}: two exact streams differ in {differ} "
-          f"cells")
-    vis_x = Pipeline(s, dev).process(x, exact_sums=True)[0]
-    check(runs[0].shape == vis_x.shape, f"{path}: {tuple(runs[0].shape)} "
-          f"columns against the batch's {tuple(vis_x.shape)}")
-    parted = int((runs[0] != vis_x).sum())
-    check(parted == 0, f"{path} ≠ process(..., exact_sums=True) in {parted} "
-          f"cells (max |Δvis| {float((runs[0] - vis_x).abs().max()):.3g})")
+          f"{name}: B2 launched other than its ring form once a hop "
+          f"({routes}, {hops} hops)")
+    vis0 = torch.stack([c.vis for c in cols])
+    rgba0 = torch.stack([c.rgba for c in cols])
+    for label, push in (("a second run", chunk), ("777-sample pushes", 777)):
+        st = Stream(s, dev)
+        again = stream_run(st, x, push)
+        st.close()
+        differ = int((torch.stack([c.vis for c in again]) != vis0).sum())
+        check(differ == 0 and torch.equal(
+            torch.stack([c.rgba for c in again]), rgba0),
+              f"{name}: {label} differs from the first in {differ} cells")
+    vis_b, rgba_b, _ = Pipeline(s, dev).process(x)
+    check(torch.equal(vis0, vis_b) and torch.equal(rgba0, rgba_b),
+          f"{name} ≠ the default process bit for bit in vis or rgba")
+    st = Stream(s, dev, exact_sums=False)
+    before = dict(histogram.route_launches)
+    loose = stream_run(st, x, chunk)
+    st.close()
+    loose_routes = [r for r in histogram.route_launches
+                    if histogram.route_launches[r] > before[r]]
+    vis_a = torch.stack([c.vis for c in loose])
+    vis_pa = Pipeline(s, dev).process(x, exact_sums=False)[0]
+    check(vis_a.shape == vis_pa.shape, f"{name}: the atomic stream's vis "
+          f"{tuple(vis_a.shape)}, its batch's {tuple(vis_pa.shape)}")
+    diff_a = float((vis_a - vis_pa).abs().max())
+    check(diff_a <= STREAM_VIS_ATOL and loose_routes and all(
+        r in ROUTES for r in loose_routes), f"{name}: the atomic stream "
+          f"(B2 routes {loose_routes}) ≠ the atomic batch: max |Δvis| "
+          f"{diff_a}")
     timed = {"default": Stream(s, dev),
-             "exact": Stream(s, dev, exact_sums=True)}
+             "atomic": Stream(s, dev, exact_sums=False)}
+    before = dict(histogram.route_launches)
     turns = hop_turns(timed, x, chunk)
+    atomic = [r for r in histogram.route_launches
+              if histogram.route_launches[r] > before[r]
+              and r != SORTED_RING]
     for st in timed.values():
         st.close()
     med = {who: {k: float(np.median(v)) for k, v in t.items()}
            for who, t in turns.items()}
-    EXACT_LIVE_TURNS[name] = dict(turns=turns, median=med)
-    hop_ms = s.hop_samples / s.sample_rate * 1e3
-    if keep_up:
-        check(med["exact"]["p50"] < hop_ms, f"{path}: graphed p50 "
-              f"{med['exact']['p50']:.3f} ms is not below the hop's "
-              f"{hop_ms:.3f} ms of audio")
-    return (f"{path}: one capture, one replay a hop, the ring form "
-            f"{routes[SORTED_RING]} times and no other B2 route; two runs "
-            f"bit-equal; ≡ process(..., exact_sums=True) bit for bit "
-            f"({tuple(vis_x.shape)}); a hop in turns {LIVE_TURNS[:4]} ×3 "
-            f"(medians): exact p50 {med['exact']['p50']:.3f} / p99 "
-            f"{med['exact']['p99']:.3f} ms, device "
-            f"{med['exact']['device_ms']:.4f} ms; default p50 "
+    LIVE_AB[name] = dict(turns=turns, median=med, atomic_routes=atomic,
+                         atomic_stream_vs_batch=diff_a)
+    return (f"{name} default: the ring form {routes[SORTED_RING]} times and "
+            f"no other B2 route; a second run, 777-sample pushes and "
+            f"process bit-equal in vis and rgba ({tuple(vis_b.shape)}); "
+            f"the atomic stream (B2 {loose_routes}) against the atomic "
+            f"process: max |Δvis| {diff_a:.3g} (≤ {STREAM_VIS_ATOL}); a "
+            f"hop in turns {LIVE_TURNS[:4]} ×3 (medians): default p50 "
             f"{med['default']['p50']:.3f} / p99 {med['default']['p99']:.3f}"
-            f" ms, device {med['default']['device_ms']:.4f} ms; launches "
-            f"{LAUNCHES[path]}")
+            f" ms, device {med['default']['device_ms']:.4f} ms; atomic "
+            f"({atomic}) p50 {med['atomic']['p50']:.3f} / p99 "
+            f"{med['atomic']['p99']:.3f} ms, device "
+            f"{med['atomic']['device_ms']:.4f} ms")
 
 
 def raster_phase(name: str, dev, settings: Settings, x: np.ndarray,
@@ -2602,12 +2773,13 @@ def exact_sums(dev, x: np.ndarray) -> str:
     """The display default's file render (``render_image_multires``)
     driven once (counters: its sum must take B2's sorted tiles) and its
     image the same on a second call; its grid before the post chain
-    (``exact_sums``) bit-equal on two calls and to the CPU plain sum of
-    the same deposits; the default batch grid (B2's global route: the
-    app's and the bench's) on two calls, cells that differ counted; the
-    sum's device ms, the tiles form against the global route at these ids,
-    and the whole ``process`` call with and without ``exact_sums``, in
-    turns (medians of three rounds) → the phase's line."""
+    (the default, ``exact_sums``) bit-equal on two calls and to the CPU
+    plain sum of the same deposits; the atomic batch grid
+    (``exact_sums=False``: B2's global route) on two calls, cells that
+    differ counted; the sum's device ms, the tiles form against the global
+    route at these ids, and the whole ``process`` call with and without
+    ``exact_sums``, in turns (medians of three rounds) → the phase's
+    line."""
     img = drive("render_multires",
                 lambda: render_image_multires(x, MULTIRES, dev))
     check(np.array_equal(render_image_multires(x, MULTIRES, dev), img),
@@ -2628,8 +2800,8 @@ def exact_sums(dev, x: np.ndarray) -> str:
                       histogram_plain(fi.cpu(), fc.cpu(), cells)),
           "multires file render: the grid is not the CPU plain sum of its "
           "deposits")
-    a1 = pipe._enhanced_power(xg, t, p)
-    a2 = pipe._enhanced_power(xg, t, p)
+    a1 = pipe._enhanced_power(xg, t, p, exact_sums=False)
+    a2 = pipe._enhanced_power(xg, t, p, exact_sums=False)
     differ = int((a1 != a2).sum())
     bound = dict(route=SORTED, reach=pipe.reach, frame_len=ids.shape[-1],
                  column_len=pipe.rows)
@@ -2655,7 +2827,7 @@ def exact_sums(dev, x: np.ndarray) -> str:
             f"rounds) tiles {med['tiles']:.4f} vs global "
             f"{med['global']:.4f} ({plan['cols']}-column tiles, "
             f"{plan['col_tiles']} of them); process device ms exact "
-            f"{med_calls['tiles']:.4f} vs default {med_calls['global']:.4f};"
+            f"{med_calls['tiles']:.4f} vs atomic {med_calls['global']:.4f};"
             f" launches {LAUNCHES['render_multires']}, B2 routes "
             f"{ROUTE_LAUNCHES['render_multires']}")
 
@@ -2774,6 +2946,29 @@ KEEP_UP = 0.98          # columns over audio hops in a window without swaps
 
 def _percentiles(values) -> tuple:
     return tuple(float(np.percentile(values, q)) for q in (50, 99))
+
+
+def app_columns(dev, wav: Path, chunk: int = 1024) -> tuple:
+    """``EmSpecApp(Settings())`` on the card fed ``wav`` (read back with
+    the port's ``io.wav``) in ``chunk``-sample pushes, as a capture feeds
+    it → the (vis, rgba) of every column it paints, and the samples."""
+    from emspec_torch.app import EmSpecApp
+    from emspec_torch.io.wav import read_wav
+
+    samples = read_wav(wav)[0][0]
+    with tempfile.TemporaryDirectory() as ud:
+        app = EmSpecApp(Settings(), user_dir=ud, device=dev)
+        got, paint = [], app._paint
+
+        def keep(cols):
+            got.extend((c.vis.clone(), c.rgba.clone()) for c in cols)
+            return paint(cols)
+        app._paint = keep
+        for i in range(0, samples.shape[-1], chunk):
+            app.push_audio(samples[i:i + chunk])
+        app.close()
+    return (torch.stack([v for v, _ in got]),
+            torch.stack([c for _, c in got]), samples)
 
 
 def app_phase(dev, x: np.ndarray) -> None:
@@ -2895,6 +3090,19 @@ def app_phase(dev, x: np.ndarray) -> None:
             res["columns"] = srv.columns_emitted
 
         drive("app", run)
+        # the app's own columns: two runs, and the default process of the
+        # same WAV, bit for bit (the app paints all but the last R)
+        vis_a, rgba_a, samples = app_columns(dev, d / "s16.wav")
+        vis_a2, rgba_a2, _ = app_columns(dev, d / "s16.wav", chunk=777)
+        vis_b, rgba_b, _ = Pipeline(MULTIRES, dev).process(samples)
+        n = vis_a.shape[0]
+        check(torch.equal(vis_a, vis_a2) and torch.equal(rgba_a, rgba_a2),
+              "app: two runs of the app's pushes differ")
+        check(n + Pipeline(MULTIRES, dev).reach == vis_b.shape[0]
+              and torch.equal(vis_a, vis_b[:n])
+              and torch.equal(rgba_a, rgba_b[:n]),
+              f"app: the app's {n} columns are not process's bit for bit")
+        res["app_columns"] = n
     check(res["shapes"] == {(512, 1024, 4)} and len(res["frames"]) >= 20,
           f"app: /api/frame shapes {res['shapes']}, {len(res['frames'])} GETs")
     t50, t99 = _percentiles(res["ticks"])
@@ -2911,7 +3119,10 @@ def app_phase(dev, x: np.ndarray) -> None:
           + f"; drain tick wall p50 {t50:.3f} ms, p99 {t99:.3f} ms over "
           f"{len(res['ticks'])} ticks that painted ({res['columns']} "
           f"columns); /api/frame wall p50 {f50:.3f} ms, p99 {f99:.3f} ms "
-          f"over {len(res['frames'])} GETs, each (512, 1024, 4); launches "
+          f"over {len(res['frames'])} GETs, each (512, 1024, 4); "
+          f"EmSpecApp's {res['app_columns']} columns of the WAV (1024- and "
+          f"777-sample pushes) bit-equal to each other and to process in "
+          f"vis and rgba; launches "
           f"{LAUNCHES['app']}, B2 routes {ROUTE_LAUNCHES['app']}", flush=True)
 
 
@@ -3373,9 +3584,9 @@ def parallel_phase(dev, xs: np.ndarray, xs_live: np.ndarray, vis_sl,
                                par.stream_signal_sharded(xs_live, STRESS,
                                                          mesh))
     dv = float(np.abs(vis - vis_sl.cpu().numpy()).max())
-    check(vis.shape == tuple(vis_sl.shape) and dv <= STREAM_VIS_ATOL,
-          f"sharded_stream ≠ batch: shapes {vis.shape} "
-          f"{tuple(vis_sl.shape)}, max |Δvis| {dv}")
+    check(vis.shape == tuple(vis_sl.shape) and dv == 0.0,
+          f"sharded_stream ≠ the default batch bit for bit: shapes "
+          f"{vis.shape} {tuple(vis_sl.shape)}, max |Δvis| {dv}")
     hops = vis.shape[0] + Pipeline(STRESS, dev).reach
     steps = {}
     for agc in (False, True):
@@ -3394,7 +3605,7 @@ def parallel_phase(dev, xs: np.ndarray, xs_live: np.ndarray, vis_sl,
                           carry, blk, p), iters=50), step_coll)
     print(f"parallel sharded_stream: stream_signal_sharded of "
           f"{tuple(xs_live.shape)} samples, {hops} hops of "
-          f"{Pipeline(STRESS, dev).hop}; max |vis − stress batch| {dv:.3g}; "
+          f"{Pipeline(STRESS, dev).hop}; ≡ the stress batch bit for bit; "
           f"collectives in the run {coll}; a hop (CUDA events, eager, the "
           f"block from the host): {steps[False][0]:.4f} ms (the unsharded "
           f"eager step {steps[False][1]:.4f}, block on the card), "
@@ -3525,7 +3736,8 @@ def checkpoint_phase(dev, x: np.ndarray) -> None:
 # the kernels' names in a trace: B1 (block or cluster route), B2 (any
 # route), the scan
 TRACE_NAMES = {"B1": ("block_kernel", "cluster_kernel"),
-               "B2": ("row_kernel", "global_kernel", "sorted_kernel"),
+               "B2": ("row_kernel", "global_kernel", "sorted_kernel",
+                      "tiles_kernel"),
                "post_head": ("post_head_kernel",),
                "ema_scan": ("ema_speculate_kernel",),
                "post_tail": ("post_tail_speculate_kernel",),
@@ -3538,7 +3750,12 @@ def trace_phase(dev, x: np.ndarray) -> None:
     settings: the trace it writes must name B1's, B2's and the post
     chain's kernels (``post_head``, the scans' speculate and repair
     passes); then a census of the kernels that one post chain call
-    launches, read from the trace (the launches inside its annotation)."""
+    launches, read from the trace (the launches inside its annotation),
+    and of one live hop of the live phase's settings (the eager step,
+    ``_stream_step_rolling``) on the default, in launch order: B1, then
+    B2's ring form at once (its ring cells computed in the kernel: no
+    launch between them), then the post chain — beside the atomic hop's
+    (``exact_sums=False``)."""
     from emspec_torch.utils.tracing import annotation, trace
 
     pipe = Pipeline(SETTINGS, dev)
@@ -3548,6 +3765,14 @@ def trace_phase(dev, x: np.ndarray) -> None:
     cols = pipe._enhanced_power(xg, t, p).movedim(-2, 0).contiguous()
     st = PostState.init(cols.shape[1:], dev)
     postprocess_batch(cols, st, p.post)
+    hop = pipe.hop
+    carries = {exact: pipe.init_roll_carry() for exact in (True, False)}
+    block = xg[pipe.n_max - hop:pipe.n_max].contiguous()
+    for exact, carry in carries.items():         # past the first R hops
+        for _ in range(pipe.reach + 2):
+            carries[exact], _ = pipe._stream_step_rolling(
+                carry, block, p, exact_sums=exact)
+            carry = carries[exact]
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
@@ -3557,6 +3782,11 @@ def trace_phase(dev, x: np.ndarray) -> None:
             with annotation("emspec_post"):
                 postprocess_batch(cols, st, p.post)
             torch.cuda.synchronize()
+            for exact in (True, False):
+                with annotation(f"emspec_hop_{exact}"):
+                    pipe._stream_step_rolling(carries[exact], block, p,
+                                              exact_sums=exact)
+                torch.cuda.synchronize()
         files = list(Path(tmp).glob("trace_*.json"))
         check(len(files) == 1, f"trace: {len(files)} files written")
         events = json.loads(files[0].read_text())["traceEvents"]
@@ -3567,21 +3797,43 @@ def trace_phase(dev, x: np.ndarray) -> None:
     check(not missing and any(e.get("name") == "emspec_batch"
                               for e in events),
           f"trace: no {missing} among the kernels {sorted(kernels)}")
-    span = [e for e in events if e.get("name") == "emspec_post"
-            and e.get("cat") == "user_annotation"]
-    launched = []
-    if span:
-        lo, hi = span[0]["ts"], span[0]["ts"] + span[0].get("dur", 0)
-        corr = {e.get("args", {}).get("correlation") for e in events
-                if e.get("cat") == "cuda_runtime"
-                and "Launch" in e.get("name", "") and lo <= e["ts"] <= hi}
-        launched = sorted(e["name"][:40] for e in events
-                          if e.get("cat") == "kernel"
-                          and e.get("args", {}).get("correlation") in corr)
+    launched = sorted(n[:40] for n in launched_in(events, "emspec_post"))
+    hops = {exact: launched_in(events, f"emspec_hop_{exact}")
+            for exact in (True, False)}
+    order = [("B1" if "block_kernel" in n else "ring" if "ring_kernel" in n
+              else "other") for n in hops[True]]
+    check("B1" in order and "ring" in order
+          and order.index("ring") == len(order) - 1 - order[::-1].index(
+              "B1") + 1 and order.count("ring") == 1,
+          f"trace: the default live hop's kernels in launch order are not "
+          f"B1 then B2's ring form at once: {hops[True]}")
+    HOP_CENSUS.update({("default" if exact else "atomic"): [n[:60] for n in v]
+                       for exact, v in hops.items()})
     print(f"trace: {len(events)} events, {len(kernels)} kernel names; "
           + "; ".join(f"{k}: {v[0][:60]}" for k, v in found.items())
           + f"; one post chain call at {tuple(cols.shape)} launched "
-          f"{len(launched)} kernels: {launched}", flush=True)
+          f"{len(launched)} kernels: {launched}; one live hop ({hop} "
+          f"samples, 8192) launched {len(hops[True])} kernels on the "
+          f"default (B1, the ring form at once, the post chain: "
+          f"{[n[:30] for n in hops[True]]}) and {len(hops[False])} on the "
+          f"atomic route ({[n[:30] for n in hops[False]]})", flush=True)
+
+
+def launched_in(events: list, span_name: str) -> list:
+    """The kernels launched inside the annotation ``span_name`` of a
+    trace's events, in launch order."""
+    span = [e for e in events if e.get("name") == span_name
+            and e.get("cat") == "user_annotation"]
+    if not span:
+        return []
+    lo, hi = span[0]["ts"], span[0]["ts"] + span[0].get("dur", 0)
+    launch = {e.get("args", {}).get("correlation"): e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "Launch" in e.get("name", "") and lo <= e["ts"] <= hi}
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and e.get("args", {}).get("correlation") in launch]
+    return [e["name"] for e in sorted(
+        kern, key=lambda e: launch[e["args"]["correlation"]])]
 
 
 BENCH_KEEPUP = 0.95       # ``emspec/bench/harness.py:503-505``'s band
@@ -3732,13 +3984,10 @@ def phase_breakdown(dev, batches: dict, lives: dict, calls: dict) -> None:
             t = pipe.num_columns(x.shape[-1])
             inputs = pipe._bank_inputs(xg, t)
             ids, c = pipe._deposit_ids_rel(inputs, p)
-            if pipe.use_relative_batch:
-                def scatter():
-                    return pipe._scatter_relative(ids, c, t)
-            else:
-                def scatter():
-                    return pipe._scatter_absolute(
-                        pipe._absolute_ids(ids, t, pipe.reach), c, t)
+            def scatter():          # the default: B2's sorted route
+                return pipe._scatter_absolute(
+                    pipe._absolute_ids(ids, t, pipe.reach), c, t,
+                    exact=True)
             cols = scatter().movedim(-2, 0).contiguous()
             st = PostState.init(xg.shape[:-1] + (pipe.rows,), dev)
 
@@ -3749,8 +3998,8 @@ def phase_breakdown(dev, batches: dict, lives: dict, calls: dict) -> None:
                 f"{k} {v:.4f} ms" for k, v in {
                     "B1": cuda_ms(lambda: pipe._deposit_ids_rel(inputs, p),
                                   5, 2),
-                    "B2+fold" if pipe.use_relative_batch
-                    else "B2 (absolute grid)": cuda_ms(scatter, 5, 2),
+                    "B2 sorted route (absolute grid)": cuda_ms(scatter, 5,
+                                                               2),
                     "post chain": cuda_ms(post, 5, 2),
                     "colormap": cuda_ms(lambda: apply_lut(vis, p.lut), 5, 2),
                 }.items()) + "; "
@@ -3822,10 +4071,11 @@ def main() -> None:
     xw = signal(2.0, seed=16)
     vis_w, ms_w = batch_phase("wide", dev, WIDE, xw, iters=3)
     live_phase("wide_live", dev, WIDE, xw, vis_w, min_hops=1400, keep_up=True)
-    for path in ("wide", "wide_live"):
-        check(ROUTE_LAUNCHES[path]["global"] > 0,
-              f"{path}: B2 did not take its route above shared memory "
-              f"({ROUTE_LAUNCHES[path]})")
+    check(BATCH_AB["wide"]["atomic_routes"] == ["global"]
+          and LIVE_AB["wide_live"]["atomic_routes"] == ["global"],
+          f"wide: B2's atomic route is not the one above shared memory "
+          f"({BATCH_AB['wide']['atomic_routes']}, "
+          f"{LIVE_AB['wide_live']['atomic_routes']})")
     vis_m, ms_m = batch_phase("multires", dev, MULTIRES, x, iters=3)
     live_phase("multires_live", dev, MULTIRES, x, vis_m, keep_up=True)
     rasters = {name: raster_phase(name, dev, s, x)
@@ -3853,14 +4103,14 @@ def main() -> None:
          "multires_live": (MULTIRES, x)}, rasters)
 
     for path, routes in ROUTE_LAUNCHES.items():
-        check(path in EXACT_PATHS
-              or routes[SORTED] == routes[SORTED_TILES]
-              == routes[SORTED_RING] == 0,
-              f"{path}: B2's sorted route launched off the file outputs "
+        check(routes["row"] == routes["global"] == 0,
+              f"{path}: B2's atomic routes launched on a default path "
               f"({routes})")
     res["histogram_sorted_tiles"]["multires_file_render"] = EXACT
     res["histogram_sorted_tiles"]["time_parallel_render"] = EXACT_TP
-    res["histogram_sorted_ring"]["live_hops"] = EXACT_LIVE_TURNS
+    res["histogram_sorted_tiles"]["batch_cells"] = BATCH_AB
+    res["histogram_sorted_ring"]["live_hops"] = LIVE_AB
+    res["histogram_sorted_ring"]["hop_census"] = HOP_CENSUS
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [

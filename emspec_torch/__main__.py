@@ -231,7 +231,7 @@ def cmd_export(args) -> int:
         s = s.replace(display_channel=0)
         x = audio if all_ch else audio[_pick_channel(audio, args.channel)]
         pipe = get_pipeline(s, dev)
-        v, _, _ = pipe.process(x, params=pipe.params(s), exact_sums=True)
+        v, _, _ = pipe.process(x, params=pipe.params(s))
         vis = np.moveaxis(v.cpu().numpy(), 0, -1)     # ([ch,] rows, t)
         freq_hz = np.asarray(pipe._axis(s.freq_scale), np.float64)
         hop, n_win = pipe.hop, pipe.n_max
@@ -272,9 +272,7 @@ def cmd_stream(args) -> int:
     x = (audio if tiled else
          audio[0 if args.channel == "all"
                else _pick_channel(audio, args.channel)])
-    # the same PNG on every run: each hop's sums in bin order (B2's ring
-    # form), as animate's frames are
-    stream = Stream(s, dev, exact_sums=True)
+    stream = Stream(s, dev)
     wfs = [Waterfall(args.width, s.raster_height, s.scroll_speed,
                      lut_table=lut(s.colormap), device=dev)
            for _ in range(nch)]

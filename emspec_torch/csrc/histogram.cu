@@ -16,7 +16,8 @@
 // (emspec_torch/dsp/kernels/scatter.py route_of), and a deterministic one
 // a caller asks for ("sorted", at the end of this file, in two forms: the
 // tiles kernel where the caller bounds how far a deposit lands from its
-// frame, sorted_kernel after a global sort where it does not):
+// frame, sorted_kernel after a global sort where it does not; its third
+// form, one live hop into the pending ring, is histogram_ring.cu):
 //   row     one block of 512 threads a row: a float32 histogram of
 //           num_bins cells in shared memory, then one coalesced store of
 //           the row (no zeroed output needed).  Taken where the rows
@@ -245,7 +246,7 @@ __device__ __forceinline__ void piece_store(const TileGeom& g,
 }
 
 // Each warp's chunks of the staged ``pc`` chunks, in bin order, onto the
-// tile (the tiles form's piece, the ring form's whole hop).
+// tile (the tiles form's piece).
 __device__ __forceinline__ void walk_chunks(float* tile, unsigned* claim,
                                             const int* keys,
                                             const float* vals,
@@ -329,131 +330,6 @@ __global__ void __launch_bounds__(kTileThreads) tiles_kernel(
   }
 }
 
-// The sorted route's ring form: one hop of the live step added into its
-// pending ring in place.  The ring is (P, lanes, C) float32 — P slots of
-// a lane's C rows — and a lane's deposits name cells slot·C + row of its
-// own ring (ids, vals (lanes, K); an id outside [0, P·C) adds nothing, so
-// a NaN or Inf behind it never lands).  Each cell adds its deposits one
-// after another in deposit (bin) order with __fadd_rn, starting from the
-// value it holds: the plain version's sum (index_add_ into the ring), bit
-// for bit, the same on every run.  A stream whose slot is zeroed when its
-// column is emitted, and whose hops arrive in frame order, so sums every
-// column in the batch's (frame, bin) order.
-//
-// Ownership as in the tiles form, over a lane's ring instead of a tile of
-// the grid: ``bands`` blocks a lane, nw = 16·bands warps, row r owned by
-// warp r mod nw (every slot of it), so a chunk of 32 bins — a few
-// neighbouring rows where bins crowd, many where they are sparse — is
-// walked by few warps, and the crowded top octave spreads over all of
-// them.  A block holds its rows' cells of every slot in shared memory
-// (local cell slot·rb + (r div nw)·16 + r mod 16), but reads and writes
-// only the cells the hop touches:
-//   * stage (pieces of 144 chunks): each deposit's key (owning warp and
-//     local cell, or −1), its value, each chunk's mask of owning warps;
-//     the first deposit of a cell to claim it (atomicExch on its claim
-//     word) loads the cell from the ring into the tile;
-//   * the claim words back to 0, then the walk of the tiles form
-//     (walk_chunks: each warp its chunks in bin order, equal cells of a
-//     chunk grouped through the claim array, the group's lowest lane
-//     adding the group's values in lane order);
-//   * the first deposit of each cell to claim it again stores the cell.
-// One launch a hop at a grid fixed by the shape (lanes·bands blocks), no
-// zero fill, no global atomics, no sort, no scratch in device memory, no
-// counter read: the live step's graph captures it as it is.  Bounded by
-// the launch and the staging's dependent loads (ids, then the touched
-// cells), not by its bytes (8 a deposit and 8 a touched cell).
-constexpr int kRingMaxBands = 64;
-
-struct RingGeom {
-  int C, cells, log_nw, rb, band, lane_row, lanes;
-};
-
-// The key of ring id ``id`` for this block: warp << 16 | local cell, or −1
-// where the id is dropped or another block owns its row.
-__device__ __forceinline__ int ring_key(const RingGeom& g, int id) {
-  if (id < 0 || id >= g.cells) return -1;
-  const int slot = id / g.C;
-  const int row = id - slot * g.C;
-  const int gw = row & ((1 << g.log_nw) - 1);
-  if ((gw >> 4) != g.band) return -1;
-  const int warp = gw & (kTileWarps - 1);
-  return (warp << 16) | (slot * g.rb + ((row >> g.log_nw) << 4) + warp);
-}
-
-// The ring offset of a local cell of this block.
-__device__ __forceinline__ long long ring_offset(const RingGeom& g,
-                                                 int local) {
-  const int slot = local / g.rb, q = local - slot * g.rb;
-  const int row = ((q >> 4) << g.log_nw) | (g.band << 4) | (q & 15);
-  return ((long long)slot * g.lanes + g.lane_row) * g.C + row;
-}
-
-__global__ void __launch_bounds__(kTileThreads) ring_kernel(
-    const int* __restrict__ ids, const float* __restrict__ vals,
-    float* __restrict__ ring, int K, int C, int P, int lanes, int bands,
-    int log_nw, int rb) {
-  extern __shared__ float sm[];
-  RingGeom g;
-  g.C = C, g.cells = P * C, g.log_nw = log_nw, g.rb = rb, g.lanes = lanes;
-  g.lane_row = blockIdx.x / bands, g.band = blockIdx.x % bands;
-  const int tcells = P * rb, chunks = (K + 31) >> 5;
-  float* tile = sm;                                            // tcells
-  unsigned* claim = reinterpret_cast<unsigned*>(sm + tcells);  // tcells
-  int* keys = reinterpret_cast<int*>(claim + tcells);          // chunks·32
-  float* pv = reinterpret_cast<float*>(keys + chunks * 32);    // chunks·32
-  unsigned* masks = reinterpret_cast<unsigned*>(pv + chunks * 32);
-  const int* rid = ids + (long long)g.lane_row * K;
-  const float* rv = vals + (long long)g.lane_row * K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < tcells; i += kTileThreads) claim[i] = 0u;
-  __syncthreads();
-  for (int c0 = 0; c0 < chunks; c0 += kPieceChunks) {
-    int id[kPieceSlots], first[kPieceSlots];
-    float v[kPieceSlots], cur[kPieceSlots];
-#pragma unroll
-    for (int i = 0; i < kPieceSlots; ++i) {
-      const int ch = c0 + warp + i * kTileWarps;
-      const int k = (ch << 5) + lane;
-      const bool in = ch < chunks && k < K;
-      id[i] = in ? __ldg(rid + k) : -1;
-      v[i] = in ? __ldg(rv + k) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kPieceSlots; ++i) {
-      const int ch = c0 + warp + i * kTileWarps;
-      first[i] = -1;
-      if (ch >= chunks) continue;                  // warp-uniform
-      const int key = ring_key(g, id[i]);
-      keys[(ch << 5) + lane] = key;
-      pv[(ch << 5) + lane] = v[i];
-      const unsigned bits =
-          __reduce_or_sync(kFull, key < 0 ? 0u : 1u << (key >> 16));
-      if (lane == 0) masks[ch] = bits;
-      if (key >= 0 && atomicExch(claim + (key & 0xffff), 1u) == 0u)
-        first[i] = key & 0xffff;
-    }
-#pragma unroll
-    for (int i = 0; i < kPieceSlots; ++i)
-      cur[i] = first[i] >= 0 ? ring[ring_offset(g, first[i])] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPieceSlots; ++i)
-      if (first[i] >= 0) tile[first[i]] = cur[i];
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < chunks * 32; k += kTileThreads) {
-    const int key = keys[k];
-    if (key >= 0) claim[key & 0xffff] = 0u;
-  }
-  __syncthreads();
-  walk_chunks(tile, claim, keys, pv, masks, chunks);
-  __syncthreads();
-  for (int k = threadIdx.x; k < chunks * 32; k += kTileThreads) {
-    const int key = keys[k];
-    if (key >= 0 && atomicExch(claim + (key & 0xffff), 1u) == 0u)
-      ring[ring_offset(g, key & 0xffff)] = tile[key & 0xffff];
-  }
-}
-
 }  // namespace
 
 // keys (int32 if key_bytes == 4, else int64) and vals: n sorted deposits
@@ -502,36 +378,6 @@ extern "C" int emspec_histogram_tiles(const int* ids, const float* vals,
                  (size_t)smem, (cudaStream_t)stream>>>(
       ids, vals, out, T, K, C, R, TT, FF, pc, fp, col_tiles, row_tiles,
       add);
-  return (int)cudaGetLastError();
-}
-
-// The ring form: ids, vals (lanes, K) int32 / float32; ring (P, lanes, C)
-// float32, added into in place on ``stream``; ``bands`` blocks a lane (a
-// power of two, at most 64), its rows' cells of every slot a block's
-// (the wrapper's ring_plan: at most 65,536 a block, within its shared
-// memory with the hop's staged keys, values and chunk masks).
-extern "C" int emspec_histogram_ring(const int* ids, const float* vals,
-                                     float* ring, int lanes, int K, int P,
-                                     int C, int bands, void* stream) {
-  if (lanes < 0 || K <= 0 || P <= 0 || C <= 0 || bands <= 0
-      || bands > kRingMaxBands || (bands & (bands - 1)) != 0
-      || (long long)P * C >= (1LL << 31)
-      || (long long)P * C * lanes >= (1LL << 40))
-    return (int)cudaErrorInvalidValue;
-  int log_nw = 0;
-  while ((1 << log_nw) < kTileWarps * bands) ++log_nw;
-  const int rb = (((C - 1) >> log_nw) + 1) * kTileWarps;
-  const long long tcells = (long long)P * rb;
-  const long long chunks = (K + 31) / 32;
-  const long long smem = 8 * tcells + chunks * (32 * 8 + 4);
-  if (tcells > 0x10000 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (lanes == 0) return 0;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  ring_kernel<<<(unsigned)(lanes * bands), kTileThreads, (size_t)smem,
-                (cudaStream_t)stream>>>(ids, vals, ring, K, C, P, lanes,
-                                        bands, log_nw, rb);
   return (int)cudaGetLastError();
 }
 

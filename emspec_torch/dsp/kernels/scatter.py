@@ -21,11 +21,12 @@ forces a route, for tests and timing only; the pipeline never passes it.
 The thresholds are card timings (PERF.md §6).
 
 Float atomics add a cell's deposits in an order that changes from run to
-run, so two runs can differ in the last bit of a cell.  A caller that
-needs the same sums on every run asks for the third route, ``"sorted"``
-(``SORTED``): every cell adds its deposits in deposit order, with no
-atomics — deterministic, and bit-equal to the plain version.  It has two
-forms, each with its own count in ``histogram.route_launches``:
+run, so two runs can differ in the last bit of a cell.  The pipeline's
+default asks for the third route, ``"sorted"`` (``SORTED``): every cell
+adds its deposits in deposit order, with no atomics — deterministic, and
+bit-equal to the plain version; the atomic routes are taken where a
+caller passes ``exact_sums=False``.  The sorted route has three forms,
+each with its own count in ``histogram.route_launches``:
 
 * ``"sorted_tiles"`` (``SORTED_TILES``), where the caller says how far a
   deposit lands from its frame (``reach=R, frame_len=K``, and
@@ -36,25 +37,27 @@ forms, each with its own count in ``histogram.route_launches``:
   of the frames that reach it in order, each of its warps adding the
   deposits of its own cells one after another in (frame, bin) order.
   The single-bank raster takes it (``dsp.reassign.scatter_segment_sum``,
-  R = ceil(N / 2·hop), C = K), and so do the display pipeline's file
-  renders (``Pipeline.process(..., exact_sums=True)``: the absolute (t,
-  rows) grid, C = rows, K the banks' deposits a frame, R the pipeline's
-  reach), so an export and a render of the same file agree pixel for
-  pixel;
+  R = ceil(N / 2·hop), C = K), and so does every enhanced batch call of
+  the pipeline (``Pipeline.process``: the absolute (t, rows) grid, C =
+  rows, K the banks' deposits a frame, R the pipeline's reach), so an
+  export and a render of the same file agree pixel for pixel;
 * ``"sorted"``, without that bound: a stable ``torch.sort`` of the keys
   (row, id), then one thread sums each cell's run of deposits;
 * ``"sorted_ring"`` (``SORTED_RING``, ``histogram_ring``): one hop of the
   live step added into its pending ring (P, ..., C) in place, each cell
   adding the hop's deposits in bin order onto the value it holds — so a
   stream sums every column in the batch's (frame, bin) order, and the
-  exact stream (``Stream(..., exact_sums=True)``: the CLI's ``stream``
-  and ``animate``) gives ``process(..., exact_sums=True)``'s columns.
-  One launch a hop at a grid fixed by the shape (``ring_plan``), so the
-  hop's CUDA graph captures it.
+  card's default ``Stream`` gives ``process``'s columns bit for bit.  It
+  takes B1's relative ids and the step's frame counter ``t`` in device
+  memory and computes each deposit's ring cell itself.  One launch a hop,
+  a cluster of CTAs a lane at a grid fixed by the shape (``ring_plan``),
+  so the hop's CUDA graph captures it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -80,8 +83,15 @@ TILE_WARPS = 16           # histogram.cu kTileWarps: the sorted tiles' warps
 TILE_COLS = 3             # columns a tile by default (the raster's best)
 TILE_CELLS = 24320        # cells a tile at most (95 KB, and 95 KB of claims)
 PIECE_CHUNKS = 144        # histogram.cu kPieceChunks: 32-bin chunks a piece
-RING_MAX_BANDS = 64       # histogram.cu kRingMaxBands
-RING_CELLS = 1 << 16      # a ring block's cells at most (16-bit keys)
+# the tiles form's walk a block (frames × deposits a frame), weighed by
+# the deposits a frame puts in one cell and by the waves of blocks, at
+# most: the sorted route's form by shape (``sorted_form``)
+SORTED_TILES_WORK = 1 << 20
+RING_MAX_CLUSTER = 16     # histogram_ring.cu kMaxCluster (16: non-portable)
+RING_PORTABLE = 8         # the largest portable cluster size
+RING_STAGE = 16 * 16      # chunks a rank stages (kMaxStage · kWarps)
+RING_CELLS = 0xffff       # a rank's cells at most (16-bit keys, one spare)
+RING_LOCAL_CHUNKS = 16    # a hop this many chunks of 32 at most: no cluster
 SMEM_BYTES = 232448       # a block's shared memory (histogram.cu kMaxSmem)
 
 
@@ -138,43 +148,71 @@ def tile_plan(frames: int, k: int, reach: int,
                 smem=8 * cols * cells + pc * (32 * 8 + 4))
 
 
-def ring_plan(k: int, slots: int, column: int, bands: int | None = None,
-              lanes: int = 1) -> dict:
-    """The ring form's grid for a hop of ``k`` deposits a lane into a ring
-    of ``slots`` × ``column`` cells a lane, ``lanes`` lanes: ``bands``
-    blocks a lane (a power of two), nw = 16·bands warps, row r owned by
-    warp r mod nw, ``cells`` = slots × ``rb`` cells a block (a slot's owned
-    rows, ``rb``, padded to whole rounds of nw rows), ``chunks`` of 32
-    deposits staged, and the shared memory: the cells and their claim
-    words, then the hop's keys, values and chunk masks.  ``fits``: within
-    the kernel's limits.  By default the most blocks a lane while every
-    warp owns a row and the lanes' blocks run in one wave on the card
-    (``SMS``), and at least the fewest whose cells and staged hop fit a
-    block: each block stages the whole hop but walks only its rows'
-    chunks, so more blocks shorten the walk until a second wave costs
-    more (on the H100 32 blocks ran each mono live hop fastest and 8 a
-    lane the 16-channel one, PERF.md §6).  ``bands`` stands in for that
-    count, for tests and timing."""
-    chunks = -(-k // 32)
+def sorted_form(frames: int, k: int, reach: int,
+                column: int | None = None, lanes: int = 1) -> str:
+    """The sorted route's form for ``lanes`` lanes of ``frames`` frames of
+    ``k`` deposits into as many columns of ``column`` cells (``k`` by
+    default) at reach R, by shape: ``"tiles"`` where a tile's walk
+    (``tile_plan``'s frames walked × k deposits), weighed by the deposits
+    a frame puts in one cell (k div column, at least 1: a crowded cell is
+    a long chain of one warp's adds) and by the waves of tiles the card
+    runs in turn (the lanes' tiles over ``SMS``, at least 1), stays within
+    ``SORTED_TILES_WORK``, else ``"sorted"`` (the global sort).  On the
+    H100 the tiles form ran the raster, the mono batch at 8192 and the
+    display default faster than the global sort, and the sort the 16-lane
+    batch at 8192 and the 32768, 262144 and hop-64 grids (PERF.md §6)."""
+    plan = tile_plan(frames, k, reach, column=column)
+    crowd = max(1, k // (column or k))
+    waves = -(-lanes * plan["col_tiles"] * plan["row_tiles"] // SMS)
+    work = plan["walk"] * k * crowd * waves
+    return "tiles" if work <= SORTED_TILES_WORK else SORTED
 
-    def plan(b: int) -> dict:
-        nw = TILE_WARPS * b
-        rb = (-(-column // nw)) * TILE_WARPS
+
+def ring_plan(k: int, slots: int, column: int, cluster: int | None = None,
+              lanes: int = 1, clusters16: int = 0,
+              local: bool | None = None) -> dict:
+    """The ring form's grid for a hop of ``k`` deposits a lane into a ring
+    of ``slots`` (odd: 2R + 1) × ``column`` cells a lane, ``lanes`` lanes:
+    S = ``cluster`` CTAs a lane (a power of two), rank o owning the rows in
+    8-row groups g with g mod S = o, ``rb`` local rows a slot (a multiple
+    of 16), ``cells`` = slots × rb a rank.  The S CTAs form a cluster in
+    which each stages ``stage_chunks`` of the hop's ``chunks`` chunks of
+    32 deposits and sends each to its owner, or — ``local``, a hop of at
+    most ``RING_LOCAL_CHUNKS`` chunks — each stages the whole hop and keeps
+    its own rows' deposits (no cluster barrier).  The shared memory: an
+    8-byte entry a deposit of the hop, the rank's cells and their touched
+    flags, a mask a chunk.  ``fits``: within the kernel's limits.  By
+    default the smallest S that fits, doubled while the lanes' CTAs take at
+    most half the card's SMs (``SMS``) and S stays portable (8), or 16
+    where the card holds a cluster of 16 a lane at once (``clusters16``,
+    ``ring_occupancy``: 16 is non-portable).  On the H100 the largest S
+    that fits so ran each mono hop fastest, 4 the 16-lane one, and the
+    local form the display default's hop of 382 deposits (PERF.md §6).
+    ``cluster`` and ``local`` stand in for the choice, for tests and
+    timing."""
+    chunks = -(-k // 32)
+    local = chunks <= RING_LOCAL_CHUNKS if local is None else local
+
+    def plan(s: int) -> dict:
+        rb = -(-column // (TILE_WARPS * s)) * TILE_WARPS
         cells = slots * rb
-        smem = 8 * cells + chunks * (32 * 8 + 4)
-        return dict(bands=b, warps=nw, rb=rb, cells=cells, chunks=chunks,
-                    smem=smem, fits=cells <= RING_CELLS
-                    and smem <= SMEM_BYTES and 0 < b <= RING_MAX_BANDS
-                    and b & (b - 1) == 0)
-    if bands is not None:
-        return plan(bands)
-    b = 1
-    while b < RING_MAX_BANDS and not plan(b)["fits"]:
-        b *= 2
-    while (2 * b <= min(RING_MAX_BANDS, column // TILE_WARPS)
-           and lanes * 2 * b <= SMS):
-        b *= 2
-    return plan(b)
+        cs = chunks if local else -(-chunks // s)
+        smem = 256 * chunks + 5 * ((cells + cells // 32 + 16) & ~15) \
+            + 4 * chunks
+        return dict(cluster=s, local=local, rb=rb, cells=cells,
+                    chunks=chunks, stage_chunks=cs, smem=smem,
+                    fits=0 < s <= RING_MAX_CLUSTER and s & (s - 1) == 0
+                    and slots % 2 == 1 and cells <= RING_CELLS
+                    and cs <= RING_STAGE and smem <= SMEM_BYTES)
+    if cluster is not None:
+        return plan(cluster)
+    s = 1
+    while s < RING_MAX_CLUSTER and not plan(s)["fits"]:
+        s *= 2
+    while (2 * s <= RING_MAX_CLUSTER and lanes * 2 * s <= SMS // 2
+           and (2 * s <= RING_PORTABLE or local or clusters16 >= lanes)):
+        s *= 2
+    return plan(s)
 
 
 def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
@@ -349,6 +387,22 @@ def _sorted(ids, vals, num_bins: int, out, lead: tuple, rows: int):
     return out
 
 
+def ring_ids(ids_rel: torch.Tensor, t, slots: int,
+             column: int) -> torch.Tensor:
+    """B1's relative ids (δ + R)·C + row of frame ``t`` (a 0-d tensor or an
+    int), P = ``slots`` = 2R + 1, C = ``column`` → each lane's ring ids
+    slot·C + row, slot = (t + δ) mod P; −1 for an id outside [0, P·C)
+    (B1's invalid deposit is −1) and for a column t + δ below 0.  The
+    ring form computes the same in its kernel; this is its plain
+    version's input."""
+    R = slots // 2
+    ok = (ids_rel >= 0) & (ids_rel < slots * column)
+    delta = torch.div(ids_rel, column, rounding_mode="floor") - R
+    slot = torch.remainder(t + delta, slots)
+    return torch.where(ok & (t + delta >= 0),
+                       slot * column + torch.remainder(ids_rel, column), -1)
+
+
 def ring_offsets(ids: torch.Tensor, ring: torch.Tensor) -> torch.Tensor:
     """Ring ids slot·C + row of each lane (ids (..., K), ring (P, ..., C))
     → offsets into the flat ring, −1 where an id is outside [0, P·C)."""
@@ -373,47 +427,80 @@ def histogram_ring_plain(ids: torch.Tensor, vals: torch.Tensor,
 
 
 def histogram_ring(ids: torch.Tensor, vals: torch.Tensor,
-                   ring: torch.Tensor, *,
-                   bands: int | None = None) -> torch.Tensor:
+                   ring: torch.Tensor, t, *, cluster: int | None = None,
+                   local: bool | None = None) -> torch.Tensor:
     """B2's sorted route, ring form (module docstring): ids (..., K) int32
-    name cells slot·C + row of their lane's ring, vals (..., K) float32;
-    ``ring`` (P, ..., C) float32, contiguous, its lanes the ids' leading
-    axes, is added into in place and returned.  Each cell adds its
-    deposits in deposit order onto the value it holds — the plain
-    version's sum bit for bit, the same on every run; an id outside [0,
-    P·C) adds nothing, even when its value is NaN or Inf.  ``bands``
-    forces the blocks a lane (``ring_plan``), for tests and timing.
-    Counted as B2's: ``histogram.launches`` and
+    are B1's relative ids (δ + R)·C + row of frame ``t``, vals (..., K)
+    float32; ``ring`` (P, ..., C) float32, contiguous, P = 2R + 1, its
+    lanes the ids' leading axes, is added into in place and returned:
+    the deposit lands in slot (t + δ) mod P.  ``t`` is the step's 0-d
+    int32 counter on the ids' device (an int too on the CPU).  Each cell
+    adds its deposits in deposit order onto the value it holds — the
+    plain version's sum (``histogram_ring_plain`` of ``ring_ids``) bit
+    for bit, the same on every run; an id outside [0, P·C) or a column
+    t + δ below 0 adds nothing, even when its value is NaN or Inf.
+    ``cluster`` and ``local`` force the CTAs a lane and the form
+    (``ring_plan``), for tests and timing.  Counted as B2's: ``histogram.launches`` and
     ``histogram.route_launches["sorted_ring"]``."""
     what = "histogram_ring"
     require(ring.dim() >= 2 and ring.shape[1:-1] == ids.shape[:-1]
-            and ids.shape == vals.shape and ids.dim() >= 1, what,
-            f"ids and vals (..., K) and a ring (P, ..., C) with the same "
-            f"leading axes; got ids {tuple(ids.shape)}, vals "
+            and ids.shape == vals.shape and ids.dim() >= 1
+            and ring.shape[0] % 2 == 1, what,
+            f"ids and vals (..., K) and a ring (P, ..., C), P odd, with the "
+            f"same leading axes; got ids {tuple(ids.shape)}, vals "
             f"{tuple(vals.shape)}, ring {tuple(ring.shape)}")
+    P, C, k = ring.shape[0], ring.shape[-1], ids.shape[-1]
     if ids.device.type == "cpu":
-        return histogram_ring_plain(ids, vals, ring)
+        return histogram_ring_plain(ring_ids(ids, t, P, C), vals, ring)
     require_cuda(ids, what)
     require(ids.dtype == torch.int32 and vals.dtype == torch.float32
             and ring.dtype == torch.float32, what,
             "ids must be int32, vals and the ring float32")
+    require(isinstance(t, torch.Tensor) and t.dtype == torch.int32
+            and t.numel() == 1 and t.device == ids.device, what,
+            "t must be a 0-d int32 tensor on the ids' device")
     require(ids.is_contiguous() and vals.is_contiguous()
             and ring.is_contiguous(), what,
             "ids, vals and the ring must be contiguous")
     require(vals.device == ids.device and ring.device == ids.device, what,
             "ids, vals and the ring must share a device")
-    P, C, k = ring.shape[0], ring.shape[-1], ids.shape[-1]
     lanes = math.prod(ids.shape[:-1])
-    plan = ring_plan(k, P, C, bands, lanes)
+    plan = ring_plan(k, P, C, cluster, lanes, _clusters16(
+        k, P, C, lanes, ids.device.index) if cluster is None else 0, local)
     require(plan["fits"] and k > 0 and P * C < 2**31, what,
-            f"a ring of {P} × {C} cells a lane and {k} deposits a hop at "
-            f"{plan['bands']} blocks a lane exceed a block "
-            f"({plan['cells']} cells, {plan['smem']} bytes)")
+            f"a ring of {P} × {C} cells a lane and {k} deposits a hop in "
+            f"clusters of {plan['cluster']} exceed the kernel "
+            f"({plan['cells']} cells a rank, {plan['stage_chunks']} chunks "
+            f"staged, {plan['smem']} bytes)")
     with torch.cuda.device(ids.device):
         rc = kernels_build.library().emspec_histogram_ring(
-            ids.data_ptr(), vals.data_ptr(), ring.data_ptr(), lanes, k, P, C,
-            plan["bands"], launch_stream(ids))
+            ids.data_ptr(), vals.data_ptr(), t.data_ptr(), ring.data_ptr(),
+            lanes, k, P, C, plan["cluster"], int(plan["local"]),
+            launch_stream(ids))
     kernels_build.check(rc, what)
     histogram.launches += 1
     histogram.route_launches[SORTED_RING] += 1
     return ring
+
+
+@functools.lru_cache(maxsize=64)
+def _clusters16(k: int, slots: int, column: int, lanes: int,
+                device: int) -> int:
+    """``ring_occupancy`` of 16-CTA clusters at this shape (0 where 16
+    does not fit), asked once a shape and card."""
+    if not ring_plan(k, slots, column, 16, lanes, local=False)["fits"]:
+        return 0
+    return ring_occupancy(k, slots, column, 16, lanes, device)
+
+
+def ring_occupancy(k: int, slots: int, column: int, cluster: int,
+                   lanes: int = 1, device=None) -> int:
+    """How many of the ring form's clusters (its cluster form, not
+    ``local``) at this shape the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0 where it holds none (a
+    non-portable size the card refuses)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        rc = kernels_build.library().emspec_histogram_ring_occupancy(
+            lanes, k, slots, column, cluster, ctypes.byref(out))
+    return out.value if rc == 0 else 0

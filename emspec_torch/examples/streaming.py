@@ -1,6 +1,6 @@
 """Real-time path: push chunks, get finalized display columns back.
-Streaming output is the batch render of the same signal (the
-framework's core invariant; on the CPU bit for bit).
+Streaming output is bit-identical to the batch render of the same
+signal (the framework's core invariant).
 
     python -m emspec_torch.examples.streaming [--device cpu]
 """

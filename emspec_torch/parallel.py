@@ -281,9 +281,9 @@ class TimeParallelRenderer:
       columns: the deposits that cross a chunk edge are recomputed by
       both neighbours, never sent.  Halo frames outside the signal's frame
       range are masked (``Pipeline._enhanced_power(frame_valid=)``).  The
-      chunk's grid sums each cell in (frame, bin) order (``exact_sums``:
-      B2's sorted tiles on the card), so a render is the same on every
-      run, as ``Pipeline.process(..., exact_sums=True)``'s is.
+      chunk's grid sums each cell in (frame, bin) order (B2's sorted
+      route on the card), so a render is the same on every run, as
+      ``Pipeline.process``'s is.
     * The post chain's two EMAs: ``post.chain.postprocess_batch_timeshard``
       (the chunk scans on the ``ema_scan`` kernel on the card, one gather
       each, the affine re-base).
@@ -381,8 +381,7 @@ class TimeParallelRenderer:
                               for a in state))
         t_local = L + 2 * R
         p = self.params
-        power = (pipe._enhanced_power(xd, t_local, p, plan.frame_valid,
-                                      exact_sums=True)
+        power = (pipe._enhanced_power(xd, t_local, p, plan.frame_valid)
                  if self.settings.mode == MODE_ENHANCED
                  else pipe._natural_power(xd, t_local, p))
         power = power.movedim(-2, 0)[R:R + L].contiguous()

@@ -37,19 +37,18 @@ the relative histogram) sums per frame into (2R+1)·rows cells and folds;
 ``"segment_sum"`` sums into the absolute (t, rows) grid; ``"auto"`` takes
 the absolute grid on the CPU, the relative histogram for one bank on the
 card, and in batch the absolute grid for several banks on the card
-(``use_relative_batch``), live the relative histogram.  Every sum is
-kernel B2 on the card.  ``process(..., exact_sums=True)`` — the file
-renders and export (``render_image_multires``,
-``render_images_channels``, ``__main__``'s export) and the time-sharded
-render (``parallel.TimeParallelRenderer``) — sums into the absolute grid
-through B2's sorted route (its tiles form, bounded by the reach): every
-cell adds its deposits in (frame, bin) order, the CPU's order, so two
-runs give the same image bit for bit.  The live step's ``exact_sums``
-(``stream.Stream(..., exact_sums=True)``: the CLI's ``stream`` and
-``animate``) adds each hop into its ring through B2's ring form, each
-cell in bin order, so the exact stream's columns are the exact batch's.
-The app, the default ``Stream``, the bench, ``ShardedPipeline`` and
-``ShardedStream`` keep the atomic routes.
+(``use_relative_batch``), live the relative histogram — where a caller
+asks for B2's atomic routes (``exact_sums=False``).  Every sum is kernel
+B2 on the card.  By default (``exact_sums=True``: ``process``,
+``_batch_vis``, ``_stream_step``, and so ``stream.Stream``, the app, the
+bench, the file renders and ``parallel``'s classes) every cell adds its
+deposits in (frame, bin) order, the CPU's order: the batch sums into the
+absolute grid through B2's sorted route (its tiles form, bounded by the
+reach, or its global sort, by shape: ``scatter.sorted_form``), the live
+step adds each hop into its ring through B2's ring form.  So two runs give the same bits, and the stream's columns are the
+batch's bit for bit, on the card as on the CPU (the JAX package's
+streaming ≡ batch).  ``exact_sums=False`` takes the atomic routes, whose
+float atomics add a cell's deposits in another order each run.
 
 ``prewarm`` warms the live app's structural variants ahead of a swap
 (a ``WarmHandle`` over the queued jobs, one worker thread).
@@ -59,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -71,7 +71,7 @@ from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels import deposits
 from emspec_torch.dsp.kernels.deposits import deposits_ids, quantize_deposits
 from emspec_torch.dsp.kernels.scatter import (
-    SORTED, histogram, histogram_ring)
+    SORTED, histogram, histogram_ring, sorted_form)
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
@@ -324,13 +324,19 @@ class Pipeline:
         """One sum (B2 on the card) of each lead row's deposits into its
         absolute (t, rows) grid; on the CPU each cell adds its deposits in
         (frame, bin) order, as the live step's ring does.  ``exact``: on
-        the card too, through B2's sorted route in its tiles form (frame
-        s's deposits land in columns s − R … s + R), so the sums are the
-        same on every run."""
+        the card too, through B2's sorted route — in its tiles form (frame
+        s's deposits land in columns s − R … s + R) or its global sort,
+        by shape (``scatter.sorted_form``) — so the sums are the same on
+        every run."""
         lead = ids_abs.shape[:-2]
-        bound = (dict(route=SORTED, reach=self.reach,
-                      frame_len=ids_abs.shape[-1], column_len=self.rows)
-                 if exact else {})
+        k = ids_abs.shape[-1]
+        bound = {}
+        if exact:
+            bound = dict(route=SORTED)
+            if sorted_form(t_count, k, self.reach, self.rows,
+                           math.prod(lead)) != SORTED:
+                bound.update(reach=self.reach, frame_len=k,
+                             column_len=self.rows)
         out = histogram(ids_abs.reshape(lead + (-1,)),
                         contrib.reshape(lead + (-1,)), t_count * self.rows,
                         passes=self.settings.scatter_passes, **bound)
@@ -357,7 +363,7 @@ class Pipeline:
         return out.movedim(0, -2)                            # (..., t, rows)
 
     def _enhanced_power(self, x, t_count, p: PipelineParams,
-                        frame_valid=None, exact_sums: bool = False):
+                        frame_valid=None, exact_sums: bool = True):
         """Reassigned 2-D histogram on the (t, rows) display grid.
 
         ``frame_valid``: an optional (t,) mask; the deposits of a frame
@@ -365,9 +371,10 @@ class Pipeline:
         (``parallel.TimeParallelRenderer``) analyses halo frames past the
         signal's frame range to recompute the deposits that cross its
         chunk's edges, and a trailing partial frame, which the whole
-        batch never analyses, must not deposit.  ``exact_sums``: the
-        absolute grid through B2's sorted route whatever the scatter
-        setting (``process``)."""
+        batch never analyses, must not deposit.  ``exact_sums`` (the
+        default): the absolute grid through B2's sorted route whatever
+        the scatter setting (``process``); False: the scatter setting's
+        route, B2's atomic ones on the card."""
         ids_rel, contrib = self._deposit_ids_rel(
             self._bank_inputs(x, t_count), p)
         if frame_valid is not None:
@@ -380,7 +387,7 @@ class Pipeline:
 
     # ---------------- full batch path ----------------
     def _batch_vis(self, x, p: PipelineParams, state: PostState,
-                   t_count: int, peak_reduce=None, exact_sums: bool = False):
+                   t_count: int, peak_reduce=None, exact_sums: bool = True):
         """``peak_reduce``: the global AGC's peak across channel shards
         (``post.chain._couple``); ``exact_sums``: as in ``process``."""
         power = (self._enhanced_power(x, t_count, p, exact_sums=exact_sums)
@@ -432,14 +439,15 @@ class Pipeline:
         return describe_frequency(self.frequency_at_row(row, freq_scale))
 
     def process(self, x, params: PipelineParams | None = None,
-                state: PostState | None = None, *, exact_sums: bool = False):
+                state: PostState | None = None, *, exact_sums: bool = True):
         """Whole-signal batch processing: x (..., samples) →
         (vis (t, ..., rows), rgba uint8 (t, ..., rows, 4), final PostState).
 
-        ``exact_sums``: the enhanced grid's cells add their deposits in
-        (frame, bin) order on every device (the absolute grid, B2's sorted
-        route on the card), so two runs give the same bits — what a file
-        render or export promises; the default keeps the atomic routes."""
+        ``exact_sums`` (the default): the enhanced grid's cells add their
+        deposits in (frame, bin) order on every device (the absolute grid,
+        B2's sorted route on the card), so two runs give the same bits and
+        a stream's columns equal these bit for bit; False takes B2's
+        atomic routes on the card (another last bit each run)."""
         x = self.to_device(x)
         t_count = self.num_columns(x.shape[-1])
         if t_count <= 0:
@@ -451,7 +459,7 @@ class Pipeline:
 
     # ---------------- streaming path ----------------
     def _stream_step(self, carry, window, p: PipelineParams,
-                     peak_reduce=None, exact_sums: bool = False):
+                     peak_reduce=None, exact_sums: bool = True):
         """One hop: add this frame's deposits (enhanced) or its merged
         column (natural, R = 0) to the pending ring of P = 2R+1 columns,
         then emit column t−R (no later frame can reach it).
@@ -462,11 +470,13 @@ class Pipeline:
         (``stream.Stream``).  Every carry tensor (t, the ring, the post
         state) is updated in place and returned: pass each carry to one
         step only.  ``peak_reduce``: as in :meth:`_batch_vis`.
-        ``exact_sums``: the frame's deposits go into the ring through B2's
-        ring form whatever the scatter setting (each cell adding them in
-        bin order onto its value, so a column sums its deposits in the
-        batch's (frame, bin) order: ``process(..., exact_sums=True)``'s
-        columns); the CPU's ring update already adds in that order."""
+        ``exact_sums`` (the default): the frame's deposits go into the
+        ring through B2's ring form whatever the scatter setting (each
+        cell adding them in bin order onto its value, so a column sums its
+        deposits in the batch's (frame, bin) order: ``process``'s
+        columns); the kernel computes the ring ids from the relative ids
+        and ``t`` itself, one launch after B1.  False: the scatter
+        setting's route (B2's atomic ones on the card)."""
         t, acc, post = carry                     # acc: (P, ..., rows)
         R, rows = self.reach, self.rows
         P = 2 * R + 1
@@ -496,8 +506,8 @@ class Pipeline:
             ids_rel, contrib = self._deposit_ids_rel(
                 self._bank_windows(window), p)
             # each lane's ring cells, each adding in bin order (B2's ring
-            # form on the card)
-            histogram_ring(self._ring_ids(ids_rel, t), contrib, acc)
+            # form on the card: the ring ids computed in the kernel)
+            histogram_ring(ids_rel, contrib, acc, t)
         else:
             ids_rel, contrib = self._deposit_ids_rel(
                 self._bank_windows(window), p)
@@ -531,19 +541,8 @@ class Pipeline:
         t.add_(1)
         return (t, acc, post), (vis, rgba, t_emit)
 
-    def _ring_ids(self, ids_rel, t):
-        """Relative ids (δ + R)·rows + row of frame ``t`` (a 0-d device
-        counter or an int) → each lane's ring ids slot·rows + row, slot =
-        (t + δ) mod P; −1 for B1's invalid deposit (an id below 0) and for
-        a column t + δ below 0."""
-        R, rows = self.reach, self.rows
-        delta = torch.div(ids_rel, rows, rounding_mode="floor") - R
-        slot = torch.remainder(t + delta, 2 * R + 1)
-        return torch.where((ids_rel >= 0) & (t + delta >= 0),
-                           slot * rows + torch.remainder(ids_rel, rows), -1)
-
     def _stream_step_rolling(self, carry, block, p: PipelineParams,
-                             peak_reduce=None, exact_sums: bool = False):
+                             peak_reduce=None, exact_sums: bool = True):
         """Per-hop step whose analysis window is carry state: ``block`` is
         only the ``hop`` new samples, window' = concat(window[hop:], block),
         written into the carry's own window tensor."""
@@ -704,10 +703,9 @@ def render_image_multires(x, settings: Settings, device="cuda") -> np.ndarray:
 
     Multichannel input renders ``settings.display_channel`` (the single
     view of the app; ``render_images_channels`` gives every channel).
-    The same image on every run (``process(..., exact_sums=True)``)."""
+    The same image on every run (``process`` sums in order)."""
     pipe = get_pipeline(settings, device)
-    _, rgba, _ = pipe.process(x, params=pipe.params(settings),
-                              exact_sums=True)
+    _, rgba, _ = pipe.process(x, params=pipe.params(settings))
     img = rgba.cpu().numpy()                           # (t, [ch,] rows, 4)
     if img.ndim == 4:
         img = img[:, settings.display_channel]
@@ -718,13 +716,13 @@ def render_images_channels(x, settings: Settings,
                            device="cuda") -> list[np.ndarray]:
     """Multichannel audio (ch, samples) → one (rows, t, 4) log-frequency
     image per channel, from one batched pass on ``device``, the same on
-    every run (``process(..., exact_sums=True)``)."""
+    every run (``process`` sums in order)."""
     x = np.asarray(x, np.float32)
     if x.ndim == 1:
         x = x[None]
     s = settings.replace(channels=x.shape[0], display_channel=0)
     pipe = get_pipeline(s, device)
-    _, rgba, _ = pipe.process(x, params=pipe.params(s), exact_sums=True)
+    _, rgba, _ = pipe.process(x, params=pipe.params(s))
     img = rgba.cpu().numpy()                           # (t, [ch,] rows, 4)
     if img.ndim == 3:
         img = img[:, None]

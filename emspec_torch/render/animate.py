@@ -4,9 +4,8 @@
 Frame ``k`` is the waterfall a live viewer at ``fps`` sees at time
 ``k / fps``: the state after ``k · sample_rate / fps`` input samples went
 through the real streaming path (the port's ``Stream`` and
-``Waterfall``, the objects ``python -m emspec_torch stream`` drives, with
-``exact_sums`` as it asks: each cell's sums in bin order, the same on
-every run).  So the LAST frame (after the flush) equals that command's
+``Waterfall``, the objects ``python -m emspec_torch stream`` drives: each
+cell's sums in bin order, the same on every run).  So the LAST frame (after the flush) equals that command's
 snapshot PNG of the same audio.  Frames stream out of a generator, so
 the APNG writer compresses them one at a time.
 """
@@ -50,7 +49,7 @@ def animate_frames(audio: np.ndarray, settings: Settings, fps: float = 30.0,
         raise ValueError(
             f"audio shape {audio.shape} does not match settings.channels="
             f"{nch} — pass (channels, n) iff channels > 1")
-    stream = Stream(s, device, exact_sums=True)
+    stream = Stream(s, device)
     wfs = [Waterfall(width, s.raster_height, s.scroll_speed,
                      lut_table=lut(s.colormap), device=device)
            for _ in range(nch)]

@@ -97,18 +97,19 @@ class Stream:
     >>> cols = stream.push(samples)     # list[Column] ready so far
     >>> cols += stream.flush()          # drain the pending ring
 
-    ``exact_sums=True`` (the CLI's ``stream`` and ``animate``) adds each
-    hop's deposits into the pending ring through B2's ring form, each cell
-    in bin order: the same columns on every run, and on the card the
-    columns of ``Pipeline.process(..., exact_sums=True)``.  It is how the
-    stream is built, not part of its state (``state_dict``).  The default
-    keeps B2's atomic routes (the app, ``stream_signal``).
+    Each hop's deposits go into the pending ring through B2's ring form
+    (``exact_sums=True``, the default), each cell in bin order: the same
+    columns on every run and however the audio is pushed, and the columns
+    of ``Pipeline.process`` bit for bit — streaming ≡ batch, on the card
+    as on the CPU.  ``exact_sums=False`` takes B2's atomic routes (their
+    float atomics add in another order each run).  It is how the stream
+    is built, not part of its state (``state_dict``).
     """
 
     def __init__(self, settings: Settings, device="cuda",
                  params: PipelineParams | None = None,
                  ring_seconds: float = 4.0, native_ring: bool = True,
-                 exact_sums: bool = False):
+                 exact_sums: bool = True):
         self.device = as_device(device)
         self.exact_sums = exact_sums
         self.pipe: Pipeline = get_pipeline(settings, self.device)
@@ -356,10 +357,12 @@ class Stream:
 
 
 def stream_signal(x: np.ndarray, settings: Settings, device="cuda",
-                  chunk: int = 1024) -> tuple[np.ndarray, np.ndarray]:
+                  chunk: int = 1024, exact_sums: bool = True
+                  ) -> tuple[np.ndarray, np.ndarray]:
     """Push a whole signal through a Stream in ``chunk``-sample pushes →
-    (vis (T, ..., rows), rgba (T, ..., rows, 4)) host arrays."""
-    st = Stream(settings, device)
+    (vis (T, ..., rows), rgba (T, ..., rows, 4)) host arrays
+    (``exact_sums``: as ``Stream``'s)."""
+    st = Stream(settings, device, exact_sums=exact_sums)
     x = np.asarray(x, np.float32)
     cols = []
     for i in range(0, x.shape[-1], chunk):

@@ -41,10 +41,13 @@ three-launch route it replaced, and with a bin window and band weight
 by the criteria that hold for a window; the single-bank raster against
 the CPU path by ``compare_grids`` and ``compare_vis``, the same on two
 runs; B2's ring form bit-equal to its plain version on the CPU at the
-five live cells' hop ids (NaN/Inf behind dropped ids, a ring that is not
-zero, the planned band count and twice it), two exact ``Stream``s
-bit-equal and equal bit for bit to ``process(..., exact_sums=True)``, the
-time renderer's grid the same on two calls."""
+six live cells' hop ids (1 and 16 lanes, and 2; NaN/Inf behind dropped
+ids, a ring that is not zero, t from 0 past the slot wrap, every cluster
+size that fits), the card's defaults (the ordered sums): two default
+``Stream``s bit-equal, one push and 777-sample pushes bit-equal, the
+default stream equal bit for bit to the default ``process`` in ``vis``
+and ``rgba`` (the JAX package's ``tests/test_stream.py``), the time
+renderer's grid the same on two calls."""
 
 import math
 
@@ -70,7 +73,8 @@ from emspec_torch.dsp.kernels.lut import (
 from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, SORTED, SORTED_RING, SORTED_TILES, histogram,
-    histogram_plain, histogram_ring, histogram_ring_plain, ring_plan)
+    histogram_plain, histogram_ring, histogram_ring_plain, ring_ids,
+    ring_occupancy, ring_plan)
 from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
@@ -646,14 +650,16 @@ def test_cuda_histogram_misaligned_views(cuda, route, ids_off, vals_off):
 ])
 def test_cuda_pipeline_above_shared_memory_matches_cpu(cuda, kw, cells):
     """Settings whose relative space passes a block's shared memory run
-    on the card through B2's global route (``scatter="auto"``), match the
-    CPU path, and stream as they batch."""
+    on the card through B2's global route (``scatter="auto"``,
+    ``exact_sums=False``) in the batch and in the stream, match the CPU
+    path, and stream as they batch; by default (the ordered sums) the
+    stream is the batch bit for bit."""
     s = Settings(mode="enhanced", multires=False, **kw)
     gpu, cpu = Pipeline(s, cuda), Pipeline(s, "cpu")
     assert (2 * gpu.reach + 1) * gpu.rows == cells and gpu.use_relative_scatter
     x = _tone_noise(s.fft_size + 40 * gpu.hop, 12)
     before = dict(histogram.route_launches)
-    vis_g, _, _ = gpu.process(x)
+    vis_g, _, _ = gpu.process(x, exact_sums=False)
     assert histogram.route_launches["global"] > before["global"]
     assert histogram.route_launches["row"] == before["row"]
     t = gpu.num_columns(x.shape[-1])
@@ -663,8 +669,13 @@ def test_cuda_pipeline_above_shared_memory_matches_cpu(cuda, kw, cells):
     assert cmp.ok, cmp
     ok, worst, share = compare_vis(cpu.process(x)[0], vis_g.cpu())
     assert ok, (worst, share)
-    vis_s, _ = stream_signal(x, s, cuda, chunk=3000)
+    before = dict(histogram.route_launches)
+    vis_s, _ = stream_signal(x, s, cuda, chunk=3000, exact_sums=False)
+    assert histogram.route_launches["global"] > before["global"]
+    assert histogram.route_launches[SORTED_RING] == before[SORTED_RING]
     assert float(np.abs(vis_s - vis_g.cpu().numpy()).max()) <= 1e-5
+    vis_d, _ = stream_signal(x, s, cuda, chunk=3000)
+    assert np.array_equal(vis_d, gpu.process(x)[0].cpu().numpy())
 
 
 # the live settings of chip_smoke.py at a small depth (hops beyond R)
@@ -787,7 +798,8 @@ def test_cuda_columns_keep_values_and_counters_rise_on_replay(cuda):
     assert not torch.equal(later[-1].vis, first[0].vis)
     assert deposits_ids.launches == before[0] + 29
     assert histogram.launches == before[1] + 29
-    assert histogram.route_launches["global"] == before[2]["global"] + 29
+    assert histogram.route_launches[SORTED_RING] == \
+        before[2][SORTED_RING] + 29
     assert lut_values.launches == before[3] + 29
 
 
@@ -1590,6 +1602,10 @@ def test_cuda_multires_render_grid_is_the_cpu_sum(cuda, channels):
 
 LIVE_CELLS = {       # the live phases' settings whose hops B2 sums
     "live": dict(mode="enhanced", multires=False, fft_size=8192),
+    "live_2ch": dict(mode="enhanced", multires=False, fft_size=8192,
+                     channels=2),
+    "direct_live": dict(mode="enhanced", multires=False, fft_size=8192,
+                        fft_method="direct", fft_impl="fourstep"),
     "multires_live": {},
     "north_live": dict(mode="enhanced", multires=False, fft_size=32768,
                        hop=800),
@@ -1600,8 +1616,8 @@ LIVE_CELLS = {       # the live phases' settings whose hops B2 sums
 
 
 def _live_hop_ids(dev, s: Settings, t: int, seed: int):
-    """Hop ``t``'s ring ids and contrib on the card, as the exact live
-    step makes them (``Pipeline._ring_ids``), and the pipeline."""
+    """Hop ``t``'s relative ids and contrib on the card, as the live step
+    makes them, and the pipeline."""
     pipe = Pipeline(s, dev)
     x = np.stack([_tone_noise(pipe.n_max + (t + 1) * pipe.hop, seed + c)
                   for c in range(s.channels)])
@@ -1609,44 +1625,56 @@ def _live_hop_ids(dev, s: Settings, t: int, seed: int):
     xw = torch.from_numpy(x if s.channels > 1 else x[0]).to(dev)
     ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_windows(xw),
                                              pipe.params())
-    return pipe._ring_ids(ids_rel, t).contiguous(), contrib.contiguous(), \
-        pipe
+    return ids_rel.contiguous(), contrib.contiguous(), pipe
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(LIVE_CELLS))
 def test_cuda_ring_form_bit_equal_to_cpu_plain(cuda, name):
-    """B2's ring form at a live cell's hop ids (a tenth dropped or out of
-    range, NaN/Inf behind them) into a ring of random values: one launch
-    of the ring form, bit-equal to the CPU plain sum, finite, the same on
-    a second run, at the planned band count and at twice it."""
+    """B2's ring form at a live cell's hop (1, 2 or 16 lanes; a tenth of
+    the relative ids dropped or out of range, NaN/Inf behind them) into a
+    ring of random values, at t from 0 (columns below 0 dropped) past the
+    slot wrap: one launch of the ring form, bit-equal to the CPU plain sum
+    of ``ring_ids``, finite, the same on a second run, at the plan and at
+    every CTA count that fits in each form (a cluster the card holds, and
+    the local form)."""
     s = Settings(**LIVE_CELLS[name])
-    ids, vals, pipe = _live_hop_ids(cuda, s, 40 if name != "wide_live"
+    rel, vals, pipe = _live_hop_ids(cuda, s, 40 if name != "wide_live"
                                     else 140, seed=len(name))
-    P, C = 2 * pipe.reach + 1, pipe.rows
+    P, C, k = 2 * pipe.reach + 1, pipe.rows, rel.shape[-1]
+    lanes = rel[..., 0].numel()
     rng = np.random.default_rng(len(name))
-    pick = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1).to(cuda)
-    far = torch.from_numpy(rng.integers(P * C, 2 * P * C, tuple(ids.shape))
+    pick = torch.from_numpy(rng.random(tuple(rel.shape)) < 0.1).to(cuda)
+    far = torch.from_numpy(rng.integers(P * C, 2 * P * C, tuple(rel.shape))
                            .astype(np.int32)).to(cuda)
-    ids = torch.where(pick, torch.where(far % 2 == 0, -1, far), ids)
+    rel = torch.where(pick, torch.where(far % 2 == 0, -1, far), rel)
     vals = torch.where(pick, torch.where(far % 3 == 0, float("inf"),
                                          float("nan")), vals)
-    base = torch.rand((P,) + ids.shape[:-1] + (C,), device=cuda)
-    want = histogram_ring_plain(ids.cpu(), vals.cpu(), base.cpu().clone())
-    plan = ring_plan(ids.shape[-1], P, C)
-    for bands in (plan["bands"], 2 * plan["bands"]):
-        before = dict(histogram.route_launches)
-        got = histogram_ring(ids, vals, base.clone(), bands=bands)
-        rises = {k: histogram.route_launches[k] - before[k] for k in before}
-        assert rises == {k: int(k == SORTED_RING) for k in rises}
-        assert torch.equal(got.cpu(), want), bands
-        assert torch.isfinite(got).all()
-        assert torch.equal(histogram_ring(ids, vals, base.clone(),
-                                          bands=bands), got)
+    base = torch.rand((P,) + rel.shape[:-1] + (C,), device=cuda)
+    sizes = [(None, None)] + [
+        (c, local) for local in (False, True) for c in (1, 2, 4, 8, 16)
+        if ring_plan(k, P, C, c, lanes, local=local)["fits"]
+        and (local or ring_occupancy(k, P, C, c, lanes) > 0)]
+    for t in sorted({0, 1, pipe.reach, P - 1, P, P + 1, 977}):
+        want = histogram_ring_plain(ring_ids(rel.cpu(), t, P, C),
+                                    vals.cpu(), base.cpu().clone())
+        t_dev = torch.tensor(t, dtype=torch.int32, device=cuda)
+        for cluster, local in sizes:
+            before = dict(histogram.route_launches)
+            got = histogram_ring(rel, vals, base.clone(), t_dev,
+                                 cluster=cluster, local=local)
+            rises = {k: histogram.route_launches[k] - before[k]
+                     for k in before}
+            assert rises == {k: int(k == SORTED_RING) for k in rises}
+            assert torch.equal(got.cpu(), want), (t, cluster, local)
+            assert torch.isfinite(got).all()
+            assert torch.equal(histogram_ring(rel, vals, base.clone(), t_dev,
+                                              cluster=cluster, local=local),
+                               got)
 
 
 def _stream_columns(s, x, dev, chunk=1024):
-    st = Stream(s, dev, exact_sums=True)
+    st = Stream(s, dev, ring_seconds=x.shape[-1] / s.sample_rate + 1.0)
     assert st.captures == 1
     before = dict(histogram.route_launches)
     cols = []
@@ -1665,17 +1693,50 @@ def _stream_columns(s, x, dev, chunk=1024):
 @pytest.mark.parametrize("kw", [{}, LIVE_CELLS["live"]],
                          ids=["display", "8192"])
 def test_cuda_exact_streams_repeat_and_give_the_exact_batch(cuda, kw):
-    """Two graphed exact ``Stream``s on the same audio give the same
+    """Two graphed default ``Stream``s on the same audio give the same
     columns bit for bit, one ring-form launch a hop and no other B2 route,
-    and those columns are ``process(..., exact_sums=True)``'s bit for
-    bit (the JAX package's streaming ≡ batch)."""
+    and those columns are the default ``process``'s bit for bit (the JAX
+    package's streaming ≡ batch)."""
     s = Settings(**kw)
     x = _tone_noise(48000 * 4, 51)
     vis1, rgba1 = _stream_columns(s, x, cuda)
     vis2, rgba2 = _stream_columns(s, x, cuda)
     assert torch.equal(vis1, vis2) and torch.equal(rgba1, rgba2)
-    vis_b, rgba_b, _ = Pipeline(s, cuda).process(x, exact_sums=True)
+    vis_b, rgba_b, _ = Pipeline(s, cuda).process(x)
     assert torch.equal(vis1, vis_b) and torch.equal(rgba1, rgba_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, LIVE_CELLS["live"]],
+                         ids=["display", "8192"])
+def test_cuda_default_stream_repeats_and_ignores_chunking(cuda, kw):
+    """The default ``Stream`` on 16 s of audio: two runs bit-equal, and one
+    push of the whole signal bit-equal to 777-sample pushes (``atol=0``,
+    the JAX package's ``tests/test_stream.py``)."""
+    s = Settings(**kw)
+    x = _tone_noise(48000 * 16, 53)
+    runs = [_stream_columns(s, x, cuda, chunk) for chunk in
+            (1024, 1024, x.shape[-1], 777)]
+    for vis, rgba in runs[1:]:
+        assert torch.equal(vis, runs[0][0]) and torch.equal(rgba, runs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, LIVE_CELLS["live"]],
+                         ids=["display", "8192"])
+def test_cuda_default_stream_signal_is_the_default_batch(cuda, kw):
+    """``stream_signal`` and ``Pipeline.process`` with no extra argument
+    on 16 s of audio: ``vis`` and ``rgba`` equal bit for bit
+    (``assert_array_equal``, as the JAX package's ``tests/test_stream.py``
+    pins), and two ``process`` calls bit-equal."""
+    s = Settings(**kw)
+    x = _tone_noise(48000 * 16, 54)
+    vis_s, rgba_s = stream_signal(x, s, cuda)
+    pipe = Pipeline(s, cuda)
+    vis_b, rgba_b, _ = pipe.process(x)
+    np.testing.assert_array_equal(vis_s, vis_b.cpu().numpy())
+    np.testing.assert_array_equal(rgba_s, rgba_b.cpu().numpy())
+    assert torch.equal(pipe.process(x)[0], vis_b)
 
 
 @pytest.mark.cuda

@@ -7,9 +7,10 @@
   its bound: reach R = the pipeline's reach, ``frame_len`` the banks'
   deposits a frame (382 at the display default), ``column_len`` the
   raster's rows (512); the relative single-bank path too, through the
-  absolute grid.  ``Pipeline.process`` by default, ``Stream``, the
-  bench's ``_throughput`` (``_batch_vis``) do not (a spy on the
-  pipeline's ``histogram``).
+  absolute grid.  So do ``Pipeline.process`` and the bench's
+  ``_throughput`` (``_batch_vis``) by default, and ``Stream`` sums no hop
+  through ``histogram`` (its ring form); ``exact_sums=False`` reaches
+  B2's atomic routes (a spy on the pipeline's ``histogram``).
 * The sorted route's tiles form with K deposits a frame into columns of
   C ≠ K cells, mirrored by ``tests/test_torch_sorted_tiles.py``'s
   ``_tiles_mirror`` (the ``.cu``'s loops verbatim), is bit for bit
@@ -33,8 +34,8 @@ from emspec_torch.__main__ import main as cli_main
 from emspec_torch.bench.harness import _throughput
 from emspec_torch.config import Settings
 from emspec_torch.dsp.kernels.scatter import (
-    PIECE_CHUNKS, SMEM_BINS, SORTED, TILE_CELLS, histogram, histogram_plain,
-    tile_plan)
+    PIECE_CHUNKS, SMEM_BINS, SMS, SORTED, SORTED_TILES_WORK, TILE_CELLS,
+    histogram, histogram_plain, sorted_form, tile_plan)
 from emspec_torch.io.wav import write_wav
 from emspec_torch.stream import stream_signal
 from emspec_torch.validate import compare_vis
@@ -99,19 +100,86 @@ def test_file_renders_ask_for_the_sorted_tiles_with_their_bound(
 
 
 def test_stream_batch_vis_and_bench_keep_their_routes(monkeypatch):
+    """The defaults ask for the ordered sums: ``process`` and the bench's
+    ``_throughput`` the sorted route with its bound, ``stream_signal`` no
+    ``histogram`` (the ring form); ``exact_sums=False`` the scatter
+    setting's routes, with no bound."""
     calls = _spy(monkeypatch)
     x = _audio(0.4)
     pipe = pl.get_pipeline(DISPLAY, "cpu")
     pipe.process(x)
+    assert calls == [_bounded(32, K_DISPLAY)]
+    calls.clear()
+    pipe.process(x, exact_sums=False)
     assert calls and all(c["route"] is None and c["reach"] is None
                          for c in calls)
     calls.clear()
     stream_signal(x, DISPLAY, "cpu", chunk=2048)
-    assert calls and all(c["route"] is None and c["reach"] is None
-                         for c in calls)
-    calls.clear()
+    assert calls == []
     _throughput(DISPLAY, 0.3, 1, device="cpu")
-    assert calls and all(c["route"] is None for c in calls)
+    assert calls and all(c == _bounded(32, K_DISPLAY) for c in calls)
+
+
+# chip_smoke.py's batch cells: (frames, deposits a frame, reach, rows,
+# lanes) → the sorted route's form their shape takes on the card
+BATCH_FORMS = {
+    "batch": ((372, 4097, 2, 512, 1), "tiles"),
+    "batch16": ((372, 4097, 2, 512, 16), SORTED),
+    "multires": ((5937, 382, 32, 512, 1), "tiles"),
+    "time_parallel chunk": ((6001, 382, 32, 512, 1), "tiles"),
+    "raster": ((372, 4097, 2, 4097, 1), "tiles"),
+    "stress": ((43, 16385, 2, 512, 16), SORTED),
+    "north": ((920, 16385, 20, 512, 1), SORTED),
+    "ext262144": ((8, 131073, 2, 512, 1), SORTED),
+    "wide": ((1373, 4097, 64, 512, 1), SORTED),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(BATCH_FORMS))
+def test_sorted_form_by_shape_at_the_batch_cells(cell):
+    """``sorted_form``: the tiles where a tile's walk × deposits a frame ×
+    (deposits a frame per cell) × the waves of the lanes' tiles over the
+    card's SMs stays within ``SORTED_TILES_WORK``, else the global sort —
+    by shape only."""
+    (T, K, R, C, lanes), form = BATCH_FORMS[cell]
+    assert sorted_form(T, K, R, C, lanes) == form
+    plan = tile_plan(T, K, R, column=C)
+    waves = -(-lanes * plan["col_tiles"] * plan["row_tiles"] // SMS)
+    work = plan["walk"] * K * max(1, K // C) * waves
+    assert (work <= SORTED_TILES_WORK) == (form == "tiles")
+
+
+def test_the_batch_weighs_its_lanes_in_the_sorted_form(monkeypatch):
+    """``process`` gives ``sorted_form`` its lanes (the channels), so a
+    16-channel batch at 8192 takes the global sort where the mono one
+    takes the tiles."""
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return sorted_form(*args)
+    monkeypatch.setattr(pl, "sorted_form", spy)
+    s = Settings(mode="enhanced", multires=False, fft_size=2048)
+    for channels in (1, 3):
+        pl.get_pipeline(s.replace(channels=channels), "cpu").process(
+            _audio(0.2, channels))
+    assert [a[-1] for a in seen] == [1, 3]
+    assert sorted_form(372, 4097, 2, 512) == "tiles"
+    assert sorted_form(372, 4097, 2, 512, 16) == SORTED
+
+
+def test_a_sort_shaped_batch_asks_for_the_global_sort(monkeypatch):
+    """Where the shape takes the global sort (the north star's 32768 at
+    hop 800), ``process`` asks for the sorted route with no bound, and its
+    vis is the atomic path's on the CPU bit for bit."""
+    calls = _spy(monkeypatch)
+    s = Settings(mode="enhanced", multires=False, fft_size=32768, hop=800)
+    pipe = pl.get_pipeline(s, "cpu")
+    x = _audio(0.9)
+    vis = pipe.process(x)[0]
+    assert calls == [dict(route=SORTED, reach=None, frame_len=None,
+                          column_len=None)]
+    assert torch.equal(pipe.process(x, exact_sums=False)[0], vis)
 
 
 def _display_ids(seconds):
