@@ -96,7 +96,13 @@ them.  Phases, in order, one line each; the first failure ends the run:
    into an output too, and the same on a second run, timed in turns
    (medians of three rounds; the tiles form must be the faster), beside
    the global route, ``index_add_`` and the deterministic
-   ``index_put_(accumulate=True)``; B2's ring form (one live hop into
+   ``index_put_(accumulate=True)``; B2's sorted route in its batch form
+   (a CTA a tile of columns and a band of rows, its own deposits packed
+   in order into shared memory and walked by the warps owning their rows)
+   at the enhanced batch's ids at 8192, bit-equal to the plain sum, added
+   into an output too, the same on a second run, beside its plain version
+   and ``index_add_`` with the bytes' and the chain's bounds; B2's ring
+   form (one live hop into
    the pending ring in place, each cell in bin order, its ring cells
    computed in the kernel from the relative ids and t) at the hop of
    each enhanced live cell (8192 mono and stereo, direct, the display
@@ -110,10 +116,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
    columns bit-equal to the default batch.
 4. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise (its sum on B2's
-   sorted tiles, the card's default); the result must match the port's
-   CPU path.
-5. batch16: the same on a 16-channel batch (its sum on B2's global
-   sort: ``sorted_form`` weighs its 16 lanes' tiles).
+   sorted batch form, the card's default); the result must match the
+   port's CPU path.
+5. batch16: the same on a 16-channel batch (its sum on the batch form
+   too, 47-column tiles for its 16 lanes).
 6. live: ``Stream`` fed in 1024-sample chunks (375 hops) then flushed; it
    must match the batch result; per-hop latency p50/p99.  Every live
    phase runs one CUDA graph replay a hop (one capture a stream, checked),
@@ -129,11 +135,14 @@ them.  Phases, in order, one line each; the first failure ends the run:
    the atomic one in turns (atomic, default, default, atomic, three
    rounds; medians of host p50/p99 and device ms a replay).  Every
    enhanced batch phase holds five more calls to the first bit for bit,
-   its default sum and the other sorted form's at the card's own ids
-   each bit-equal to the CPU plain sum, the sorted form it took (the one
-   ``sorted_form`` names) within 5% of the other in turns, and times B1
-   and its sum and the whole call against the atomic route in turns
-   (medians of three rounds).
+   fails if its default call launched the global sort or an atomic
+   route, holds its default sum and each of the three sorted forms
+   (batch, tiles, the global sort) at the card's own ids bit-equal to
+   the CPU plain sum, the sorted form it took (the one ``sorted_form``
+   names) within 5% of each other form in turns (medians of three
+   rounds), with ``index_add_`` and the bounds, and times B1 and its sum
+   and the whole call against the atomic route in turns (medians of
+   three rounds).
 7. natural: P-natural batch — ``Settings(mode="natural",
    fft_impl="fourstep")``, the multires banks 8192/2048/512, hop 128,
    512 rows — on 16 s mono; B4 and B3 must launch; matches the CPU path.
@@ -345,9 +354,10 @@ from emspec_torch.dsp.kernels.fourstep import (
 from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, SORTED, SORTED_RING, SORTED_TILES, ring_offsets,
-    histogram, histogram_plain, histogram_ring, histogram_ring_plain,
-    ring_ids, ring_occupancy, ring_plan, route_of, sorted_form, tile_plan)
+    ROUTES, SMEM_BINS, SORTED, SORTED_BATCH, SORTED_RING, SORTED_TILES,
+    batch_plan, ring_offsets, histogram, histogram_plain, histogram_ring,
+    histogram_ring_plain, ring_ids, ring_occupancy, ring_plan, route_of,
+    sorted_form, tile_plan)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
@@ -414,6 +424,9 @@ KERNELS = (
      "emspec/dsp/pallas/scatter.py:135"),
     ("histogram_sorted", histogram, "emspec_torch/csrc/histogram.cu",
      "emspec/dsp/pallas/scatter.py:135"),
+    ("histogram_sorted_batch", histogram,
+     "emspec_torch/csrc/histogram_batch.cu",
+     "emspec/dsp/pallas/scatter.py:135"),
     ("histogram_sorted_ring", histogram, "emspec_torch/csrc/histogram_ring.cu",
      "emspec/dsp/pallas/scatter.py:135"),
     ("deposits_hist", deposits_hist, "emspec_torch/csrc/deposits.cu",
@@ -440,6 +453,8 @@ COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "histogram_sorted_tiles":
               lambda: histogram.route_launches[SORTED_TILES],
           "histogram_sorted": lambda: histogram.route_launches[SORTED],
+          "histogram_sorted_batch":
+              lambda: histogram.route_launches[SORTED_BATCH],
           "histogram_sorted_ring":
               lambda: histogram.route_launches[SORTED_RING],
           "deposits_hist_cluster":
@@ -447,33 +462,33 @@ COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "deposits_hist_cluster_large":
               lambda: deposits_hist.route_launches["cluster_large"]}
 # the card's default sums are the ordered ones: every enhanced batch path
-# sums through B2's sorted route — its tiles form, or its global sort
-# where ``sorted_form`` says so by shape — every enhanced live hop through
-# its ring form (``histogram`` counts each)
+# sums through B2's sorted route with its bound — its batch form, or its
+# tiles form where ``sorted_form`` says so by shape (no global sort) —
+# every enhanced live hop through its ring form (``histogram`` counts each)
 TILES = ("histogram", "histogram_sorted_tiles")
-SORT = ("histogram", "histogram_sorted")
+BATCH = ("histogram", "histogram_sorted_batch")
 RING = ("histogram", "histogram_sorted_ring")
 MULTIRES_B1 = ("deposits_ids", "deposits_ids_window")
 CLUSTER_B1 = ("deposits_ids_cluster",)
 SCAN = ("post_head", "ema_scan", "post_tail")   # every batch post chain
 PATH_KERNELS = {        # kernels each path must launch
-    "batch": ("deposits_ids",) + TILES + ("lut_values",) + SCAN,
-    "batch16": ("deposits_ids",) + SORT + ("lut_values",) + SCAN,
+    "batch": ("deposits_ids",) + BATCH + ("lut_values",) + SCAN,
+    "batch16": ("deposits_ids",) + BATCH + ("lut_values",) + SCAN,
     "live": ("deposits_ids",) + RING + ("lut_values",),
     "natural": ("fft4_steps123", "lut_values") + SCAN,
     "natural_live": ("fft4_steps123", "lut_values"),
-    "direct": ("windowed_frames", "fft4_steps123") + TILES
+    "direct": ("windowed_frames", "fft4_steps123") + BATCH
     + ("lut_values",) + SCAN,
     "direct_live": ("windowed_frames", "fft4_steps123") + RING
     + ("lut_values",),
-    "stress": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
-    "stress_live_batch": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "stress": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
+    "stress_live_batch": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
     "stress_live": CLUSTER_B1 + RING + ("lut_values",),
-    "north": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "north": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
     "north_live": CLUSTER_B1 + RING + ("lut_values",),
-    "ext262144": ("deposits_ids_cluster_large",) + SORT + ("lut_values",)
+    "ext262144": ("deposits_ids_cluster_large",) + BATCH + ("lut_values",)
     + SCAN,
-    "wide": ("deposits_ids",) + SORT + ("lut_values",) + SCAN,
+    "wide": ("deposits_ids",) + BATCH + ("lut_values",) + SCAN,
     "wide_live": ("deposits_ids",) + RING + ("lut_values",),
     "multires": MULTIRES_B1 + TILES + ("lut_values",) + SCAN,
     "multires_live": MULTIRES_B1 + RING + ("lut_values",),
@@ -484,12 +499,12 @@ PATH_KERNELS = {        # kernels each path must launch
     "render_multires": MULTIRES_B1 + TILES + ("lut_values",) + SCAN,
     # the shell on the display default, then 4096 single-bank, then natural
     "app": MULTIRES_B1 + RING + ("lut_values",),
-    "sharded_pipeline": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
-    "sharded_pipeline_agc": CLUSTER_B1 + SORT + ("lut_values",) + SCAN,
+    "sharded_pipeline": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
+    "sharded_pipeline_agc": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
     "sharded_stream": CLUSTER_B1 + RING + ("lut_values",),
     # the time renderer's chunk EMAs: the scan kernel alone, then a re-base
     "time_parallel": MULTIRES_B1 + TILES + ("lut_values", "ema_scan"),
-    "time_parallel_2d": CLUSTER_B1 + SORT + ("lut_values", "ema_scan"),
+    "time_parallel_2d": CLUSTER_B1 + BATCH + ("lut_values", "ema_scan"),
     "checkpoint": ("deposits_ids",) + RING + ("lut_values",),
 }
 # the enhanced live phases: each default stream held bit for bit to a
@@ -514,7 +529,9 @@ HOP_CENSUS: dict = {}   # a live hop's kernels in launch order (trace)
 EXACT_TP: dict = {}     # the time renderer's sum (phase parallel)
 EXACT_TURNS = ("global", "tiles", "tiles", "global") * 3
 BATCH_TURNS = ("atomic", "default", "default", "atomic") * 3
-FORM_TOL = 0.05         # a batch's sorted form at most this over the other
+FORM_TOL = 0.05         # a batch's sorted form at most this over another
+FORM_TURNS = ("sort", "tiles", "batch", "batch", "tiles", "sort") * 3
+CHAIN_CYCLES = 4        # one dependent float add: a chain bound's step
 
 
 def fail(msg: str):
@@ -2019,6 +2036,68 @@ def raster_ids(dev, settings: Settings, x: np.ndarray):
 SORTED_TURNS = ("sort", "tiles", "tiles", "sort") * 3
 
 
+def kernels_b2_batch(dev) -> dict:
+    """B2's sorted route in its batch form at the main path's shape (the
+    enhanced batch at 8192, mono, 16 s: the absolute (t, rows) grid of its
+    B1 ids, R = the pipeline's reach): bit-equal to the plain sum on the
+    CPU, added into an output too, the same on a second run; its time
+    beside the plain version's and ``index_add_``'s, with the bytes' bound
+    and the chain bound (the longest cell's run at ``CHAIN_CYCLES`` a
+    dependent add).  Every batch cell's forms are timed in ``batch_ab``."""
+    pipe = Pipeline(SETTINGS, dev)
+    xg = pipe.to_device(signal(SECONDS, seed=23))
+    t = pipe.num_columns(xg.shape[-1])
+    ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_inputs(xg, t),
+                                             pipe.params())
+    ids = pipe._absolute_ids(ids_rel, t, pipe.reach).reshape(-1).contiguous()
+    vals = contrib.reshape(-1).contiguous()
+    k, cells = ids_rel.shape[-1], t * pipe.rows
+    bound_kw = dict(route=SORTED, reach=pipe.reach, frame_len=k,
+                    column_len=pipe.rows, form="batch")
+
+    def batch(out=None):
+        return histogram(ids, vals, cells, out=out, **bound_kw)
+    before = histogram.route_launches[SORTED_BATCH]
+    got = batch()
+    check(histogram.route_launches[SORTED_BATCH] == before + 1,
+          "B2 sorted batch: no launch of the batch form")
+    want = histogram_plain(ids.cpu(), vals.cpu(), cells)
+    check(torch.equal(got.cpu(), want),
+          "B2 sorted batch differs from the plain sum in deposit order")
+    check(torch.equal(batch(), got), "B2 sorted batch differs between two "
+          "runs")
+    base = torch.rand(cells, device=dev)
+    check(torch.equal(batch(base.clone()).cpu(), histogram_plain(
+        ids.cpu(), vals.cpu(), cells, out=base.cpu())),
+          "B2 sorted batch added into an output differs from the plain sum")
+    ok = (ids >= 0) & (ids < cells)
+    flat = torch.where(ok, ids, cells).long()
+    vals0 = torch.where(ok, vals, 0.0)
+    run = int(torch.bincount(flat, minlength=cells + 1)[:cells].max())
+    plan = batch_plan(t, k, pipe.reach, pipe.rows)
+    row = dict(
+        at=f"ids (1, {ids.numel()}) → {cells} cells, reach {pipe.reach}, "
+           f"{k} deposits a frame into {pipe.rows} rows",
+        max_abs_err=0.0,
+        **times(batch, lambda: histogram_plain(ids, vals, cells),
+                lambda: torch.zeros(cells + 1, device=dev).index_add_(
+                    0, flat, vals0), iters=10),
+        **bound(8.0 * ids.numel() + 4.0 * cells, float(ok.sum())),
+        longest_run=run,
+        chain_bound_ms=run * CHAIN_CYCLES / SM_CLOCK_HZ[0] * 1e3,
+        plan=plan)
+    print(f"kernels B2 sorted batch at the batch's ids ({row['at']}; "
+          f"{plan['cols']}-column tiles, {plan['col_tiles']} of them, "
+          f"{plan['bands']} row band(s), {plan['cap']} entries a piece): "
+          f"bit-equal to the plain sum, "
+          f"added into an output and run to run; device "
+          f"{row['device_ms']:.4f} ms, index_add_ "
+          f"{row['library_device_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+          f"bound {row['bound_ms']:.4f} (bytes), chain "
+          f"{row['chain_bound_ms']:.4f} (run {run})", flush=True)
+    return row
+
+
 def kernels_b2_tiles(dev, ids, vals, cells: int, want) -> dict:
     """B2's sorted route in its tiles form (the raster's, at its reach)
     at the raster's ids: bit-equal to the plain sum on the CPU, added
@@ -2294,6 +2373,7 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res.update(kernels_post(dev))
     res["histogram_sorted"], res["histogram_sorted_tiles"] = \
         kernels_b2_sorted(dev)
+    res["histogram_sorted_batch"] = kernels_b2_batch(dev)
     res["histogram_sorted_ring"] = kernels_b2_ring(dev)
     torch.cuda.synchronize()
     print("kernels: " + "; ".join(
@@ -2364,25 +2444,29 @@ def batch_phase(name: str, dev, settings: Settings, x: np.ndarray,
 
 def batch_ab(name: str, gpu: Pipeline, xg, p, t: int) -> str:
     """An enhanced batch cell's sum on the card's default (B2's sorted
-    route: its form, tiles or global sort, from the driven call's route
-    counts, the one ``sorted_form`` names): the default sum and the other
-    form's at the card's own ids each bit-equal to the CPU plain sum
-    (``histogram_plain``) of those ids; the two forms in turns
-    (``SORTED_TURNS``, medians of three rounds), the chosen one within
-    ``FORM_TOL`` of the other; then B2's atomic route
+    route with its bound, in the form ``sorted_form`` names by shape: the
+    batch form or the tiles form, from the driven call's route counts,
+    which must hold no global sort and no atomic route): the default sum
+    and each of the three sorted forms — batch, tiles and the global sort
+    (no bound) — at the card's own ids bit-equal to the CPU plain sum
+    (``histogram_plain``) of those ids; the three in turns
+    (``FORM_TURNS``, medians of three rounds), the chosen one within
+    ``FORM_TOL`` of every other; ``index_add_`` at the same ids and the
+    bounds (bytes: 8 a deposit, 4 a cell; chain: the longest cell's run at
+    ``CHAIN_CYCLES`` a dependent add); then B2's atomic route
     (``exact_sums=False``: the route it takes, counted around one call)
     against the default, in turns (``BATCH_TURNS``): the device ms of
     ``_enhanced_power`` (B1 and the sum) and of the whole ``process``
     call → the line's part."""
     routes = ROUTE_LAUNCHES[name]
-    form = [r for r in (SORTED_TILES, SORTED) if routes[r] > 0]
+    form = [r for r in (SORTED_TILES, SORTED_BATCH, SORTED) if routes[r] > 0]
     ids_rel, contrib = gpu._deposit_ids_rel(gpu._bank_inputs(xg, t), p)
     ids = gpu._absolute_ids(ids_rel, t, gpu.reach)
     lead, k = ids.shape[:-2], ids.shape[-1]
     lanes = math.prod(lead)
     want = sorted_form(t, k, gpu.reach, gpu.rows, lanes)
-    check(form == [SORTED_TILES if want == "tiles" else SORTED]
-          and routes["row"] == routes["global"] == 0,
+    check(form == [SORTED_TILES if want == "tiles" else SORTED_BATCH]
+          and routes["row"] == routes["global"] == routes[SORTED] == 0,
           f"{name}: the default batch's B2 routes {routes}, not the "
           f"sorted form {want!r} its shape takes")
     cells = t * gpu.rows
@@ -2394,23 +2478,32 @@ def batch_ab(name: str, gpu: Pipeline, xg, p, t: int) -> str:
     check(torch.equal(got.cpu(), plain), f"{name}: the default sum is not "
           f"the CPU plain sum of its deposits")
     passes = gpu.settings.scatter_passes
-    bound_kw = dict(reach=gpu.reach, frame_len=k, column_len=gpu.rows)
-    forms = {"tiles": lambda: histogram(fi, fc, cells, passes,
-                                        route=SORTED, **bound_kw),
+    bound_kw = dict(route=SORTED, reach=gpu.reach, frame_len=k,
+                    column_len=gpu.rows)
+    forms = {"batch": lambda: histogram(fi, fc, cells, passes, form="batch",
+                                        **bound_kw),
+             "tiles": lambda: histogram(fi, fc, cells, passes, form="tiles",
+                                        **bound_kw),
              "sort": lambda: histogram(fi, fc, cells, passes, route=SORTED)}
-    chosen = "tiles" if want == "tiles" else "sort"
-    other = "sort" if chosen == "tiles" else "tiles"
-    check(torch.equal(forms[other]().cpu().reshape(plain.shape), plain),
-          f"{name}: B2's {other} form is not the CPU plain sum of the "
-          f"default's deposits")
+    for who, fn in forms.items():
+        check(torch.equal(fn().cpu().reshape(plain.shape), plain),
+              f"{name}: B2's {who} form is not the CPU plain sum of the "
+              f"default's deposits")
     form_turns: dict = {}
-    for who in SORTED_TURNS:
+    for who in FORM_TURNS:
         form_turns.setdefault(who, []).append(device_ms(forms[who], 5))
     med_f = {k: float(np.median(v)) for k, v in form_turns.items()}
-    check(med_f[chosen] <= (1 + FORM_TOL) * med_f[other],
-          f"{name}: the chosen sorted form ({chosen}) {med_f[chosen]:.4f} "
-          f"ms against the {other} form's {med_f[other]:.4f} ms, over "
-          f"{FORM_TOL:.0%}")
+    slower = {k: v for k, v in med_f.items()
+              if med_f[want] > (1 + FORM_TOL) * v}
+    check(not slower, f"{name}: the chosen sorted form ({want}) "
+          f"{med_f[want]:.4f} ms, over {FORM_TOL:.0%} above {slower}")
+    ok = (fi >= 0) & (fi < cells)
+    flat = (torch.where(ok, fi, cells).long() + torch.arange(
+        lanes, device=fi.device).reshape(lead + (1,)) * (cells + 1)
+            ).reshape(-1)
+    vals0 = torch.where(ok, fc, 0.0).reshape(-1)
+    run = int(torch.bincount(flat, minlength=lanes * (cells + 1)).reshape(
+        lanes, cells + 1)[:, :cells].max())
     before = dict(histogram.route_launches)
     gpu._enhanced_power(xg, t, p, exact_sums=False)
     atomic = [r for r in histogram.route_launches
@@ -2425,22 +2518,32 @@ def batch_ab(name: str, gpu: Pipeline, xg, p, t: int) -> str:
             lambda: gpu.process(xg, p, exact_sums=exact), 5))
     med = {k: float(np.median(v)) for k, v in power.items()}
     med_c = {k: float(np.median(v)) for k, v in calls.items()}
-    BATCH_AB[name] = dict(form=form[0], lanes=lanes, atomic_routes=atomic,
-                          form_turns_device_ms=form_turns,
-                          form_median_device_ms=med_f,
-                          power_turns_device_ms=power,
-                          process_turns_device_ms=calls,
-                          power_median_device_ms=med,
-                          process_median_device_ms=med_c)
+    BATCH_AB[name] = dict(
+        form=form[0], lanes=lanes, atomic_routes=atomic,
+        at=f"ids {tuple(fi.shape)} → {lanes} × {cells} cells, R = "
+           f"{gpu.reach}",
+        batch_plan=batch_plan(t, k, gpu.reach, gpu.rows, lanes),
+        form_turns_device_ms=form_turns, form_median_device_ms=med_f,
+        index_add_device_ms=device_ms(
+            lambda: torch.zeros(lanes * (cells + 1), device=fi.device)
+            .index_add_(0, flat, vals0), 5),
+        **bound(8.0 * fi.numel() + 4.0 * lanes * cells, float(ok.sum())),
+        longest_run=run,
+        chain_bound_ms=run * CHAIN_CYCLES / SM_CLOCK_HZ[0] * 1e3,
+        power_turns_device_ms=power, process_turns_device_ms=calls,
+        power_median_device_ms=med, process_median_device_ms=med_c)
     return (f"sum on B2's {form[0]} ({lanes} lanes; atomic: {atomic}), "
-            f"bit-equal to the CPU plain sum, as is the {other} form; "
-            f"the sum alone in turns {SORTED_TURNS[:4]} ×3 (medians, "
-            f"device ms): tiles {med_f['tiles']:.4f} vs sort "
-            f"{med_f['sort']:.4f}; in turns {BATCH_TURNS[:4]} ×3: B1 and "
-            f"the sum default {med['default']:.4f} vs atomic "
-            f"{med['atomic']:.4f} (+{med['default'] - med['atomic']:.4f}), "
-            f"process default {med_c['default']:.4f} vs atomic "
-            f"{med_c['atomic']:.4f}")
+            f"bit-equal to the CPU plain sum, as are the batch, tiles and "
+            f"sort forms; the sum alone in turns {FORM_TURNS[:6]} ×3 "
+            f"(medians, device ms): batch {med_f['batch']:.4f}, tiles "
+            f"{med_f['tiles']:.4f}, sort {med_f['sort']:.4f}; index_add_ "
+            f"{BATCH_AB[name]['index_add_device_ms']:.4f}, bound "
+            f"{BATCH_AB[name]['bound_ms']:.4f} (bytes), chain "
+            f"{BATCH_AB[name]['chain_bound_ms']:.4f} (run {run}); in turns "
+            f"{BATCH_TURNS[:4]} ×3: B1 and the sum default "
+            f"{med['default']:.4f} vs atomic {med['atomic']:.4f} "
+            f"(+{med['default'] - med['atomic']:.4f}), process default "
+            f"{med_c['default']:.4f} vs atomic {med_c['atomic']:.4f}")
 
 
 def repeat_pixels(fn, first, runs: int = 5) -> list:
@@ -3737,7 +3840,7 @@ def checkpoint_phase(dev, x: np.ndarray) -> None:
 # route), the scan
 TRACE_NAMES = {"B1": ("block_kernel", "cluster_kernel"),
                "B2": ("row_kernel", "global_kernel", "sorted_kernel",
-                      "tiles_kernel"),
+                      "tiles_kernel", "batch_kernel"),
                "post_head": ("post_head_kernel",),
                "ema_scan": ("ema_speculate_kernel",),
                "post_tail": ("post_tail_speculate_kernel",),
@@ -4103,12 +4206,12 @@ def main() -> None:
          "multires_live": (MULTIRES, x)}, rasters)
 
     for path, routes in ROUTE_LAUNCHES.items():
-        check(routes["row"] == routes["global"] == 0,
-              f"{path}: B2's atomic routes launched on a default path "
-              f"({routes})")
+        check(routes["row"] == routes["global"] == routes[SORTED] == 0,
+              f"{path}: B2's atomic routes or its global sort launched on "
+              f"a default path ({routes})")
     res["histogram_sorted_tiles"]["multires_file_render"] = EXACT
     res["histogram_sorted_tiles"]["time_parallel_render"] = EXACT_TP
-    res["histogram_sorted_tiles"]["batch_cells"] = BATCH_AB
+    res["histogram_sorted_batch"]["batch_cells"] = BATCH_AB
     res["histogram_sorted_ring"]["live_hops"] = LIVE_AB
     res["histogram_sorted_ring"]["hop_census"] = HOP_CENSUS
     print(f"chip_smoke: every phase passed in "

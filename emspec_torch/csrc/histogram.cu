@@ -16,8 +16,9 @@
 // (emspec_torch/dsp/kernels/scatter.py route_of), and a deterministic one
 // a caller asks for ("sorted", at the end of this file, in two forms: the
 // tiles kernel where the caller bounds how far a deposit lands from its
-// frame, sorted_kernel after a global sort where it does not; its third
-// form, one live hop into the pending ring, is histogram_ring.cu):
+// frame, sorted_kernel after a global sort where it does not; its batch
+// form for crowded columns, given the same bound, is histogram_batch.cu,
+// and its form for one live hop into the pending ring histogram_ring.cu):
 //   row     one block of 512 threads a row: a float32 histogram of
 //           num_bins cells in shared memory, then one coalesced store of
 //           the row (no zeroed output needed).  Taken where the rows
@@ -107,8 +108,9 @@ __global__ void __launch_bounds__(kGlobalThreads) global_kernel(
 // stable sort keeps each cell's deposits in deposit order, equal bit for
 // bit to the plain version's (index_add_, which adds them in that order).
 // A run is one thread's sequential loop.  The global sort costs ~25× the
-// bytes' bound; callers whose deposits land near their frame (the raster)
-// take tiles_kernel below.
+// bytes' bound; callers whose deposits land near their frame (the raster,
+// every batch of the pipeline) take tiles_kernel below or
+// histogram_batch.cu: this form is on no default path.
 template <typename Key>
 __global__ void __launch_bounds__(kGlobalThreads) sorted_kernel(
     const Key* __restrict__ keys, const float* __restrict__ vals,

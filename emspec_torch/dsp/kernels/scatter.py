@@ -37,12 +37,22 @@ each with its own count in ``histogram.route_launches``:
   of the frames that reach it in order, each of its warps adding the
   deposits of its own cells one after another in (frame, bin) order.
   The single-bank raster takes it (``dsp.reassign.scatter_segment_sum``,
-  R = ceil(N / 2·hop), C = K), and so does every enhanced batch call of
-  the pipeline (``Pipeline.process``: the absolute (t, rows) grid, C =
-  rows, K the banks' deposits a frame, R the pipeline's reach), so an
-  export and a render of the same file agree pixel for pixel;
+  R = ceil(N / 2·hop), C = K), and so do the pipeline's enhanced batch
+  calls whose frames hold no more deposits than a column has rows
+  (``Pipeline.process``: the absolute (t, rows) grid, C = rows, K the
+  banks' deposits a frame, R the pipeline's reach: the display default),
+  so an export and a render of the same file agree pixel for pixel;
+* ``"sorted_batch"`` (``SORTED_BATCH``), with the same bound: one
+  launch, no sort, a CTA a tile of columns and a band of rows
+  (``batch_plan``) reading the deposits of the frames that reach it and
+  keeping its own, packed in deposit order into shared memory, its warps
+  — each owning interleaved blocks of rows, so the crowded top rows of a
+  log raster spread over all of them — walking its cells' deposits in
+  (frame, bin) order.  Every enhanced batch call of the pipeline takes it
+  or the tiles form, by shape (``sorted_form``);
 * ``"sorted"``, without that bound: a stable ``torch.sort`` of the keys
-  (row, id), then one thread sums each cell's run of deposits;
+  (row, id), then one thread sums each cell's run of deposits.  On no
+  default path: it serves callers that give no bound, and the A/B;
 * ``"sorted_ring"`` (``SORTED_RING``, ``histogram_ring``): one hop of the
   live step added into its pending ring (P, ..., C) in place, each cell
   adding the hop's deposits in bin order onto the value it holds — so a
@@ -73,6 +83,8 @@ ROUTES = ("row", "global")    # the atomic routes, chosen by route_of
 SORTED = "sorted"             # the deterministic route, on request
 SORTED_TILES = "sorted_tiles"     # ... its form with a window bound
 SORTED_RING = "sorted_ring"       # ... its form for one hop into a ring
+SORTED_BATCH = "sorted_batch"     # ... its form for crowded columns
+FORMS = ("tiles", "batch")        # the bounded forms, chosen by sorted_form
 ROW_THREADS = 512         # histogram.cu kRowThreads
 GLOBAL_THREADS = 256      # histogram.cu kGlobalThreads
 SMS = 132                 # the H100's streaming multiprocessors
@@ -83,10 +95,12 @@ TILE_WARPS = 16           # histogram.cu kTileWarps: the sorted tiles' warps
 TILE_COLS = 3             # columns a tile by default (the raster's best)
 TILE_CELLS = 24320        # cells a tile at most (95 KB, and 95 KB of claims)
 PIECE_CHUNKS = 144        # histogram.cu kPieceChunks: 32-bin chunks a piece
-# the tiles form's walk a block (frames × deposits a frame), weighed by
-# the deposits a frame puts in one cell and by the waves of blocks, at
-# most: the sorted route's form by shape (``sorted_form``)
-SORTED_TILES_WORK = 1 << 20
+BATCH_ROUND = 8 * 32 * TILE_WARPS  # histogram_batch.cu kRound: a round
+BATCH_BANDS = 16        # histogram_batch.cu kMaxBands
+BATCH_MAX_SHIFT = 4     # histogram_batch.cu kMaxShift: 16 rows a block
+BATCH_CELLS = 24576     # a CTA's cells at most (its tile leaves room for a
+                        # piece of ≥ 16,000 entries; 16-bit entries)
+BATCH_PACKED_READS = 4  # reads a kept deposit, above which entries pack
 RING_MAX_CLUSTER = 16     # histogram_ring.cu kMaxCluster (16: non-portable)
 RING_PORTABLE = 8         # the largest portable cluster size
 RING_STAGE = 16 * 16      # chunks a rank stages (kMaxStage · kWarps)
@@ -148,24 +162,79 @@ def tile_plan(frames: int, k: int, reach: int,
                 smem=8 * cols * cells + pc * (32 * 8 + 4))
 
 
+def batch_plan(frames: int, k: int, reach: int, column: int | None = None,
+               lanes: int = 1, bands: int | None = None,
+               tile_cols: int | None = None,
+               row_shift: int | None = None,
+               packed: bool | None = None) -> dict:
+    """The batch form's grid for ``lanes`` lanes of ``frames`` frames of
+    ``k`` deposits into as many columns of ``column`` cells (``k`` by
+    default) at reach R: one CTA a lane's tile of ``cols`` columns in one of
+    ``bands`` row bands (``col_tiles`` tiles a lane), the rows in blocks of
+    2^``row_shift`` (4 rows where a frame holds fewer than 64 deposits a
+    row, else single rows: the 262144 cell's top rows hold hundreds), block
+    B = f >> row_shift in band B mod ``bands`` and owned by warp
+    (B div ``bands``) mod 16; ``rb`` local rows a column, ``cells`` =
+    cols·rb a CTA; the frames a tile reads (cols + 2R, fewer at the ends);
+    an entry array of ``cap`` entries (8 bytes each, a mask a 32) for one
+    piece of the CTA's own deposits, the rest of the shared memory after
+    the cells, ``packed`` (the kept deposits packed in deposit order, where
+    a CTA reads more than ``BATCH_PACKED_READS`` deposits for each it
+    keeps: most raw chunks hold few of its own) or each raw chunk's own
+    one chunk of entries, each cell one run.  ``fits``: within the kernel's
+    limits (``SMEM_BYTES`` among them).  By default the bands are the
+    largest power of two (≤ 16) that keeps lanes × frames × bands within
+    the card's SMs (``SMS``: more than one only where the frames are few),
+    and the tiles as many as the SMs hold, one CTA each.  ``bands``,
+    ``tile_cols``, ``row_shift`` and ``packed`` stand in for the choice,
+    for tests and timing."""
+    c_len = column or k
+    shift = (2 if k < 64 * c_len else 0) if row_shift is None else row_shift
+    if bands is None:
+        bands = 1
+        while bands < BATCH_BANDS and lanes * frames * bands * 2 <= SMS:
+            bands *= 2
+    log_b = bands.bit_length() - 1
+    rb = (((c_len - 1) >> (shift + log_b)) + 1) << shift
+    cols = tile_cols or -(-frames // max(1, min(frames,
+                                                SMS // (lanes * bands))))
+    cols = max(1, min(cols, frames, BATCH_CELLS // rb))
+    cells = cols * rb
+    tile = 4 * ((cells + cells // 32 + 16) & ~15)
+    cap = (SMEM_BYTES - 4 * 2 * TILE_WARPS - tile) * 32 // (8 * 32 + 4) \
+        // 32 * 32
+    smem = 8 * cap + 4 * (cap // 32) + 4 * 2 * TILE_WARPS + tile
+    tiles = -(-frames // cols)
+    walk = min(cols + 2 * reach, frames)
+    packed = walk * bands > BATCH_PACKED_READS * cols if packed is None \
+        else packed
+    return dict(bands=bands, cols=cols, col_tiles=tiles, row_shift=shift,
+                rb=rb, cells=cells, walk=walk, packed=packed,
+                cap=cap, smem=smem, ctas=lanes * tiles * bands,
+                fits=bands & (bands - 1) == 0 and bands <= BATCH_BANDS
+                and 0 <= shift <= BATCH_MAX_SHIFT and cells <= 0xffff
+                and cap >= BATCH_ROUND and smem <= SMEM_BYTES
+                and frames * c_len < 2**31 and frames * k < 2**31)
+
+
 def sorted_form(frames: int, k: int, reach: int,
                 column: int | None = None, lanes: int = 1) -> str:
-    """The sorted route's form for ``lanes`` lanes of ``frames`` frames of
-    ``k`` deposits into as many columns of ``column`` cells (``k`` by
-    default) at reach R, by shape: ``"tiles"`` where a tile's walk
-    (``tile_plan``'s frames walked × k deposits), weighed by the deposits
-    a frame puts in one cell (k div column, at least 1: a crowded cell is
-    a long chain of one warp's adds) and by the waves of tiles the card
-    runs in turn (the lanes' tiles over ``SMS``, at least 1), stays within
-    ``SORTED_TILES_WORK``, else ``"sorted"`` (the global sort).  On the
-    H100 the tiles form ran the raster, the mono batch at 8192 and the
-    display default faster than the global sort, and the sort the 16-lane
-    batch at 8192 and the 32768, 262144 and hop-64 grids (PERF.md §6)."""
-    plan = tile_plan(frames, k, reach, column=column)
-    crowd = max(1, k // (column or k))
-    waves = -(-lanes * plan["col_tiles"] * plan["row_tiles"] // SMS)
-    work = plan["walk"] * k * crowd * waves
-    return "tiles" if work <= SORTED_TILES_WORK else SORTED
+    """The sorted route's bounded form for ``lanes`` lanes of ``frames``
+    frames of ``k`` deposits into as many columns of ``column`` cells
+    (``k`` by default) at reach R, by shape: ``"tiles"`` where a frame holds
+    no more deposits than a column holds cells (k ≤ column: the display
+    default's 382 deposits into 512 rows, the raster's K into K: a tile's
+    warps meet about one deposit a cell a frame and no tile re-reads much),
+    else ``"batch"`` (crowded columns: 4097 to 131,073 deposits a frame into
+    512 rows), where ``batch_plan`` fits.  On the H100 the batch form ran
+    every crowded batch cell fastest of the three sorted forms (2–4.3×
+    below the global sort at 8192 and 32768, 1.46× at 262144, 1.12× at
+    hop 64), and the tiles form the display default (PERF.md §6)."""
+    c_len = column or k
+    if k <= c_len:
+        return "tiles"
+    return "batch" if batch_plan(frames, k, reach, c_len, lanes)["fits"] \
+        else "tiles"
 
 
 def ring_plan(k: int, slots: int, column: int, cluster: int | None = None,
@@ -246,7 +315,8 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
               passes: int = 2, *, route: str | None = None,
               out: torch.Tensor | None = None, reach: int | None = None,
               frame_len: int | None = None,
-              column_len: int | None = None) -> torch.Tensor:
+              column_len: int | None = None,
+              form: str | None = None) -> torch.Tensor:
     """ids (..., M) int32, vals (..., M) float32 → (..., num_bins) float32.
 
     An id outside [0, num_bins) contributes nothing, even when its value
@@ -263,8 +333,12 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     ``num_bins`` = T·``column_len`` cells (``column_len`` defaults to
     ``frame_len``), the ids' last axis T·``frame_len`` deposits, and frame
     s's ids lie in columns s − reach … s + reach (a deposit outside them
-    is not added)."""
+    is not added).  With the bound, ``form`` ("tiles" or "batch") forces
+    that form, for tests and timing; by default ``sorted_form`` picks it
+    by shape."""
     del passes
+    require(form is None or (form in FORMS and reach is not None),
+            "histogram", f"form {form!r}: one of {FORMS}, with reach")
     if reach is not None or frame_len is not None or column_len is not None:
         c_len = column_len or frame_len
         require(route == SORTED and reach is not None and reach >= 0
@@ -294,9 +368,12 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
     rows = math.prod(lead)
     m = ids.shape[-1] if ids.dim() else 1
     if route == SORTED and reach is not None:
-        return _sorted_tiles(ids, vals, num_bins, out, lead, rows,
-                             reach=reach, k=frame_len,
-                             c_len=column_len or frame_len)
+        c_len = column_len or frame_len
+        form = form or sorted_form(num_bins // c_len, frame_len, reach,
+                                   c_len, rows)
+        sum_ = _sorted_batch if form == "batch" else _sorted_tiles
+        return sum_(ids, vals, num_bins, out, lead, rows, reach=reach,
+                    k=frame_len, c_len=c_len)
     if route == SORTED:
         return _sorted(ids, vals, num_bins, out, lead, rows)
     route = route or ("global" if out is not None
@@ -327,7 +404,7 @@ def histogram(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
 
 
 histogram.route_launches = dict.fromkeys(
-    ROUTES + (SORTED, SORTED_TILES, SORTED_RING), 0)
+    ROUTES + (SORTED, SORTED_TILES, SORTED_BATCH, SORTED_RING), 0)
 
 
 def _sorted_out(ids, num_bins: int, out, lead: tuple, alloc):
@@ -361,11 +438,36 @@ def _sorted_tiles(ids, vals, num_bins: int, out, lead: tuple, rows: int, *,
     return out
 
 
+def _sorted_batch(ids, vals, num_bins: int, out, lead: tuple, rows: int,
+                  *, reach: int, k: int, c_len: int):
+    """The sorted route's batch form (module docstring): one launch at
+    ``batch_plan``'s grid, each cell written once."""
+    frames = num_bins // c_len
+    plan = batch_plan(frames, k, reach, c_len, rows)
+    require(plan["fits"], "histogram",
+            f"{rows} lanes of {frames} frames of {k} deposits into columns "
+            f"of {c_len} cells at reach {reach} exceed the batch form "
+            f"({plan})")
+    add = out is not None
+    out = _sorted_out(ids, num_bins, out, lead, torch.empty)
+    with torch.cuda.device(ids.device):
+        rc = kernels_build.library().emspec_histogram_batch(
+            ids.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, frames, k,
+            c_len, reach, plan["cols"], plan["bands"].bit_length() - 1,
+            plan["row_shift"], plan["cap"], int(plan["packed"]), int(add),
+            launch_stream(ids))
+    kernels_build.check(rc, "histogram")
+    histogram.launches += 1
+    histogram.route_launches[SORTED_BATCH] += 1
+    return out
+
+
 def _sorted(ids, vals, num_bins: int, out, lead: tuple, rows: int):
     """B2's sorted route without a window bound (see the module
     docstring): keys row·num_bins + id (−1 where dropped) sorted stably,
     the values gathered into that order, one launch that sums each
-    cell's run."""
+    cell's run.  On no default path: the pipeline always gives the bound
+    (``histogram(..., route="sorted")`` without ``reach`` asks for it)."""
     what = "histogram"
     out = _sorted_out(ids, num_bins, out, lead, torch.zeros)
     kt = torch.int32 if rows * num_bins < 2**31 else torch.int64

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "emspec_histogram_sorted": [_P, _I, _P, _P, _LL, _I, _P],
     "emspec_histogram_tiles": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
+    "emspec_histogram_batch": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
     "emspec_histogram_ring": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emspec_histogram_ring_occupancy": [_I, _I, _I, _I, _I, _P],
     "emspec_post_head": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],

@@ -43,9 +43,10 @@ B2 on the card.  By default (``exact_sums=True``: ``process``,
 ``_batch_vis``, ``_stream_step``, and so ``stream.Stream``, the app, the
 bench, the file renders and ``parallel``'s classes) every cell adds its
 deposits in (frame, bin) order, the CPU's order: the batch sums into the
-absolute grid through B2's sorted route (its tiles form, bounded by the
-reach, or its global sort, by shape: ``scatter.sorted_form``), the live
-step adds each hop into its ring through B2's ring form.  So two runs give the same bits, and the stream's columns are the
+absolute grid through B2's sorted route bounded by the reach (its batch
+form for crowded columns or its tiles form, by shape:
+``scatter.sorted_form``), the live step adds each hop into its ring
+through B2's ring form.  So two runs give the same bits, and the stream's columns are the
 batch's bit for bit, on the card as on the CPU (the JAX package's
 streaming ≡ batch).  ``exact_sums=False`` takes the atomic routes, whose
 float atomics add a cell's deposits in another order each run.
@@ -324,19 +325,18 @@ class Pipeline:
         """One sum (B2 on the card) of each lead row's deposits into its
         absolute (t, rows) grid; on the CPU each cell adds its deposits in
         (frame, bin) order, as the live step's ring does.  ``exact``: on
-        the card too, through B2's sorted route — in its tiles form (frame
-        s's deposits land in columns s − R … s + R) or its global sort,
-        by shape (``scatter.sorted_form``) — so the sums are the same on
-        every run."""
+        the card too, through B2's sorted route with its bound (frame s's
+        deposits land in columns s − R … s + R) — in its batch or tiles
+        form, by shape (``scatter.sorted_form``) — so the sums are the
+        same on every run."""
         lead = ids_abs.shape[:-2]
         k = ids_abs.shape[-1]
         bound = {}
         if exact:
-            bound = dict(route=SORTED)
-            if sorted_form(t_count, k, self.reach, self.rows,
-                           math.prod(lead)) != SORTED:
-                bound.update(reach=self.reach, frame_len=k,
-                             column_len=self.rows)
+            bound = dict(route=SORTED, reach=self.reach, frame_len=k,
+                         column_len=self.rows, form=sorted_form(
+                             t_count, k, self.reach, self.rows,
+                             math.prod(lead)))
         out = histogram(ids_abs.reshape(lead + (-1,)),
                         contrib.reshape(lead + (-1,)), t_count * self.rows,
                         passes=self.settings.scatter_passes, **bound)

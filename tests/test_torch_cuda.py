@@ -72,9 +72,9 @@ from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
 from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
-    ROUTES, SMEM_BINS, SORTED, SORTED_RING, SORTED_TILES, histogram,
-    histogram_plain, histogram_ring, histogram_ring_plain, ring_ids,
-    ring_occupancy, ring_plan)
+    ROUTES, SMEM_BINS, SORTED, SORTED_BATCH, SORTED_RING, SORTED_TILES,
+    batch_plan, histogram, histogram_plain, histogram_ring,
+    histogram_ring_plain, ring_ids, ring_occupancy, ring_plan)
 from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
@@ -1223,6 +1223,64 @@ def test_cuda_histogram_sorted_tiles_bit_equal_to_cpu_plain(
                       **bound)
     assert torch.equal(added.cpu(), histogram_plain(
         ids.cpu(), vals.cpu(), cells, out=base.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hop,channels,bands,shift", [
+    (8192, 2048, 1, None, None), (8192, 2048, 3, None, None),
+    (8192, 2048, 1, 4, 0), (32768, 800, 1, None, None),
+    (8192, 64, 1, None, None), (8192, 2048, 2, 16, 1)])
+def test_cuda_histogram_sorted_batch_bit_equal_to_cpu_plain(
+        cuda, n, hop, channels, bands, shift):
+    """The sorted route's batch form at the enhanced batch's own ids (the
+    absolute (t, rows) grid: 8192 mono and 3 lanes, the north star's
+    32768 at hop 800, hop 64's R = 64; the plan's bands and row blocks and
+    others forced): one launch of the batch form and none of the global
+    sort, bit-equal to the CPU plain sum, added into an output too, and
+    the same on a second run; ``process`` takes it by default."""
+    from emspec_torch.dsp.kernels import scatter
+
+    s = Settings(mode="enhanced", multires=False, fft_size=n, hop=hop,
+                 channels=channels)
+    pipe = Pipeline(s, cuda)
+    x = np.stack([_tone_noise(48000 * 3, 60 + c) for c in range(channels)])
+    xg = torch.from_numpy(x if channels > 1 else x[0]).to(cuda)
+    t = pipe.num_columns(xg.shape[-1])
+    p = pipe.params()
+    ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_inputs(xg, t), p)
+    ids = pipe._absolute_ids(ids_rel, t, pipe.reach)
+    lead, k = ids.shape[:-2], ids.shape[-1]
+    fi = ids.reshape(lead + (-1,)).contiguous()
+    fc = contrib.reshape(lead + (-1,)).contiguous()
+    cells = t * pipe.rows
+    bound = dict(route=SORTED, reach=pipe.reach, frame_len=k,
+                 column_len=pipe.rows, form="batch")
+    real = scatter.batch_plan
+    if bands is not None:
+        scatter.batch_plan = lambda *a, **kw: real(*a, bands=bands,
+                                                   row_shift=shift)
+    try:
+        before = (histogram.route_launches[SORTED_BATCH],
+                  histogram.route_launches[SORTED])
+        got = histogram(fi, fc, cells, **bound)
+        assert (histogram.route_launches[SORTED_BATCH],
+                histogram.route_launches[SORTED]) == (before[0] + 1,
+                                                      before[1])
+        want = histogram_plain(fi.cpu(), fc.cpu(), cells)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(histogram(fi, fc, cells, **bound), got)
+        base = torch.rand(lead + (cells,), device=cuda)
+        added = histogram(fi, fc, cells, out=base.clone(), **bound)
+        assert torch.equal(added.cpu(), histogram_plain(
+            fi.cpu(), fc.cpu(), cells, out=base.cpu()))
+    finally:
+        scatter.batch_plan = real
+    assert batch_plan(t, k, pipe.reach, pipe.rows, max(1, channels))["fits"]
+    before = dict(histogram.route_launches)
+    grid = pipe._enhanced_power(xg, t, p)
+    rises = {r: histogram.route_launches[r] - before[r] for r in before}
+    assert rises == {r: int(r == SORTED_BATCH) for r in rises}
+    assert torch.equal(grid.reshape(want.shape).cpu(), want)
 
 
 @pytest.mark.cuda

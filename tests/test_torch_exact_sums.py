@@ -34,8 +34,8 @@ from emspec_torch.__main__ import main as cli_main
 from emspec_torch.bench.harness import _throughput
 from emspec_torch.config import Settings
 from emspec_torch.dsp.kernels.scatter import (
-    PIECE_CHUNKS, SMEM_BINS, SMS, SORTED, SORTED_TILES_WORK, TILE_CELLS,
-    histogram, histogram_plain, sorted_form, tile_plan)
+    PIECE_CHUNKS, SMEM_BINS, SORTED, TILE_CELLS, batch_plan, histogram,
+    histogram_plain, sorted_form, tile_plan)
 from emspec_torch.io.wav import write_wav
 from emspec_torch.stream import stream_signal
 from emspec_torch.validate import compare_vis
@@ -123,36 +123,33 @@ def test_stream_batch_vis_and_bench_keep_their_routes(monkeypatch):
 # chip_smoke.py's batch cells: (frames, deposits a frame, reach, rows,
 # lanes) → the sorted route's form their shape takes on the card
 BATCH_FORMS = {
-    "batch": ((372, 4097, 2, 512, 1), "tiles"),
-    "batch16": ((372, 4097, 2, 512, 16), SORTED),
+    "batch": ((372, 4097, 2, 512, 1), "batch"),
+    "batch16": ((372, 4097, 2, 512, 16), "batch"),
     "multires": ((5937, 382, 32, 512, 1), "tiles"),
     "time_parallel chunk": ((6001, 382, 32, 512, 1), "tiles"),
     "raster": ((372, 4097, 2, 4097, 1), "tiles"),
-    "stress": ((43, 16385, 2, 512, 16), SORTED),
-    "north": ((920, 16385, 20, 512, 1), SORTED),
-    "ext262144": ((8, 131073, 2, 512, 1), SORTED),
-    "wide": ((1373, 4097, 64, 512, 1), SORTED),
+    "stress": ((43, 16385, 2, 512, 16), "batch"),
+    "north": ((920, 16385, 20, 512, 1), "batch"),
+    "ext262144": ((8, 131073, 2, 512, 1), "batch"),
+    "wide": ((1373, 4097, 64, 512, 1), "batch"),
 }
 
 
 @pytest.mark.parametrize("cell", sorted(BATCH_FORMS))
 def test_sorted_form_by_shape_at_the_batch_cells(cell):
-    """``sorted_form``: the tiles where a tile's walk × deposits a frame ×
-    (deposits a frame per cell) × the waves of the lanes' tiles over the
-    card's SMs stays within ``SORTED_TILES_WORK``, else the global sort —
-    by shape only."""
+    """``sorted_form``: the tiles where a frame holds no more deposits than
+    a column holds cells, else the batch form, whose plan fits there — by
+    shape only; never the global sort."""
     (T, K, R, C, lanes), form = BATCH_FORMS[cell]
     assert sorted_form(T, K, R, C, lanes) == form
-    plan = tile_plan(T, K, R, column=C)
-    waves = -(-lanes * plan["col_tiles"] * plan["row_tiles"] // SMS)
-    work = plan["walk"] * K * max(1, K // C) * waves
-    assert (work <= SORTED_TILES_WORK) == (form == "tiles")
+    assert (K <= C) == (form == "tiles")
+    assert batch_plan(T, K, R, C, lanes)["fits"]
 
 
 def test_the_batch_weighs_its_lanes_in_the_sorted_form(monkeypatch):
-    """``process`` gives ``sorted_form`` its lanes (the channels), so a
-    16-channel batch at 8192 takes the global sort where the mono one
-    takes the tiles."""
+    """``process`` gives ``sorted_form`` its lanes (the channels); a mono
+    and a 16-channel batch at 8192 both take the batch form, whose plan
+    weighs the lanes (tiles of 3 columns for one lane, of 47 for 16)."""
     seen = []
 
     def spy(*args):
@@ -164,21 +161,30 @@ def test_the_batch_weighs_its_lanes_in_the_sorted_form(monkeypatch):
         pl.get_pipeline(s.replace(channels=channels), "cpu").process(
             _audio(0.2, channels))
     assert [a[-1] for a in seen] == [1, 3]
-    assert sorted_form(372, 4097, 2, 512) == "tiles"
-    assert sorted_form(372, 4097, 2, 512, 16) == SORTED
+    assert sorted_form(372, 4097, 2, 512) == "batch"
+    assert sorted_form(372, 4097, 2, 512, 16) == "batch"
+    assert (batch_plan(372, 4097, 2, 512)["cols"],
+            batch_plan(372, 4097, 2, 512, 16)["cols"]) == (3, 47)
 
 
 def test_a_sort_shaped_batch_asks_for_the_global_sort(monkeypatch):
-    """Where the shape takes the global sort (the north star's 32768 at
-    hop 800), ``process`` asks for the sorted route with no bound, and its
-    vis is the atomic path's on the CPU bit for bit."""
+    """Where the shape took the global sort until the batch form (the
+    north star's 32768 at hop 800), ``process`` asks for the sorted route
+    with its bound in the batch form, and its vis is the atomic path's on
+    the CPU bit for bit."""
     calls = _spy(monkeypatch)
+    forms = []
+    spied = pl.histogram
+
+    def form_spy(*args, **kw):
+        forms.append(kw.get("form"))
+        return spied(*args, **kw)
+    monkeypatch.setattr(pl, "histogram", form_spy)
     s = Settings(mode="enhanced", multires=False, fft_size=32768, hop=800)
     pipe = pl.get_pipeline(s, "cpu")
     x = _audio(0.9)
     vis = pipe.process(x)[0]
-    assert calls == [dict(route=SORTED, reach=None, frame_len=None,
-                          column_len=None)]
+    assert calls == [_bounded(20, 16385)] and forms == ["batch"]
     assert torch.equal(pipe.process(x, exact_sums=False)[0], vis)
 
 
