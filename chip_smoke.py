@@ -10,7 +10,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
 2. native: the host ingest runtime (``emspec_torch.native``, C++ built at
    first use with g++): its build and wall; the C++ ring against the numpy
    ring on random push sequences at 1 and 16 channels, bit for bit, and
-   each ring's host µs a push and a read; ``frame_extract`` against
+   each ring's host µs a push and a read; the ring's seqlock under a
+   lapping producer (``tests/torch_ring_race.cpp``, two threads in C++,
+   1 and 16 channels, planar and interleaved pushes: no torn window
+   returned as valid); ``frame_extract`` against
    ``frame_signal_np``; the native WAV decoder against ``_read_wav_py``
    on 5 minutes of 48 kHz stereo as PCM16, PCM24 and float32, bit for
    bit, both walls.  Every live phase after it reads its hops through
@@ -698,6 +701,39 @@ def wav_bytes(x: np.ndarray, fmt: str) -> bytes:
     return b"RIFF" + struct.pack("<I", len(rest)) + rest
 
 
+RACE = dict(capacity=1024, chunk=257, window=256, laps=2000)
+
+
+def ring_race(tmp: str) -> dict:
+    """The native ring's seqlock under a lapping producer: the race program
+    ``tests/torch_ring_race.cpp`` built with the library's compiler and
+    flags against its source, run at 1 and 16 channels with planar and
+    interleaved pushes (``RACE``) → its counts by case.  Fails on a torn
+    window returned as valid, or on a read that no push overlapped
+    coming back other than valid."""
+    exe = Path(tmp) / "torch_ring_race"
+    r = subprocess.run([native._cxx(), *native.CXXFLAGS, "-pthread", "-o",
+                        str(exe), str(ROOT / "tests" / "torch_ring_race.cpp"),
+                        str(native.SOURCE)], capture_output=True, text=True,
+                       timeout=300)
+    check(r.returncode == 0, f"native: the race program did not build: "
+          f"{r.stderr}")
+    got = {}
+    for ch in (1, 16):
+        for push in ("planar", "interleaved"):
+            r = subprocess.run([str(exe), str(ch), *map(str, RACE.values()),
+                                push], capture_output=True, text=True,
+                               timeout=120)
+            check(r.returncode == 0, f"native: the race program failed at "
+                  f"{ch} channels, {push}: {r.stderr}")
+            c = json.loads(r.stdout)
+            check(c["torn"] == 0 and c["quiet_valid"] == c["quiet"]
+                  == RACE["laps"], f"native: ring race at {ch} channels, "
+                  f"{push}: {c}")
+            got[f"{ch}ch {push}"] = c
+    return got
+
+
 def native_phase() -> None:
     """The native ingest runtime (``emspec_torch.native``): its build at
     first use and its wall; the C++ ring against the numpy ring on random
@@ -705,7 +741,8 @@ def native_phase() -> None:
     and a ``window_at`` at the live phases' sizes; ``frame_extract``
     against ``frame_signal_np`` at the live shapes; the native WAV
     decoder against ``_read_wav_py`` on 5 minutes of 48 kHz stereo as
-    PCM16, PCM24 and float32, bit for bit, with both walls."""
+    PCM16, PCM24 and float32, bit for bit, with both walls; the ring's
+    seqlock under a lapping producer (:func:`ring_race`)."""
     had = native.BUILD_DIR.exists() and any(
         native.BUILD_DIR.glob("libemspec_native_*.so"))
     t0 = time.perf_counter()
@@ -754,6 +791,14 @@ def native_phase() -> None:
                   == audio.shape and np.array_equal(got, want),
                   f"native: read_wav {fmt} ≠ _read_wav_py")
             walls[fmt] = (path.stat().st_size / 1e6, nat_s, py_s)
+        race = ring_race(tmp)
+    print(f"native race on {os.uname().machine}: {RACE['laps']} laps of a "
+          f"{RACE['capacity']}-sample ring in pushes of {RACE['chunk']}, "
+          f"windows of {RACE['window']} at the horizon (valid / torn / "
+          f"overrun / quiet reads valid, wall s): " + ", ".join(
+              f"{k} {c['valid']} / {c['torn']} / {c['overrun']} / "
+              f"{c['quiet_valid']} of {c['quiet']}, {c['seconds']:.4f}"
+              for k, c in race.items()), flush=True)
     print(f"native: {native.library_path().name} "
           f"{'found' if had else 'built'} in {build_s:.2f} s ({native._cxx()}"
           f" {' '.join(native.CXXFLAGS)}); ring ≡ numpy ring on 300 random "

@@ -1,5 +1,7 @@
 """ctypes bindings for the native ingest runtime (``src/emspec_native.cpp``,
-the JAX package's ``emspec/native/src/emspec_native.cpp``, copied).
+the JAX package's ``emspec/native/src/emspec_native.cpp``, copied, with
+the ring's seqlock repaired so that a read a push overlapped is reported
+as an overrun).
 
 The library is compiled at first use, never at import, with the JAX
 package's Makefile flags — ``$CXX`` (default ``g++``) ``-O3 -std=c++17

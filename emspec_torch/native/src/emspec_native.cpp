@@ -24,18 +24,28 @@ extern "C" {
 // SPSC lock-free ring buffer
 //
 // Layout: channel-major planar storage (channels × capacity), matching the
-// framework's (channels, samples) convention.  The producer advances
-// `total_written` with release semantics after the samples are in place;
-// the consumer reads with acquire semantics and validates that its span
-// hasn't been overwritten *after* copying (seqlock-style), so a torn read
-// is detected rather than silently returned.
+// framework's (channels, samples) convention.  Two counters make a seqlock:
+//
+//   push:   write_end = total + k;  release fence;  copy;
+//           total_written = total + k (release)
+//   window: total_written (acquire) must hold the span;  copy;
+//           acquire fence;  the span must lie after write_end - capacity
+//
+// A push announces the span it is about to overwrite before it touches
+// the buffer.  If a reader's copy saw any sample of that push, the
+// release fence (before the push's copy) and the acquire fence (after the
+// reader's copy) pair, so the reader also sees that push's write_end and
+// reports the overrun: a torn read is detected rather than silently
+// returned.  Without concurrency write_end equals total_written between
+// calls, so the results are those of a plain ring.
 // ---------------------------------------------------------------------------
 
 struct EmspecRing {
     float*   buf;          // channels * capacity, planar
     int64_t  capacity;
     int64_t  channels;
-    std::atomic<int64_t> total_written;
+    std::atomic<int64_t> total_written;  // end of the newest finished push
+    std::atomic<int64_t> write_end;      // end of the newest begun push
 };
 
 EmspecRing* emspec_ring_create(int64_t capacity, int64_t channels) {
@@ -48,6 +58,7 @@ EmspecRing* emspec_ring_create(int64_t capacity, int64_t channels) {
     r->capacity = capacity;
     r->channels = channels;
     r->total_written.store(0, std::memory_order_relaxed);
+    r->write_end.store(0, std::memory_order_relaxed);
     return r;
 }
 
@@ -77,6 +88,8 @@ void emspec_ring_push(EmspecRing* r, const float* planar, int64_t k) {
     if (count >= cap) {               // keep newest window only
         src  += (count - cap);        // per-channel offset applied below
         const int64_t skip = count - cap;
+        r->write_end.store(total + k, std::memory_order_relaxed);
+        std::atomic_thread_fence(std::memory_order_release);
         for (int64_t c = 0; c < ch; ++c) {
             const float* s = planar + c * k + skip;
             const int64_t start = (total + skip) % cap;
@@ -89,6 +102,8 @@ void emspec_ring_push(EmspecRing* r, const float* planar, int64_t k) {
     }
     const int64_t start = total % cap;
     const int64_t first = (start + count <= cap) ? count : cap - start;
+    r->write_end.store(total + count, std::memory_order_relaxed);
+    std::atomic_thread_fence(std::memory_order_release);
     for (int64_t c = 0; c < ch; ++c) {
         const float* s = planar + c * k;
         memcpy(r->buf + c * cap + start, s, first * sizeof(float));
@@ -108,6 +123,8 @@ void emspec_ring_push_interleaved(EmspecRing* r, const float* inter, int64_t k) 
     int64_t total = r->total_written.load(std::memory_order_relaxed);
     int64_t skip = 0;
     if (k > cap) { skip = k - cap; total += skip; k = cap; }
+    r->write_end.store(total + k, std::memory_order_relaxed);
+    std::atomic_thread_fence(std::memory_order_release);
     for (int64_t i = 0; i < k; ++i) {
         const int64_t pos = (total + i) % cap;
         const float* frame = inter + (skip + i) * ch;
@@ -119,8 +136,10 @@ void emspec_ring_push_interleaved(EmspecRing* r, const float* inter, int64_t k) 
 
 // Consumer: copy absolute span [start_abs, start_abs+n) into out
 // (channels × n planar).  Returns 0 ok, -1 span in the future, -2 span
-// overwritten (overrun), -3 bad args.  Seqlock validation: re-checks
-// total_written after the copy so a concurrent wrap is detected.
+// overwritten (overrun), -3 bad args.  Seqlock validation: after the copy
+// and an acquire fence, the span must still lie after write_end -
+// capacity, so a push that overlapped the copy, finished or not, is
+// reported as an overrun.
 int32_t emspec_ring_window(EmspecRing* r, int64_t start_abs, int64_t n,
                            float* out) {
     if (n <= 0 || start_abs < 0) return -3;
@@ -137,9 +156,10 @@ int32_t emspec_ring_window(EmspecRing* r, int64_t start_abs, int64_t n,
             memcpy(out + c * n + first, r->buf + c * cap,
                    (n - first) * sizeof(float));
     }
-    // seqlock re-validation: did the producer lap us while copying?
-    int64_t total2 = r->total_written.load(std::memory_order_acquire);
-    if (start_abs < total2 - cap) return -2;
+    // seqlock re-validation: has a push begun over the span since?
+    std::atomic_thread_fence(std::memory_order_acquire);
+    const int64_t end = r->write_end.load(std::memory_order_relaxed);
+    if (start_abs < end - cap) return -2;
     return 0;
 }
 

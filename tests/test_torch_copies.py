@@ -5,10 +5,11 @@ JAX package (``emspec_torch.config`` with ``PresetStore``,
 ``utils.notes``, ``render.png``, ``render.apng``, ``io.wav``,
 ``io.synth``, ``io.resample``, ``io.capture``, ``utils.update``,
 ``integrations.live_state``, ``shell.page``, the bench's ``_signal``,
-and byte for byte the native runtime's C++ source and the Max for Live
-device): each is held here to its original, and the port — its native
-runtime and its examples included — is held to importing nothing of the
-JAX package — not JAX, not ``emspec`` nor any ``emspec.*`` module."""
+the native runtime's C++ source outside its ring, and byte for byte the
+Max for Live device): each is held here to its original, and the port —
+its native runtime and its examples included — is held to importing
+nothing of the JAX package — not JAX, not ``emspec`` nor any
+``emspec.*`` module."""
 
 import ast
 import dataclasses
@@ -207,10 +208,9 @@ def test_verbatim_copy_source(copy, orig, differs):
     assert kept(got) == kept(want)
 
 
-# files copied byte for byte: the native runtime's source (the port builds
-# its own copy) and the Max for Live device that reads ``live_state.json``
-BYTE_COPIES = ["native/src/emspec_native.cpp",
-               "integrations/m4l/EM-Spec.maxpat",
+# files copied byte for byte: the Max for Live device that reads
+# ``live_state.json``
+BYTE_COPIES = ["integrations/m4l/EM-Spec.maxpat",
                "integrations/m4l/emspec_state.js",
                "integrations/m4l/README.md"]
 
@@ -219,6 +219,85 @@ BYTE_COPIES = ["native/src/emspec_native.cpp",
 def test_byte_for_byte_copy(rel):
     assert (ROOT / "emspec_torch" / rel).read_bytes() == \
         (ROOT / "emspec" / rel).read_bytes()
+
+
+# the native runtime's source (the port builds its own copy): the port's
+# ring has its seqlock repaired, every other top-level definition is the
+# original's byte for byte
+NATIVE = "native/src/emspec_native.cpp"
+NATIVE_RING = ("EmspecRing", "emspec_ring_create", "emspec_ring_push",
+               "emspec_ring_push_interleaved", "emspec_ring_window")
+
+
+def cpp_definitions(text: str) -> list[tuple[str, str]]:
+    """A C++ file split into top-level pieces, (name, text), in order.
+
+    A piece starts at a line at column 0 that is not a comment, a blank
+    or a preprocessor line, and ends where its braces balance again (or
+    at its ``;`` without braces); the comments, blanks and preprocessor
+    lines before it belong to it.  ``extern "C" {`` and its closing line
+    are pieces of their own (``extern_C_open``, ``extern_C_close``); what
+    trails the last piece is ``tail``.  The others are named by ``struct
+    NAME`` or by the identifier before the first ``(``.
+    """
+    lines = text.splitlines(keepends=True)
+    pieces, lead, i = [], [], 0
+    while i < len(lines):
+        line = lines[i]
+        if (not line.strip() or line[0].isspace() or line.startswith("//")
+                or line.startswith("#")):
+            lead.append(line)
+            i += 1
+            continue
+        if line.startswith('extern "C"') or line.startswith("}  // extern"):
+            pieces.append(("extern_C_open" if line[0] == "e"
+                           else "extern_C_close", "".join(lead) + line))
+            lead, i = [], i + 1
+            continue
+        depth, opened, j = 0, False, i
+        while True:
+            code = lines[j].split("//")[0]
+            depth += code.count("{") - code.count("}")
+            opened = opened or "{" in code
+            j += 1
+            if (opened and depth == 0) or (not opened and ";" in code):
+                break
+        head = "".join(lines[i:j])
+        m = (re.match(r"struct\s+(\w+)", head)
+             or re.search(r"(\w+)\s*\(", head))
+        pieces.append((m.group(1), "".join(lead) + head))
+        lead, i = [], j
+    pieces.append(("tail", "".join(lead)))
+    return pieces
+
+
+def _native_pieces(pkg: str) -> dict:
+    return dict(cpp_definitions((ROOT / pkg / NATIVE).read_text()))
+
+
+def test_native_source_has_the_original_definitions():
+    """The same top-level definitions in the same order, the ring's five
+    among them, and the split loses no byte of either file."""
+    for pkg in ("emspec", "emspec_torch"):
+        text = (ROOT / pkg / NATIVE).read_text()
+        pieces = cpp_definitions(text)
+        assert "".join(t for _, t in pieces) == text
+        assert len({n for n, _ in pieces}) == len(pieces), pkg
+        assert set(NATIVE_RING) <= {n for n, _ in pieces}, pkg
+    assert [n for n, _ in cpp_definitions(
+        (ROOT / "emspec_torch" / NATIVE).read_text())] == \
+        [n for n, _ in cpp_definitions((ROOT / "emspec" / NATIVE).read_text())]
+
+
+@pytest.mark.parametrize(
+    "name", [n for n, _ in cpp_definitions((ROOT / "emspec" / NATIVE)
+                                           .read_text())
+             if n not in NATIVE_RING])
+def test_native_source_definition_copied(name):
+    """Each top-level definition outside the ring, its leading comment
+    included, byte for byte as in the JAX package's source."""
+    assert _native_pieces("emspec_torch")[name] == \
+        _native_pieces("emspec")[name]
 
 
 # top-level definitions copied into a port module that is otherwise its

@@ -4,8 +4,8 @@ the CPU: the JAX package's ``tests/test_native.py`` on the port's
 library, parity with the JAX package's numpy ring, ``_read_wav_py`` and
 ``frame_signal_np`` (and with its own native library where that loads),
 the WAV half of ``tests/test_decoder_fuzz.py``, the ``Stream`` on either
-ring bit for bit, checkpoints across the two rings, and the build under
-concurrent processes.
+ring bit for bit, checkpoints across the two rings and under a running
+producer, and the build under concurrent processes.
 
 Tolerances: none — every comparison is bit for bit.  The tests skip only
 where no C++ compiler is found, and run on the card machine too, which
@@ -554,6 +554,63 @@ def test_checkpoint_crosses_between_the_rings(save_native, tmp_path):
     assert [c.index for c in cols] == [c.index for c in ref]
     for p, q in zip(cols, ref):
         np.testing.assert_array_equal(p.vis.numpy(), q.vis.numpy())
+
+
+def test_checkpoint_under_a_running_producer(tmp_path):
+    """``save_stream`` while a thread pushes into the stream's native ring
+    as the web shell's feed thread does, the stream draining between saves
+    as the app's tick does (4 ms of hops).  A save reads the newest
+    ``capacity`` samples, a span that starts at the overwrite horizon:
+    each call either raises the overrun or stores ``ring_data`` that is one
+    unbroken run of the pushed indices, none older than its
+    ``ring_total`` allows — never a torn window.  Once the producer has
+    stopped, a save stores exactly the last ``capacity`` indices."""
+    s = Settings(mode="enhanced", multires=False, fft_size=1024,
+                 raster_height=128, hop=256)
+    st = Stream(s, "cpu")
+    assert type(st.ring) is native.NativeRingBuffer
+    cap = st.ring.capacity
+    top = 1 << 24                          # indices below it: exact float32
+    st.push(np.arange(2 * cap, dtype=np.float32))   # built and primed
+    stop, end = threading.Event(), [2 * cap]
+
+    def produce():
+        pos = end[0]
+        while not stop.is_set() and pos + 257 <= top:
+            st.ring.push(np.arange(pos, pos + 257, dtype=np.float32))
+            pos += 257
+            time.sleep(1e-5)              # audio-callback-like: many pushes
+        end[0] = pos
+
+    def saved() -> tuple[np.ndarray, int]:
+        with np.load(tmp_path / "s.npz") as z:
+            return z["ring_data"], int(z["ring_total"])
+
+    t = threading.Thread(target=produce)
+    t.start()
+    for _ in range(200):
+        if not t.is_alive():
+            break
+        st._drain(time.perf_counter() + 0.004)
+        try:
+            save_stream(tmp_path / "s.npz", st)
+        except ValueError as e:
+            assert "overrun" in str(e)
+            continue
+        data, ring_total = saved()
+        assert data.shape == (1, cap)
+        first = data[0, 0]
+        assert first >= ring_total - cap
+        np.testing.assert_array_equal(
+            data[0], np.arange(first, first + cap, dtype=np.float32))
+    stop.set()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    save_stream(tmp_path / "s.npz", st)
+    data, ring_total = saved()
+    assert ring_total == end[0] > 2 * cap
+    np.testing.assert_array_equal(
+        data[0], np.arange(end[0] - cap, end[0], dtype=np.float32))
 
 
 def test_make_ring_contract():
