@@ -13,7 +13,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
    each ring's host µs a push and a read; the ring's seqlock under a
    lapping producer (``tests/torch_ring_race.cpp``, two threads in C++,
    1 and 16 channels, planar and interleaved pushes: no torn window
-   returned as valid); ``frame_extract`` against
+   returned as valid); the numpy ring's seqlock under a lapping producer
+   thread (``race`` of ``tests/test_torch_ring_race_numpy.py``, 1 and 16
+   channels, pushes below and past the capacity: no torn window, every
+   read no push overlapped valid); ``frame_extract`` against
    ``frame_signal_np``; the native WAV decoder against ``_read_wav_py``
    on 5 minutes of 48 kHz stereo as PCM16, PCM24 and float32, bit for
    bit, both walls.  Every live phase after it reads its hops through
@@ -250,7 +253,13 @@ them.  Phases, in order, one line each; the first failure ends the run:
 27. checkpoint: a graphed ``Stream`` (the live phase's settings and
    signal) saved at hop 187 (``utils.checkpoint.save_stream``), loaded
    into a fresh graphed ``Stream``, which must not re-capture; its
-   continuation within 1e-5 of the uninterrupted stream's.
+   continuation within 1e-5 of the uninterrupted stream's.  Then the
+   display default's graphed ``Stream`` fed by a producer thread at
+   real-time pace in the web shell's feed blocks, saved every 0.5 s
+   while it drains: no save may raise or store other samples than
+   ``[ring_total − kept, ring_total)``, no frame may drop, its columns
+   and those of a fresh graphed ``Stream`` loaded from the last file
+   bit-equal (vis and rgba) to the default batch at every hop.
 28. trace: ``utils.tracing.trace`` around one batch call; the trace it
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
@@ -311,12 +320,14 @@ shapes reorder sums only), enhanced live ≡ batch bit for bit.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from statistics import fmean, median
 from pathlib import Path
@@ -509,6 +520,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "time_parallel": MULTIRES_B1 + TILES + ("lut_values", "ema_scan"),
     "time_parallel_2d": CLUSTER_B1 + BATCH + ("lut_values", "ema_scan"),
     "checkpoint": ("deposits_ids",) + RING + ("lut_values",),
+    # the display default saved under a running producer, then resumed
+    "checkpoint_live": MULTIRES_B1 + RING + ("lut_values",),
 }
 # the enhanced live phases: each default stream held bit for bit to a
 # second run and to the default batch, its hop in turns with the atomic
@@ -734,6 +747,31 @@ def ring_race(tmp: str) -> dict:
     return got
 
 
+def numpy_ring_race() -> dict:
+    """The numpy ring's seqlock under a lapping producer thread: the
+    ``race`` of ``tests/test_torch_ring_race_numpy.py`` at its
+    mono cases' shapes, below and past the capacity, at 1 and 16
+    channels → its counts by case.  Fails on a torn window returned as
+    valid, or on a read that no push overlapped coming back other than
+    valid."""
+    spec = importlib.util.spec_from_file_location(
+        "numpy_ring_race", ROOT / "tests" / "test_torch_ring_race_numpy.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = {}
+    for ch in (1, 16):
+        for case in ("below", "past_capacity"):
+            _, cap, chunks, window, offset = mod.CASES[f"1ch_{case}"]
+            c = mod.race(RingBuffer(cap, ch), chunks, window, offset,
+                         laps=4000, seconds=1.5)
+            check(c["torn"] == 0 and c["quiet"] == c["waits"]
+                  == c["quiet_valid"] >= 1, f"native: numpy ring race at "
+                  f"{ch} channels, {case}: {c}")
+            got[f"{ch}ch {case} (ring {cap}, pushes {chunks}, window "
+                f"{window} at +{offset})"] = c
+    return got
+
+
 def native_phase() -> None:
     """The native ingest runtime (``emspec_torch.native``): its build at
     first use and its wall; the C++ ring against the numpy ring on random
@@ -742,7 +780,8 @@ def native_phase() -> None:
     against ``frame_signal_np`` at the live shapes; the native WAV
     decoder against ``_read_wav_py`` on 5 minutes of 48 kHz stereo as
     PCM16, PCM24 and float32, bit for bit, with both walls; the ring's
-    seqlock under a lapping producer (:func:`ring_race`)."""
+    seqlock under a lapping producer (:func:`ring_race`), and the numpy
+    ring's (:func:`numpy_ring_race`)."""
     had = native.BUILD_DIR.exists() and any(
         native.BUILD_DIR.glob("libemspec_native_*.so"))
     t0 = time.perf_counter()
@@ -792,6 +831,13 @@ def native_phase() -> None:
                   f"native: read_wav {fmt} ≠ _read_wav_py")
             walls[fmt] = (path.stat().st_size / 1e6, nat_s, py_s)
         race = ring_race(tmp)
+    np_race = numpy_ring_race()
+    print(f"numpy ring race on {os.uname().machine} (valid / torn / overrun"
+          f" / quiet reads valid of the producer's waits, wall s): "
+          + ", ".join(f"{k} {c['valid']} / {c['torn']} / {c['overrun']} / "
+                      f"{c['quiet_valid']} of {c['waits']}, "
+                      f"{c['seconds']:.4f}" for k, c in np_race.items()),
+          flush=True)
     print(f"native race on {os.uname().machine}: {RACE['laps']} laps of a "
           f"{RACE['capacity']}-sample ring in pushes of {RACE['chunk']}, "
           f"windows of {RACE['window']} at the horizon (valid / torn / "
@@ -3881,6 +3927,116 @@ def checkpoint_phase(dev, x: np.ndarray) -> None:
           f"clock); launches {LAUNCHES['checkpoint']}", flush=True)
 
 
+CKPT_LIVE_SECONDS = 6.0     # of the signal: the producer laps the 4 s ring
+CKPT_SAVE_EVERY = 0.5       # s between saves while the stream drains
+
+
+def checkpoint_live(dev, x: np.ndarray) -> None:
+    """The display default's graphed ``Stream`` (the default 4 s native
+    ring) fed ``CKPT_LIVE_SECONDS`` of ``x`` by a producer thread at
+    real-time pace in the web shell's feed blocks (``shell/feed.py``:
+    rate // 50 samples), this thread draining 4 ms of hops at a time as
+    the app's tick does and saving every ``CKPT_SAVE_EVERY`` s until the
+    last second of audio is due: no save may raise, no frame drop, and
+    each file's ``ring_data`` must be exactly ``x[ring_total − kept :
+    ring_total]``.  A fresh graphed ``Stream`` loaded from the last file
+    is fed the rest; the columns of both are the default batch's, bit for bit in
+    ``vis`` and ``rgba``, at every hop."""
+    from emspec_torch.utils.checkpoint import load_stream, save_stream
+
+    n = int(CKPT_LIVE_SECONDS * SR)
+    xs = x[:n]
+    block = SR // 50
+
+    def run():
+        st = Stream(MULTIRES, dev)
+        check_native_ring("checkpoint_live", st)
+        done = threading.Event()
+
+        def produce():
+            t0 = time.perf_counter()
+            for i in range(0, n, block):
+                st.ring.push(xs[i:i + block])
+                delay = t0 + (i + block) / SR - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+            done.set()
+
+        cols, files, save_ms = [], [], []
+        producer = threading.Thread(target=produce)
+        with tempfile.TemporaryDirectory() as tmp:
+            producer.start()
+            try:
+                due = time.perf_counter() + CKPT_SAVE_EVERY
+                while not done.is_set():
+                    cols += st._drain(time.perf_counter() + 0.004)
+                    if (time.perf_counter() >= due
+                            and st.ring.total_written <= n - SR):
+                        path = Path(tmp) / f"s{len(files)}.npz"
+                        t0 = time.perf_counter()
+                        try:
+                            save_stream(path, st)
+                        except ValueError as e:
+                            fail(f"checkpoint_live: save {len(files)} under "
+                                 f"the producer raised: {e}")
+                        save_ms.append((time.perf_counter() - t0) * 1e3)
+                        with np.load(path) as z:
+                            files.append({k: z[k] for k in z.files})
+                        due += CKPT_SAVE_EVERY
+                    time.sleep(0.001)
+            finally:
+                producer.join()
+        cols += st._drain() + st.flush()
+        z = files[-1]
+        b = Stream(MULTIRES, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            np.savez(Path(tmp) / "last.npz", **z)
+            load_stream(Path(tmp) / "last.npz", b)
+        total = int(z["ring_total"])
+        resumed = [c for i in range(total, n, block)
+                   for c in b.push(xs[i:min(i + block, n)])]
+        resumed += b._drain() + b.flush()
+        return st, b, cols, resumed, files, save_ms
+
+    st, b, cols, resumed, files, save_ms = drive("checkpoint_live", run)
+    cap = st.ring.capacity
+    check(st.dropped_frames == 0 and len(files) >= 4 and b.captures == 1,
+          f"checkpoint_live: {st.dropped_frames} frames dropped, "
+          f"{len(files)} saves, {b.captures} captures")
+    short = 0
+    for i, z in enumerate(files):
+        total, kept = int(z["ring_total"]), z["ring_data"].shape[-1]
+        short += kept < min(total, cap)
+        check(0 < kept <= cap and np.array_equal(
+            z["ring_data"][0], xs[total - kept:total]),
+              f"checkpoint_live: save {i} stored other samples than "
+              f"[{total} − {kept}, {total})")
+    vis_b, rgba_b, _ = Pipeline(MULTIRES, dev).process(xs)
+    t0 = int(files[-1]["t"]) - b.reach
+    for label, got, first in (("the stream under the producer", cols, 0),
+                              ("the resumed stream", resumed, t0)):
+        check([c.index for c in got] == list(range(first, vis_b.shape[0])),
+              f"checkpoint_live: {label}'s columns are not "
+              f"[{first}, {vis_b.shape[0]})")
+        idx = torch.tensor([c.index for c in got], device=dev)
+        check(torch.equal(torch.stack([c.vis for c in got]), vis_b[idx])
+              and torch.equal(torch.stack([c.rgba for c in got]),
+                              rgba_b[idx]),
+              f"checkpoint_live: {label} ≠ the default batch bit for bit")
+    print(f"checkpoint_live: the display default's graphed Stream fed "
+          f"{CKPT_LIVE_SECONDS:g} s at real-time pace in blocks of {block} "
+          f"by a producer thread (ring {cap}), {len(files)} saves while "
+          f"draining, none raised, {short} kept the span from the first "
+          f"unread sample (a push lapped the whole-ring read), 0 dropped; "
+          f"save ms min / median / max {min(save_ms):.2f} / "
+          f"{median(save_ms):.2f} / {max(save_ms):.2f} (host clock); "
+          f"its {len(cols)} columns and the {len(resumed)} of a fresh "
+          f"graphed Stream loaded from save {len(files) - 1} (hop "
+          f"{int(files[-1]['t'])}, ring_total {int(files[-1]['ring_total'])}"
+          f") ≡ the default batch bit for bit in vis and rgba; launches "
+          f"{LAUNCHES['checkpoint_live']}", flush=True)
+
+
 # the kernels' names in a trace: B1 (block or cluster route), B2 (any
 # route), the scan
 TRACE_NAMES = {"B1": ("block_kernel", "cluster_kernel"),
@@ -4237,6 +4393,7 @@ def main() -> None:
     examples_phase()
     parallel_phase(dev, xs, xs_live, vis_sl, x, vis_m)
     checkpoint_phase(dev, x)
+    checkpoint_live(dev, x)
     trace_phase(dev, x)
     bench_phase(dev, x)
     phase_breakdown(

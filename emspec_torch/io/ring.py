@@ -1,11 +1,13 @@
-"""Host ring buffer: the ingest seam of the live stream (a copy of the
-numpy ``RingBuffer`` of ``emspec.io.ring``).
+"""Host ring buffer: the ingest seam of the live stream.
 
 Any producer (a WAV reader, a synthetic generator, a capture callback)
 pushes samples; ``Stream`` pulls fixed-size analysis windows.  Single
 writer, single reader.  ``make_ring`` gives the lock-free C++ ring of
 ``emspec_torch.native`` (the same contract, wait-free for a capture
-callback) where the library builds, else this numpy ring.
+callback) where the library builds, else this numpy ring.  Both keep the
+read contract of the numpy ``RingBuffer`` of ``emspec.io.ring`` and the
+same seqlock: a window that a push overwrote while it was copied raises
+the overrun, never comes back torn.
 """
 
 from __future__ import annotations
@@ -16,7 +18,16 @@ import numpy as np
 class RingBuffer:
     """Multichannel sample ring. Writes never block; the ring keeps the most
     recent ``capacity`` samples and tracks the absolute sample count so the
-    reader can detect underrun/overrun."""
+    reader can detect underrun/overrun.
+
+    A reader on another thread than the writer is safe by a seqlock: a
+    push stores the end it is about to write (``_write_end``) before its
+    first copy, and stores ``total_written`` after its last; a read checks
+    its span against ``total_written`` before it copies and against
+    ``_write_end`` after.  CPython orders attribute stores and loads under
+    the GIL, and numpy releases the GIL only inside a copy, so a push whose
+    copy overlapped the read's stored its end before the read's copy
+    ended, and the read's load after that copy sees it."""
 
     def __init__(self, capacity: int, channels: int = 1, dtype=np.float32):
         if capacity <= 0:
@@ -26,6 +37,7 @@ class RingBuffer:
         self._buf = np.zeros((self.channels, self.capacity), dtype)
         self._write_pos = 0          # next write index (mod capacity)
         self.total_written = 0       # absolute samples pushed since creation
+        self._write_end = 0          # the end the push in progress writes to
 
     def push(self, samples: np.ndarray) -> None:
         """Append (channels, k) or (k,) samples."""
@@ -39,6 +51,7 @@ class RingBuffer:
             # keep only the newest window, preserving the invariant that
             # absolute sample i lives at buf[:, i % capacity]
             total_after = self.total_written + k
+            self._write_end = total_after     # published before any copy
             newest = x[:, -self.capacity:]
             off = (total_after - self.capacity) % self.capacity
             self._buf[:, off:] = newest[:, :self.capacity - off]
@@ -46,6 +59,7 @@ class RingBuffer:
             self._write_pos = total_after % self.capacity
             self.total_written = total_after
             return
+        self._write_end = self.total_written + k   # published before any copy
         end = self._write_pos + k
         if end <= self.capacity:
             self._buf[:, self._write_pos:end] = x
@@ -74,16 +88,17 @@ class RingBuffer:
             first = self.capacity - lo
             out[:, :first] = self._buf[:, lo:]
             out[:, first:] = self._buf[:, :hi - self.capacity]
-        # seqlock-style re-validation: if a concurrent producer lapped us
-        # mid-copy the data is torn — detect it rather than return garbage
-        # (same contract as the C++ ring)
-        if start_abs < self.total_written - self.capacity:
+        # the seqlock's recheck: a push that overlapped the copy published
+        # its end before its own copy began, so this load, after ours, sees
+        # it; one that laps the span may have torn it (the C++ ring's rule)
+        if start_abs < self._write_end - self.capacity:
             raise ValueError("window no longer in the ring (overrun)")
         return out
 
     def latest(self, n: int) -> np.ndarray:
         """(channels, n) copy of the most recent n samples."""
-        return self.window_at(max(self.total_written - n, 0), min(n, self.total_written))
+        total = self.total_written            # one total: start and length
+        return self.window_at(max(total - n, 0), min(n, total))
 
 
 def make_ring(capacity: int, channels: int = 1, prefer_native: bool = True):

@@ -6,7 +6,8 @@ host ring's samples.  The format is the JAX package's, so a file written
 by either package loads into the other: one ``.npz`` with the carry's
 leaves as ``carry_{i}`` in the JAX leaf order (window, t, acc, smooth,
 agc_ref), then ``t``, ``next_frame``, ``ring_data``, ``ring_total`` and
-``dropped`` (a ``Stream``), or ``t`` and ``needs_window_prime`` (a
+``dropped`` (a ``Stream``; ``needs_window_prime`` too where its window
+must be re-primed), or ``t`` and ``needs_window_prime`` (a
 ``parallel.ShardedStream``).  It is read with ``allow_pickle=False``: the
 structure comes from the stream's own fresh carry, so a hostile file runs
 nothing.  Loading copies into the stream's own tensors, so a graphed
@@ -69,20 +70,53 @@ def _npz_path(path) -> Path:
     return p if p.suffix == ".npz" else p.with_suffix(p.suffix + ".npz")
 
 
-def save_stream(path, stream) -> None:
-    """A ``Stream``'s whole resumable state → ``path`` (.npz)."""
-    state = stream.state_dict()
+def _ring_span(stream, next_frame: int) -> tuple[np.ndarray, int]:
+    """The host ring's samples a file keeps → (ring_data, ring_total):
+    exactly the absolute samples [ring_total − kept, ring_total), read
+    against one total while a producer may push.
+
+    The whole ring first, what the JAX package's ``save_stream`` stores.
+    A push during that read overwrites its start (the overwrite horizon),
+    and the ring reports the overrun; the span read again then starts at
+    the stream's first unread sample (the next hop's block, or the window
+    a prime reads), seconds inside the horizon while the stream keeps
+    up.  Only when that span is lapped too, the stream itself has lost
+    samples, and the overrun is raised."""
     ring = stream.ring
     total = int(ring.total_written)
     keep = min(total, ring.capacity)
-    ring_data = (ring.latest(keep) if keep
-                 else np.zeros((stream.channels, 0), np.float32))
+    if not keep:
+        return np.zeros((stream.channels, 0), np.float32), total
+    try:
+        return ring.window_at(total - keep, keep), total
+    except ValueError:
+        pass
+    pipe = stream.pipe
+    first = next_frame * pipe.hop
+    if stream._window_ready:
+        first += pipe.n_max - pipe.hop
+    total = int(ring.total_written)
+    return ring.window_at(first, total - first), total
+
+
+def save_stream(path, stream) -> None:
+    """A ``Stream``'s whole resumable state → ``path`` (.npz).  Called on
+    the thread that drains the stream; a producer may push into its ring
+    meanwhile (:func:`_ring_span`).  A stream past its first hop that
+    must still re-prime its window (a migrated load that has not run a
+    hop yet) says so in ``needs_window_prime``, a key the JAX package's
+    ``load_stream`` does not read; ``t > 0`` alone would have its load
+    roll the zeroed window on."""
+    state = stream.state_dict()
+    ring_data, total = _ring_span(stream, state["next_frame"])
     payload = _carry_payload(state["carry"])
     payload["t"] = np.int64(state["t"])
     payload["next_frame"] = np.int64(state["next_frame"])
     payload["ring_data"] = ring_data
     payload["ring_total"] = np.int64(total)
     payload["dropped"] = np.int64(stream.dropped_frames)
+    if state["t"] > 0 and not stream._window_ready:
+        payload["needs_window_prime"] = np.bool_(True)
     path = _npz_path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **payload)
@@ -116,9 +150,11 @@ def load_stream(path, stream) -> None:
         stream.load_state({"carry": carry, "t": int(z["t"]),
                            "next_frame": int(z["next_frame"])})
         stream.dropped_frames = int(z["dropped"])
+        if "needs_window_prime" in z.files:
+            migrated = migrated or bool(z["needs_window_prime"])
     if migrated:
-        # the zeroed window cannot continue the roll: re-prime it from
-        # the replayed ring at the next hop
+        # a zeroed or stale window cannot continue the roll: re-prime it
+        # from the replayed ring at the next hop
         stream._window_ready = False
 
 

@@ -177,6 +177,128 @@ def test_pre_rolling_layout_migrates_and_reprimes(case, tmp_path):
     _assert_bit_exact(_columns(cols), ref)
 
 
+# a ring of 12,000 samples (0.25 s) that 0.6 s of audio laps
+RING_SECONDS = 0.25
+
+
+def _lapped_port_stream(case, x, native_ring):
+    st = Stream(Settings(**_kw(case)), "cpu", native_ring=native_ring,
+                ring_seconds=RING_SECONDS)
+    cols = []
+    for i in range(0, x.shape[-1], 1000):
+        cols += st.push(x[i:i + 1000])
+    assert st.ring.total_written > st.ring.capacity and st.dropped_frames == 0
+    return st, cols
+
+
+@pytest.mark.parametrize("native_ring", [True, False], ids=["native", "numpy"])
+def test_quiescent_file_is_the_jax_packages(native_ring, tmp_path):
+    """With no producer, the port's file for a stream whose ring has lapped
+    holds what the JAX package's ``save_stream`` writes for the same
+    stream state, key for key: the same keys, the whole ring
+    (``ring_data``) and every counter equal to the JAX stream's on the
+    same audio, and the JAX package's save of the port's file loaded
+    byte for byte the port's file."""
+    kw = _kw("enhanced")
+    x = _signal(0.6, seed=9)
+    st, _ = _lapped_port_stream("enhanced", x, native_ring)
+    save_stream(tmp_path / "p.npz", st)
+    js = JaxStream(JaxSettings(**kw), ring_seconds=RING_SECONDS,
+                   native_ring=False)
+    for i in range(0, x.shape[-1], 1000):
+        js.push(x[i:i + 1000])
+    jax_checkpoint.save_stream(tmp_path / "j.npz", js)
+    back = JaxStream(JaxSettings(**kw), ring_seconds=RING_SECONDS,
+                     native_ring=False)
+    jax_checkpoint.load_stream(tmp_path / "p.npz", back)
+    jax_checkpoint.save_stream(tmp_path / "b.npz", back)
+    with np.load(tmp_path / "p.npz", allow_pickle=False) as zp, \
+            np.load(tmp_path / "j.npz", allow_pickle=False) as zj, \
+            np.load(tmp_path / "b.npz", allow_pickle=False) as zb:
+        assert sorted(zp.files) == sorted(zj.files) == sorted(zb.files)
+        assert zp["ring_data"].shape == (1, st.ring.capacity)
+        np.testing.assert_array_equal(zp["ring_data"], zj["ring_data"])
+        for k in ("t", "next_frame", "ring_total", "dropped", "carry_1"):
+            assert int(zp[k]) == int(zj[k]), k
+        for k in zp.files:
+            assert zp[k].dtype == zb[k].dtype, k
+            assert zp[k].tobytes() == zb[k].tobytes(), k
+
+
+def test_short_ring_data_loads_in_the_jax_package(tmp_path):
+    """A save whose read of the whole ring a push lapped keeps the span
+    from the stream's first unread sample: the JAX package's
+    ``load_stream`` replays it at its absolute place (zeros before it),
+    and the JAX stream resumes from it within ``compare_vis`` of its own
+    uninterrupted stream (the tolerance of the files that cross)."""
+    kw = _kw("enhanced")
+    x = _signal(0.6, seed=10)
+    cut = 20_000
+    st, cols_a = _lapped_port_stream("enhanced", x[:cut], True)
+    read = st.ring.window_at
+
+    def lapped(start, n):             # a producer's push lands in the read
+        st.ring.window_at = read
+        st.ring.push(x[cut:cut + 257])
+        return read(start, n)
+    st.ring.window_at = lapped
+    save_stream(tmp_path / "p.npz", st)
+    with np.load(tmp_path / "p.npz", allow_pickle=False) as z:
+        total, data = int(z["ring_total"]), z["ring_data"]
+    assert total == cut + 257 and 0 < data.shape[-1] < st.ring.capacity
+    np.testing.assert_array_equal(data[0], x[total - data.shape[-1]:total])
+    js = JaxStream(JaxSettings(**kw), ring_seconds=RING_SECONDS,
+                   native_ring=False)
+    jax_checkpoint.load_stream(tmp_path / "p.npz", js)
+    assert js.ring.total_written == total
+    np.testing.assert_array_equal(js.ring.latest(data.shape[-1]), data)
+    cols_b = js.push(x[total:]) + js.flush()
+    assert [c.index for c in cols_b] == list(
+        range(len(cols_a), len(cols_a) + len(cols_b)))
+    ref, _ = jax_stream_signal(x, JaxSettings(**kw))
+    got = np.stack([c.vis.numpy() for c in cols_a]
+                   + [np.asarray(c.vis) for c in cols_b])
+    ok, worst, share = compare_vis(torch.from_numpy(np.asarray(ref)),
+                                   torch.from_numpy(got))
+    assert ok, (worst, share)
+
+
+def test_a_stream_that_must_reprime_says_so_in_its_file(tmp_path):
+    """A migrated load (a pre-rolling snapshot) saved again before its
+    first hop: ``t > 0`` with a zeroed window, so the file carries
+    ``needs_window_prime``; the port's load re-primes and resumes bit for
+    bit, and the JAX package's ``load_stream``, which does not read the
+    key, still loads the file."""
+    s = Settings(**_kw("enhanced"))
+    x = _signal(0.5, seed=6)
+    half = len(x) // 2
+    ck = tmp_path / "s.npz"
+    st1 = Stream(s, "cpu")
+    cols = st1.push(x[:half])
+    save_stream(ck, st1)
+    z = dict(np.load(ck, allow_pickle=False))
+    assert "needs_window_prime" not in z
+    n_carry = sum(1 for k in z if k.startswith("carry_"))
+    old = {k: v for k, v in z.items() if not k.startswith("carry_")}
+    for i in range(1, n_carry):
+        old[f"carry_{i - 1}"] = z[f"carry_{i}"]
+    np.savez(ck, **old)
+    st2 = Stream(s, "cpu")
+    load_stream(ck, st2)
+    save_stream(tmp_path / "again.npz", st2)
+    with np.load(tmp_path / "again.npz", allow_pickle=False) as z2:
+        assert bool(z2["needs_window_prime"])
+    st3 = Stream(s, "cpu")
+    load_stream(tmp_path / "again.npz", st3)
+    assert st3._window_ready is False
+    cols += st3.push(x[half:]) + st3.flush()
+    ref, _ = stream_signal(x, s, "cpu")
+    _assert_bit_exact(_columns(cols), ref)
+    js = JaxStream(JaxSettings(**_kw("enhanced")), native_ring=False)
+    jax_checkpoint.load_stream(tmp_path / "again.npz", js)
+    assert js.ring.total_written == half and js._t == st2._t
+
+
 def test_pickles_and_foreign_layouts_are_refused(tmp_path):
     st = Stream(Settings(**_kw("natural")), "cpu")
     bad = tmp_path / "evil.npz"

@@ -1,6 +1,7 @@
 """The port keeps its own copies of the host-only code it needs from the
 JAX package (``emspec_torch.config`` with ``PresetStore``,
-``dsp.windows``, ``io.ring`` with ``make_ring``, ``post._cmap_data``,
+``dsp.windows``, ``io.ring``'s ``make_ring`` (its ``RingBuffer`` by
+behaviour: the seqlock is the port's own), ``post._cmap_data``,
 ``dsp.multires``'s tables, ``dsp.frame.frame_signal_np``,
 ``utils.notes``, ``render.png``, ``render.apng``, ``io.wav``,
 ``io.synth``, ``io.resample``, ``io.capture``, ``utils.update``,
@@ -125,6 +126,58 @@ def test_ring_matches_original_on_random_pushes(channels, capacity, seed):
             np.testing.assert_array_equal(a.window_at(start, n), want)
         np.testing.assert_array_equal(a.latest(min(50, capacity)),
                                       b.latest(min(50, capacity)))
+
+
+def _same_outcome(a_call, b_call):
+    """Both calls return equal arrays, or raise ValueErrors of one text."""
+    try:
+        want = b_call()
+    except ValueError as e:
+        with pytest.raises(ValueError, match=re.escape(str(e))):
+            a_call()
+        return 0
+    np.testing.assert_array_equal(a_call(), want)
+    return 1
+
+
+@pytest.mark.parametrize("channels,capacity,seed", [(1, 1000, 10), (1, 64, 11),
+                                                    (3, 777, 12), (3, 64, 13)])
+def test_ring_behaves_as_the_original(channels, capacity, seed):
+    """The port's ``RingBuffer`` is the JAX package's with the seqlock of
+    the native ring added, so it is held to it by behaviour, not source:
+    the same seeded push sequence (pushes of the capacity and past it,
+    empty pushes, mono given 1-D, a push of the wrong channel count) on
+    one thread gives equal ``total_written``, equal ``window_at`` and
+    ``latest`` reads, and the same errors."""
+    rng = np.random.default_rng(seed)
+    for bad in (0, -3):
+        with pytest.raises(ValueError) as want:
+            JaxRing(bad, channels)
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            RingBuffer(bad, channels)
+    a, b = RingBuffer(capacity, channels), JaxRing(capacity, channels)
+    reads = 0
+    for _ in range(250):
+        u = rng.uniform()
+        k = (0 if u < 0.05 else capacity if u < 0.08
+             else int(rng.integers(capacity + 1, 3 * capacity)) if u < 0.15
+             else int(rng.integers(1, max(capacity // 3, 2))))
+        x = rng.standard_normal((channels, k)).astype(np.float32)
+        a.push(x[0] if channels == 1 and rng.uniform() < 0.5 else x)
+        b.push(x)
+        assert a.total_written == b.total_written
+        wrong = np.zeros((channels + 1, 3), np.float32)
+        _same_outcome(lambda: a.push(wrong), lambda: b.push(wrong))
+        assert a.total_written == b.total_written
+        for _ in range(4):
+            start = int(rng.integers(-20, a.total_written + 20))
+            n = int(rng.integers(0, capacity + 20))
+            reads += _same_outcome(lambda: a.window_at(start, n),
+                                   lambda: b.window_at(start, n))
+        for n in (0, 1, int(rng.integers(1, capacity + 1)), capacity,
+                  capacity + 5):
+            reads += _same_outcome(lambda: a.latest(n), lambda: b.latest(n))
+    assert reads > 500
 
 
 # ------------------------------------------------------------ colormaps
@@ -303,8 +356,7 @@ def test_native_source_definition_copied(name):
 # top-level definitions copied into a port module that is otherwise its
 # own: (copy, original, name), the source segments equal after the
 # ``emspec.`` → ``emspec_torch.`` import rename
-DEFINITIONS = [("emspec_torch/io/ring.py", "emspec/io/ring.py", "RingBuffer"),
-               ("emspec_torch/io/ring.py", "emspec/io/ring.py", "make_ring"),
+DEFINITIONS = [("emspec_torch/io/ring.py", "emspec/io/ring.py", "make_ring"),
                ("emspec_torch/dsp/frame.py", "emspec/dsp/frame.py",
                 "frame_signal_np"),
                ("emspec_torch/dsp/frame.py", "emspec/dsp/frame.py",

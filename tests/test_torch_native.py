@@ -16,6 +16,7 @@ has no JAX: the JAX package's modules used here import none
 """
 
 import ast
+import contextlib
 import os
 import shutil
 import struct
@@ -27,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from emspec.io.ring import RingBuffer as JaxRing
 from emspec.io.wav import _read_wav_py as jax_read_wav_py
@@ -556,61 +558,212 @@ def test_checkpoint_crosses_between_the_rings(save_native, tmp_path):
         np.testing.assert_array_equal(p.vis.numpy(), q.vis.numpy())
 
 
-def test_checkpoint_under_a_running_producer(tmp_path):
-    """``save_stream`` while a thread pushes into the stream's native ring
-    as the web shell's feed thread does, the stream draining between saves
-    as the app's tick does (4 ms of hops).  A save reads the newest
-    ``capacity`` samples, a span that starts at the overwrite horizon:
-    each call either raises the overrun or stores ``ring_data`` that is one
-    unbroken run of the pushed indices, none older than its
-    ``ring_total`` allows — never a torn window.  Once the producer has
-    stopped, a save stores exactly the last ``capacity`` indices."""
-    s = Settings(mode="enhanced", multires=False, fft_size=1024,
-                 raster_height=128, hop=256)
-    st = Stream(s, "cpu")
-    assert type(st.ring) is native.NativeRingBuffer
-    cap = st.ring.capacity
-    top = 1 << 24                          # indices below it: exact float32
-    st.push(np.arange(2 * cap, dtype=np.float32))   # built and primed
-    stop, end = threading.Event(), [2 * cap]
+# a 12,000-sample ring (hop 256, window 1024) that a producer laps often
+CKPT = Settings(mode="enhanced", multires=False, fft_size=1024,
+                raster_height=128, hop=256)
+RING_SECONDS = 0.25
+RINGS = pytest.mark.parametrize("native_ring", [True, False],
+                                ids=["native", "numpy"])
 
-    def produce():
-        pos = end[0]
-        while not stop.is_set() and pos + 257 <= top:
-            st.ring.push(np.arange(pos, pos + 257, dtype=np.float32))
-            pos += 257
-            time.sleep(1e-5)              # audio-callback-like: many pushes
-        end[0] = pos
 
-    def saved() -> tuple[np.ndarray, int]:
-        with np.load(tmp_path / "s.npz") as z:
-            return z["ring_data"], int(z["ring_total"])
+@contextlib.contextmanager
+def _one_thread():
+    """The stream ≡ batch comparisons run on one intra-op thread: torch's
+    CPU ``log10`` split over threads has given 1-ulp differences between
+    two calls (``tests/test_torch_post_fused.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
-    t = threading.Thread(target=produce)
+
+def _ckpt_stream(native_ring: bool) -> Stream:
+    st = Stream(CKPT, "cpu", native_ring=native_ring,
+                ring_seconds=RING_SECONDS)
+    assert (type(st.ring) is native.NativeRingBuffer) == native_ring
+    return st
+
+
+def _saves_while_fed(st: Stream, x: np.ndarray, pos: int, path: Path
+                     ) -> list[dict]:
+    """A thread pushes ``x[pos:]`` into the stream's ring, as the web
+    shell's feed thread does, while this one drains 4 ms of hops at a
+    time, as the app's tick does, and saves after each drain → every
+    file's arrays.  Between saves the producer pushes 257 samples at a
+    time and holds its lead over the stream's next hop to half the ring,
+    so the drain keeps up however slow the host; during a save it pushes
+    64 at a time, unpaced, up to the ring less a hop, so the save's reads
+    race its pushes and the stream still loses no sample.  A save that
+    raises fails the test."""
+    hop, cap = st.pipe.hop, st.ring.capacity
+    saving, stop = threading.Event(), threading.Event()
+
+    def run():
+        p = pos
+        while p < x.shape[-1] and not stop.is_set():
+            busy = saving.is_set()
+            k, lead = (64, cap - hop) if busy else (257, cap // 2)
+            if p + k - st._next_frame * hop > lead:
+                time.sleep(1e-5 if busy else 1e-4)
+                continue
+            st.ring.push(x[p:p + k])
+            p += k
+
+    t = threading.Thread(target=run)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
     t.start()
-    for _ in range(200):
-        if not t.is_alive():
-            break
-        st._drain(time.perf_counter() + 0.004)
-        try:
-            save_stream(tmp_path / "s.npz", st)
-        except ValueError as e:
-            assert "overrun" in str(e)
-            continue
-        data, ring_total = saved()
-        assert data.shape == (1, cap)
-        first = data[0, 0]
-        assert first >= ring_total - cap
-        np.testing.assert_array_equal(
-            data[0], np.arange(first, first + cap, dtype=np.float32))
-    stop.set()
-    t.join(timeout=60)
+    files = []
+    try:
+        deadline = time.monotonic() + 120
+        while t.is_alive() and time.monotonic() < deadline:
+            st._drain(time.perf_counter() + 0.004)
+            saving.set()
+            try:
+                save_stream(path, st)
+            finally:
+                saving.clear()
+            with np.load(path) as z:
+                files.append({k: z[k] for k in z.files})
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        sys.setswitchinterval(switch)
     assert not t.is_alive()
+    return files
+
+
+def _first_unread(z: dict, st: Stream) -> int:
+    """The first sample a resumed (primed) stream reads: its next hop's."""
+    return int(z["next_frame"]) * st.pipe.hop + st.pipe.n_max - st.pipe.hop
+
+
+@RINGS
+def test_checkpoint_under_a_running_producer(native_ring, tmp_path):
+    """``save_stream`` while a thread pushes into the stream's ring and the
+    stream drains between saves: no save raises while the stream keeps
+    up (0 dropped frames), and every file's ``ring_data`` is exactly the
+    pushed samples [ring_total − kept, ring_total), from at most the
+    stream's first unread sample on.  A save whose read of the whole ring
+    a push lapped keeps the span from that sample; once the producer has
+    stopped, a save stores exactly the last ``capacity`` samples."""
+    st = _ckpt_stream(native_ring)
+    cap = st.ring.capacity
+    end = 10 * cap                       # below 2^24: exact in float32
+    x = np.arange(end, dtype=np.float32)
+    _run(st, x[:2 * cap])                # primed, the ring lapped
+    files = _saves_while_fed(st, x, 2 * cap, tmp_path / "s.npz")
+    assert files and st.dropped_frames == 0
+    for z in files:
+        total, kept = int(z["ring_total"]), z["ring_data"].shape[-1]
+        assert 0 < kept <= cap and int(z["dropped"]) == 0
+        assert total - kept <= _first_unread(z, st) <= total
+        np.testing.assert_array_equal(z["ring_data"][0], x[total - kept:total])
     save_stream(tmp_path / "s.npz", st)
-    data, ring_total = saved()
-    assert ring_total == end[0] > 2 * cap
-    np.testing.assert_array_equal(
-        data[0], np.arange(end[0] - cap, end[0], dtype=np.float32))
+    with np.load(tmp_path / "s.npz") as z:
+        assert int(z["ring_total"]) == end
+        np.testing.assert_array_equal(z["ring_data"][0], x[end - cap:])
+
+
+@RINGS
+def test_checkpoint_saved_under_a_producer_resumes_as_the_batch(
+        native_ring, tmp_path):
+    """A file saved under the running producer loads into a fresh stream
+    fed the rest of the signal from its ``ring_total`` on: every column
+    it computes is ``Pipeline.process``'s of the whole signal at that
+    column's index, bit for bit (one intra-op thread)."""
+    st = _ckpt_stream(native_ring)
+    cap = st.ring.capacity
+    x = _signal(2.5, seed=7)
+    with _one_thread():
+        _run(st, x[:cap + 500])
+        files = _saves_while_fed(st, x, cap + 500, tmp_path / "s.npz")
+        assert st.dropped_frames == 0
+        z = files[len(files) // 2]
+        total, kept = int(z["ring_total"]), z["ring_data"].shape[-1]
+        np.testing.assert_array_equal(z["ring_data"][0], x[total - kept:total])
+        np.savez(tmp_path / "mid.npz", **z)
+        b = _ckpt_stream(native_ring)
+        load_stream(tmp_path / "mid.npz", b)
+        cols = _run(b, x[total:], chunk=1000) + b.flush()
+        vis, rgba, _ = b.pipe.process(x)
+    t0 = int(z["t"]) - b.reach
+    assert [c.index for c in cols] == list(range(t0, vis.shape[0]))
+    assert 0 < t0 < vis.shape[0] - 100
+    for c in cols:
+        assert torch.equal(c.vis, vis[c.index]), c.index
+        assert torch.equal(c.rgba, rgba[c.index]), c.index
+
+
+def _lap_first_read(st: Stream, x: np.ndarray, k: int = 257) -> None:
+    """The first read of the stream's ring, from now on, is lapped: just
+    before it, ``x``'s next ``k`` samples are pushed, as a producer's push
+    during a save's read of the whole ring would."""
+    read = st.ring.window_at
+
+    def lapped(start, n):
+        st.ring.window_at = read
+        p = st.ring.total_written
+        st.ring.push(x[p:p + k])
+        return read(start, n)
+    st.ring.window_at = lapped
+
+
+@RINGS
+def test_a_lapped_save_keeps_the_span_from_the_first_unread_sample(
+        native_ring, tmp_path):
+    """A push that laps the save's read of the whole ring: the save reads
+    again from the stream's first unread sample (the next hop's block once
+    the window is primed) to the new total, stores that total, and the
+    file resumes bit for bit as the uninterrupted stream."""
+    x = _signal(0.8, seed=8)
+    with _one_thread():
+        st = _ckpt_stream(native_ring)
+        cap = st.ring.capacity
+        cols = _run(st, x[:2 * cap + 300])
+        _lap_first_read(st, x)
+        save_stream(tmp_path / "s.npz", st)
+        with np.load(tmp_path / "s.npz") as z:
+            total, data = int(z["ring_total"]), z["ring_data"]
+            assert "needs_window_prime" not in z.files
+        assert total == 2 * cap + 300 + 257
+        first = st._next_frame * st.pipe.hop + st.pipe.n_max - st.pipe.hop
+        np.testing.assert_array_equal(data[0], x[first:total])
+        b = _ckpt_stream(native_ring)
+        load_stream(tmp_path / "s.npz", b)
+        cols += _run(b, x[total:]) + b.flush()
+        vis, rgba, _ = b.pipe.process(x)
+    assert [c.index for c in cols] == list(range(vis.shape[0]))
+    for c in cols:
+        assert torch.equal(c.vis, vis[c.index]), c.index
+        assert torch.equal(c.rgba, rgba[c.index]), c.index
+
+
+@RINGS
+def test_a_save_raises_only_when_the_stream_lost_samples(native_ring,
+                                                          tmp_path):
+    """A paused stream whose first unread sample has left the ring: the
+    lapped save's second read is lapped too, and the save raises the
+    overrun — the stream's own next drain would skip those frames.  A
+    fresh stream (unprimed, hop 0) whose first window has left the ring
+    raises the same way."""
+    x = np.arange(20 * 12_000, dtype=np.float32)
+    st = _ckpt_stream(native_ring)
+    cap = st.ring.capacity
+    st.push(x[:cap])
+    st.pause()
+    st.push(x[cap:3 * cap])
+    _lap_first_read(st, x)
+    with pytest.raises(ValueError, match="overrun"):
+        save_stream(tmp_path / "s.npz", st)
+    fresh = _ckpt_stream(native_ring)
+    fresh.pause()
+    fresh.push(x[:cap - 100])
+    _lap_first_read(fresh, x)
+    with pytest.raises(ValueError, match="overrun"):
+        save_stream(tmp_path / "s.npz", fresh)
 
 
 def test_make_ring_contract():
