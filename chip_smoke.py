@@ -197,7 +197,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
    with the port's ``io.wav`` — render (8192; with the CLI's defaults
    twice and --multires twice, each pair byte-equal), export (``apply_lut``
    of its vis equals render's PNG pixel for pixel; with --multires, render
-   --multires's), stream twice (byte-equal),
+   --multires's), stream twice (byte-equal), stream --hop 16384 on the
+   display default twice (47 columns at R = 0, byte-equal),
    animate over the first 4 s at 10 fps (its last frame equals stream's
    PNG of the same 4 s) and note 443 — each must exit 0; walls; and render --multires
    --time-parallel (world size 1 under NCCL) twice, byte-equal, whose PNG
@@ -260,13 +261,23 @@ them.  Phases, in order, one line each; the first failure ends the run:
    ``[ring_total − kept, ring_total)``, no frame may drop, its columns
    and those of a fresh graphed ``Stream`` loaded from the last file
    bit-equal (vis and rgba) to the default batch at every hop.
-28. trace: ``utils.tracing.trace`` around one batch call; the trace it
+28. sparse_hop: hops at and past the largest frame (R = 0: the live
+   window rolls min(hop, n_max) samples a hop) — the display default at
+   hop 16384, enhanced 8192 at hop 12000 and at 8192, natural 2048 at
+   hop 4096 — each a graphed ``Stream`` on the card's defaults fed 8 s
+   in 777-sample pushes and flushed: its columns bit-equal to
+   ``Pipeline.process`` on the card in vis and rgba, the batch within
+   the CPU path's tolerances, B2's ring form once a hop and the batch's
+   sum in the form ``sorted_form`` names (no global sort, no atomic
+   route), B2 at R = 0 bit-equal to its plain versions; host p50/p99 ms
+   a hop beside the card's name and power limit.
+29. trace: ``utils.tracing.trace`` around one batch call; the trace it
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
    call launches, read from the trace; and one live hop's kernels in
    launch order, on the default (B1 then B2's ring form at once: no
    ring-id launch between them) and on the atomic route.
-29. bench: ``python -m emspec_torch bench`` as a user runs it, each a
+30. bench: ``python -m emspec_torch bench`` as a user runs it, each a
    subprocess on the card that must exit 0 and print its JSON report:
    ``--soak --duration 30 --quick`` (while it runs, ``--sustained
    --duration 3`` and ``--trace DIR``), then ``--quick`` and ``--stages``
@@ -277,7 +288,7 @@ them.  Phases, in order, one line each; the first failure ends the run:
    sustained runs keep up (≥ 0.95); the soak's churn counts no error;
    the trace holds the card's kernels.  The primary metric is printed on
    its own line with the card's name and power limit.
-30. breakdown: per-stage device times of the enhanced stencil batch
+31. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
    of a live hop of each path and each raster (torch.profiler busy time
@@ -522,6 +533,18 @@ PATH_KERNELS = {        # kernels each path must launch
     "checkpoint": ("deposits_ids",) + RING + ("lut_values",),
     # the display default saved under a running producer, then resumed
     "checkpoint_live": MULTIRES_B1 + RING + ("lut_values",),
+    # hops at and past the largest frame (R = 0), live then batch
+    "sparse_display_16384": MULTIRES_B1 + RING + ("lut_values",),
+    "sparse_display_16384_batch": MULTIRES_B1 + TILES + ("lut_values",)
+    + SCAN,
+    "sparse_enhanced_12000": ("deposits_ids",) + RING + ("lut_values",),
+    "sparse_enhanced_12000_batch": ("deposits_ids",) + BATCH
+    + ("lut_values",) + SCAN,
+    "sparse_enhanced_8192": ("deposits_ids",) + RING + ("lut_values",),
+    "sparse_enhanced_8192_batch": ("deposits_ids",) + BATCH
+    + ("lut_values",) + SCAN,
+    "sparse_natural_4096": ("lut_values",),
+    "sparse_natural_4096_batch": ("lut_values",) + SCAN,
 }
 # the enhanced live phases: each default stream held bit for bit to a
 # second run and to the default batch, its hop in turns with the atomic
@@ -535,6 +558,7 @@ LOOP_POST_STAGE_MS = {"batch": 23.0, "batch16": 30.1, "stress": 4.2,
                      "north": 51.3, "wide": 85.6, "multires": 302.4}
 LAUNCHES: dict = {}     # path → {kernel: launches in its one driven run}
 SM_CLOCK_HZ = [0.0]     # the card's top SM clock (nvidia-smi), phase device
+CARD = [""]             # the card's name and power limit (nvidia-smi)
 STEP_CYCLES = 8         # one scan step: a dependent multiply and add
 ROUTE_LAUNCHES: dict = {}   # path → {B2 route: launches in that run}
 LIVE_TURNS = ("atomic", "default", "default", "atomic") * 3
@@ -632,6 +656,7 @@ def phase_device():
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.split()
     SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
+    CARD[0] = smi
     t0 = time.perf_counter()
     kernels_build.library()
     build_s = time.perf_counter() - t0
@@ -2701,7 +2726,7 @@ def eager_hops(name: str, st: Stream, x: np.ndarray, hops: int = 200,
     carry of its own, each staged with a plain copy as the stream did
     before its graph → host p50/p99 per hop (ms, push → synchronize)."""
     pipe = st.pipe
-    n, hop = pipe.n_max, pipe.hop
+    n, hop, roll = pipe.n_max, pipe.hop, pipe.roll
     carry = pipe.init_roll_carry(x.shape[:-1])
     p = pipe.params(st.settings)
     hops = min(hops, (x.shape[-1] - n) // hop + 1 - settle)
@@ -2709,7 +2734,7 @@ def eager_hops(name: str, st: Stream, x: np.ndarray, hops: int = 200,
     for f in range(settle + hops):
         t0 = time.perf_counter()
         block = torch.from_numpy(np.ascontiguousarray(
-            x[..., f * hop + n - hop:f * hop + n])).to(st.device)
+            x[..., f * hop + n - roll:f * hop + n])).to(st.device)
         carry, _ = pipe._stream_step_rolling(carry, block, p)
         torch.cuda.synchronize()
         if f >= settle:
@@ -3076,6 +3101,10 @@ def cli_phase(dev, x: np.ndarray) -> None:
                                            "--multires"]),
                     ("stream", ["stream", "s16.wav", "s.png"]),
                     ("stream, again", ["stream", "s16.wav", "s2.png"]),
+                    ("stream --hop 16384", ["stream", "s16.wav", "h.png",
+                                            "--hop", "16384"]),
+                    ("stream --hop 16384, again",
+                     ["stream", "s16.wav", "h2.png", "--hop", "16384"]),
                     ("render --multires --time-parallel",
                      ["render", "s16.wav", "tp.png", "--multires",
                       "--time-parallel"]),
@@ -3102,7 +3131,8 @@ def cli_phase(dev, x: np.ndarray) -> None:
               "cli: export's vis through the colormap differs from render's "
               "PNG")
         for a, b in (("d1.png", "d2.png"), ("m.png", "m2.png"),
-                     ("s.png", "s2.png"), ("tp.png", "tp2.png")):
+                     ("s.png", "s2.png"), ("h.png", "h2.png"),
+                     ("tp.png", "tp2.png")):
             check((d / a).read_bytes() == (d / b).read_bytes(),
                   f"cli: two runs of a file output differ ({a}, {b})")
         zm = np.load(d / "em.npz", allow_pickle=False)
@@ -3118,6 +3148,9 @@ def cli_phase(dev, x: np.ndarray) -> None:
         check(np.array_equal(frames[-1], read_png(d / "s4.png")),
               "cli: animate's last frame differs from stream's PNG")
         check("A4" in outs["note"], f"cli note: {outs['note']!r}")
+        check("streamed 47 columns x1ch (reach=0 hops)"
+              in outs["stream --hop 16384"],
+              f"cli stream --hop 16384: {outs['stream --hop 16384']!r}")
         steps, share = lut_steps(torch.from_numpy(read_png(d / "tp.png")),
                                  torch.from_numpy(read_png(d / "m.png")),
                                  torch.from_numpy(lut("inferno").copy()))
@@ -3128,7 +3161,8 @@ def cli_phase(dev, x: np.ndarray) -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
           + "; export ≡ render pixel for pixel, and with --multires; two "
           "runs byte-equal (render with the defaults and --multires, stream, "
-          "render --multires --time-parallel); animate's last frame "
+          "stream --hop 16384 on the display default, render --multires "
+          "--time-parallel); animate's last frame "
           f"≡ stream's PNG; render --time-parallel vs --multires: at most "
           f"{steps} colormap step, {share:.2e} of the pixels; outputs: " + " | ".join(outs.values()), flush=True)
     print("cli: " + exact_sums(dev, x), flush=True)
@@ -3788,7 +3822,7 @@ def parallel_phase(dev, xs: np.ndarray, xs_live: np.ndarray, vis_sl,
         st = par.ShardedStream(s, mesh)
         pipe = st.pipe
         st.reset_window(xs_live[:, :pipe.n_max])
-        block = xs_live[:, pipe.n_max - pipe.hop:pipe.n_max]
+        block = xs_live[:, pipe.n_max - pipe.roll:pipe.n_max]
         par.COLLECTIVES.clear()
         st.step(block)
         step_coll = dict(par.COLLECTIVES)
@@ -4049,6 +4083,138 @@ TRACE_NAMES = {"B1": ("block_kernel", "cluster_kernel"),
                           "post_tail_repair_kernel")}
 
 
+SPARSE_HOP = (          # hops at and past the largest frame: R = 0
+    ("sparse_display_16384", Settings(hop=16384)),         # n_max 8192
+    ("sparse_enhanced_12000", SETTINGS.replace(hop=12000)),
+    ("sparse_enhanced_8192", SETTINGS.replace(hop=8192)),
+    ("sparse_natural_4096", Settings(mode="natural", multires=False,
+                                     fft_size=2048, hop=4096)))
+SPARSE_SECONDS = 8.0
+SPARSE_PUSH = 777
+
+
+def sparse_reach0(dev, name: str, pipe: Pipeline, x: np.ndarray) -> str:
+    """B2 at R = 0 (a ring of one slot) against its plain versions: the
+    ring form at frame ``mid``'s relative ids into a ring of random
+    values at t = 0, 1 and mid (``histogram_ring_plain``), and the batch's
+    bounded sorted form at reach 0 over all frames (``histogram_plain``),
+    bit for bit, with NaN/Inf behind dropped and out-of-range ids."""
+    ids_rel, contrib, _ = relative_ids(dev, pipe.settings, x)
+    P, C = 2 * pipe.reach + 1, pipe.rows
+    t_count, k = ids_rel.shape[-2], ids_rel.shape[-1]
+    mid = t_count // 2
+    rel, vals = ids_rel[mid].contiguous(), contrib[mid].contiguous()
+    pick = torch.from_numpy(np.random.default_rng(5).random(k) < 0.1).to(dev)
+    bad_ids = torch.where(pick, torch.where(rel % 2 == 0, -1, P * C + 7),
+                          rel).to(torch.int32)
+    bad_vals = torch.where(pick, torch.where(
+        rel % 3 == 0, float("inf"), float("nan")), vals)
+    ring0 = torch.rand((P, C), device=dev)
+    for t in (0, 1, mid):
+        t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+        for ids, v in ((rel, vals), (bad_ids, bad_vals)):
+            want = histogram_ring_plain(ring_ids(ids.cpu(), t, P, C),
+                                        v.cpu(), ring0.cpu().clone())
+            got = histogram_ring(ids, v, ring0.clone(), t_dev)
+            check(torch.equal(got.cpu(), want), f"{name}: B2's ring form at "
+                  f"R = 0, t = {t} differs from its plain version")
+    ids = pipe._absolute_ids(ids_rel, t_count, 0).reshape(-1).contiguous()
+    flat_vals = contrib.reshape(-1).contiguous()
+    form = sorted_form(t_count, k, 0, C)
+    got = histogram(ids, flat_vals, t_count * C, route=SORTED, reach=0,
+                    frame_len=k, column_len=C, form=form)
+    check(torch.equal(got.cpu(), histogram_plain(
+        ids.cpu(), flat_vals.cpu(), t_count * C)), f"{name}: B2's sorted "
+          f"{form} form at R = 0 differs from the plain sum")
+    return (f"B2 at R = 0 bit-equal to plain: the ring form (one slot) at "
+            f"t = 0, 1, {mid} with and without dropped ids, the {form} "
+            f"form over {t_count} frames of {k}")
+
+
+def sparse_hop_phase(dev) -> None:
+    """Each setting of ``SPARSE_HOP`` (a hop at or past the largest frame
+    ``n_max``: the live window rolls by min(hop, n_max) samples) as a
+    graph-captured ``Stream`` on the card's defaults, driven once
+    (counters) in 777-sample pushes over 8 s, then flushed: its columns
+    bit-equal to ``Pipeline.process`` on the card (driven once too) in
+    vis and rgba; the batch against the port's CPU path (grid and vis as
+    the batch phases hold them); on the enhanced settings B2's ring form
+    once a hop and the bounded sorted form ``sorted_form`` names in the
+    batch, no global sort and no atomic route, and B2 at R = 0 against its
+    plain versions (``sparse_reach0``); p50/p99 host ms a hop."""
+    x = signal(SPARSE_SECONDS, seed=24)
+    for name, s in SPARSE_HOP:
+        pipe = Pipeline(s, dev)
+        check(pipe.reach == 0 and pipe.roll == pipe.n_max <= pipe.hop,
+              f"{name}: reach {pipe.reach}, roll {pipe.roll}, n_max "
+              f"{pipe.n_max}, hop {pipe.hop}")
+        st = Stream(s, dev)
+        check(st.captures == 1 and tuple(st._block.shape) == (pipe.roll,),
+              f"{name}: {st.captures} graph captures, block "
+              f"{tuple(st._block.shape)}")
+        check_native_ring(name, st)
+        lat: list = []
+        cols = drive(name, lambda: stream_run(st, x, SPARSE_PUSH, lat))
+        check(st.captures == 1, f"{name}: {st.captures} graph captures")
+        st.close()
+        xg = pipe.to_device(x)
+        vis_b, rgba_b, _ = drive(f"{name}_batch", lambda: pipe.process(xg))
+        t_count = pipe.num_columns(x.size)
+        check([c.index for c in cols] == list(range(t_count)),
+              f"{name}: column indices {[c.index for c in cols][:4]}… "
+              f"differ from the batch's {t_count}")
+        check(torch.equal(torch.stack([c.vis for c in cols]), vis_b)
+              and torch.equal(torch.stack([c.rgba for c in cols]), rgba_b),
+              f"{name}: the stream ≠ process on the card bit for bit")
+        cpu = Pipeline(s, "cpu")
+        vis_c, _, _ = cpu.process(x)
+        check(bool(torch.isfinite(vis_b).all()), f"{name}: non-finite vis")
+        if s.mode == "natural":
+            want = cpu._natural_power(cpu.to_device(x), t_count,
+                                      cpu.params())
+            got = pipe._natural_power(xg, t_count, pipe.params()).cpu()
+            worst = float((got - want).abs().max()) / float(want.max())
+            check(worst <= NATURAL_POWER_TOL, f"{name}: GPU vs CPU power "
+                  f"{worst}·peak > {NATURAL_POWER_TOL}")
+            grid, sums = f"power max diff {worst:.2e}·peak", ""
+        else:
+            g = compare_grids(
+                cpu._enhanced_power(cpu.to_device(x), t_count, cpu.params()),
+                pipe._enhanced_power(xg, t_count, pipe.params()).cpu())
+            check(g.ok, f"{name}: GPU vs CPU grid {g}")
+            grid = f"energy {g.energy_rel:.2e}, grid maxf {g.maxf_rel:.2e}"
+            live = ROUTE_LAUNCHES[name]
+            batch = ROUTE_LAUNCHES[f"{name}_batch"]
+            k = sum(hi - lo for lo, hi in pipe.k_slices)   # deposits a frame
+            form = {"batch": SORTED_BATCH, "tiles": SORTED_TILES}[
+                sorted_form(t_count, k, 0, pipe.rows)]
+            check(live[SORTED_RING] == t_count and all(
+                n == 0 for r, n in live.items() if r != SORTED_RING),
+                  f"{name}: the stream's B2 launches {live}, want its ring "
+                  f"form once a hop ({t_count} hops)")
+            check(batch[form] > 0 and all(
+                n == 0 for r, n in batch.items() if r != form),
+                  f"{name}: the batch's B2 launches {batch}, want its "
+                  f"{form} form alone")
+            sums = (f"; B2 routes live {live[SORTED_RING]}× the ring form, "
+                    f"batch the {form} form; " + sparse_reach0(dev, name,
+                                                               pipe, x))
+        vis_ok, vd, vshare = compare_vis(vis_c, vis_b.cpu())
+        check(vis_ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share "
+              f"over 2/255: {vshare})")
+        p50, p99 = _percentiles([v * 1e3 for v in lat])
+        print(f"sparse_hop {name} ({CARD[0]}): {s.mode} n_max {pipe.n_max} "
+              f"at hop {pipe.hop} (R = 0, the window rolls {pipe.roll} "
+              f"samples a hop, {pipe.hop - pipe.roll} skipped), "
+              f"{SPARSE_SECONDS:.0f} s in {SPARSE_PUSH}-sample pushes: "
+              f"{len(cols)} columns, one graph replay a hop, ≡ process on "
+              f"the card bit for bit in vis and rgba; vs CPU path: {grid}, "
+              f"vis maxf {vd:.2e} (share over 2/255 {vshare:.2e}); host ms "
+              f"a hop p50 {p50:.3f}, p99 {p99:.3f} against the hop's "
+              f"{pipe.hop / s.sample_rate * 1e3:.3f} ms of audio (push → "
+              f"synchronize); launches {LAUNCHES[name]}{sums}", flush=True)
+
+
 def trace_phase(dev, x: np.ndarray) -> None:
     """``utils.tracing.trace`` around one batch call of the batch phase's
     settings: the trace it writes must name B1's, B2's and the post
@@ -4071,7 +4237,7 @@ def trace_phase(dev, x: np.ndarray) -> None:
     postprocess_batch(cols, st, p.post)
     hop = pipe.hop
     carries = {exact: pipe.init_roll_carry() for exact in (True, False)}
-    block = xg[pipe.n_max - hop:pipe.n_max].contiguous()
+    block = xg[pipe.n_max - pipe.roll:pipe.n_max].contiguous()
     for exact, carry in carries.items():         # past the first R hops
         for _ in range(pipe.reach + 2):
             carries[exact], _ = pipe._stream_step_rolling(
@@ -4394,6 +4560,7 @@ def main() -> None:
     parallel_phase(dev, xs, xs_live, vis_sl, x, vis_m)
     checkpoint_phase(dev, x)
     checkpoint_live(dev, x)
+    sparse_hop_phase(dev)
     trace_phase(dev, x)
     bench_phase(dev, x)
     phase_breakdown(

@@ -207,7 +207,7 @@ HOPS_QUEUED = 64        # hops queued behind one device-side sleep
 
 def _device_scan_ms_per_hop(settings, k: int = 512, device="cuda") -> float:
     """The device's own time a hop of the production streaming step: k
-    hop blocks already on the device, each copied into the stream's
+    hops' blocks already on the device, each copied into the stream's
     static block and its graph replayed, back to back (the eager step on
     the CPU), timed by ``device_ms`` in groups of ``HOPS_QUEUED``; no
     per-hop host staging.  (All 512 behind one sleep overflow the card's
@@ -224,9 +224,10 @@ def _device_scan_ms_per_hop(settings, k: int = 512, device="cuda") -> float:
     x = _signal(secs, settings.sample_rate, settings.channels)
     pos = pipe.n_max + (pipe.reach + 1) * pipe.hop
     st.push(x[..., :pos])                          # window primed, t > R
+    # each hop's new samples, the last roll of its window: (k, [ch,] roll)
+    ends = [pos + (i + 1) * pipe.hop for i in range(k)]
     blocks = torch.from_numpy(np.stack(
-        [x[..., pos + i * pipe.hop: pos + (i + 1) * pipe.hop]
-         for i in range(k)])).to(st.device)        # (k, [ch,] hop)
+        [x[..., e - pipe.roll:e] for e in ends])).to(st.device)
 
     def hops(group: torch.Tensor):
         for block in group:

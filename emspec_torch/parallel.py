@@ -193,7 +193,8 @@ class ShardedStream(_ChannelShards):
 
     Feed protocol (``emspec.parallel.ShardedStream``):
     ``reset_window(x[:, :n_max])`` primes the window for hop 0, then
-    ``step(x[:, t*hop + n_max - hop : t*hop + n_max])`` a hop; at flush
+    ``step(x[:, t*hop + n_max - roll : t*hop + n_max])`` a hop, ``roll``
+    = ``pipe.roll`` = min(hop, n_max) new samples; at flush
     ``reset_window(None)`` zeroes the window and zero blocks drain the
     pending ring.  ``stream_signal_sharded`` packages it."""
 
@@ -207,18 +208,18 @@ class ShardedStream(_ChannelShards):
     def reset_window(self, window) -> None:
         """(Re)prime the rolling window: ``window`` is hop 0's whole
         (channels, n_max) samples, whose completing block
-        ``window[:, n_max-hop:]`` the next ``step`` must bring, or None
+        ``window[:, n_max-roll:]`` the next ``step`` must bring, or None
         (zeros, for the flush hops)."""
-        hop, n_max = self.pipe.hop, self.pipe.n_max
+        roll, n_max = self.pipe.roll, self.pipe.n_max
         w = self._carry[0]
         w.zero_()
         if window is not None:
-            w[..., hop:].copy_(self.pipe.to_device(
-                self._shard(window)[..., :n_max - hop]))
+            w[..., roll:].copy_(self.pipe.to_device(
+                self._shard(window)[..., :n_max - roll]))
         self.needs_window_prime = False
 
     def step(self, block):
-        """One hop: the whole (channels, hop) new samples → None while
+        """One hop: the whole (channels, roll) new samples → None while
         warming up (the first ``reach`` hops), else (index, vis (ch/n,
         rows), rgba) of this rank's channels."""
         if self.needs_window_prime:
@@ -423,12 +424,12 @@ def stream_signal_sharded(x, settings: Settings, mesh):
     if t_count <= 0:
         raise ValueError(f"need at least {pipe.n_max} samples")
     cols = []
-    n_max, hop = pipe.n_max, pipe.hop
-    zero_block = np.zeros((settings.channels, hop), np.float32)
+    n_max, hop, roll = pipe.n_max, pipe.hop, pipe.roll
+    zero_block = np.zeros((settings.channels, roll), np.float32)
     st.reset_window(x[..., :n_max])              # prime for hop 0
     for t in range(t_count + pipe.reach):
         if t < t_count:
-            block = x[..., t * hop + n_max - hop: t * hop + n_max]
+            block = x[..., t * hop + n_max - roll: t * hop + n_max]
         else:
             if t == t_count:
                 st.reset_window(None)            # flush: all-zero windows

@@ -118,6 +118,10 @@ class Pipeline:
         self.hop = s.hop_samples
         self.offsets = bank_offsets(self.sizes)
         self.n_max = max(self.sizes)
+        # samples the live window rolls by a hop: the hop's new samples,
+        # or at a hop past the largest frame the next window alone (the
+        # samples between two windows are never analysed, in batch either)
+        self.roll = min(self.hop, self.n_max)
         self.rows = s.raster_height
         self.tables = build_merge_tables(
             self.sizes, s.sample_rate, self.rows, s.freq_min, s.freq_scale,
@@ -544,10 +548,11 @@ class Pipeline:
     def _stream_step_rolling(self, carry, block, p: PipelineParams,
                              peak_reduce=None, exact_sums: bool = True):
         """Per-hop step whose analysis window is carry state: ``block`` is
-        only the ``hop`` new samples, window' = concat(window[hop:], block),
-        written into the carry's own window tensor."""
+        only the ``roll`` = min(hop, n_max) new samples, window' =
+        concat(window[roll:], block), written into the carry's own window
+        tensor."""
         window, inner = carry
-        window.copy_(torch.cat([window[..., self.hop:], block], dim=-1))
+        window.copy_(torch.cat([window[..., self.roll:], block], dim=-1))
         inner, out = self._stream_step(inner, window, p, peak_reduce,
                                        exact_sums)
         return (window, inner), out
@@ -685,7 +690,7 @@ def _warm_step(s: Settings, dev: torch.device) -> None:
     pipe = get_pipeline(s, dev)
     lead = (s.channels,) if s.channels > 1 else ()
     carry = pipe.init_roll_carry(lead)
-    block = torch.zeros(lead + (pipe.hop,), dtype=DTYPE, device=dev)
+    block = torch.zeros(lead + (pipe.roll,), dtype=DTYPE, device=dev)
     pipe._stream_step_rolling(carry, block, pipe.params())
 
 

@@ -7,7 +7,9 @@ and B2's atomic route (the sum ``exact_sums=False`` runs: the relative
 histogram and its fold for one bank, one absolute-grid B2 for several),
 the device ms of each in turns (batch, tiles, sort, atomic, atomic, sort,
 tiles, batch; three rounds, medians), with both plans, ``index_add_``'s
-device ms at the same ids, and the bounds: bytes (8 a deposit, 4 a cell)
+device ms at the same ids, the plain version's (``histogram_plain`` on
+the card: ms by CUDA events over back-to-back calls, and device ms), and
+the bounds: bytes (8 a deposit, 4 a cell)
 over 3.35 TB/s, and the chain (the longest cell's run of deposits at 4
 cycles a dependent add, at the card's top SM clock).  With ``--sweep``:
 the batch form at other row bands, row blocks and entry layouts
@@ -71,7 +73,7 @@ def main() -> int:
         raise SystemExit("batch_sorted_ab: needs a card")
 
     from emspec_torch import Settings
-    from emspec_torch.bench.measure import device_ms
+    from emspec_torch.bench.measure import cuda_ms, device_ms
     from emspec_torch.dsp.kernels import scatter as sc
     from emspec_torch.pipeline import Pipeline
 
@@ -134,6 +136,9 @@ def main() -> int:
             index_add_device_ms=device_ms(
                 lambda: torch.zeros(lanes * (cells + 1), device=dev)
                 .index_add_(0, flat, vals0), 5),
+            plain_ms=cuda_ms(lambda: sc.histogram_plain(fi, fc, cells), 10),
+            plain_device_ms=device_ms(
+                lambda: sc.histogram_plain(fi, fc, cells), 5),
             bytes_bound_ms=(8.0 * fi.numel() + 4.0 * lanes * cells)
             / HBM_BYTES_PER_S * 1e3,
             longest_run=int(runs.max()),
@@ -170,7 +175,9 @@ def main() -> int:
                 file=sys.stderr, flush=True)
         out[name] = row
         print(name, json.dumps(med), equal, row["batch_plan"]["bands"],
-              f"index_add_ {row['index_add_device_ms']:.4f}, bytes "
+              f"index_add_ {row['index_add_device_ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f} ({row['plain_device_ms']:.4f} device), "
+              f"bytes "
               f"{row['bytes_bound_ms']:.4f}, chain {row['chain_bound_ms']:.4f}"
               f" (run {row['longest_run']})", file=sys.stderr, flush=True)
     print(json.dumps({"label": args.label, "card": smi("name,power.limit"),

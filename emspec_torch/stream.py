@@ -3,12 +3,13 @@
 Samples arrive in a host ring (``emspec_torch.io.ring.make_ring``: the
 lock-free C++ ring of ``emspec_torch.native`` by default, the numpy
 ``RingBuffer`` with ``native_ring=False`` or where the library does not
-build; one contract, bit-equal output); each hop stages only the
-``hop`` new samples to the device (the analysis window of ``n_max``
-samples — the largest bank's — is device carry state,
-``Pipeline._stream_step_rolling``), one step adds the frame's deposits
-(enhanced) or merged column (natural) to the pending ring and emits one
-display column.
+build; one contract, bit-equal output); each hop stages only its
+new samples to the device, ``Pipeline.roll`` = min(hop, n_max) of them
+(the analysis window of ``n_max`` samples — the largest bank's — is
+device carry state, ``Pipeline._stream_step_rolling``; at a hop past
+``n_max`` the samples between two windows are never staged), one step
+adds the frame's deposits (enhanced) or merged column (natural) to the
+pending ring and emits one display column.
 
 On the card a hop is one CUDA graph replay.  The ``Stream`` owns static
 tensors — the carry (window, hop counter ``t``, pending ring, post
@@ -126,7 +127,7 @@ class Stream:
         self.ring = make_ring(capacity, s.channels, prefer_native=native_ring)
         self.dropped_frames = 0
         self._carry = self.pipe.init_roll_carry(self._lead)
-        self._block = torch.zeros(self._lead + (self.pipe.hop,),
+        self._block = torch.zeros(self._lead + (self.pipe.roll,),
                                   dtype=torch.float32, device=self.device)
         self._window_ready = False  # device window primed for _next_frame?
         self._t = 0                 # host mirror of the carry's hop counter
@@ -184,7 +185,7 @@ class Stream:
         deposit nothing).  The stream is finished afterwards."""
         self._finished = True
         self._carry[0].zero_()
-        zero = np.zeros(self._lead + (self.pipe.hop,), np.float32)
+        zero = np.zeros(self._lead + (self.pipe.roll,), np.float32)
         out = []
         for _ in range(self.pipe.reach):
             out.extend(self._dispatch(zero, self.dropped_frames))
@@ -261,23 +262,24 @@ class Stream:
         """The next hop's new samples (plus, at stream start or after an
         overrun skip-ahead, the window prefix that re-primes the device
         window) → (host block, drop count, window prefix or None); None
-        when the ring lacks hop ``_next_frame``'s window."""
-        n_max, hop = self.pipe.n_max, self.pipe.hop
+        when the ring lacks hop ``_next_frame``'s window.  A block is the
+        window's last ``roll`` = min(hop, n_max) samples."""
+        n_max, hop, roll = self.pipe.n_max, self.pipe.hop, self.pipe.roll
         while True:
             t = self._next_frame
             if self.ring.total_written < t * hop + n_max:
                 return None
             try:
                 if self._window_ready:
-                    block = self.ring.window_at(t * hop + n_max - hop, hop)
+                    block = self.ring.window_at(t * hop + n_max - roll, roll)
                     w_init = None
                 else:
-                    # prime: concat(w_init[hop:], block) == window t
+                    # prime: concat(w_init[roll:], block) == window t
                     window = self.ring.window_at(t * hop, n_max)
-                    block = window[..., n_max - hop:]
+                    block = window[..., n_max - roll:]
                     w_init = np.concatenate(
-                        [np.zeros(window.shape[:-1] + (hop,), np.float32),
-                         window[..., :n_max - hop]], axis=-1)
+                        [np.zeros(window.shape[:-1] + (roll,), np.float32),
+                         window[..., :n_max - roll]], axis=-1)
                     self._window_ready = True
             except ValueError:
                 # overrun: skip to the newest full frame, re-prime the window

@@ -52,6 +52,15 @@ def _roll_carry_from(z, pipe, lead: tuple):
     n = len(fresh)                                       # 5
     if f"carry_{n - 1}" in z:                            # current layout
         leaves = [z[f"carry_{i}"] for i in range(n)]
+        if leaves[0].shape[-1:] != tuple(fresh[0].shape[-1:]):
+            # the JAX package's Stream at a hop past n_max rolls a
+            # hop-long window and streams other columns than its batch:
+            # its post state cannot continue this stream's
+            raise ValueError(
+                f"checkpoint window holds {leaves[0].shape[-1]} samples, "
+                f"this stream's {fresh[0].shape[-1]} (n_max): a file saved "
+                f"by a stream that rolled a hop-long window at a hop past "
+                f"the largest frame, or by other settings, cannot resume")
         return (leaves[0], _inner(leaves[1:])), False
     if f"carry_{n - 2}" in z:                            # before the window
         window = np.zeros(tuple(fresh[0].shape), np.float32)
@@ -80,8 +89,9 @@ def _ring_span(stream, next_frame: int) -> tuple[np.ndarray, int]:
     and the ring reports the overrun; the span read again then starts at
     the stream's first unread sample (the next hop's block, or the window
     a prime reads), seconds inside the horizon while the stream keeps
-    up.  Only when that span is lapped too, the stream itself has lost
-    samples, and the overrun is raised."""
+    up; at a hop past ``n_max`` that sample may not be written yet, and
+    the span is then empty.  Only when that span is lapped too, the
+    stream itself has lost samples, and the overrun is raised."""
     ring = stream.ring
     total = int(ring.total_written)
     keep = min(total, ring.capacity)
@@ -94,8 +104,10 @@ def _ring_span(stream, next_frame: int) -> tuple[np.ndarray, int]:
     pipe = stream.pipe
     first = next_frame * pipe.hop
     if stream._window_ready:
-        first += pipe.n_max - pipe.hop
+        first += pipe.n_max - pipe.roll
     total = int(ring.total_written)
+    if first >= total:
+        return np.zeros((stream.channels, 0), np.float32), total
     return ring.window_at(first, total - first), total
 
 

@@ -97,9 +97,24 @@ def ckpt_signal() -> np.ndarray:
     return chirps(4, f0=120.0, f1=2500.0, seconds=0.3)
 
 
+SPARSE = {   # hops past the largest frame (n_max 1024)
+    "sparse_enhanced": settings(multires=False, fft_size=1024, hop=2048,
+                                smoothing=0.4, auto_gain=True),
+    "sparse_multires": settings(hop=3000, smoothing=0.4, agc_global=True,
+                                auto_gain=True),
+    "sparse_natural": settings(mode="natural", multires=False,
+                               fft_size=1024, hop=2048, smoothing=0.4),
+}
+
+
+def sparse_signal(world: int) -> np.ndarray:
+    return chirps(world, f0=120.0, f1=6000.0, seconds=0.5)
+
+
 def _block(pipe, x, t):
-    return x[:, t * pipe.hop + pipe.n_max - pipe.hop: t * pipe.hop
-             + pipe.n_max]
+    """Hop t's new samples: its window's last ``roll`` = min(hop, n_max)."""
+    end = t * pipe.hop + pipe.n_max
+    return x[:, end - pipe.roll:end]
 
 
 def _feed(st, x, t):
@@ -219,6 +234,33 @@ class Rank:
         self.save_columns(f"ck_resume_{self.world}", b,
                           [b.step(_block(b.pipe, x, t))
                            for t in range(hops // 2, hops)])
+
+    def sparse_hop(self) -> None:
+        """``stream_signal_sharded`` at hops past n_max, then a stream
+        saved at mid-stream and resumed on a fresh one (the columns after
+        the save)."""
+        from emspec_torch import parallel as par
+        from emspec_torch.utils.checkpoint import (
+            load_sharded_stream, save_sharded_stream)
+
+        x = sparse_signal(self.world)
+        for name, kw in SPARSE.items():
+            s = Settings(**kw, channels=self.world)
+            mesh = par.channel_mesh(device="cpu")
+            vis, rgba = par.stream_signal_sharded(x, s, mesh)
+            a = par.ShardedStream(s, mesh)
+            hops = a.pipe.num_columns(x.shape[-1])
+            for t in range(hops // 2):
+                _feed(a, x, t)
+            save_sharded_stream(self.out / f"{name}_ck", a)
+            b = par.ShardedStream(s, mesh)
+            assert load_sharded_stream(self.out / f"{name}_ck", b) is False
+            cols = [b.step(_block(b.pipe, x, t))
+                    for t in range(hops // 2, hops)]
+            resumed = torch.stack([c[1] for c in cols if c is not None])
+            self.save(name, a.axis.index, vis=vis, rgba=rgba,
+                      resumed=_whole(a.axis, resumed, 1),
+                      first=np.asarray(cols[0][0]))
 
     def migration(self) -> None:
         """``tests/test_parallel.py::
