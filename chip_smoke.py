@@ -93,9 +93,11 @@ them.  Phases, in order, one line each; the first failure ends the run:
    speculation left to the repair, and the associative form's device time
    and largest relative difference; ``post_head`` and ``post_tail``
    against their plain versions, bit for bit, on the multires (smoothing
-   0 and 0.6), batch and batch16 paths' own power, the tail also with
-   every chunk forced to repair, and the batch chain bit-equal to the
-   live step's column-by-column chain on the same power; B2's sorted route at the single-bank
+   0, 0.6, 0.9 and 0.99), batch (0 and 0.6) and batch16 paths' own
+   power, the tail also with every chunk forced to repair (and in its
+   pipelined form above smoothing 0.5 with none repaired), and the batch
+   chain bit-equal to the live step's column-by-column chain on the same
+   power; B2's sorted route at the single-bank
    raster's ids in both forms — the tiles form (the raster's: a tile of
    columns a block, the frames within R of it walked in order) and the
    global-sort form it replaced — each bit-equal to the plain sum, added
@@ -367,7 +369,7 @@ from emspec_torch.dsp.frame import (
 from emspec_torch.dsp.kernels import ema
 from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.post import (
-    post_head, post_head_plain, post_tail, post_tail_plain)
+    pipelined, post_head, post_head_plain, post_tail, post_tail_plain)
 from emspec_torch.dsp.kernels.deposits import (
     CLUSTER_LARGE_N, cluster_large_bands, cluster_large_occupancy,
     cluster_large_plan, cluster_occupancy, deposits_hist, deposits_hist_plain, deposits_ids,
@@ -2040,23 +2042,38 @@ def kernels_ema(dev) -> dict:
 
 
 # The fused chain's kernels on each batch path's own power (16 s mono
-# unless said): (label, settings, channels, smoothing)
+# unless said): (label, settings, channels, smoothing); above 0.5 the
+# tail's kernel takes its pipelined form
 POST_CASES = (("multires", MULTIRES, 1, 0.0),
               ("multires, smoothing 0.6", MULTIRES, 1, 0.6),
+              ("multires, smoothing 0.9", MULTIRES, 1, 0.9),
+              ("multires, smoothing 0.99", MULTIRES, 1, 0.99),
               ("batch", SETTINGS, 1, 0.0),
+              ("batch, smoothing 0.6", SETTINGS, 1, 0.6),
               ("batch16", SETTINGS, CHANNELS, 0.0))
+
+
+def post_tail_chain_bound(t: int, c: int, smoothing: float) -> float:
+    """``post_tail``'s chain bound in ms: the pipelined form's whole
+    column, t steps of ``STEP_CYCLES``, above smoothing 0.5; else the
+    chunk-parallel scan's (``scan_chain_bound``)."""
+    if pipelined(smoothing):
+        return t * STEP_CYCLES / SM_CLOCK_HZ[0] * 1e3
+    return scan_chain_bound(t, c, smoothing)
 
 
 def kernels_post(dev) -> dict:
     """``post_head`` and ``post_tail`` against their plain versions on the
     card, bit for bit, on each case's real power (the path's grid, columns
-    first), ``post_tail`` also with W forced to 0, and the batch chain
-    against the live step's column by column, bit for bit (vis and both
-    states); their times, the plain
-    versions' (torch's eager stages), the bytes bounds (head: power read,
-    the peak written; tail: power and refs read, vis written, the state
-    read and written) and the tail's chain bound, and the chunks the tail's
-    speculation left to the repair.  No PyTorch call computes either."""
+    first), ``post_tail`` also with W forced to 0 (the chunk-parallel form
+    at every smoothing), and the batch chain against the live step's
+    column by column, bit for bit (vis and both states); their times, the
+    plain versions' (torch's eager stages), the bytes bounds (head: power
+    read, the peak written; tail: power and refs read, vis written, the
+    state read and written) and shares, the tail's form and chain bound
+    (``post_tail_chain_bound``), and the chunks the tail's speculation
+    left to the repair — none in the pipelined form (the run fails
+    otherwise).  No PyTorch call computes either."""
     head, tail, lines = {}, {}, []
     for label, settings, channels, smoothing in POST_CASES:
         s = settings.replace(channels=channels, smoothing=smoothing)
@@ -2086,6 +2103,10 @@ def kernels_post(dev) -> dict:
             check(all(torch.equal(g, w) for g, w in zip(run(), want_t)),
                   f"post_tail {label} (W {window}) differs from its plain "
                   f"version")
+        form = "pipelined" if pipelined(smoothing) else "chunk-parallel"
+        check(form == "chunk-parallel" or counts[None] == 0,
+              f"post_tail {label}: the pipelined form repaired "
+              f"{counts[None]} chunks")
         # the batch chain against the live step's, column by column
         st0 = PostState.init(cols.shape[1:], dev)
         batch, bst = postprocess_batch(cols, st0, p, s.agc_global)
@@ -2113,8 +2134,8 @@ def kernels_post(dev) -> dict:
                     warmup=1),
             **bound(8.0 * t * c + 4.0 * t * math.prod(lead) + 8.0 * c,
                     14.0 * t * c),
-            chain_bound_ms=scan_chain_bound(t, c, smoothing),
-            chunk_len=L, repaired_chunks=counts[None],
+            chain_bound_ms=post_tail_chain_bound(t, c, smoothing),
+            form=form, chunk_len=L, repaired_chunks=counts[None],
             forced_repair_chunks=counts[0],
             forced_repair_device_ms=device_ms(
                 lambda: post_tail(cols, refs, y0, p, window=0), calls=5),
@@ -2123,11 +2144,13 @@ def kernels_post(dev) -> dict:
         lines.append(
             f"{label} ({t}, {c}): post_head device {h['device_ms']:.4f} ms "
             f"(bound {h['bound_ms']:.4f}, plain {h['plain_ms']:.4f}); "
-            f"post_tail device {r['device_ms']:.4f} ms (bytes bound "
-            f"{r['bound_ms']:.4f}, chain bound {r['chain_bound_ms']:.4f}, "
-            f"plain {r['plain_ms']:.4f}), L {L}, repaired {counts[None]} of "
-            f"{r['boundaries']} chunks; forced W = 0: {counts[0]} repaired, "
-            f"device {r['forced_repair_device_ms']:.4f} ms")
+            f"post_tail {form} device {r['device_ms']:.4f} ms (bytes bound "
+            f"{r['bound_ms']:.4f}, share "
+            f"{100.0 * r['bound_ms'] / r['device_ms']:.1f}%, chain bound "
+            f"{r['chain_bound_ms']:.4f}, plain {r['plain_ms']:.4f}), L {L}, "
+            f"repaired {counts[None]} of {r['boundaries']} chunks; forced "
+            f"W = 0: {counts[0]} repaired, device "
+            f"{r['forced_repair_device_ms']:.4f} ms")
     print("kernels post_head and post_tail (bit-equal to their plain "
           "versions on each path's power; the batch chain bit-equal to the "
           "column-by-column chain): " + "; ".join(lines), flush=True)

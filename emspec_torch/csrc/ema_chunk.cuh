@@ -41,10 +41,13 @@
 //   loads issued before this batch's chain), and every lane runs the
 //   dependent chain on the inputs it gathers by shuffles before it.  A
 //   column with no failed boundary returns after its ballots.  Each
-//   chunk the walk stores into counts once into ``repaired``.  (A silent
-//   stretch at α ≥ 0.5 leaves the exact state on a subnormal fixed
-//   point that the guess 0 never reaches: such chunks are repaired,
-//   exactly, at the walk's speed.)
+//   chunk the walk stores into counts once into ``repaired``.  (Above
+//   |α| = 0.5 a run of zero inputs holds the exact state on a nonzero
+//   subnormal fixed point that the guess 0 never meets, so each chunk of
+//   a silent stretch is repaired, exactly, at the walk's speed.
+//   post_chain.cu's post_tail, whose gated cells feed exact zeros, scans
+//   such α in its pipelined form instead; ema_scan keeps this core at
+//   every α.)
 //
 // A ``Cell`` gives a thread's column its inputs and takes its outputs:
 //   Raw fetch(long long i) const         — the loads of step i;

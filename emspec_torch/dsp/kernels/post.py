@@ -13,7 +13,13 @@ chain's elementwise stages those plain versions and
   smoothing EMA, (t, ..., rows) power and the AGC series ``refs``
   (t, ...) → (vis, the smoothing state after the last column).
   Counterpart of ``_agc_gate_norm``, the smoothing ``_ema_scan`` and
-  ``_brightness_clip`` (XLA in the JAX package).
+  ``_brightness_clip`` (XLA in the JAX package).  Its kernel scans in one
+  of two forms, chosen on the device from α (``pipelined`` mirrors the
+  rule): chunk-parallel (``ema``'s speculate, verify and repair) where
+  |α| ≤ 0.5, and above, where a silent stretch holds the state on a
+  nonzero subnormal fixed point that no speculation from 0 meets, each
+  column walked once from y0 by a block's chain warp while its other
+  warps stage the inputs (``csrc/post_chain.cu``).
 
 Both round as torch's eager ops do, so the card's batch chain equals the
 live column-by-column chain bit for bit.  ``p`` is the chain's
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from emspec_torch import kernels_build
@@ -58,6 +65,15 @@ def agc_gate_norm(v_db, refs, p):
 
 def brightness_clip(smoothed, p):
     return torch.clamp(smoothed * (2.0 * p.brightness), 0.0, 1.0)  # 8
+
+
+def pipelined(alpha, window: int | None = None) -> bool:
+    """Whether ``post_tail``'s kernel takes its pipelined form: where
+    zero inputs leave ``y ← RN(α·y)`` a nonzero fixed point (|α| > 0.5,
+    or α NaN) and ``window`` is not forced.  The kernel decides from the
+    α it reads on the device; this mirror of its rule takes the float, for
+    tests and measurements (the chain never reads α on the host)."""
+    return window is None and not abs(float(np.float32(alpha))) <= 0.5
 
 
 def post_head_plain(power: torch.Tensor, ramp: torch.Tensor,
@@ -126,7 +142,8 @@ def post_tail(power: torch.Tensor, refs: torch.Tensor, y0: torch.Tensor, p,
     """(t, ..., rows) float32 power, the AGC series ``refs`` (t, ...), the
     smoothing state ``y0`` (..., rows) → (vis (t, ..., rows), the state
     after the last column); with t = 0 the state is ``y0`` itself.
-    ``window``: as ``ema_scan``'s (a test hook)."""
+    ``window``: as ``ema_scan``'s (a test hook; forced, it keeps the
+    chunk-parallel form at every α, so 0 makes every chunk repair)."""
     if power.device.type == "cpu":
         return post_tail_plain(power, refs, y0, p)
     what = "post_tail"
@@ -168,4 +185,6 @@ def post_tail(power: torch.Tensor, refs: torch.Tensor, y0: torch.Tensor, p,
 
 
 # as ``ema_scan.pass_launches``: the speculate and the repair launches
+# (in the pipelined form the first returns at once where there are two
+# chunks and the second walks the columns)
 post_tail.pass_launches = {"speculate": 0, "repair": 0}

@@ -1102,6 +1102,42 @@ def test_cuda_post_chain_batch_is_column_by_column(cuda, t, smoothing):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [0.5, 0.51, 0.6, 0.75, 0.9, 0.99])
+def test_cuda_post_tail_over_silence_in_both_forms(cuda, smoothing):
+    """``post_tail`` over gated silence (power 0: b exactly 0) after
+    content, from step 0 with y0 0 and > 0, a stretch across chunk
+    boundaries, NaN and +inf power beside a stretch, y0 +inf: bit-equal
+    to its plain version in the form the kernel takes (pipelined above
+    one half, with nothing repaired) and with W forced to 0 (every form
+    chunk-parallel), the same on a second run."""
+    t, rows = 1500, 64
+    p, power = _post_case(cuda, t, (2,), rows, smoothing, seed=12)
+    power[300:1100, 0] = 0.0                  # after content
+    power[:700, 1, :32] = 0.0                 # from step 0
+    power[777:1013, :, 32:] = 0.0             # across chunk boundaries
+    power[299, 0, 6] = float("inf")           # lead 0's AGC series +inf on
+    power[1101, 0, 5] = float("nan")          # then NaN
+    refs, _ = ema_scan(ema_chain.PostState.init((2, rows), cuda).agc_ref,
+                       ema_chain.AGC_DECAY, post_head(
+                           power, p.low_end_ramp, p.gain, 0.01))
+    y0 = torch.zeros((2, rows), device=cuda)
+    y0[1, :16] = 0.5
+    y0[1, 16] = float("inf")
+    want = post_tail_plain(power, refs, y0, p)
+    counter = ema.repair_counter(cuda)
+    for window in (None, 0):
+        counter.zero_()
+        got = post_tail(power, refs, y0, p, window=window)
+        torch.cuda.synchronize()
+        if window is None and smoothing > 0.5:
+            assert int(counter.item()) == 0
+        again = post_tail(power, refs, y0, p, window=window)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lead,agc_global", [((3,), False), ((3,), True),
                                              ((2, 2), True)])
 def test_cuda_post_chain_channels_column_by_column(cuda, lead, agc_global):

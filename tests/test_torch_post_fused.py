@@ -12,7 +12,10 @@ trajectories until their bits agree.  Tolerances:
 
 * the mirror against the plain loop: bit for bit (int32 views, so NaN
   payloads count), at every W, forced W = 0 included, and with NaN and
-  ±inf in b;
+  ±inf in b; and ``post_tail``'s scan in the form its kernel picks
+  (``mirror_post_tail_scan``: pipelined above |α| = 0.5) the same way
+  over zero-input runs, with the form's rule held to a brute-force
+  search for the fixed points of ``y ← RN(α·y)``;
 * the fused composition (the plain versions through ``_fused_batch``)
   against ``postprocess_batch`` on the CPU: bit for bit;
 * against JAX's ``postprocess_batch(associative=False)``:
@@ -346,3 +349,150 @@ def test_wrappers_refuse_a_tensor_off_cpu_and_cuda(which):
         else:
             tchain.postprocess_batch(
                 power, tchain.PostState.init((ROWS,), "meta"), meta)
+
+
+# ----------------------------------------- post_tail's two scan forms
+PIPE_TILE = 288      # csrc/post_chain.cu kPipeTile: steps a tile
+PIPE_COLS = 4        # kPipeCols: columns a block (a chain warp's lanes)
+TINY = np.float32(2.0 ** -149)
+SILENCE_ALPHAS = (0.5, 0.51, 0.6, 0.75, 0.9, 0.99)
+
+
+def mirror_pipelined(y0: torch.Tensor, alpha, b: torch.Tensor):
+    """The pipelined form: every block's chain warp steps its
+    ``PIPE_COLS`` columns from y0 through tiles of ``PIPE_TILE`` steps
+    (the blocks side by side, as on the card) → (ys, y_final)."""
+    t = b.shape[0]
+    c = math.prod(b.shape[1:])
+    bf, y = b.reshape(t, c), y0.reshape(c).clone()
+    ys = torch.empty_like(bf)
+    for c0 in range(0, c, PIPE_COLS):
+        cols = slice(c0, c0 + PIPE_COLS)
+        for m in range(-(-t // PIPE_TILE)):
+            for i in range(m * PIPE_TILE, min(t, (m + 1) * PIPE_TILE)):
+                y[cols] = _step(y[cols], alpha, bf[i, cols])
+                ys[i, cols] = y[cols]
+    return ys.reshape(b.shape), y.reshape(y0.shape)
+
+
+def mirror_post_tail_scan(y0, alpha, b, window=None):
+    """``post_tail``'s scan as its kernel runs it → (ys, y_final, repaired
+    chunks, form): the form by ``post.pipelined``, the chunk-parallel one
+    on ``mirror_scan``."""
+    if post.pipelined(float(alpha), window):
+        ys, fin = mirror_pipelined(y0, alpha, b)
+        return ys, fin, 0, "pipelined"
+    ys, fin, repaired = mirror_scan(y0, alpha, b, window)
+    return ys, fin, repaired, "chunked"
+
+
+def _silence_case(case: str, alpha: float, window):
+    """(b, y0) on 6 columns of 20 chunks (L = 16): b = (1 − α)·vis with
+    vis in [0.05, 1], and runs of exact zeros (a gated cell's input)."""
+    t, c = 20 * L, 6
+    rng = np.random.default_rng(SILENCE_CASES.index(case))
+    a = np.float32(alpha)
+    vis = rng.uniform(0.05, 1.0, (t, c)).astype(np.float32)
+    y0 = rng.uniform(0.2, 1.0, c).astype(np.float32)
+    runs = {"run 1": 1, "run L - 1": L - 1, "run L": L, "run 3L + 5": 3 * L + 5}
+    if case in runs:
+        for j in range(c):          # each column's run at its own offset
+            s0 = 5 * L + 3 + 7 * j
+            vis[s0:s0 + runs[case], j] = 0.0
+    elif case.startswith("silent from 0"):
+        vis[:8 * L] = 0.0
+        if case.endswith("y0 0"):
+            y0[:] = 0.0
+    elif case == "inside a warm-up":
+        # from inside chunk 8's warm-up to inside chunk 9's
+        w8 = ema.window_len(a, 8 * L, window)
+        w9 = ema.window_len(a, 9 * L, window)
+        vis[8 * L - max(w8 // 2, 1):9 * L - w9 // 2 + L // 2] = 0.0
+    elif case == "non-finite":
+        vis[4 * L:10 * L] = 0.0
+        vis[4 * L - 1, 0] = np.nan              # NaN just before
+        vis[10 * L, 1] = np.inf                 # ±inf, NaN just after
+        vis[10 * L, 2] = -np.inf
+        vis[10 * L, 3] = np.nan
+        vis[:4 * L, 4:] = 0.0                   # y0 +inf and NaN in silence
+        y0[4], y0[5] = np.inf, np.nan
+    b = (np.float32(1.0) - a) * vis
+    return torch.from_numpy(b), torch.from_numpy(y0)
+
+
+SILENCE_CASES = ("run 1", "run L - 1", "run L", "run 3L + 5",
+                 "silent from 0, y0 0", "silent from 0, y0 > 0",
+                 "inside a warm-up", "non-finite")
+
+
+@pytest.mark.parametrize("window", [None, 0])
+@pytest.mark.parametrize("alpha", SILENCE_ALPHAS, ids=str)
+@pytest.mark.parametrize("case", SILENCE_CASES)
+def test_post_tail_forms_bit_equal_over_silence(case, alpha, window):
+    """``post_tail``'s scan in the form its kernel takes (pipelined above
+    one half, chunk-parallel at 0.5 and with W forced to 0) against the
+    plain loop, bit for bit, over zero-input runs of 1, L − 1, L and
+    3L + 5 steps, columns silent from step 0 (y0 0 and > 0), a stretch
+    from inside one warm-up to inside the next, NaN and ±inf beside a
+    stretch and y0 = ±inf or NaN; the pipelined form repairs nothing."""
+    b, y0 = _silence_case(case, alpha, window)
+    a = torch.tensor(np.float32(alpha))
+    ys, fin, repaired, form = mirror_post_tail_scan(y0, a, b, window)
+    _assert_bit_equal((ys, fin), ema.ema_scan_plain(y0, a, b))
+    assert form == ("pipelined" if alpha > 0.5 and window is None
+                    else "chunked")
+    if form == "pipelined":
+        assert repaired == 0
+
+
+def _kmax(alpha) -> int:
+    """The largest k with RN(α·k·2⁻¹⁴⁹) = k·2⁻¹⁴⁹ in float32, by search."""
+    a = np.float32(alpha)
+    k = np.arange(int(0.5 / (1.0 - float(a))) + 4, dtype=np.float32)
+    return int(np.nonzero(a * (k * TINY) == k * TINY)[0].max())
+
+
+def test_the_kernels_form_rule_against_a_fixed_point_search():
+    """The kernel is pipelined exactly where zero inputs hold
+    ``y ← RN(α·y)`` on a nonzero fixed point (k_max ≥ 1): a brute-force
+    float32 search over α ∈ [0, 1) on a grid of 10⁻⁴ (and 0.5's
+    neighbours).  From above every α lands on k_max·2⁻¹⁴⁹ (0 at α ≤ 0.5,
+    the chunk-parallel form's guess), from 0 stays at 0, and NaN and
+    +inf stay themselves: none of those is the guess above one half."""
+    grid = np.arange(0, 10_000, dtype=np.float64) / 10_000
+    grid = np.concatenate([grid, [np.nextafter(np.float32(0.5), 0),
+                                  np.nextafter(np.float32(0.5), 1)]])
+    kmax = np.array([_kmax(a) for a in grid.astype(np.float32)])
+    assert all(post.pipelined(a) == (k >= 1)
+               for a, k in zip(grid.astype(np.float32), kmax))
+    assert [_kmax(a) for a in (0.5, 0.6, 0.75, 0.9, 0.99)] == [0, 1, 2, 4, 50]
+    for alpha in (0.3, 0.5) + SILENCE_ALPHAS[1:]:
+        a = np.float32(alpha)
+        y = np.array([1.0, 1e-30, 0.0, np.nan, np.inf], dtype=np.float32)
+        for _ in range(12_000):     # > the longest descent, 9,865 at 0.99
+            y = a * y + np.float32(0.0)
+        assert y[0] == y[1] == _kmax(a) * TINY
+        assert y[2] == 0.0 and np.isnan(y[3]) and y[4] == np.inf
+    assert post.pipelined(float("nan")) and post.pipelined(-0.7)
+    assert not post.pipelined(0.99, window=0)
+
+
+def test_silence_walks_in_the_chunked_form_only_above_one_half():
+    """Why the form turns at one half: after content, 40 chunks of zero
+    input.  The chunk-parallel form repairs at most the chunks whose
+    warm-up starts within the state's fall to 0 at α = 0.5 (~150 steps),
+    and every chunk of the stretch at 0.6, whose exact state stays on
+    2⁻¹⁴⁹; the pipelined form walks it once and repairs none."""
+    t, c = 50 * L, 4
+    rng = np.random.default_rng(9)
+    vis = rng.uniform(0.05, 1.0, (t, c)).astype(np.float32)
+    vis[8 * L:48 * L] = 0.0
+    y0 = torch.zeros(c)
+    repaired = {}
+    for alpha in (0.5, 0.6):
+        a = torch.tensor(np.float32(alpha))
+        b = torch.from_numpy((np.float32(1.0) - np.float32(alpha)) * vis)
+        ys, fin, repaired[alpha] = mirror_scan(y0, a, b)
+        _assert_bit_equal((ys, fin), ema.ema_scan_plain(y0, a, b))
+    assert repaired[0.5] <= (-(-150 // L) + 1) * c
+    assert repaired[0.6] >= 38 * c
