@@ -232,6 +232,10 @@ them.  Phases, in order, one line each; the first failure ends the run:
 23. live_cli: ``python -m emspec_torch`` live --capture (synthetic), live
    --fast on a 4 s WAV, presets add/show/delete, gui --duration 3
    --no-prewarm and doctor --kernels, each a subprocess exiting 0; walls.
+   Doctor's kernels row must name B2's sorted batch, tiles and ring
+   (local and cluster) forms and B1's windowed form.  Then each new
+   check of ``dsp/kernels/validate.py`` on the card with its form broken
+   (``validate.perturbed``, the CPU tests' stand-ins) must raise.
 24. ring_ab: the display default live and north live through graphed
    ``Stream``s on the numpy ring and on the native ring in turns (numpy,
    native, native, numpy, twice), p50/p99 host ms a hop of each and each
@@ -367,6 +371,7 @@ from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import (
     frame_signal, frame_signal_np, signal_blocks)
 from emspec_torch.dsp.kernels import ema
+from emspec_torch.dsp.kernels import validate as kernel_validate
 from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
 from emspec_torch.dsp.kernels.post import (
     pipelined, post_head, post_head_plain, post_tail, post_tail_plain)
@@ -3636,9 +3641,49 @@ def live_cli_phase(x: np.ndarray) -> None:
                 if " native ring " in ln]
     check(len(ring_row) == 1 and ring_row[0].startswith("ok"),
           f"cli doctor: native ring row {ring_row}")
+    kernels_row = [ln for ln in stdout["doctor --kernels"].splitlines()
+                   if " cuda kernels " in ln]
+    check(len(kernels_row) == 1 and kernels_row[0].startswith("ok")
+          and all(f in kernels_row[0] for f in DOCTOR_FORMS),
+          f"cli doctor: the kernels row {kernels_row} does not name each "
+          f"of {DOCTOR_FORMS}")
+    print(f"live_cli: doctor --kernels wall {walls['doctor --kernels']:.2f} "
+          f"s; its row: {kernels_row[0]}", flush=True)
     print("live_cli: python -m emspec_torch, each a subprocess that exited "
           "0, wall s: " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
           + "; last lines: " + " | ".join(outs.values()), flush=True)
+
+
+# the forms doctor --kernels must name: B2's ordered forms, B1's windowed
+DOCTOR_FORMS = ("sorted batch", "sorted tiles", "ring local", "ring cluster",
+                "B1 whole, windowed")
+
+
+def validate_bites(dev) -> None:
+    """Each new check of ``doctor --kernels`` on the card against the
+    broken stand-ins of ``tests/test_torch_validate.py``
+    (``validate.perturbed``: a cell one ulp off, the sum in reverse
+    deposit order, an output's old values dropped, a NaN behind a dropped
+    id landed; B1's ids moved a row, its band weight left out): the form's
+    validator must raise ``AssertionError`` from that form's check each
+    time.  The untouched kernels pass in ``live_cli``'s doctor."""
+    t0 = time.perf_counter()
+    refused = []
+    for form, (name, hows) in kernel_validate.PERTURBATIONS.items():
+        where = form if form.startswith("B1") else f"B2 {form}"
+        for how in hows:
+            try:
+                with kernel_validate.perturbed(form, how):
+                    getattr(kernel_validate, name)(dev, quick=True)
+            except AssertionError as e:
+                check(str(e).startswith(where), f"validate: {name} with "
+                      f"{form} broken ({how}) raised from another check: {e}")
+                refused.append(f"{form} {how}")
+                continue
+            fail(f"validate: {name} passed with {form} broken ({how})")
+    print(f"validate: {len(refused)} broken stand-ins, each refused by its "
+          f"form's check on the card in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(refused)})", flush=True)
 
 
 RING_TURNS = (False, True, True, False) * 2  # native_ring, in turns
@@ -4578,6 +4623,7 @@ def main() -> None:
     app_phase(dev, x)
     swap_phase(dev, x)
     live_cli_phase(x)
+    validate_bites(dev)
     ring_ab_phase(dev, x)
     examples_phase()
     parallel_phase(dev, xs, xs_live, vis_sl, x, vis_m)

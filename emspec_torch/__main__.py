@@ -451,8 +451,10 @@ def cmd_doctor(args) -> int:
     subsystem: torch and CUDA versions, the card's name and power limit,
     ``nvcc``, the kernel library, the native ring, audio capture, the
     native window and the update manifest; ``--kernels`` also validates
-    every CUDA kernel against its plain version on the card (``--full``:
-    every shape).
+    every CUDA kernel form a default path launches (B2's ordered batch,
+    tiles and ring forms, B1's windowed form) and the opt-in ones against
+    its plain version on the card, at the paths' own shapes (``--full``:
+    every shape), and its row names the forms it held.
     Exits 1 on any FAIL: on ``--device cuda`` (the default) without a
     card, and ``--kernels`` with ``--device cpu``."""
     import os
@@ -534,14 +536,15 @@ def cmd_doctor(args) -> int:
         row("ok", "update check", "no manifest configured (offline)")
 
     if args.kernels:
-        from emspec_torch.dsp.kernels.validate import validate_kernels
+        from emspec_torch.dsp.kernels.validate import (
+            forms_of, validate_kernels)
         try:
             report = validate_kernels(quick=not args.full, device=args.device)
             row("ok", "cuda kernels",
-                f"B1-B5, the EMA scan, post_head and post_tail match "
-                f"their plain versions on "
-                f"{report['device']} ({'quick' if report['quick'] else 'full'}"
-                f" shapes, {report['library']})")
+                f"{len(report['checked'])} checks match their plain "
+                f"versions on {report['device']} "
+                f"({'quick' if report['quick'] else 'full'} shapes, "
+                f"{report['library']}): {forms_of(report['checked'])}")
         except Exception as e:
             row("FAIL", "cuda kernels", f"{type(e).__name__}: {e}")
 

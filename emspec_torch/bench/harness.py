@@ -301,7 +301,9 @@ def primary_metric(quick: bool = False, device="cuda") -> dict:
 def run_benchmarks(quick: bool = False, device="cuda") -> dict:
     """Full report over the JAX report's configurations, after
     ``validate_kernels`` has held every CUDA kernel to its plain version
-    on the card (on the CPU there is no kernel to validate)."""
+    on the card (on the CPU there is no kernel to validate); its report,
+    with the ``"checked"`` list of kernel forms and shapes it held, is
+    the report's ``"kernels"``."""
     from emspec_torch.config import Settings
     from emspec_torch.device import as_device
 

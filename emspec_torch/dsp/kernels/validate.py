@@ -1,30 +1,100 @@
-"""On-card kernel validation: every CUDA kernel of the port against its
-plain PyTorch version (``emspec.dsp.pallas.validate``), the check
-``python -m emspec_torch doctor --kernels`` runs.
+"""On-card kernel validation: every hand-written CUDA kernel form that a
+default path of the port launches, and the opt-in ones, against its plain
+PyTorch version (``emspec.dsp.pallas.validate``), the check that
+``python -m emspec_torch doctor --kernels`` and every bench run make
+before any number is reported.
 
-Shapes are the JAX package's: B2 at (16, 16512, 4608) and (4, 901, 1152)
-(rows, deposits a row, cells), B5 at (90, 2048) and (32768,), B4 at 8192
-and 32768 points, B1 at 8192 and 32768 and, unless ``quick``, 131072 and
-262144 at b = 2, B3 at (640, 512) pixels in both forms, and the batch
-post chain's three kernels: the EMA scan (1024 × 512, also with every
-chunk forced to repair), ``post_head`` and ``post_tail`` (1024 × 512, at
-smoothing 0 and 0.6).  ``quick`` takes the smaller set: B2 (4, 2048,
-4608), B5 (16, 2048), B4 and B1 at 8192.
+What it holds (``quick`` takes the first of each list; every check adds
+one ``"kernel · form · shape"`` line to the report's ``"checked"``):
 
-Tolerances: B2 rtol 5e-5, atol 1e-4 (float32 sums in another order); B5,
-B3 and the post chain's kernels bit-equal; B4 2e-5·max|X|; B1 as
-histograms (energy and 3×3 max-filters, ``validate.compare_grids``) and
-≥ 99.99% equal ids.
+* B2's ordered sums, the card's default (``validate_sorted``): the batch
+  form at the bench primary's sum (enhanced 8192, 16 s mono: 1 ×
+  1,524,084 deposits → 190,464 cells, R = 2), the tiles form at the
+  display default's batch (1 × 2,267,934 → 3,039,744, R = 32), then the
+  batch form's other regimes: packed entries (north: 32768 at hop 800,
+  R = 20), 16 row bands (ext262144: 8 s at 96 kHz) and 16 lanes
+  (batch16).  The ids are B1's of a numpy-seeded signal through the
+  pipeline, as the batch makes them.  Each form forced and as
+  ``sorted_form`` picks it, its launch counted.
+* B2's ring form, every live hop's sum (``validate_ring``): the display
+  default's hop (382 deposits → 65 × 512, the local kernel), the
+  enhanced 8192 one (4,097 → 5 × 512, clustered), then 16 lanes at 32768
+  and 96 kHz (clusters of 4); ``ring_plan`` must pick the kernel named.
+  Nine hops streamed into a ring of random values from t0 = 0, 1, R,
+  P − 1, P, P + 1 and 100,003 (columns below 0 dropped, the slot wrap,
+  far along), each hop checked.
+* B2's atomic routes, opt-in (``exact_sums=False``;
+  ``validate_histogram``): row and global, each forced, at (4, 2048,
+  4608), then (16, 16512, 4608) and (4, 901, 1152) (rows, deposits a row,
+  cells), on ids in [−1, S).
+* B1 (``validate_deposits``): the whole spectrum at 8192, then 32768 and,
+  at b = 2, 131072 and 262144; its windowed form
+  (``validate_deposits_windowed``) at the display default's banks on 16 s
+  (5,937 frames), each bank's bin window and band weight: 8192, then 2048
+  and 512.
+* B5 at (16, 2048), then (90, 2048) and (32768,); B4 at 8192, then
+  32768; B3 at (640, 512) in both forms; the EMA scan, ``post_head`` and
+  ``post_tail`` at 1024 × 512 (smoothing 0 and 0.6; forced repair too).
+
+Tolerances: B2's ordered forms bit-equal to the plain sum computed on the
+CPU (on the card ``histogram_plain`` is ``index_add_``'s atomics, no
+order), the same on a second run, added into a nonzero output, and finite
+with NaN and Inf behind dropped ids; B2's atomic routes rtol 5e-5, atol
+1e-4 (float32 sums in another order); B5, B3 and the post chain's kernels
+bit-equal; B4 2e-5·max|X|; B1 as grids (energy and 3×3 max-filters,
+``validate.compare_grids``) and ≥ 99.99% equal ids — the windowed form
+on the absolute (t, rows) grid the display sums, float64 plain deciding
+where float32 plain's rounding flipped a deposit.
+
+``perturbed`` swaps one form for a broken stand-in, which each of these
+checks must refuse (``PERTURBATIONS``; the CPU tests, ``chip_smoke.py``).
 
 The card only: on the CPU the plain versions are what the wrappers run,
 so there is nothing to hold them against and ``validate_kernels``
-raises.
+raises.  Each per-kernel validator takes ``dev``: on the CPU it runs the
+plain versions through the same checks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
+
 import numpy as np
 import torch
+
+SR = 48_000
+# the default batch sums B2's ordered forms serve: label, Settings
+# fields, channels, seconds, the form
+SORTED_CASES = (
+    ("batch", dict(mode="enhanced", multires=False, fft_size=8192), 1, 16.0,
+     "batch"),
+    ("multires", {}, 1, 16.0, "tiles"),
+    ("north", dict(mode="enhanced", multires=False, fft_size=32768, hop=800),
+     1, 16.0, "batch"),
+    ("ext262144", dict(mode="enhanced", multires=False, fft_size=262144,
+                       sample_rate=96000), 1, 8.0, "batch"),
+    ("batch16", dict(mode="enhanced", multires=False, fft_size=8192), 16,
+     16.0, "batch"))
+# the live hops B2's ring form serves: label, Settings fields, lanes,
+# whether ``ring_plan`` takes the local kernel
+RING_CASES = (
+    ("multires live", {}, 1, True),
+    ("live", dict(mode="enhanced", multires=False, fft_size=8192), 1, False),
+    ("stress live", dict(mode="enhanced", multires=False, fft_size=32768,
+                         sample_rate=96000), 16, False))
+RING_FRAMES = 9             # a ring case's signal: its frames, a stream's hops
+WINDOW_SECONDS = 16.0       # B1's windowed form: the display default's batch
+# each new check's broken stand-ins (``perturbed``): form → its validator
+# and the ways to break it
+PERTURBATIONS = {
+    "sorted batch": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
+    "sorted tiles": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
+    "ring local": ("validate_ring", ("ulp", "reversed", "nan")),
+    "ring cluster": ("validate_ring", ("ulp", "reversed", "nan")),
+    "B1 windowed": ("validate_deposits_windowed", ("moved", "unweighted")),
+}
 
 
 def _assert(cond: bool, msg: str) -> None:
@@ -32,23 +102,209 @@ def _assert(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def _signal(seconds: float, channels: int, seed: int, sr: int) -> np.ndarray:
+    """A linear chirp to 9 kHz (channel c from 100 + 150·c Hz), three
+    tones of 0.1 and 1% Gaussian noise from ``seed`` (``chip_smoke.py``'s
+    signal)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(round(seconds * sr))) / sr
+    tones = sum(0.1 * np.sin(2 * np.pi * f * t) for f in (440.0, 880.0,
+                                                          1320.0))
+    out = []
+    for c in range(channels):
+        f0 = 100.0 + 150.0 * c
+        chirp = 0.5 * np.sin(2 * np.pi * (f0 * t + 0.5 * (9000.0 - f0)
+                                          / seconds * t * t))
+        out.append(chirp + tones + 0.01 * rng.standard_normal(t.size))
+    x = np.stack(out).astype(np.float32)
+    return x[0] if channels == 1 else x
+
+
+def _pipeline(dev, fields: dict, channels: int):
+    from emspec_torch.config import Settings
+    from emspec_torch.pipeline import Pipeline
+    return Pipeline(Settings(**fields).replace(channels=channels), dev)
+
+
+def _relative_ids(pipe, seconds: float, seed: int):
+    """B1's relative ids and contrib of ``seconds`` of ``_signal`` through
+    ``pipe``, as its batch makes them → (t, ids (..., t, K), contrib)."""
+    s = pipe.settings
+    x = pipe.to_device(_signal(seconds, s.channels, seed, s.sample_rate))
+    t = pipe.num_columns(x.shape[-1])
+    ids, contrib = pipe._deposit_ids_rel(pipe._bank_inputs(x, t),
+                                         pipe.params())
+    return t, ids, contrib
+
+
+def _launched(dev, route: str, fn, where: str):
+    """``fn()``, which must launch B2's ``route`` once on the card."""
+    from emspec_torch.dsp.kernels import scatter
+
+    counts = scatter.histogram.route_launches
+    before = counts[route]
+    out = fn()
+    _assert(dev.type != "cuda" or counts[route] == before + 1,
+            f"{where}: no launch of that form")
+    return out
+
+
+def _dropped(ids: torch.Tensor, vals: torch.Tensor, outside: int):
+    """Every 7th deposit dropped (id −1) with a NaN behind it, every 7th
+    from the 3rd out of range (id ``outside``) with an Inf."""
+    i, v = ids.clone().reshape(-1), vals.clone().reshape(-1)
+    i[::7], v[::7] = -1, float("nan")
+    i[3::7], v[3::7] = outside, float("inf")
+    return i.reshape(ids.shape), v.reshape(vals.shape)
+
+
 def validate_histogram(dev, shapes=((16, 16512, 4608), (4, 901, 1152)),
-                       rtol: float = 5e-5) -> None:
-    """B2 (``histogram``, its route by shape) against ``histogram_plain``
-    on ids in [−1, S), a share of them dropped."""
-    from emspec_torch.dsp.kernels.scatter import histogram, histogram_plain
+                       rtol: float = 5e-5) -> list:
+    """B2's atomic routes, each forced, against ``histogram_plain`` on ids
+    in [−1, S), a share of them dropped."""
+    from emspec_torch.dsp.kernels.scatter import (
+        ROUTES, histogram, histogram_plain)
 
     rng = np.random.default_rng(7)
+    checked = []
     for b, m, s in shapes:
         ids = torch.from_numpy(rng.integers(-1, s, (b, m)).astype(np.int32))
         vals = torch.from_numpy(rng.uniform(0.0, 1.0, (b, m)).astype(
             np.float32))
-        got = histogram(ids.to(dev), vals.to(dev), s).cpu()
         want = histogram_plain(ids, vals, s)
-        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-4)
+        for route in ROUTES:
+            got = _launched(dev, route, lambda: histogram(
+                ids.to(dev), vals.to(dev), s, route=route),
+                f"B2 {route} at {(b, m, s)}").cpu()
+            torch.testing.assert_close(got, want, rtol=rtol, atol=1e-4)
+            checked.append(f"B2 · {route} · {b} × {m} → {s}")
+    return checked
 
 
-def validate_windowing(dev, shapes=((90, 2048), (32768,))) -> None:
+def validate_sorted(dev, quick: bool = True,
+                    seconds: float | None = None) -> list:
+    """B2's ordered batch sums (``SORTED_CASES``; module docstring), each
+    bit-equal to the plain sum computed on the CPU.  ``seconds`` stands in
+    for each case's signal length (the CPU tests)."""
+    from emspec_torch.dsp.kernels import scatter
+
+    checked = []
+    for i, (label, fields, ch, secs, form) in enumerate(
+            SORTED_CASES[:2] if quick else SORTED_CASES):
+        pipe = _pipeline(dev, fields, ch)
+        t, rel, contrib = _relative_ids(pipe, seconds or secs, 20 + i)
+        lead, k, R, C = rel.shape[:-2], rel.shape[-1], pipe.reach, pipe.rows
+        ids = pipe._absolute_ids(rel, t, R).reshape(lead + (-1,)).contiguous()
+        vals = contrib.reshape(lead + (-1,)).contiguous()
+        cells, lanes = t * C, math.prod(lead)
+        del rel, contrib
+        plan = scatter.batch_plan(t, k, R, C, lanes)
+        shape = (f"{lanes} × {ids.shape[-1]} → {cells}, R = {R}"
+                 + (f", {plan['bands']} row band"
+                    f"{'s' if plan['bands'] > 1 else ''}, "
+                    f"{'packed' if plan['packed'] else 'raw'} entries"
+                    if form == "batch" else ""))
+        where = f"B2 sorted {form} at {label} ({shape})"
+        chosen = scatter.sorted_form(t, k, R, C, lanes)
+        _assert(chosen == form, f"{where}: sorted_form picks {chosen!r}")
+        bound = dict(route=scatter.SORTED, reach=R, frame_len=k,
+                     column_len=C)
+
+        def run(force=None, out=None, ids=ids, vals=vals):
+            return _launched(dev, f"sorted_{form}", lambda: scatter.histogram(
+                ids, vals, cells, out=out, form=force, **bound), where)
+        ids_c, vals_c = ids.cpu(), vals.cpu()
+        want = scatter.histogram_plain(ids_c, vals_c, cells)
+        for force in (form, None):
+            got = run(force)
+            _assert(torch.equal(got.cpu(), want),
+                    f"{where}, {'forced' if force else 'by shape'}: differs "
+                    f"from the plain sum in deposit order")
+        _assert(torch.equal(run(), got), f"{where}: two runs differ")
+        base = torch.from_numpy(np.random.default_rng(i).uniform(
+            0.0, 1.0, lead + (cells,)).astype(np.float32))
+        _assert(torch.equal(run(out=base.clone().to(dev)).cpu(),
+                            scatter.histogram_plain(ids_c, vals_c, cells,
+                                                    out=base)),
+                f"{where}: added into an output, differs from the plain sum")
+        bad_i, bad_v = _dropped(ids_c, vals_c, cells + 5)
+        got = run(ids=bad_i.to(dev), vals=bad_v.to(dev)).cpu()
+        _assert(bool(torch.isfinite(got).all()),
+                f"{where}: a NaN or Inf behind a dropped id landed")
+        _assert(torch.equal(got, scatter.histogram_plain(bad_i, bad_v, cells)),
+                f"{where}, ids dropped: differs from the plain sum in "
+                f"deposit order")
+        checked.append(f"B2 · sorted {form} · {label}: {shape}")
+    return checked
+
+
+def validate_ring(dev, quick: bool = True) -> list:
+    """B2's ring form at the live hops of ``RING_CASES``: a stream of the
+    ``RING_FRAMES`` hops of a signal (B1's relative ids, as the live step
+    hands them), hop f at t = t0 + f, into one ring that starts with
+    random values of the deposits' size, for each t0 of 0, 1, R, P − 1,
+    P, P + 1 and 100,003; after each hop bit-equal to
+    ``histogram_ring_plain`` of ``ring_ids`` computed on the CPU, also
+    with NaN and Inf behind dropped ids, the same on a second run."""
+    from emspec_torch.dsp.kernels import scatter
+
+    checked = []
+    for i, (label, fields, lanes, local) in enumerate(
+            RING_CASES[:2] if quick else RING_CASES):
+        pipe = _pipeline(dev, fields, lanes)
+        sr = pipe.settings.sample_rate
+        _, rel, contrib = _relative_ids(
+            pipe, (pipe.n_max + (RING_FRAMES - 1) * pipe.hop) / sr, 30 + i)
+        R, C, k = pipe.reach, pipe.rows, rel.shape[-1]
+        P = 2 * R + 1
+        plan = scatter.ring_plan(k, P, C, lanes=lanes, clusters16=(
+            scatter._clusters16(k, P, C, lanes, dev.index)
+            if dev.type == "cuda" else 0))
+        form = "local" if local else "cluster"
+        shape = (f"{lanes} × {k} → {P} × {C} a lane, {plan['cluster']} CTAs "
+                 f"a lane")
+        where = f"B2 ring {form} at {label} ({shape})"
+        _assert(plan["fits"] and plan["local"] == local,
+                f"{where}: ring_plan picks {plan}")
+        rng = np.random.default_rng(40 + i)
+        rel_c, vals_c = rel.cpu(), contrib.cpu()
+        ring0 = torch.from_numpy(rng.uniform(
+            0.0, 1.0, (P,) + rel.shape[:-2] + (C,)).astype(
+                np.float32)) * vals_c.max()
+        pick = torch.from_numpy(rng.random(tuple(rel.shape)) < 0.1)
+        bad_i = torch.where(pick, torch.where(rel_c % 2 == 0, -1, P * C + 7),
+                            rel_c).to(torch.int32)
+        bad_v = torch.where(pick, torch.where(rel_c % 3 == 0, float("inf"),
+                                              float("nan")), vals_c)
+        for t0 in sorted({0, 1, R, P - 1, P, P + 1, 100_003}):
+            for ids, v in ((rel_c, vals_c), (bad_i, bad_v)):
+                want, ring = ring0.clone(), ring0.clone().to(dev)
+                for f in range(RING_FRAMES):
+                    t = t0 + f
+                    hop_i = ids[..., f, :].contiguous()
+                    hop_v = v[..., f, :].contiguous()
+                    scatter.histogram_ring_plain(
+                        scatter.ring_ids(hop_i, t, P, C), hop_v, want)
+                    t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+                    got = _launched(dev, scatter.SORTED_RING,
+                                    lambda: scatter.histogram_ring(
+                                        hop_i.to(dev), hop_v.to(dev), ring,
+                                        t_dev), where).cpu()
+                    _assert(bool(torch.isfinite(got).all()),
+                            f"{where}, t = {t}: a NaN or Inf behind a "
+                            f"dropped id landed")
+                    _assert(torch.equal(got, want), f"{where}, t = {t}: "
+                            f"differs from the plain sum in deposit order")
+        hop_i, hop_v = (x[..., 0, :].contiguous().to(dev)
+                        for x in (rel_c, vals_c))
+        first, second = (scatter.histogram_ring(
+            hop_i, hop_v, ring0.clone().to(dev), t_dev) for _ in range(2))
+        _assert(torch.equal(first, second), f"{where}: two runs differ")
+        checked.append(f"B2 · ring {form} · {label}: {shape}")
+    return checked
+
+
+def validate_windowing(dev, shapes=((90, 2048), (32768,))) -> list:
     """B5 (``windowed_frames``) bit-equal to the plain triple multiply."""
     from emspec_torch.dsp.kernels.window import (
         windowed_frames, windowed_frames_plain)
@@ -60,9 +316,10 @@ def validate_windowing(dev, shapes=((90, 2048), (32768,))) -> None:
         _assert(torch.equal(windowed_frames(frames),
                             windowed_frames_plain(frames)),
                 f"B5 at {shape}: differs from the plain triple window")
+    return [f"B5 · windowed_frames · {s}" for s in shapes]
 
 
-def validate_fft4(dev, ns=(8192, 32768), rtol: float = 2e-5) -> None:
+def validate_fft4(dev, ns=(8192, 32768), rtol: float = 2e-5) -> list:
     """B4 (``fft4_steps123``) against its plain float32 products, three
     sequences at each size."""
     from emspec_torch.dsp.fourstep import _FACTORS
@@ -80,15 +337,29 @@ def validate_fft4(dev, ns=(8192, 32768), rtol: float = 2e-5) -> None:
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         _assert(err <= rtol * scale,
                 f"B4 n={n}: error {err / scale:.2e}·max|X| > {rtol}")
+    return [f"B4 · four-step · 3 × {n}" for n in ns]
 
 
-def validate_deposits(dev, n: int = 8192, b: int = 3) -> None:
-    """B1 (``deposits_ids``, its route by size) against its plain version
-    on a tone in noise, as relative histograms (reach 4, hop n/4)."""
+def _b1_agree(where: str, ik, ck, ip, cp, grids) -> None:
+    """B1 against plain: ``grids`` (ids, contrib) → the two grids as
+    ``compare_grids`` takes them; ≥ 99.99% of the ids equal (a deposit
+    that is invalid or weighted 0 on both sides counts as equal)."""
+    from emspec_torch.validate import compare_grids
+
+    g = compare_grids(grids(ip, cp), grids(ik, ck))
+    vk, vp = ck > 0, cp > 0
+    agree = float((((ik == ip) & vk & vp) | (~vk & ~vp)).float().mean())
+    _assert(g.ok and agree >= 0.9999,
+            f"{where}: {g}, ids equal on {agree:.6f} of the bins")
+
+
+def validate_deposits(dev, n: int = 8192, b: int = 3) -> list:
+    """B1 (``deposits_ids``, its route by size) over the whole spectrum
+    against its plain version on a tone in noise, as relative histograms
+    (reach 4, hop n/4)."""
     from emspec_torch.dsp.kernels.deposits import (
         deposits_ids, deposits_ids_plain)
     from emspec_torch.dsp.kernels.scatter import histogram_plain
-    from emspec_torch.validate import compare_grids
 
     rng = np.random.default_rng(10)
     hop, rows, sr, reach = n // 4, 128, 48000.0, 4
@@ -103,16 +374,51 @@ def validate_deposits(dev, n: int = 8192, b: int = 3) -> None:
     ik, ck = deposits_ids(frames, *scal, **kw)
     ip, cp = deposits_ids_plain(frames, *scal, **kw)
     cells = (2 * reach + 1) * rows
-    g = compare_grids(
-        histogram_plain(ip, cp, cells).reshape(b, 2 * reach + 1, rows),
-        histogram_plain(ik, ck, cells).reshape(b, 2 * reach + 1, rows))
-    vk, vp = ck > 0, cp > 0
-    agree = float((((ik == ip) & vk & vp) | (~vk & ~vp)).float().mean())
-    _assert(g.ok and agree >= 0.9999,
-            f"B1 n={n}: {g}, ids equal on {agree:.6f} of the bins")
+    _b1_agree(f"B1 n={n}", ik, ck, ip, cp, lambda i, c: histogram_plain(
+        i, c, cells).reshape(b, 2 * reach + 1, rows))
+    return [f"B1 · whole · {b} × {n}"]
 
 
-def validate_lut(dev) -> None:
+def validate_deposits_windowed(dev, quick: bool = True,
+                               seconds: float | None = None) -> list:
+    """B1's windowed form as the display default ``Settings()`` runs it:
+    each bank's frames of ``WINDOW_SECONDS`` (or ``seconds``) of signal,
+    its bin window ``[k_lo, k_hi)`` and band weight, against its plain
+    version on the same, as the absolute (t, rows) grids the batch sums;
+    float64 plain decides where float32 plain's rounding flipped a
+    deposit (``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
+    from emspec_torch.dsp.kernels.deposits import (
+        deposits_ids, deposits_ids_plain)
+    from emspec_torch.dsp.kernels.scatter import histogram_plain
+
+    pipe = _pipeline(dev, {}, 1)
+    x = pipe.to_device(_signal(seconds or WINDOW_SECONDS, 1, 50, SR))
+    t = pipe.num_columns(x.shape[-1])
+    p = pipe.params()
+    scal = (p.logmap_a, p.logmap_b, p.power_floor)
+    R, rows = pipe.reach, pipe.rows
+    checked = []
+    for b, frames in enumerate(pipe._bank_inputs(x, t)[:1 if quick else None]):
+        n, (k_lo, k_hi) = pipe.sizes[b], pipe.k_slices[b]
+        kw = dict(n=n, hop=pipe.hop, sr=float(SR), rows=rows, reach=R,
+                  k_lo=k_lo, k_hi=k_hi, band=p.band_bins[b])
+        ik, ck = deposits_ids(frames, *scal, **kw)
+        ip, cp = deposits_ids_plain(frames, *scal, **kw)
+        i64, c64 = deposits_ids_plain(frames.double(), *scal, **kw)
+        settled = (ik != ip) & (ik == i64) & ((ck > 0) == (c64 > 0))
+        ip = torch.where(settled, i64, ip)
+        cp = torch.where(settled, c64.float(), cp)
+        del i64, c64
+        shape = f"{t} × {n}, bins [{k_lo}, {k_hi}), band weight"
+        _b1_agree(f"B1 windowed at {shape}", ik, ck, ip, cp,
+                  lambda i, c: histogram_plain(
+                      pipe._absolute_ids(i, t, R).reshape(-1),
+                      c.reshape(-1), t * rows).reshape(t, rows))
+        checked.append(f"B1 · windowed · display default {shape}")
+    return checked
+
+
+def validate_lut(dev) -> list:
     """B3 in both forms (``lut_lookup`` on int32 indices, ``lut_values``
     on float32 values) bit-equal to the gather."""
     from emspec_torch.dsp.kernels.lut import (
@@ -129,9 +435,10 @@ def validate_lut(dev) -> None:
         np.float32)).to(dev)
     _assert(torch.equal(lut_values(vals, table), lut_values_plain(vals, table)),
             "B3 lut_values differs from its plain quantize and gather")
+    return ["B3 · lut_lookup · 640 × 512", "B3 · lut_values · 640 × 512"]
 
 
-def validate_ema(dev, shape=(1024, 512), alpha: float = 0.7) -> None:
+def validate_ema(dev, shape=(1024, 512), alpha: float = 0.7) -> list:
     """The EMA scan kernel bit-equal to its plain loop, with its
     speculation as it comes and with every chunk forced to repair."""
     from emspec_torch.dsp.kernels.ema import ema_scan, ema_scan_plain
@@ -147,15 +454,17 @@ def validate_ema(dev, shape=(1024, 512), alpha: float = 0.7) -> None:
             _assert(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"ema_scan (window {window}) differs from its plain "
                     f"loop")
+    return [f"ema_scan · {form} · {shape[0]} × {shape[1]}"
+            for form in ("speculated", "repair forced")]
 
 
-def validate_post(dev, t: int = 1024, rows: int = 512) -> None:
+def validate_post(dev, t: int = 1024, rows: int = 512) -> list:
     """The post chain's fused kernels: ``post_head`` bit-equal to its plain
     stages 1–3 and row peak, ``post_tail`` to its plain stages 4–8 around
     the smoothing loop (forced repair too), at smoothing 0 and 0.6."""
     from emspec_torch.config import Settings
     from emspec_torch.dsp.kernels.post import (
-        post_head, post_head_plain, post_tail, post_tail_plain)
+        pipelined, post_head, post_head_plain, post_tail, post_tail_plain)
     from emspec_torch.post.chain import PostParams
 
     rng = np.random.default_rng(13)
@@ -163,6 +472,7 @@ def validate_post(dev, t: int = 1024, rows: int = 512) -> None:
         np.float32)).to(dev)
     y0 = torch.from_numpy(rng.uniform(0, 1, rows).astype(np.float32)).to(dev)
     freqs = np.geomspace(20.0, 24000.0, rows)
+    forms = []
     for smoothing in (0.0, 0.6):
         p = PostParams.from_settings(Settings(smoothing=smoothing), freqs,
                                      dev)
@@ -176,11 +486,18 @@ def validate_post(dev, t: int = 1024, rows: int = 512) -> None:
             _assert(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"post_tail (smoothing {smoothing}, window {window}) "
                     f"differs from its plain version")
+            form = ("pipelined" if pipelined(smoothing, window)
+                    else "chunk-parallel")
+            forms.append(f"post_tail · {form}"
+                         f"{' repaired' if window == 0 else ''} · {t} × "
+                         f"{rows}, smoothing {smoothing}")
+    return [f"post_head · fused · {t} × {rows}"] + forms
 
 
 def validate_kernels(quick: bool = False, device="cuda") -> dict:
     """Run every kernel check on ``device`` (a card); raises on the first
-    failure, and on the CPU.  Returns a report dict."""
+    failure, and on the CPU.  Returns a report dict, its ``"checked"``
+    one ``"kernel · form · shape"`` line a check."""
     from emspec_torch.device import as_device
 
     dev = torch.device(device)
@@ -193,20 +510,125 @@ def validate_kernels(quick: bool = False, device="cuda") -> dict:
     dev = as_device(dev)
     from emspec_torch import kernels_build
     kernels_build.library()
-    validate_histogram(dev, ((4, 2048, 4608),) if quick
-                       else ((16, 16512, 4608), (4, 901, 1152)))
-    validate_windowing(dev, ((16, 2048),) if quick else ((90, 2048), (32768,)))
-    validate_fft4(dev, (8192,) if quick else (8192, 32768))
-    validate_deposits(dev, 8192)
-    if not quick:
-        validate_deposits(dev, 32768)
-        validate_deposits(dev, 131072, b=2)
-        validate_deposits(dev, 262144, b=2)
-    validate_lut(dev)
-    validate_ema(dev)
-    validate_post(dev)
+    checked = validate_histogram(dev, ((4, 2048, 4608),) if quick
+                                 else ((16, 16512, 4608), (4, 901, 1152)))
+    checked += validate_sorted(dev, quick)
+    checked += validate_ring(dev, quick)
+    checked += validate_windowing(dev, ((16, 2048),) if quick
+                                  else ((90, 2048), (32768,)))
+    checked += validate_fft4(dev, (8192,) if quick else (8192, 32768))
+    for n, b in ((8192, 3),) if quick else ((8192, 3), (32768, 3),
+                                            (131072, 2), (262144, 2)):
+        checked += validate_deposits(dev, n, b)
+    checked += validate_deposits_windowed(dev, quick)
+    checked += validate_lut(dev)
+    checked += validate_ema(dev)
+    checked += validate_post(dev)
     torch.cuda.synchronize(dev)
     return {"device": torch.cuda.get_device_name(dev),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "library": kernels_build.library_path().name,
-            "quick": quick, "kernels_validated": True}
+            "quick": quick, "kernels_validated": True, "checked": checked}
+
+
+def forms_of(checked: list) -> str:
+    """The kernels and forms a ``"checked"`` list holds, by kernel in
+    order: ``"B2 row, global, sorted batch; B1 whole, windowed; …"``."""
+    forms: dict = {}
+    for line in checked:
+        kernel, form, _ = line.split(" · ", 2)
+        if form not in forms.setdefault(kernel, []):
+            forms[kernel].append(form)
+    return "; ".join(f"{k} {', '.join(v)}" for k, v in forms.items())
+
+
+@contextlib.contextmanager
+def perturbed(form: str, how: str):
+    """For the length of the block, one kernel form (a key of
+    ``PERTURBATIONS``) becomes a broken stand-in: the real call, then its
+    result with its largest cell one ulp up (``"ulp"``), the plain sum in
+    reverse deposit order (``"reversed"``), an output's old values dropped
+    (``"out"``) or a NaN landed where a dropped id carries a NaN or Inf
+    (``"nan"``); B1's windowed form with one valid id in 1,000 moved a row
+    (``"moved"``) or its band weight left out (``"unweighted"``).  Calls of
+    the other forms pass through.  The form's validator must raise
+    ``AssertionError`` inside."""
+    from emspec_torch.dsp.kernels import deposits, scatter
+
+    if how not in PERTURBATIONS[form][1]:
+        raise ValueError(f"{form} has no perturbation {how!r}")
+    if form.startswith("sorted"):
+        module, name = scatter, "histogram"
+        real = scatter.histogram
+
+        def stand_in(ids, vals, num_bins, *a, out=None, **kw):
+            if _sorted_form(ids, num_bins, kw) != form.split()[1]:
+                return real(ids, vals, num_bins, *a, out=out, **kw)
+            base = None if out is None else out.clone()
+            got = real(ids, vals, num_bins, *a,
+                       out=None if how == "out" else out, **kw)
+            if how == "out" and out is not None:
+                return out.copy_(got)
+            if how == "reversed":
+                return got.copy_(scatter.histogram_plain(
+                    ids.cpu().flip(-1), vals.cpu().flip(-1), num_bins,
+                    None if base is None else base.cpu()))
+            return _broken(got, vals, how)
+    elif form.startswith("ring"):
+        module, name = scatter, "histogram_ring"
+        real = scatter.histogram_ring
+
+        def stand_in(ids, vals, ring, t, **kw):
+            local = kw.get("local")
+            if local is None:
+                local = -(-ids.shape[-1] // 32) <= scatter.RING_LOCAL_CHUNKS
+            if local != (form == "ring local"):
+                return real(ids, vals, ring, t, **kw)
+            base = ring.clone()
+            real(ids, vals, ring, t, **kw)
+            if how == "reversed":
+                P, C = ring.shape[0], ring.shape[-1]
+                return ring.copy_(scatter.histogram_ring_plain(
+                    scatter.ring_ids(ids.cpu().flip(-1), int(t), P, C),
+                    vals.cpu().flip(-1), base.cpu()))
+            return _broken(ring, vals, how)
+    else:
+        module, name = deposits, "deposits_ids"
+        real = deposits.deposits_ids
+
+        def stand_in(frames, *scal, band=None, **kw):
+            if band is None or how == "unweighted":
+                return real(frames, *scal, **kw)
+            ids, contrib = real(frames, *scal, band=band, **kw)
+            moved = (contrib.reshape(-1) > 0).nonzero()[::1000, 0]
+            ids = ids.clone()
+            ids.view(-1)[moved] += 1
+            return ids, contrib
+    setattr(module, name, functools.wraps(real)(stand_in))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _sorted_form(ids, num_bins: int, kw: dict) -> str | None:
+    """The ordered form a ``histogram`` call takes, None for another
+    route."""
+    from emspec_torch.dsp.kernels import scatter
+
+    if kw.get("route") != scatter.SORTED or kw.get("reach") is None:
+        return None
+    c_len = kw.get("column_len") or kw["frame_len"]
+    return kw.get("form") or scatter.sorted_form(
+        num_bins // c_len, kw["frame_len"], kw["reach"], c_len,
+        math.prod(ids.shape[:-1]))
+
+
+def _broken(got: torch.Tensor, vals: torch.Tensor, how: str) -> torch.Tensor:
+    flat = got.view(-1)
+    if how == "ulp":
+        i = int(flat.abs().argmax())
+        flat[i] = torch.nextafter(flat[i], flat.new_tensor(float("inf")))
+    elif how == "nan" and not bool(torch.isfinite(vals).all()):
+        flat[0] = float("nan")
+    return got

@@ -1436,6 +1436,15 @@ def test_cuda_validate_kernels_full(cuda):
     from emspec_torch.dsp.kernels.validate import validate_kernels
     report = validate_kernels(quick=False)
     assert report["kernels_validated"] and not report["quick"]
+    forms = [c.split(" · ")[1] for c in report["checked"]]
+    for form in ("sorted batch", "sorted tiles", "ring local",
+                 "ring cluster", "row", "global", "windowed"):
+        assert form in forms, (form, report["checked"])
+    batch = [c for c in report["checked"] if " sorted batch " in c]
+    assert any("north:" in c and c.endswith("packed entries") for c in batch)
+    assert any("ext262144:" in c and "16 row bands" in c for c in batch)
+    assert any("batch16: 16 × " in c for c in batch)
+    assert forms.count("windowed") == 3
 
 
 # ------------------------------------------------ checkpoints and sharding
