@@ -200,8 +200,9 @@ them.  Phases, in order, one line each; the first failure ends the run:
    twice and --multires twice, each pair byte-equal), export (``apply_lut``
    of its vis equals render's PNG pixel for pixel; with --multires, render
    --multires's), stream twice (byte-equal), stream --hop 16384 on the
-   display default twice (47 columns at R = 0, byte-equal),
-   animate over the first 4 s at 10 fps (its last frame equals stream's
+   display default twice (47 columns at R = 0, byte-equal), stream
+   --fft-size 65536 --no-multires over the first 4 s (8 columns, B2's
+   ring form in windows), animate over the first 4 s at 10 fps (its last frame equals stream's
    PNG of the same 4 s) and note 443 — each must exit 0; walls; and render --multires
    --time-parallel (world size 1 under NCCL) twice, byte-equal, whose PNG
    must be render --multires's within one colormap step a pixel (the
@@ -270,20 +271,38 @@ them.  Phases, in order, one line each; the first failure ends the run:
 28. sparse_hop: hops at and past the largest frame (R = 0: the live
    window rolls min(hop, n_max) samples a hop) — the display default at
    hop 16384, enhanced 8192 at hop 12000 and at 8192, natural 2048 at
-   hop 4096 — each a graphed ``Stream`` on the card's defaults fed 8 s
+   hop 4096, the north star's 32768 and the stress cell's 16 channels at
+   96 kHz at hop 40000 — each a graphed ``Stream`` on the card's defaults
+   fed 8 s
    in 777-sample pushes and flushed: its columns bit-equal to
    ``Pipeline.process`` on the card in vis and rgba, the batch within
    the CPU path's tolerances, B2's ring form once a hop and the batch's
    sum in the form ``sorted_form`` names (no global sort, no atomic
    route), B2 at R = 0 bit-equal to its plain versions; host p50/p99 ms
    a hop beside the card's name and power limit.
-29. trace: ``utils.tracing.trace`` around one batch call; the trace it
+29. live_large: live where B2's ring form stages the hop in windows
+   (262144, 65536 and 131072 at 96 kHz, their default hops: 32,769 to
+   131,073 deposits a hop) or cuts the ring into bands (8192 at hop 16
+   and 32768 at hop 64 with 2,048 rows, 16384 at hop 16: 513 to 1,025
+   slots) — each a graphed ``Stream`` fed in 777-sample pushes and
+   flushed: one capture, no frame dropped, its columns bit-equal to
+   ``Pipeline.process`` on the card in vis and rgba, the ring form in
+   windows or bands once a hop, no global sort and no atomic route, the
+   batch within the CPU path's tolerances (vis once float64 plain settles
+   the deposits the card's B1 and the CPU path place apart; each it does
+   not explain 60 dB below the loudest: ``settled_vis``), host p50 and
+   p99 (the max under 100 pushes) ms a hop, reported, not held; and a
+   kernel row each (``histogram_sorted_ring_<shape>``): the ring form at
+   the hop's real ids bit-equal to its plain version at t = 0, 1 and
+   mid, with NaN/Inf behind dropped ids, its device ms, bound, plain and
+   ``index_add_`` times.
+30. trace: ``utils.tracing.trace`` around one batch call; the trace it
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
    call launches, read from the trace; and one live hop's kernels in
    launch order, on the default (B1 then B2's ring form at once: no
    ring-id launch between them) and on the atomic route.
-30. bench: ``python -m emspec_torch bench`` as a user runs it, each a
+31. bench: ``python -m emspec_torch bench`` as a user runs it, each a
    subprocess on the card that must exit 0 and print its JSON report:
    ``--soak --duration 30 --quick`` (while it runs, ``--sustained
    --duration 3`` and ``--trace DIR``), then ``--quick`` and ``--stages``
@@ -294,7 +313,7 @@ them.  Phases, in order, one line each; the first failure ends the run:
    sustained runs keep up (≥ 0.95); the soak's churn counts no error;
    the trace holds the card's kernels.  The primary metric is printed on
    its own line with the card's name and power limit.
-31. breakdown: per-stage device times of the enhanced stencil batch
+32. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
    of a live hop of each path and each raster (torch.profiler busy time
@@ -388,8 +407,8 @@ from emspec_torch.dsp.kernels.lut import (
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, SORTED, SORTED_BATCH, SORTED_RING, SORTED_TILES,
     batch_plan, ring_offsets, histogram, histogram_plain, histogram_ring,
-    histogram_ring_plain, ring_ids, ring_occupancy, ring_plan, route_of,
-    sorted_form, tile_plan)
+    histogram_ring_plain, ring_form, ring_ids, ring_occupancy, ring_plan,
+    ring_plan_on, route_of, sorted_form, tile_plan)
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
@@ -430,6 +449,30 @@ MULTIRES = Settings()           # the display default: enhanced multires
 RASTER = Settings(mode="enhanced", multires=False, fft_size=8192)  # hop 2048
 RASTER_NATURAL = Settings(mode="natural", multires=False, fft_size=2048)
 CHANNELS = 16
+# live past one CTA's shared memory, B2's ring form in windows (a hop of
+# 32,769–131,073 deposits above 32768 points) or in bands (a ring of more
+# cells than 16 CTAs hold: a short hop, a tall raster): the path, its
+# settings, seconds of its signal
+LIVE_LARGE = (
+    ("live_large_262144", EXT, 8.0),
+    ("live_large_65536", Settings(mode="enhanced", multires=False,
+                                  fft_size=65536, sample_rate=96000), 3.0),
+    ("live_large_131072", Settings(mode="enhanced", multires=False,
+                                   fft_size=131072, sample_rate=96000), 4.0),
+    ("live_large_wide_hop16", WIDE.replace(hop=16, raster_height=2048), 0.5),
+    ("live_large_north_hop64", NORTH.replace(hop=64, raster_height=2048),
+     1.5),
+    ("live_large_16384_hop16", Settings(mode="enhanced", multires=False,
+                                        fft_size=16384, hop=16), 0.8))
+
+
+def ring_row(path: str) -> str:
+    """The kernel row of a ``LIVE_LARGE`` path: its ring form's shape."""
+    return "histogram_sorted_ring_" + path.removeprefix("live_large_")
+
+
+# a kernel row of one path's shape: its launches are that path's alone
+ROW_PATH = {ring_row(path): path for path, _, _ in LIVE_LARGE}
 STREAM_VIS_ATOL = 1e-5           # atomics / batch shapes reorder float32 sums
 B4_TOL = 2e-5                    # · max|X|
 NATURAL_POWER_TOL = 1e-4         # · peak
@@ -479,7 +522,8 @@ KERNELS = (
      "emspec/post/chain.py:131"),
     ("post_tail", post_tail, "emspec_torch/csrc/post_chain.cu",
      "emspec/post/chain.py:149"),
-)
+) + tuple((row, histogram, "emspec_torch/csrc/histogram_ring.cu",
+           "emspec/dsp/pallas/scatter.py:135") for row in ROW_PATH)
 # a kernel counted by another counter than its wrapper's ``launches``
 COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "histogram_sorted_tiles":
@@ -492,7 +536,10 @@ COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
           "deposits_hist_cluster":
               lambda: deposits_hist.route_launches["cluster"],
           "deposits_hist_cluster_large":
-              lambda: deposits_hist.route_launches["cluster_large"]}
+              lambda: deposits_hist.route_launches["cluster_large"],
+          # the ring form in windows or bands (``ring_form``)
+          **{row: lambda: histogram.ring_form_launches["windows"]
+             + histogram.ring_form_launches["bands"] for row in ROW_PATH}}
 # the card's default sums are the ordered ones: every enhanced batch path
 # sums through B2's sorted route with its bound — its batch form, or its
 # tiles form where ``sorted_form`` says so by shape (no global sort) —
@@ -552,7 +599,24 @@ PATH_KERNELS = {        # kernels each path must launch
     + ("lut_values",) + SCAN,
     "sparse_natural_4096": ("lut_values",),
     "sparse_natural_4096_batch": ("lut_values",) + SCAN,
+    "sparse_north_40000": CLUSTER_B1 + RING + ("lut_values",),
+    "sparse_north_40000_batch": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
+    "sparse_stress_40000": CLUSTER_B1 + RING + ("lut_values",),
+    "sparse_stress_40000_batch": CLUSTER_B1 + BATCH + ("lut_values",)
+    + SCAN,
 }
+
+
+def _b1_of(s: Settings) -> tuple:
+    """B1's kernel row on a single-bank enhanced path: by ``s.fft_size``."""
+    return (("deposits_ids",) if s.fft_size <= 16384 else CLUSTER_B1
+            if s.fft_size == 32768 else ("deposits_ids_cluster_large",))
+
+
+for _path, _s, _ in LIVE_LARGE:     # live: the ring form in windows or bands
+    PATH_KERNELS[_path] = _b1_of(_s) + RING + ("lut_values", ring_row(_path))
+    PATH_KERNELS[f"{_path}_batch"] = _b1_of(_s) + BATCH + ("lut_values",) \
+        + SCAN
 # the enhanced live phases: each default stream held bit for bit to a
 # second run and to the default batch, its hop in turns with the atomic
 # route's (``exact_sums=False``)
@@ -3106,6 +3170,9 @@ def cli_phase(dev, x: np.ndarray) -> None:
                 ("export", ["export", "s16.wav", "e.npz", "--fft-size",
                             "8192"]),
                 ("stream 4 s", ["stream", "s4.wav", "s4.png"]),
+                ("stream --fft-size 65536", ["stream", "s4.wav", "s64k.png",
+                                             "--fft-size", "65536",
+                                             "--no-multires"]),
                 ("animate", ["animate", "s4.wav", "a.png", "--fps", "10"]),
                 ("note", ["note", "443"]))
         walls, outs = {}, {}
@@ -3179,6 +3246,11 @@ def cli_phase(dev, x: np.ndarray) -> None:
         check("streamed 47 columns x1ch (reach=0 hops)"
               in outs["stream --hop 16384"],
               f"cli stream --hop 16384: {outs['stream --hop 16384']!r}")
+        # a hop of 32,769 deposits: B2's ring form in windows
+        check("streamed 8 columns x1ch (reach=2 hops)"
+              in outs["stream --fft-size 65536"],
+              f"cli stream --fft-size 65536: "
+              f"{outs['stream --fft-size 65536']!r}")
         steps, share = lut_steps(torch.from_numpy(read_png(d / "tp.png")),
                                  torch.from_numpy(read_png(d / "m.png")),
                                  torch.from_numpy(lut("inferno").copy()))
@@ -3235,7 +3307,8 @@ def app_phase(dev, x: np.ndarray) -> None:
     structural POST (4096 single-bank), 3 s, a structural POST (natural),
     3 s.  In each window (no swap inside) the columns painted must be ≥
     ``KEEP_UP`` × the audio hops that arrived (both read under the shell's
-    lock just after a drain tick that painted, at each end) and
+    lock after a drain tick that painted, with no whole hop pending, at
+    each end: within 5 s, else as they stand) and
     ``dropped_frames`` 0; the kinds must be as expected, the
     slider must re-capture nothing and each swap's stream capture once;
     every frame (512, 1024, 4).  Prints each POST's wall, the gap from a
@@ -3270,18 +3343,28 @@ def app_phase(dev, x: np.ndarray) -> None:
                     res["shapes"].add((h, w, (len(raw) - 8) / (h * w)))
 
             def snapshot():
-                # right after a drain tick that painted: the audio not yet
-                # analyzed is then at most what arrived since
-                ticks = srv.columns_emitted
+                # after a drain tick that painted, under the lock, with no
+                # whole hop of the audio read left to analyze: the columns
+                # then account for all of it but less than a hop.  A tick
+                # that stopped at DRAIN_HOLD_S, or feeder blocks pushed
+                # since the tick, leave hops pending: wait for the next
+                # tick (a stream slower than real time never drains, and
+                # is read at the deadline with its backlog)
                 deadline = time.perf_counter() + 5.0
-                while (srv.columns_emitted == ticks
-                       and time.perf_counter() < deadline):
-                    time.sleep(0.0005)
-                with srv.lock:
-                    st = srv.app.stream
-                    check_native_ring("app", st)
-                    return (st, srv.columns_emitted, st.ring.total_written,
-                            st.dropped_frames)
+                while True:
+                    ticks = srv.columns_emitted
+                    while (srv.columns_emitted == ticks
+                           and time.perf_counter() < deadline):
+                        time.sleep(0.0005)
+                    with srv.lock:
+                        st = srv.app.stream
+                        written = st.ring.total_written
+                        if (st.hop_pending()
+                                and time.perf_counter() < deadline):
+                            continue
+                        check_native_ring("app", st)
+                        return (st, srv.columns_emitted, written,
+                                st.dropped_frames)
 
             def window(label, seconds):
                 st0, c0, w0, _ = snapshot()
@@ -3656,7 +3739,7 @@ def live_cli_phase(x: np.ndarray) -> None:
 
 # the forms doctor --kernels must name: B2's ordered forms, B1's windowed
 DOCTOR_FORMS = ("sorted batch", "sorted tiles", "ring local", "ring cluster",
-                "B1 whole, windowed")
+                "ring windows", "ring bands", "B1 whole, windowed")
 
 
 def validate_bites(dev) -> None:
@@ -4156,7 +4239,10 @@ SPARSE_HOP = (          # hops at and past the largest frame: R = 0
     ("sparse_enhanced_12000", SETTINGS.replace(hop=12000)),
     ("sparse_enhanced_8192", SETTINGS.replace(hop=8192)),
     ("sparse_natural_4096", Settings(mode="natural", multires=False,
-                                     fft_size=2048, hop=4096)))
+                                     fft_size=2048, hop=4096)),
+    # the north star's 32768 and the stress cell's 16 channels at 96 kHz
+    ("sparse_north_40000", NORTH.replace(hop=40000)),
+    ("sparse_stress_40000", STRESS.replace(hop=40000)))
 SPARSE_SECONDS = 8.0
 SPARSE_PUSH = 777
 
@@ -4166,18 +4252,22 @@ def sparse_reach0(dev, name: str, pipe: Pipeline, x: np.ndarray) -> str:
     ring form at frame ``mid``'s relative ids into a ring of random
     values at t = 0, 1 and mid (``histogram_ring_plain``), and the batch's
     bounded sorted form at reach 0 over all frames (``histogram_plain``),
-    bit for bit, with NaN/Inf behind dropped and out-of-range ids."""
+    bit for bit, with NaN/Inf behind dropped and out-of-range ids; every
+    lane (channel) of ``x`` its own."""
     ids_rel, contrib, _ = relative_ids(dev, pipe.settings, x)
     P, C = 2 * pipe.reach + 1, pipe.rows
+    lead = tuple(ids_rel.shape[:-2])
     t_count, k = ids_rel.shape[-2], ids_rel.shape[-1]
     mid = t_count // 2
-    rel, vals = ids_rel[mid].contiguous(), contrib[mid].contiguous()
-    pick = torch.from_numpy(np.random.default_rng(5).random(k) < 0.1).to(dev)
+    rel = ids_rel[..., mid, :].contiguous()
+    vals = contrib[..., mid, :].contiguous()
+    pick = torch.from_numpy(np.random.default_rng(5).random(
+        tuple(rel.shape)) < 0.1).to(dev)
     bad_ids = torch.where(pick, torch.where(rel % 2 == 0, -1, P * C + 7),
                           rel).to(torch.int32)
     bad_vals = torch.where(pick, torch.where(
         rel % 3 == 0, float("inf"), float("nan")), vals)
-    ring0 = torch.rand((P, C), device=dev)
+    ring0 = torch.rand((P,) + lead + (C,), device=dev)
     for t in (0, 1, mid):
         t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
         for ids, v in ((rel, vals), (bad_ids, bad_vals)):
@@ -4186,17 +4276,18 @@ def sparse_reach0(dev, name: str, pipe: Pipeline, x: np.ndarray) -> str:
             got = histogram_ring(ids, v, ring0.clone(), t_dev)
             check(torch.equal(got.cpu(), want), f"{name}: B2's ring form at "
                   f"R = 0, t = {t} differs from its plain version")
-    ids = pipe._absolute_ids(ids_rel, t_count, 0).reshape(-1).contiguous()
-    flat_vals = contrib.reshape(-1).contiguous()
-    form = sorted_form(t_count, k, 0, C)
+    ids = pipe._absolute_ids(ids_rel, t_count, 0).reshape(
+        lead + (-1,)).contiguous()
+    flat_vals = contrib.reshape(lead + (-1,)).contiguous()
+    form = sorted_form(t_count, k, 0, C, math.prod(lead))
     got = histogram(ids, flat_vals, t_count * C, route=SORTED, reach=0,
                     frame_len=k, column_len=C, form=form)
     check(torch.equal(got.cpu(), histogram_plain(
         ids.cpu(), flat_vals.cpu(), t_count * C)), f"{name}: B2's sorted "
           f"{form} form at R = 0 differs from the plain sum")
-    return (f"B2 at R = 0 bit-equal to plain: the ring form (one slot) at "
-            f"t = 0, 1, {mid} with and without dropped ids, the {form} "
-            f"form over {t_count} frames of {k}")
+    return (f"B2 at R = 0 bit-equal to plain: the ring form (one slot, "
+            f"{math.prod(lead)} lanes) at t = 0, 1, {mid} with and without "
+            f"dropped ids, the {form} form over {t_count} frames of {k}")
 
 
 def sparse_hop_phase(dev) -> None:
@@ -4210,14 +4301,15 @@ def sparse_hop_phase(dev) -> None:
     once a hop and the bounded sorted form ``sorted_form`` names in the
     batch, no global sort and no atomic route, and B2 at R = 0 against its
     plain versions (``sparse_reach0``); p50/p99 host ms a hop."""
-    x = signal(SPARSE_SECONDS, seed=24)
     for name, s in SPARSE_HOP:
+        x = signal(SPARSE_SECONDS, s.channels, seed=24, sr=s.sample_rate)
         pipe = Pipeline(s, dev)
         check(pipe.reach == 0 and pipe.roll == pipe.n_max <= pipe.hop,
               f"{name}: reach {pipe.reach}, roll {pipe.roll}, n_max "
               f"{pipe.n_max}, hop {pipe.hop}")
         st = Stream(s, dev)
-        check(st.captures == 1 and tuple(st._block.shape) == (pipe.roll,),
+        check(st.captures == 1 and tuple(st._block.shape)
+              == x.shape[:-1] + (pipe.roll,),
               f"{name}: {st.captures} graph captures, block "
               f"{tuple(st._block.shape)}")
         check_native_ring(name, st)
@@ -4227,7 +4319,7 @@ def sparse_hop_phase(dev) -> None:
         st.close()
         xg = pipe.to_device(x)
         vis_b, rgba_b, _ = drive(f"{name}_batch", lambda: pipe.process(xg))
-        t_count = pipe.num_columns(x.size)
+        t_count = pipe.num_columns(x.shape[-1])
         check([c.index for c in cols] == list(range(t_count)),
               f"{name}: column indices {[c.index for c in cols][:4]}… "
               f"differ from the batch's {t_count}")
@@ -4255,7 +4347,7 @@ def sparse_hop_phase(dev) -> None:
             batch = ROUTE_LAUNCHES[f"{name}_batch"]
             k = sum(hi - lo for lo, hi in pipe.k_slices)   # deposits a frame
             form = {"batch": SORTED_BATCH, "tiles": SORTED_TILES}[
-                sorted_form(t_count, k, 0, pipe.rows)]
+                sorted_form(t_count, k, 0, pipe.rows, s.channels)]
             check(live[SORTED_RING] == t_count and all(
                 n == 0 for r, n in live.items() if r != SORTED_RING),
                   f"{name}: the stream's B2 launches {live}, want its ring "
@@ -4267,12 +4359,14 @@ def sparse_hop_phase(dev) -> None:
             sums = (f"; B2 routes live {live[SORTED_RING]}× the ring form, "
                     f"batch the {form} form; " + sparse_reach0(dev, name,
                                                                pipe, x))
-        vis_ok, vd, vshare = compare_vis(vis_c, vis_b.cpu())
+        vis_ok, vd, vshare = compare_vis(vis_c.reshape(t_count, -1),
+                                         vis_b.cpu().reshape(t_count, -1))
         check(vis_ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share "
               f"over 2/255: {vshare})")
         p50, p99 = _percentiles([v * 1e3 for v in lat])
         print(f"sparse_hop {name} ({CARD[0]}): {s.mode} n_max {pipe.n_max} "
-              f"at hop {pipe.hop} (R = 0, the window rolls {pipe.roll} "
+              f"at hop {pipe.hop}, {s.channels} ch at {s.sample_rate} Hz "
+              f"(R = 0, the window rolls {pipe.roll} "
               f"samples a hop, {pipe.hop - pipe.roll} skipped), "
               f"{SPARSE_SECONDS:.0f} s in {SPARSE_PUSH}-sample pushes: "
               f"{len(cols)} columns, one graph replay a hop, ≡ process on "
@@ -4281,6 +4375,230 @@ def sparse_hop_phase(dev) -> None:
               f"a hop p50 {p50:.3f}, p99 {p99:.3f} against the hop's "
               f"{pipe.hop / s.sample_rate * 1e3:.3f} ms of audio (push → "
               f"synchronize); launches {LAUNCHES[name]}{sums}", flush=True)
+
+
+LIVE_LARGE_PUSH = 777
+# a deposit the card's B1 and the CPU path place apart that float64 plain
+# does not explain (``settled_vis``) must be this far below the loudest
+# deposit: near the power floor, where Δt/hop is ill-conditioned (60 dB)
+UNEXPLAINED_BELOW = 1e-6
+
+
+def settled_vis(cpu: Pipeline, x: np.ndarray, t_count: int, ik, ck):
+    """The CPU path's vis of ``x`` with its float32 deposits settled where
+    float64 plain places a deposit as the card's B1 (``ik``, ``ck``, on
+    the CPU) does, as ``kernels_multires`` settles B1 → (vis, deposits
+    placed apart, of them explained by float64, of them settled, the
+    loudest unexplained one's contrib over the loudest deposit's, the
+    first unexplained ones).  Float64 plain explains a deposit placed
+    apart where it sides with one path in its row and in its column
+    offset (each a rounding of its own: f̂, Δt/hop), or, where one path
+    drops it, drops it too or keeps it where the other path does."""
+    p = cpu.params()
+    inputs = cpu._bank_inputs(cpu.to_device(x), t_count)
+    ip, cp = cpu._deposit_ids_rel(inputs, p)
+    i64, c64 = deposits_ids_plain(
+        inputs[0].double(), p.logmap_a, p.logmap_b, p.power_floor,
+        n=cpu.n_max, hop=cpu.hop, sr=float(cpu.settings.sample_rate),
+        rows=cpu.rows, reach=cpu.reach)
+    vk, vp, v64 = ck > 0, cp > 0, c64 > 0
+    apart = ~(((ik == ip) & vk & vp) | (~vk & ~vp))
+    card64 = apart & (ik == i64) & (vk == v64)
+    C = cpu.rows
+
+    def sides(part):            # float64 with one path in one coordinate
+        return (part(i64) == part(ik)) | (part(i64) == part(ip))
+    explained = apart & torch.where(
+        vk == vp, v64 & sides(lambda i: i % C) & sides(lambda i: i // C),
+        ~v64 | (i64 == torch.where(vk, ik, ip)))
+    odd = apart & ~explained
+    loud = float(torch.where(odd, torch.maximum(ck, cp), 0.0).max()) / max(
+        float(ck.max()), float(cp.max()))
+    first = [dict(at=at, card=(int(ik[tuple(at)]), float(ck[tuple(at)])),
+                  cpu=(int(ip[tuple(at)]), float(cp[tuple(at)])),
+                  float64=(int(i64[tuple(at)]), float(c64[tuple(at)])))
+             for at in torch.nonzero(odd)[:6].tolist()]
+    ip = torch.where(card64, i64, ip)
+    cp = torch.where(card64, c64.float(), cp)
+    grid = cpu._scatter_absolute(cpu._absolute_ids(ip, t_count, cpu.reach),
+                                 cp, t_count, exact=True)
+    vis, _ = postprocess_batch(
+        grid.movedim(-2, 0).contiguous(),
+        PostState.init(grid.shape[:-2] + (cpu.rows,), "cpu"), p.post,
+        cpu.settings.agc_global)
+    return (vis, int(apart.sum()), int(explained.sum()), int(card64.sum()),
+            loud, first)
+
+
+def live_large_phase(dev) -> dict:
+    """Each setting of ``LIVE_LARGE`` (B2's ring form in windows or bands)
+    as a graph-captured ``Stream`` on the card's defaults, driven once
+    (counters) in 777-sample pushes, then flushed: one capture, no frame
+    dropped, its columns bit-equal to ``Pipeline.process`` on the card
+    (driven once too) in vis and rgba; B2's ring form once a hop, in its
+    windows or bands form each time, no global sort and no atomic route
+    live or in the batch; the batch against the port's CPU path (grid as
+    the batch phases hold it, vis as they do once float64 plain settles
+    the deposits placed apart: ``settled_vis``); p50/p99 host ms a hop
+    (reported, not held: a hop of 16 is 0.333 ms of audio).  Then each
+    setting's kernel row (``ring_large_row``) → {row: its JSON row}."""
+    rows = {}
+    for name, s, seconds in LIVE_LARGE:
+        t0 = time.perf_counter()
+        x = signal(seconds, seed=27, sr=s.sample_rate)
+        pipe = Pipeline(s, dev)
+        P, C, R = 2 * pipe.reach + 1, pipe.rows, pipe.reach
+        st = Stream(s, dev)
+        check(st.captures == 1, f"{name}: {st.captures} graph captures")
+        check_native_ring(name, st)
+        lat: list = []
+        cols = drive(name, lambda: stream_run(st, x, LIVE_LARGE_PUSH, lat))
+        check(st.captures == 1 and st.dropped_frames == 0,
+              f"{name}: {st.captures} graph captures, {st.dropped_frames} "
+              f"frames dropped")
+        st.close()
+        xg = pipe.to_device(x)
+        vis_b, rgba_b, _ = drive(f"{name}_batch", lambda: pipe.process(xg))
+        t_count = pipe.num_columns(x.shape[-1])
+        check([c.index for c in cols] == list(range(t_count))
+              and torch.equal(torch.stack([c.vis for c in cols]), vis_b)
+              and torch.equal(torch.stack([c.rgba for c in cols]), rgba_b),
+              f"{name}: the stream ≠ process on the card bit for bit "
+              f"({len(cols)} columns, {t_count} in the batch)")
+        hops = t_count + R                     # the flush steps R more
+        live, batch = ROUTE_LAUNCHES[name], ROUTE_LAUNCHES[f"{name}_batch"]
+        split = LAUNCHES[name][ring_row(name)]
+        check(live[SORTED_RING] == split == hops and all(
+            n == 0 for r, n in live.items() if r != SORTED_RING),
+              f"{name}: the stream's B2 launches {live}, in windows or "
+              f"bands {split}, want its ring form in windows or bands once "
+              f"a hop ({hops} hops)")
+        check(batch[SORTED] == batch["row"] == batch["global"] == 0,
+              f"{name}: the batch's B2 launches {batch}")
+        cpu = Pipeline(s, "cpu")
+        vis_c, _, _ = cpu.process(x)
+        g = compare_grids(
+            cpu._enhanced_power(cpu.to_device(x), t_count, cpu.params()),
+            pipe._enhanced_power(xg, t_count, pipe.params()).cpu())
+        check(g.ok, f"{name}: GPU vs CPU grid {g}")
+        _, vd_raw, vshare_raw = compare_vis(vis_c, vis_b.cpu())
+        # a short hop samples Δt/hop's rounding boundaries finely, so the
+        # two float32 paths place more deposits apart: float64 plain
+        # settles them, and what it does not is held as compare_vis holds
+        ik, ck = (a.cpu() for a in pipe._deposit_ids_rel(
+            pipe._bank_inputs(xg, t_count), pipe.params()))
+        vis_s, apart, explained, settled, loud, odd = settled_vis(
+            cpu, x, t_count, ik, ck)
+        del ik, ck
+        check(loud <= UNEXPLAINED_BELOW, f"{name}: of {apart} deposits the "
+              f"card and the CPU path place apart, float64 plain explains "
+              f"{explained}, and one of the others is {loud:.2e} of the "
+              f"loudest deposit; the first (frame, bin; id and contrib) "
+              f"{odd}")
+        vis_ok, vd, vshare = compare_vis(vis_s, vis_b.cpu())
+        check(vis_ok, f"{name}: GPU vs CPU vis (settled by float64 plain) "
+              f"max-filter diff {vd} (share over 2/255: {vshare}; "
+              f"unsettled {vshare_raw})")
+        check(bool(torch.isfinite(vis_b).all()), f"{name}: non-finite vis")
+        ms = [v * 1e3 for v in lat]
+        p50, p99 = _percentiles(ms)
+        audio = pipe.hop / s.sample_rate * 1e3
+        worst = p99 if len(ms) >= 100 else max(ms)    # p99 of few: the max
+        plan = ring_plan_on(dev, pipe.n_max // 2 + 1, P, C)
+        row = rows[ring_row(name)] = ring_large_row(dev, name, pipe, x)
+        print(f"live_large {name} ({CARD[0]}): enhanced {pipe.n_max} at hop "
+              f"{pipe.hop}, {s.sample_rate} Hz, {C} rows (ring {P} × {C}, "
+              f"hop {pipe.n_max // 2 + 1} deposits: windows {plan['windows']}"
+              f" × {plan['window']} chunks, bands {plan['bands']} × "
+              f"{plan['band_slots']} slots, clusters of {plan['cluster']}), "
+              f"{seconds} s in {LIVE_LARGE_PUSH}-sample pushes: "
+              f"{len(cols)} columns, one capture, 0 dropped, ≡ process on "
+              f"the card bit for bit in vis and rgba; the ring form "
+              f"{split}× in windows or bands (one a hop); vs CPU path: "
+              f"energy {g.energy_rel:.2e}, grid maxf {g.maxf_rel:.2e}, vis "
+              f"maxf {vd_raw:.2e} (share over 2/255 {vshare_raw:.2e}); "
+              f"deposits placed apart {apart} of "
+              f"{t_count * (pipe.n_max // 2 + 1)}, float64 plain explains "
+              f"{explained} (the card's {settled}; the loudest other "
+              f"{loud:.1e} of the loudest deposit: {odd[:2]}); settled vis "
+              f"maxf {vd:.2e} (share "
+              f"{vshare:.2e}, allowed 1e-4); host ms a hop over "
+              f"{len(ms)} pushes p50 {p50:.3f}, "
+              f"{'p99' if len(ms) >= 100 else 'max (under 100 pushes)'} "
+              f"{worst:.3f} against the hop's {audio:.3f} ms of audio "
+              f"(push → synchronize; not held: "
+              f"{'keeps up' if worst <= audio else 'falls behind'}); "
+              f"the ring form alone {row['device_ms']:.4f} "
+              f"device ms a hop (bound {row['bound_ms']:.5f} by "
+              f"{row['bound_by']}, index_add_ {row['library_device_ms']:.4f}, "
+              f"plain {row['plain_ms']:.4f} ms); {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
+        row.update(host_p50_ms=p50, host_p99_ms=p99, host_max_ms=max(ms),
+                   host_pushes=len(ms), hop_audio_ms=audio,
+                   columns=len(cols), launches_in_windows_or_bands=split,
+                   deposits_apart=apart, apart_explained_by_float64=explained,
+                   apart_unexplained_loudest=loud,
+                   vis_share_unsettled=vshare_raw, vis_share_settled=vshare)
+    return rows
+
+
+def ring_large_row(dev, name: str, pipe: Pipeline, x: np.ndarray) -> dict:
+    """B2's ring form at the hop of frame ``mid`` of ``x`` (B1's relative
+    ids on the card, as the live step hands them) in windows or bands:
+    bit-equal to ``histogram_ring_plain`` of ``ring_ids`` on the CPU into a
+    ring of random values at t = 0, 1 and mid, with NaN/Inf behind dropped
+    and out-of-range ids, finite; its time, the plain version's and
+    ``index_add_``'s at the same ring offsets, and the byte bound (8 bytes
+    a deposit, 8 a touched cell)."""
+    ids_rel, contrib, _ = relative_ids(dev, pipe.settings, x)
+    mid = ids_rel.shape[-2] // 2
+    rel = ids_rel[..., mid, :].contiguous()
+    vals = contrib[..., mid, :].contiguous()
+    P, C, k = 2 * pipe.reach + 1, pipe.rows, rel.shape[-1]
+    plan = ring_plan_on(dev, k, P, C)
+    check(plan["fits"] and ring_form(plan) in ("windows", "bands"),
+          f"{name}: the ring form's plan {plan}")
+    pick = torch.from_numpy(np.random.default_rng(6).random(k) < 0.1).to(dev)
+    bad_ids = torch.where(pick, torch.where(rel % 2 == 0, -1, P * C + 7),
+                          rel).to(torch.int32)
+    bad_vals = torch.where(pick, torch.where(
+        rel % 3 == 0, float("inf"), float("nan")), vals)
+    ring0 = torch.rand((P, C), device=dev)
+    checked, form = 0, ring_form(plan)
+    for t in (0, 1, mid):
+        t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+        for ids, v in ((rel, vals), (bad_ids, bad_vals)):
+            want = histogram_ring_plain(ring_ids(ids.cpu(), t, P, C),
+                                        v.cpu(), ring0.cpu().clone())
+            before = histogram.ring_form_launches[form]
+            got = histogram_ring(ids, v, ring0.clone(), t_dev).cpu()
+            check(histogram.ring_form_launches[form] == before + 1,
+                  f"{name}: no launch of the ring form in {form}")
+            check(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+                  f"{name}: B2's ring form in windows or bands at t = {t} "
+                  f"differs from its plain version, or a NaN/Inf behind a "
+                  f"dropped id landed")
+            checked += 1
+    t_dev = torch.tensor(mid, dtype=torch.int32, device=dev)
+    ring = ring0.clone()
+    ids = ring_ids(rel, mid, P, C)
+    flat = ring_offsets(ids, ring).reshape(-1)
+    ok = flat >= 0
+    safe = torch.where(ok, flat, ring.numel()).long()
+    v0 = torch.where(ok, vals.reshape(-1), 0.0)
+    spare = torch.zeros(ring.numel() + 1, device=dev)
+    touched = int(torch.unique(flat[ok]).numel())
+    return dict(
+        at=f"{name}: relative ids {tuple(rel.shape)} → a ring ({P}, {C}), "
+           f"windows {plan['windows']} × {plan['window']} chunks, bands "
+           f"{plan['bands']} × {plan['band_slots']} slots, clusters of "
+           f"{plan['cluster']}",
+        max_abs_err=0.0,
+        **times(lambda: histogram_ring(rel, vals, ring, t_dev),
+                lambda: histogram_ring_plain(ids, vals, ring),
+                lambda: spare.index_add_(0, safe, v0), iters=10),
+        **bound(8.0 * rel.numel() + 8.0 * touched, float(touched)),
+        touched_cells=touched, plan=plan, checked_launches=checked)
 
 
 def trace_phase(dev, x: np.ndarray) -> None:
@@ -4580,10 +4898,17 @@ def phase_breakdown(dev, batches: dict, lives: dict, calls: dict) -> None:
 
 def main() -> None:
     t_start = time.perf_counter()
+    walls, last = {}, [t_start]
+
+    def mark(name: str) -> None:        # the host wall since the last mark
+        now = time.perf_counter()
+        walls[name], last[0] = now - last[0], now
     dev = phase_device()
     native_phase()
+    mark("device, native")
     pipe = Pipeline(SETTINGS, dev)
     res = phase_kernels(dev, pipe, pipe.params())
+    mark("kernels")
 
     x = signal(SECONDS)
     vis, ms = batch_phase("batch", dev, SETTINGS, x, iters=10)
@@ -4594,6 +4919,7 @@ def main() -> None:
     live_phase("natural_live", dev, NATURAL, x, vis_n, keep_up=True)
     vis_d, ms_d = batch_phase("direct", dev, DIRECT, x, iters=10)
     live_phase("direct_live", dev, DIRECT, x, vis_d)
+    mark("batch, batch16, live, natural, direct")
 
     xs = signal(4.0, CHANNELS, seed=13, sr=96000)              # harness.py:435
     _, ms_s = batch_phase("stress", dev, STRESS, xs, iters=5)
@@ -4616,22 +4942,35 @@ def main() -> None:
           f"{LIVE_AB['wide_live']['atomic_routes']})")
     vis_m, ms_m = batch_phase("multires", dev, MULTIRES, x, iters=3)
     live_phase("multires_live", dev, MULTIRES, x, vis_m, keep_up=True)
+    mark("stress, north, ext262144, wide, multires")
     rasters = {name: raster_phase(name, dev, s, x)
                for name, s in (("raster", RASTER),
                                ("raster_natural", RASTER_NATURAL))}
+    mark("raster")
     cli_phase(dev, x)
+    mark("cli")
     app_phase(dev, x)
+    mark("app")
     swap_phase(dev, x)
+    mark("swap")
     live_cli_phase(x)
     validate_bites(dev)
+    mark("live_cli, validate")
     ring_ab_phase(dev, x)
     examples_phase()
+    mark("ring_ab, examples")
     parallel_phase(dev, xs, xs_live, vis_sl, x, vis_m)
+    mark("parallel")
     checkpoint_phase(dev, x)
     checkpoint_live(dev, x)
+    mark("checkpoint")
     sparse_hop_phase(dev)
+    mark("sparse_hop")
+    res.update(live_large_phase(dev))
+    mark("live_large")
     trace_phase(dev, x)
     bench_phase(dev, x)
+    mark("trace, bench")
     phase_breakdown(
         dev, {"batch": (SETTINGS, x, ms), "batch16": (SETTINGS, x16, ms16),
               "natural": (NATURAL, x, ms_n), "direct": (DIRECT, x, ms_d),
@@ -4652,13 +4991,19 @@ def main() -> None:
     res["histogram_sorted_batch"]["batch_cells"] = BATCH_AB
     res["histogram_sorted_ring"]["live_hops"] = LIVE_AB
     res["histogram_sorted_ring"]["hop_census"] = HOP_CENSUS
+    mark("breakdown")
+    print("chip_smoke: phase walls, s (host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=sum(run[name] for run in LAUNCHES.values()),
-             launches_by_path={path: run[name]
-                               for path, run in LAUNCHES.items()},
+             launches=(LAUNCHES[ROW_PATH[name]][name] if name in ROW_PATH
+                       else sum(run[name] for run in LAUNCHES.values())),
+             launches_by_path=({ROW_PATH[name]: LAUNCHES[ROW_PATH[name]][name]}
+                               if name in ROW_PATH else
+                               {path: run[name]
+                                for path, run in LAUNCHES.items()}),
              **({"launches_by_route_and_path": ROUTE_LAUNCHES}
                 if name == "histogram" else {}),
              **res[name])

@@ -43,7 +43,7 @@
 //      (one __reduce_or_sync an owner the chunk holds).
 //   3. Cluster sync; no rank reads or writes another's memory after it.
 //      Each warp walks the chunks whose mask holds its bit, in bin order
-//      (a window of 128 chunks at a time, four masks a lane): each group's
+//      (128 chunks at a time, four masks a lane): each group's
 //      lowest lane adds the group's values onto the cell in lane order —
 //      following the group's next lanes by shuffles, or where a warp holds
 //      a group of more than kLongGroup lanes (a crowded top row) from the
@@ -54,9 +54,26 @@
 // the local form: no cluster, every CTA stages the whole hop and keeps its
 // own rows' deposits, so no barrier joins the CTAs (on the card it beat
 // the cluster's two barriers there, and lost above).
+//
+// Windows and bands, where a hop's entries or a lane's ring outgrow one
+// CTA's shared memory (above 32768 points a hop holds 32,769 to 131,073
+// deposits; a short hop or a tall raster gives a ring of up to 16,385 ×
+// 4,096 cells a lane): the plan stages the hop in windows of W chunks
+// (steps 1–3 once a window, window by window in bin order, into an entry
+// array of W chunks; the rank's cells and touched flags stay resident
+// across the windows, and are stored once after the last), and cuts a
+// lane's ring into G bands of B slots, each band's cells owned by a
+// cluster (or, local, S CTAs) of its own that reads the whole hop and
+// keeps the deposits that land in its band.  A cell's owning warp meets
+// its deposits window after window in bin order, so each cell's sum is
+// still the plain version's.  A window ends at a cluster barrier and the
+// next one's staging begins after a __syncthreads() and the cluster's
+// arrive/wait, so no rank writes a peer's entries while the peer still
+// walks the last window.  A shape that fits one window and one band keeps
+// that plan (W the hop's chunks, B = P).
 // A cell is only ever written by its warp, which meets the cell's
 // deposits in bin order, so the sums are the plain version's.  One launch
-// a hop, at a grid fixed by the shape (lanes·S CTAs); no zero fill, no
+// a hop, at a grid fixed by the shape (lanes·G·S CTAs); no zero fill, no
 // global atomics, no sort, no scratch in device memory and no host read
 // of t: the live step's CUDA graph captures it as it is.  The owner does
 // not read the staging rank's memory on each step of its walk instead:
@@ -77,7 +94,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxSmem = 232448;       // a block's shared memory (227 KB)
-constexpr int kMaxStage = 16;          // chunks a warp stages (K ≤ 131,072)
+constexpr int kMaxStage = 16;          // chunks a warp stages a window
 constexpr int kLongGroup = 6;          // lanes of one cell: the unrolled sum
 constexpr unsigned kNone = 0xffffffffu;     // a deposit that lands nowhere
 
@@ -99,7 +116,9 @@ struct RingArgs {
   const float* vals;
   const int* t;
   float* ring;
-  int K, C, P, R, lanes, log_s, rb, chunks, cs;
+  // chunks: the hop's chunks of 32; window: a window's (W); share: a
+  // rank's chunks of a window; band: a band's slots (B), bands of them a lane
+  int K, C, P, R, lanes, log_s, rb, chunks, window, share, band, bands;
 };
 
 // The walk over this rank's cells: the cells' slot and local row of this
@@ -115,12 +134,13 @@ struct CellWalk {
   }
 };
 
-// The ring offset of local row j of ``slot`` on ``rank``, or −1 past C.
+// The ring offset of local row j of ``slot`` on ``rank``, or −1 past C or
+// past the last slot (the last band's end).
 __device__ __forceinline__ long long cell_offset(const RingArgs& a, int rank,
                                                  int lane_row, int slot,
                                                  int j) {
   const int row = ((j >> 3) << (3 + a.log_s)) | (rank << 3) | (j & 7);
-  if (row >= a.C) return -1;
+  if (row >= a.C || slot >= a.P) return -1;
   return ((long long)slot * a.lanes + lane_row) * a.C + row;
 }
 
@@ -182,129 +202,146 @@ __device__ __forceinline__ void walk_step(const uint2* e32, float* tile,
   __syncwarp();
 }
 
-// kLocal: no cluster — each of the S CTAs of a lane stages the whole hop
-// and keeps its own rows' deposits, so no CTA reads or writes another's
-// memory and no cluster barrier is needed (a small hop: ring_plan).
+// kLocal: no cluster — each of the S CTAs of a lane's band stages the
+// whole hop and keeps its own rows' deposits, so no CTA reads or writes
+// another's memory and no cluster barrier is needed (a small hop:
+// ring_plan).  Bounded to one CTA an SM, which its registers allowed
+// anyway: the compiler then keeps each thread's staged ids and values in
+// registers (the local form spilled without the bound).
 template <bool kLocal>
-__global__ void __launch_bounds__(kThreads) ring_kernel(RingArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) ring_kernel(RingArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int S = 1 << a.log_s;
   const int rank = kLocal ? (int)(blockIdx.x & (S - 1))
                           : (int)cluster.block_rank();
-  const int lane_row = blockIdx.x >> a.log_s;
+  const int group = blockIdx.x >> a.log_s;        // lane_row · bands + band
+  const int lane_row = group / a.bands;
+  const int lo = (group - lane_row * a.bands) * a.band;   // its first slot
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int cells = a.P * a.rb, n32 = a.chunks * 32;
+  const int cells = a.band * a.rb, n32 = a.window * 32;
   const int cells16 = (padded(cells) + 16) & ~15;
   extern __shared__ __align__(16) unsigned char sm[];
   uint2* kv = reinterpret_cast<uint2*>(sm);                       // n32
   float* tile = reinterpret_cast<float*>(kv + n32);               // cells16
   unsigned char* touched = reinterpret_cast<unsigned char*>(tile + cells16);
-  unsigned* masks = reinterpret_cast<unsigned*>(touched + cells16);  // chunks
+  unsigned* masks = reinterpret_cast<unsigned*>(touched + cells16);  // window
 
-  // 1. this rank's cells (asynchronously), the arrays' fill, t, its share
+  // 1. this rank's cells of the band (asynchronously), its touched flags, t
   CellWalk cw(a.rb);
   for (int i = threadIdx.x; i < cells; i += kThreads, cw.next(a.rb)) {
-    const long long off = cell_offset(a, rank, lane_row, cw.slot, cw.j);
+    const long long off = cell_offset(a, rank, lane_row, lo + cw.slot, cw.j);
     if (off >= 0) __pipeline_memcpy_async(tile + padded(i), a.ring + off, 4);
   }
   __pipeline_commit();
-  const int c_lo = kLocal ? 0 : rank * a.cs;
-  const int c_hi = kLocal ? a.chunks : min(c_lo + a.cs, a.chunks);
   const int* rid = a.ids + (long long)lane_row * a.K;
   const float* rval = a.vals + (long long)lane_row * a.K;
-  int id[kMaxStage];
-  float v[kMaxStage];
-#pragma unroll
-  for (int s = 0; s < kMaxStage; ++s) {
-    const int ch = c_lo + warp + s * kWarps;
-    const int k = (ch << 5) + lane;
-    const bool in = ch < c_hi && k < a.K;
-    id[s] = in ? __ldg(rid + k) : -1;
-    v[s] = in ? __ldg(rval + k) : 0.0f;
-  }
   const int t = __ldg(a.t);
   const uint4 none = make_uint4(kNone, 0u, kNone, 0u), zero = {};
-  for (int i = threadIdx.x; i < n32 / 2; i += kThreads)
-    reinterpret_cast<uint4*>(kv)[i] = none;
   for (int i = threadIdx.x; i < cells16 / 16; i += kThreads)
     reinterpret_cast<uint4*>(touched)[i] = zero;
-  for (int i = threadIdx.x; i < a.chunks; i += kThreads) masks[i] = 0u;
-  // every rank's arrays are filled: arrive now, wait only before the first
-  // store into another rank (the loads above land meanwhile)
-  if (kLocal) __syncthreads();
-  else cluster_arrive();
-
-  // 2. each deposit's cell, sent to its owner
   const int total = a.P * a.C;
-  bool waited = false;
+
+  for (int c0 = 0; c0 < a.chunks; c0 += a.window) {
+    // the window's chunks [c0, c0 + wn); this rank's share of them
+    const int wn = min(a.window, a.chunks - c0);
+    const int c_lo = c0 + (kLocal ? 0 : rank * a.share);
+    const int c_hi = kLocal ? c0 + wn : min(c_lo + a.share, c0 + wn);
+    int id[kMaxStage];
+    float v[kMaxStage];
 #pragma unroll
-  for (int s = 0; s < kMaxStage; ++s) {
-    const int ch = c_lo + warp + s * kWarps;
-    if (ch >= c_hi) break;                               // warp-uniform
-    int owner = -1, cell = 0;
-    if (id[s] >= 0 && id[s] < total) {
-      const int d = id[s] / a.C;                         // δ + R
-      const int row = id[s] - d * a.C;
-      const int col = t + d - a.R;
-      if (col >= 0) {
-        const int g = row >> 3;
-        owner = g & (S - 1);
-        cell = (col % a.P) * a.rb + ((g >> a.log_s) << 3) + (row & 7);
+    for (int s = 0; s < kMaxStage; ++s) {
+      const int ch = c_lo + warp + s * kWarps;
+      const int k = (ch << 5) + lane;
+      const bool in = ch < c_hi && k < a.K;
+      id[s] = in ? __ldg(rid + k) : -1;
+      v[s] = in ? __ldg(rval + k) : 0.0f;
+    }
+    // every warp of this rank has walked the last window's entries
+    if (c0 > 0) __syncthreads();
+    for (int i = threadIdx.x; i < wn * 16; i += kThreads)
+      reinterpret_cast<uint4*>(kv)[i] = none;
+    for (int i = threadIdx.x; i < wn; i += kThreads) masks[i] = 0u;
+    // every rank's arrays are filled: arrive now, wait only before the
+    // first store into another rank (the loads above land meanwhile)
+    if (kLocal) __syncthreads();
+    else cluster_arrive();
+
+    // 2. each deposit's cell, sent to its owner (a deposit of another band
+    // to none)
+    bool waited = false;
+#pragma unroll
+    for (int s = 0; s < kMaxStage; ++s) {
+      const int ch = c_lo + warp + s * kWarps;
+      if (ch >= c_hi) break;                             // warp-uniform
+      int owner = -1, cell = 0;
+      if (id[s] >= 0 && id[s] < total) {
+        const int d = id[s] / a.C;                       // δ + R
+        const int row = id[s] - d * a.C;
+        const int col = t + d - a.R;
+        const int ls = col >= 0 ? col % a.P - lo : -1;   // slot in the band
+        if (ls >= 0 && ls < a.band) {
+          const int g = row >> 3;
+          owner = g & (S - 1);
+          cell = ls * a.rb + ((g >> a.log_s) << 3) + (row & 7);
+        }
+      }
+      const unsigned peers = __match_any_sync(
+          kFull, owner >= 0 ? (unsigned)owner << 16 | (unsigned)cell : kNone);
+      const unsigned bit = owner >= 0 ? 1u << (cell & 15) : 0u;
+      const int e = ((ch - c0) << 5) + lane;
+      if (kLocal) {
+        if (owner == rank)
+          kv[e] = make_uint2(entry_word((unsigned)cell, peers, lane),
+                             __float_as_uint(v[s]));
+        const unsigned bits = __reduce_or_sync(kFull,
+                                               owner == rank ? bit : 0u);
+        if (lane == 0) masks[ch - c0] = bits;
+        continue;
+      }
+      if (!waited) {
+        cluster_wait();
+        waited = true;
+      }
+      if (owner >= 0)
+        *cluster.map_shared_rank(kv + e, owner) = make_uint2(
+            entry_word((unsigned)cell, peers, lane), __float_as_uint(v[s]));
+      // each owner the chunk holds: the mask of its warps (others keep 0)
+      unsigned owners = __reduce_or_sync(kFull,
+                                         owner >= 0 ? 1u << owner : 0u);
+      while (owners != 0u) {
+        const int o = __ffs(owners) - 1;
+        owners &= owners - 1u;
+        const unsigned bits = __reduce_or_sync(kFull, owner == o ? bit : 0u);
+        if (lane == 0) *cluster.map_shared_rank(masks + (ch - c0), o) = bits;
       }
     }
-    const unsigned peers = __match_any_sync(
-        kFull, owner >= 0 ? (unsigned)owner << 16 | (unsigned)cell : kNone);
-    const unsigned bit = owner >= 0 ? 1u << (cell & 15) : 0u;
+    __pipeline_wait_prior(0);
     if (kLocal) {
-      if (owner == rank)
-        kv[(ch << 5) + lane] = make_uint2(
-            entry_word((unsigned)cell, peers, lane), __float_as_uint(v[s]));
-      const unsigned bits = __reduce_or_sync(kFull, owner == rank ? bit : 0u);
-      if (lane == 0) masks[ch] = bits;
-      continue;
+      __syncthreads();                  // every entry and mask is in
+    } else {
+      if (!waited) cluster_wait();
+      cluster.sync();                   // every entry and mask is in
     }
-    if (!waited) {
-      cluster_wait();
-      waited = true;
-    }
-    if (owner >= 0)
-      *cluster.map_shared_rank(kv + (ch << 5) + lane, owner) = make_uint2(
-          entry_word((unsigned)cell, peers, lane), __float_as_uint(v[s]));
-    // each owner the chunk holds: the mask of its warps (others keep 0)
-    unsigned owners = __reduce_or_sync(kFull, owner >= 0 ? 1u << owner : 0u);
-    while (owners != 0u) {
-      const int o = __ffs(owners) - 1;
-      owners &= owners - 1u;
-      const unsigned bits = __reduce_or_sync(kFull, owner == o ? bit : 0u);
-      if (lane == 0) *cluster.map_shared_rank(masks + ch, o) = bits;
-    }
-  }
-  __pipeline_wait_prior(0);
-  if (kLocal) {
-    __syncthreads();                    // every entry and mask is in
-  } else {
-    if (!waited) cluster_wait();
-    cluster.sync();                     // every entry and mask is in
-  }
 
-  // 3. the walk: each warp its chunks in bin order, 128 chunks a window
-  // (a lane's four masks at once)
-  for (int c0 = 0; c0 < a.chunks; c0 += 128) {
-    unsigned nib = 0u;
+    // 3. the walk: each warp its chunks of the window in bin order, 128
+    // chunks at a time (a lane's four masks at once)
+    for (int b0 = 0; b0 < wn; b0 += 128) {
+      unsigned nib = 0u;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + 4 * lane + q;
-      nib |= (c < a.chunks && ((masks[c] >> warp) & 1u)) ? 1u << q : 0u;
-    }
-    unsigned lanes_todo = __ballot_sync(kFull, nib != 0u);
-    while (lanes_todo != 0u) {
-      const int from = __ffs(lanes_todo) - 1;
-      lanes_todo &= lanes_todo - 1u;
-      unsigned todo = __shfl_sync(kFull, nib, from);
-      while (todo != 0u) {
-        const int base = (c0 + 4 * from + __ffs(todo) - 1) << 5;
-        todo &= todo - 1u;
-        walk_step(kv + base, tile, touched, lane, warp);
+      for (int q = 0; q < 4; ++q) {
+        const int c = b0 + 4 * lane + q;
+        nib |= (c < wn && ((masks[c] >> warp) & 1u)) ? 1u << q : 0u;
+      }
+      unsigned lanes_todo = __ballot_sync(kFull, nib != 0u);
+      while (lanes_todo != 0u) {
+        const int from = __ffs(lanes_todo) - 1;
+        lanes_todo &= lanes_todo - 1u;
+        unsigned todo = __shfl_sync(kFull, nib, from);
+        while (todo != 0u) {
+          const int base = (b0 + 4 * from + __ffs(todo) - 1) << 5;
+          todo &= todo - 1u;
+          walk_step(kv + base, tile, touched, lane, warp);
+        }
       }
     }
   }
@@ -314,14 +351,14 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(RingArgs a) {
   CellWalk out(a.rb);
   for (int i = threadIdx.x; i < cells; i += kThreads, out.next(a.rb))
     if (touched[padded(i)])
-      a.ring[cell_offset(a, rank, lane_row, out.slot, out.j)] =
+      a.ring[cell_offset(a, rank, lane_row, lo + out.slot, out.j)] =
           tile[padded(i)];
 }
 
 cudaLaunchConfig_t ring_config(const RingArgs& a, int smem, cudaStream_t st,
                                cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(a.lanes << a.log_s));
+  cfg.gridDim = dim3((unsigned)((long long)a.lanes * a.bands << a.log_s));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -335,13 +372,15 @@ cudaLaunchConfig_t ring_config(const RingArgs& a, int smem, cudaStream_t st,
 }
 
 // The arguments and shared memory of a launch, or an error where the
-// shape exceeds the kernel (ring_plan's limits).
+// shape exceeds the kernel (ring_plan's limits): windows of W chunks,
+// bands of B slots.
 int ring_args(RingArgs* a, const int* ids, const float* vals, const int* t,
               float* ring, int lanes, int K, int P, int C, int S, bool local,
-              int* smem) {
+              int W, int B, int* smem) {
   if (lanes < 0 || K <= 0 || P <= 0 || (P & 1) == 0 || C <= 0 || S <= 0
       || S > kMaxCluster || (S & (S - 1)) != 0
-      || (long long)P * C >= (1LL << 31))
+      || (long long)P * C >= (1LL << 31) || W <= 0 || W > (K + 31) / 32
+      || B <= 0 || B > P)
     return (int)cudaErrorInvalidValue;
   a->ids = ids, a->vals = vals, a->t = t, a->ring = ring;
   a->K = K, a->C = C, a->P = P, a->R = P / 2, a->lanes = lanes;
@@ -349,12 +388,16 @@ int ring_args(RingArgs* a, const int* ids, const float* vals, const int* t,
   while ((1 << a->log_s) < S) ++a->log_s;
   a->rb = (C + 16 * S - 1) / (16 * S) * 16;
   a->chunks = (K + 31) / 32;
-  a->cs = local ? a->chunks : (a->chunks + S - 1) / S;
-  const long long cells = (long long)P * a->rb;
-  const long long bytes = 256LL * a->chunks
+  a->window = W;
+  a->share = local ? W : (W + S - 1) / S;
+  a->band = B;
+  a->bands = (P + B - 1) / B;
+  const long long cells = (long long)B * a->rb;
+  const long long bytes = 256LL * a->window
                           + 5 * ((cells + (cells >> 5) + 16) & ~15LL)
-                          + 4LL * a->chunks;
-  if (cells > 0xffff || a->cs > kMaxStage * kWarps || bytes > kMaxSmem)
+                          + 4LL * a->window;
+  if (cells > 0xffff || a->share > kMaxStage * kWarps || bytes > kMaxSmem
+      || ((long long)lanes * a->bands << a->log_s) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   *smem = (int)bytes;
   return 0;
@@ -380,23 +423,25 @@ cudaError_t allow(int S) {
 // The ring form: ids, vals (lanes, K) int32 / float32, B1's relative ids
 // (δ + R)·C + row; t: the frame's 0-d int32 counter in device memory;
 // ring (P, lanes, C) float32 with P = 2R + 1, added into in place on
-// ``stream``; S CTAs a lane (the wrapper's ring_plan), a cluster, or with
-// ``local`` S CTAs that each stage the whole hop.
+// ``stream``; S CTAs a lane's band (the wrapper's ring_plan), a cluster,
+// or with ``local`` S CTAs that each stage the whole hop; the hop staged
+// in windows of ``window`` chunks of 32, a lane's ring in bands of
+// ``band`` slots.
 extern "C" int emspec_histogram_ring(const int* ids, const float* vals,
                                      const int* t, float* ring, int lanes,
                                      int K, int P, int C, int S, int local,
-                                     void* stream) {
+                                     int window, int band, void* stream) {
   RingArgs a;
   int smem = 0;
   const int bad = ring_args(&a, ids, vals, t, ring, lanes, K, P, C, S,
-                            local != 0, &smem);
+                            local != 0, window, band, &smem);
   if (bad) return bad;
   if (lanes == 0) return 0;
   const cudaError_t attr = allow(S);
   if (attr != cudaSuccess) return (int)attr;
   if (local) {
-    ring_kernel<true><<<(unsigned)(a.lanes << a.log_s), kThreads,
-                        (size_t)smem, (cudaStream_t)stream>>>(a);
+    ring_kernel<true><<<(unsigned)((long long)a.lanes * a.bands << a.log_s),
+                        kThreads, (size_t)smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
   cudaLaunchAttribute cluster;
@@ -405,14 +450,17 @@ extern "C" int emspec_histogram_ring(const int* ids, const float* vals,
   return (int)cudaLaunchKernelEx(&cfg, ring_kernel<false>, a);
 }
 
-// How many clusters of the ring form at this shape the card holds at once
-// (cudaOccupancyMaxActiveClusters) → *clusters; 0 where it holds none.
+// How many clusters of the ring form at this shape (its cluster form, not
+// local; windows of ``window`` chunks, bands of ``band`` slots) the card
+// holds at once (cudaOccupancyMaxActiveClusters) → *clusters; 0 where it
+// holds none.
 extern "C" int emspec_histogram_ring_occupancy(int lanes, int K, int P,
-                                               int C, int S, int* clusters) {
+                                               int C, int S, int window,
+                                               int band, int* clusters) {
   RingArgs a;
   int smem = 0;
   const int bad = ring_args(&a, nullptr, nullptr, nullptr, nullptr, lanes, K,
-                            P, C, S, false, &smem);
+                            P, C, S, false, window, band, &smem);
   if (bad) return bad;
   const cudaError_t attr = allow(S);
   if (attr != cudaSuccess) return (int)attr;

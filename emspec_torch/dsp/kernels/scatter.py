@@ -61,7 +61,10 @@ each with its own count in ``histogram.route_launches``:
   takes B1's relative ids and the step's frame counter ``t`` in device
   memory and computes each deposit's ring cell itself.  One launch a hop,
   a cluster of CTAs a lane at a grid fixed by the shape (``ring_plan``),
-  so the hop's CUDA graph captures it.
+  so the hop's CUDA graph captures it; where a hop's entries or a lane's
+  ring outgrow one CTA's shared memory (above 32768 points, a short hop,
+  a tall raster), the hop in windows walked in bin order and the ring in
+  bands of slots, a cluster each.
 """
 
 from __future__ import annotations
@@ -106,6 +109,7 @@ RING_PORTABLE = 8         # the largest portable cluster size
 RING_STAGE = 16 * 16      # chunks a rank stages (kMaxStage · kWarps)
 RING_CELLS = 0xffff       # a rank's cells at most (16-bit keys, one spare)
 RING_LOCAL_CHUNKS = 16    # a hop this many chunks of 32 at most: no cluster
+RING_WINDOW = 256         # chunks a window at least where bands are needed
 SMEM_BYTES = 232448       # a block's shared memory (histogram.cu kMaxSmem)
 
 
@@ -237,51 +241,102 @@ def sorted_form(frames: int, k: int, reach: int,
         else "tiles"
 
 
+def _padded16(cells: int) -> int:
+    """``histogram_ring.cu``'s tile: a word of padding every 32 cells, to a
+    multiple of 16 with one spare."""
+    return (cells + cells // 32 + 16) & ~15
+
+
 def ring_plan(k: int, slots: int, column: int, cluster: int | None = None,
               lanes: int = 1, clusters16: int = 0,
-              local: bool | None = None) -> dict:
+              local: bool | None = None, window: int | None = None,
+              bands: int | None = None) -> dict:
     """The ring form's grid for a hop of ``k`` deposits a lane into a ring
     of ``slots`` (odd: 2R + 1) × ``column`` cells a lane, ``lanes`` lanes:
-    S = ``cluster`` CTAs a lane (a power of two), rank o owning the rows in
-    8-row groups g with g mod S = o, ``rb`` local rows a slot (a multiple
-    of 16), ``cells`` = slots × rb a rank.  The S CTAs form a cluster in
-    which each stages ``stage_chunks`` of the hop's ``chunks`` chunks of
-    32 deposits and sends each to its owner, or — ``local``, a hop of at
-    most ``RING_LOCAL_CHUNKS`` chunks — each stages the whole hop and keeps
-    its own rows' deposits (no cluster barrier).  The shared memory: an
-    8-byte entry a deposit of the hop, the rank's cells and their touched
-    flags, a mask a chunk.  ``fits``: within the kernel's limits.  By
-    default the smallest S that fits, doubled while the lanes' CTAs take at
-    most half the card's SMs (``SMS``) and S stays portable (8), or 16
-    where the card holds a cluster of 16 a lane at once (``clusters16``,
+    S = ``cluster`` CTAs a lane's band (a power of two), rank o owning the
+    rows in 8-row groups g with g mod S = o, ``rb`` local rows a slot (a
+    multiple of 16), ``cells`` = ``band_slots`` × rb a rank.  The S CTAs
+    form a cluster in which each stages ``window_chunks`` of each window's
+    chunks of 32 deposits (``stage_chunks`` of the hop's ``chunks`` in
+    all) and sends each to its owner, or — ``local``, a hop of at most
+    ``RING_LOCAL_CHUNKS`` chunks — each stages the whole window and keeps
+    its own rows' deposits (no cluster barrier).  The hop is staged in
+    ``windows`` windows of ``window`` chunks, and a lane's ring cut into
+    ``bands`` bands of ``band_slots`` slots, a cluster (or S local CTAs)
+    each.  The shared memory: an 8-byte entry a deposit of a window, the
+    rank's cells and their touched flags, a mask a chunk of the window.
+    ``fits``: within the kernel's limits.
+
+    Where some S takes the whole hop in one window and the whole ring in
+    one band, the plan is that (one window, one band): by default the
+    smallest S that fits, doubled while the lanes' CTAs take at most half
+    the card's SMs (``SMS``) and S stays portable (8), or 16 where the card
+    holds a cluster of 16 a lane at once (``clusters16``,
     ``ring_occupancy``: 16 is non-portable).  On the H100 the largest S
     that fits so ran each mono hop fastest, 4 the 16-lane one, and the
     local form the display default's hop of 382 deposits (PERF.md §6).
-    ``cluster`` and ``local`` stand in for the choice, for tests and
-    timing."""
+    Where none does (a hop above 28,480 deposits at 5 × 512 cells, 32,769
+    to 131,073 above 32768 points; a ring of more cells than S = 16 CTAs
+    hold, at a short hop or a tall raster), S doubles from 1 by the same
+    rule, the fewest bands leave room for a window of
+    min(chunks, ``RING_WINDOW``) chunks, and the windows are as few as the
+    rest of the shared memory allows, of equal length.  ``cluster``,
+    ``local``, ``window`` and ``bands`` stand in for the choice, for tests
+    and timing."""
     chunks = -(-k // 32)
     local = chunks <= RING_LOCAL_CHUNKS if local is None else local
 
-    def plan(s: int) -> dict:
+    def plan(s: int, w: int = chunks, band: int = slots) -> dict:
         rb = -(-column // (TILE_WARPS * s)) * TILE_WARPS
-        cells = slots * rb
+        cells = band * rb
         cs = chunks if local else -(-chunks // s)
-        smem = 256 * chunks + 5 * ((cells + cells // 32 + 16) & ~15) \
-            + 4 * chunks
+        cw = w if local else -(-w // s)
+        smem = 256 * w + 5 * _padded16(cells) + 4 * w
         return dict(cluster=s, local=local, rb=rb, cells=cells,
                     chunks=chunks, stage_chunks=cs, smem=smem,
+                    window=w, windows=-(-chunks // w), window_chunks=cw,
+                    band_slots=band, bands=-(-slots // band),
                     fits=0 < s <= RING_MAX_CLUSTER and s & (s - 1) == 0
                     and slots % 2 == 1 and cells <= RING_CELLS
-                    and cs <= RING_STAGE and smem <= SMEM_BYTES)
+                    and cw <= RING_STAGE and smem <= SMEM_BYTES
+                    and 0 < w <= chunks and 0 < band <= slots)
+
+    def split(s: int) -> dict:
+        rb = -(-column // (TILE_WARPS * s)) * TILE_WARPS
+        if bands is not None:
+            band = -(-slots // bands)
+        else:               # the most slots that leave room for the window
+            room = SMEM_BYTES - (32 * 8 + 4) * (
+                window or min(chunks, RING_WINDOW))
+            cells = min(RING_CELLS, max(room // 5 - 32, 0) * 32 // 33)
+            while 5 * _padded16(cells + 1) <= room and cells < RING_CELLS:
+                cells += 1
+            band = min(slots, cells // rb)
+            if band == 0:
+                return plan(s, window or chunks, 1) | dict(fits=False)
+            band = -(-slots // -(-slots // band))     # bands of equal length
+        w = window
+        if w is None:       # the fewest windows the rest holds, equal ones
+            w = min(chunks, RING_STAGE * (1 if local else s),
+                    max(SMEM_BYTES - 5 * _padded16(band * rb), 0)
+                    // (32 * 8 + 4))
+            w = -(-chunks // -(-chunks // w)) if w > 0 else chunks
+        return plan(s, w, band)
+
+    # a plan's fit only grows with S: one window and one band at some S
+    # is one at the largest
+    whole = window is None and bands is None \
+        and plan(RING_MAX_CLUSTER)["fits"]
+    pick = plan if whole else split
     if cluster is not None:
-        return plan(cluster)
+        return pick(cluster)
     s = 1
-    while s < RING_MAX_CLUSTER and not plan(s)["fits"]:
+    while s < RING_MAX_CLUSTER and not pick(s)["fits"]:
         s *= 2
     while (2 * s <= RING_MAX_CLUSTER and lanes * 2 * s <= SMS // 2
            and (2 * s <= RING_PORTABLE or local or clusters16 >= lanes)):
         s *= 2
-    return plan(s)
+    return pick(s)
 
 
 def histogram_plain(ids: torch.Tensor, vals: torch.Tensor, num_bins: int,
@@ -541,9 +596,10 @@ def histogram_ring(ids: torch.Tensor, vals: torch.Tensor,
     plain version's sum (``histogram_ring_plain`` of ``ring_ids``) bit
     for bit, the same on every run; an id outside [0, P·C) or a column
     t + δ below 0 adds nothing, even when its value is NaN or Inf.
-    ``cluster`` and ``local`` force the CTAs a lane and the form
-    (``ring_plan``), for tests and timing.  Counted as B2's: ``histogram.launches`` and
-    ``histogram.route_launches["sorted_ring"]``."""
+    ``cluster`` and ``local`` force the CTAs a lane's band and the form
+    (``ring_plan``), for tests and timing.  Counted as B2's:
+    ``histogram.launches``, ``histogram.route_launches["sorted_ring"]``,
+    and ``histogram.ring_form_launches`` by ``ring_form``."""
     what = "histogram_ring"
     require(ring.dim() >= 2 and ring.shape[1:-1] == ids.shape[:-1]
             and ids.shape == vals.shape and ids.dim() >= 1
@@ -566,23 +622,59 @@ def histogram_ring(ids: torch.Tensor, vals: torch.Tensor,
             "ids, vals and the ring must be contiguous")
     require(vals.device == ids.device and ring.device == ids.device, what,
             "ids, vals and the ring must share a device")
+    return _ring_launch(ids, vals, ring, t, ring_plan_on(
+        ids.device, k, P, C, math.prod(ids.shape[:-1]), cluster, local))
+
+
+def _ring_launch(ids: torch.Tensor, vals: torch.Tensor, ring: torch.Tensor,
+                 t: torch.Tensor, plan: dict) -> torch.Tensor:
+    """``histogram_ring``'s launch at ``plan``, a ``ring_plan`` of these
+    shapes (the card's tests force its window or bands through it)."""
+    what = "histogram_ring"
+    P, C, k = ring.shape[0], ring.shape[-1], ids.shape[-1]
     lanes = math.prod(ids.shape[:-1])
-    plan = ring_plan(k, P, C, cluster, lanes, _clusters16(
-        k, P, C, lanes, ids.device.index) if cluster is None else 0, local)
-    require(plan["fits"] and k > 0 and P * C < 2**31, what,
+    require(plan["fits"] and plan["chunks"] == -(-k // 32) and k > 0
+            and P * C < 2**31, what,
             f"a ring of {P} × {C} cells a lane and {k} deposits a hop in "
             f"clusters of {plan['cluster']} exceed the kernel "
-            f"({plan['cells']} cells a rank, {plan['stage_chunks']} chunks "
-            f"staged, {plan['smem']} bytes)")
+            f"({plan['cells']} cells a rank, {plan['window_chunks']} chunks "
+            f"staged a window, {plan['smem']} bytes)")
     with torch.cuda.device(ids.device):
         rc = kernels_build.library().emspec_histogram_ring(
             ids.data_ptr(), vals.data_ptr(), t.data_ptr(), ring.data_ptr(),
             lanes, k, P, C, plan["cluster"], int(plan["local"]),
-            launch_stream(ids))
+            plan["window"], plan["band_slots"], launch_stream(ids))
     kernels_build.check(rc, what)
     histogram.launches += 1
     histogram.route_launches[SORTED_RING] += 1
+    histogram.ring_form_launches[ring_form(plan)] += 1
     return ring
+
+
+def ring_form(plan: dict) -> str:
+    """The ring form a ``ring_plan`` names: ``"local"`` or ``"cluster"``
+    (one window, one band), else ``"windows"`` (the hop in windows) or
+    ``"bands"`` (the ring in bands, the hop in one window or more)."""
+    if plan["bands"] > 1:
+        return "bands"
+    if plan["windows"] > 1:
+        return "windows"
+    return "local" if plan["local"] else "cluster"
+
+
+histogram.ring_form_launches = dict.fromkeys(
+    ("local", "cluster", "windows", "bands"), 0)
+
+
+def ring_plan_on(device: torch.device, k: int, slots: int, column: int,
+                 lanes: int = 1, cluster: int | None = None,
+                 local: bool | None = None) -> dict:
+    """The plan ``histogram_ring`` launches on ``device`` (``ring_plan``
+    with the card's ``_clusters16`` where no cluster size is forced; none
+    on the CPU)."""
+    c16 = _clusters16(k, slots, column, lanes, device.index) \
+        if cluster is None and device.type == "cuda" else 0
+    return ring_plan(k, slots, column, cluster, lanes, c16, local)
 
 
 @functools.lru_cache(maxsize=64)
@@ -598,11 +690,16 @@ def _clusters16(k: int, slots: int, column: int, lanes: int,
 def ring_occupancy(k: int, slots: int, column: int, cluster: int,
                    lanes: int = 1, device=None) -> int:
     """How many of the ring form's clusters (its cluster form, not
-    ``local``) at this shape the card holds at once
+    ``local``, at ``ring_plan``'s windows and bands for this cluster size)
+    at this shape the card holds at once
     (``cudaOccupancyMaxActiveClusters``); 0 where it holds none (a
     non-portable size the card refuses)."""
+    plan = ring_plan(k, slots, column, cluster, lanes, local=False)
+    if not plan["fits"]:
+        return 0
     out = ctypes.c_int(0)
     with torch.cuda.device(device or torch.cuda.current_device()):
         rc = kernels_build.library().emspec_histogram_ring_occupancy(
-            lanes, k, slots, column, cluster, ctypes.byref(out))
+            lanes, k, slots, column, cluster, plan["window"],
+            plan["band_slots"], ctypes.byref(out))
     return out.value if rc == 0 else 0

@@ -18,8 +18,10 @@ one ``"kernel · form · shape"`` line to the report's ``"checked"``):
   ``sorted_form`` picks it, its launch counted.
 * B2's ring form, every live hop's sum (``validate_ring``): the display
   default's hop (382 deposits → 65 × 512, the local kernel), the
-  enhanced 8192 one (4,097 → 5 × 512, clustered), then 16 lanes at 32768
-  and 96 kHz (clusters of 4); ``ring_plan`` must pick the kernel named.
+  enhanced 8192 one (4,097 → 5 × 512, clustered), 131072 at 96 kHz
+  (65,537 deposits: the hop in windows), 8192 at hop 16 with 2,048 rows
+  (4,097 → 513 × 2,048: the ring in bands), then 16 lanes at 32768
+  and 96 kHz (clusters of 4); ``ring_plan`` must pick the form named.
   Nine hops streamed into a ring of random values from t0 = 0, 1, R,
   P − 1, P, P + 1 and 100,003 (columns below 0 dropped, the slot wrap,
   far along), each hop checked.
@@ -77,13 +79,19 @@ SORTED_CASES = (
                        sample_rate=96000), 1, 8.0, "batch"),
     ("batch16", dict(mode="enhanced", multires=False, fft_size=8192), 16,
      16.0, "batch"))
-# the live hops B2's ring form serves: label, Settings fields, lanes,
-# whether ``ring_plan`` takes the local kernel
+# the live hops B2's ring form serves: label, Settings fields, lanes, the
+# form ``ring_plan`` takes (``scatter.ring_form``)
 RING_CASES = (
-    ("multires live", {}, 1, True),
-    ("live", dict(mode="enhanced", multires=False, fft_size=8192), 1, False),
+    ("multires live", {}, 1, "local"),
+    ("live", dict(mode="enhanced", multires=False, fft_size=8192), 1,
+     "cluster"),
+    ("131072 live", dict(mode="enhanced", multires=False, fft_size=131072,
+                         sample_rate=96000), 1, "windows"),
+    ("hop 16 live", dict(mode="enhanced", multires=False, fft_size=8192,
+                         hop=16, raster_height=2048), 1, "bands"),
     ("stress live", dict(mode="enhanced", multires=False, fft_size=32768,
-                         sample_rate=96000), 16, False))
+                         sample_rate=96000), 16, "cluster"))
+RING_QUICK = 4              # the quick set's ring cases: every form
 RING_FRAMES = 9             # a ring case's signal: its frames, a stream's hops
 WINDOW_SECONDS = 16.0       # B1's windowed form: the display default's batch
 # each new check's broken stand-ins (``perturbed``): form → its validator
@@ -93,6 +101,8 @@ PERTURBATIONS = {
     "sorted tiles": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
     "ring local": ("validate_ring", ("ulp", "reversed", "nan")),
     "ring cluster": ("validate_ring", ("ulp", "reversed", "nan")),
+    "ring windows": ("validate_ring", ("order",)),
+    "ring bands": ("validate_ring", ("dropped",)),
     "B1 windowed": ("validate_deposits_windowed", ("moved", "unweighted")),
 }
 
@@ -242,35 +252,41 @@ def validate_ring(dev, quick: bool = True) -> list:
     """B2's ring form at the live hops of ``RING_CASES``: a stream of the
     ``RING_FRAMES`` hops of a signal (B1's relative ids, as the live step
     hands them), hop f at t = t0 + f, into one ring that starts with
-    random values of the deposits' size, for each t0 of 0, 1, R, P − 1,
+    zeros and random values of the deposits' size, for each t0 of 0, 1, R, P − 1,
     P, P + 1 and 100,003; after each hop bit-equal to
     ``histogram_ring_plain`` of ``ring_ids`` computed on the CPU, also
     with NaN and Inf behind dropped ids, the same on a second run."""
     from emspec_torch.dsp.kernels import scatter
 
     checked = []
-    for i, (label, fields, lanes, local) in enumerate(
-            RING_CASES[:2] if quick else RING_CASES):
+    for i, (label, fields, lanes, form) in enumerate(
+            RING_CASES[:RING_QUICK] if quick else RING_CASES):
         pipe = _pipeline(dev, fields, lanes)
         sr = pipe.settings.sample_rate
         _, rel, contrib = _relative_ids(
             pipe, (pipe.n_max + (RING_FRAMES - 1) * pipe.hop) / sr, 30 + i)
         R, C, k = pipe.reach, pipe.rows, rel.shape[-1]
         P = 2 * R + 1
-        plan = scatter.ring_plan(k, P, C, lanes=lanes, clusters16=(
-            scatter._clusters16(k, P, C, lanes, dev.index)
-            if dev.type == "cuda" else 0))
-        form = "local" if local else "cluster"
+        plan = scatter.ring_plan_on(dev, k, P, C, lanes)
         shape = (f"{lanes} × {k} → {P} × {C} a lane, {plan['cluster']} CTAs "
-                 f"a lane")
+                 f"a lane" + (f", {plan['windows']} windows of "
+                              f"{plan['window']} chunks"
+                              if plan["windows"] > 1 else "")
+                 + (f", {plan['bands']} bands of {plan['band_slots']} slots"
+                    if plan["bands"] > 1 else ""))
         where = f"B2 ring {form} at {label} ({shape})"
-        _assert(plan["fits"] and plan["local"] == local,
+        _assert(plan["fits"] and scatter.ring_form(plan) == form,
                 f"{where}: ring_plan picks {plan}")
         rng = np.random.default_rng(40 + i)
         rel_c, vals_c = rel.cpu(), contrib.cpu()
-        ring0 = torch.from_numpy(rng.uniform(
-            0.0, 1.0, (P,) + rel.shape[:-2] + (C,)).astype(
-                np.float32)) * vals_c.max()
+        # half the cells 0 (a slot emptied at its column's emission), half
+        # of the deposits' size: where a quiet row's deposits are many
+        # orders below the loudest, only a cell that starts small shows
+        # their order
+        ring0 = torch.from_numpy(np.where(
+            rng.random((P,) + rel.shape[:-2] + (C,)) < 0.5, 0.0, rng.uniform(
+                0.0, 1.0, (P,) + rel.shape[:-2] + (C,))).astype(
+                    np.float32)) * vals_c.max()
         pick = torch.from_numpy(rng.random(tuple(rel.shape)) < 0.1)
         bad_i = torch.where(pick, torch.where(rel_c % 2 == 0, -1, P * C + 7),
                             rel_c).to(torch.int32)
@@ -549,8 +565,11 @@ def perturbed(form: str, how: str):
     result with its largest cell one ulp up (``"ulp"``), the plain sum in
     reverse deposit order (``"reversed"``), an output's old values dropped
     (``"out"``) or a NaN landed where a dropped id carries a NaN or Inf
-    (``"nan"``); B1's windowed form with one valid id in 1,000 moved a row
-    (``"moved"``) or its band weight left out (``"unweighted"``).  Calls of
+    (``"nan"``); B2's ring form in windows summed with its windows walked
+    last to first (``"order"``), in bands with the band of the frame's own
+    column left as it was (``"dropped"``); B1's windowed form with one
+    valid id in 1,000 moved a row (``"moved"``) or its band weight left
+    out (``"unweighted"``).  Calls of
     the other forms pass through.  The form's validator must raise
     ``AssertionError`` inside."""
     from emspec_torch.dsp.kernels import deposits, scatter
@@ -579,15 +598,27 @@ def perturbed(form: str, how: str):
         real = scatter.histogram_ring
 
         def stand_in(ids, vals, ring, t, **kw):
-            local = kw.get("local")
-            if local is None:
-                local = -(-ids.shape[-1] // 32) <= scatter.RING_LOCAL_CHUNKS
-            if local != (form == "ring local"):
+            P, C, k = ring.shape[0], ring.shape[-1], ids.shape[-1]
+            plan = scatter.ring_plan_on(ids.device, k, P, C,
+                                        math.prod(ids.shape[:-1]), **kw)
+            if scatter.ring_form(plan) != form.split()[1]:
                 return real(ids, vals, ring, t, **kw)
             base = ring.clone()
+            if how == "order":      # the windows walked last to first
+                got = base.cpu()
+                for lo in reversed(range(0, k, 32 * plan["window"])):
+                    part = slice(lo, lo + 32 * plan["window"])
+                    scatter.histogram_ring_plain(scatter.ring_ids(
+                        ids.cpu()[..., part], int(t), P, C),
+                        vals.cpu()[..., part], got)
+                return ring.copy_(got)
             real(ids, vals, ring, t, **kw)
+            if how == "dropped":    # the band of the frame's own column
+                band = plan["band_slots"]
+                lo = int(t) % P // band * band
+                ring[lo:lo + band] = base[lo:lo + band]
+                return ring
             if how == "reversed":
-                P, C = ring.shape[0], ring.shape[-1]
                 return ring.copy_(scatter.histogram_ring_plain(
                     scatter.ring_ids(ids.cpu().flip(-1), int(t), P, C),
                     vals.cpu().flip(-1), base.cpu()))

@@ -71,8 +71,9 @@ _SIGNATURES = {
                                _I, _I, _P],
     "emspec_histogram_batch": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],
-    "emspec_histogram_ring": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "emspec_histogram_ring_occupancy": [_I, _I, _I, _I, _I, _P],
+    "emspec_histogram_ring": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
+    "emspec_histogram_ring_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
     "emspec_post_head": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "emspec_post_tail": [_P] * 15 + [_I, _LL, _LL, _LL, _LL, _P],
     "emspec_lut": [_P, _P, _P, _LL, _I, _I, _P],

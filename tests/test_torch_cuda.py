@@ -43,7 +43,11 @@ the CPU path by ``compare_grids`` and ``compare_vis``, the same on two
 runs; B2's ring form bit-equal to its plain version on the CPU at the
 six live cells' hop ids (1 and 16 lanes, and 2; NaN/Inf behind dropped
 ids, a ring that is not zero, t from 0 past the slot wrap, every cluster
-size that fits), the card's defaults (the ordered sums): two default
+size that fits), and where a hop's entries or a lane's ring outgrow
+one CTA (65536–262144 at 96 kHz, 16 lanes at 65536, short hops, 2,048
+rows: the hop in windows, the ring in bands, at the plan and forced),
+a graphed ``Stream`` there ≡ ``process``; the card's defaults (the
+ordered sums): two default
 ``Stream``s bit-equal, one push and 777-sample pushes bit-equal, the
 default stream equal bit for bit to the default ``process`` in ``vis``
 and ``rgba`` (the JAX package's ``tests/test_stream.py``), the time
@@ -74,7 +78,8 @@ from emspec_torch import Settings
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, SORTED, SORTED_BATCH, SORTED_RING, SORTED_TILES,
     batch_plan, histogram, histogram_plain, histogram_ring,
-    histogram_ring_plain, ring_ids, ring_occupancy, ring_plan)
+    histogram_ring_plain, ring_form, ring_ids, ring_occupancy, ring_plan,
+    ring_plan_on)
 from emspec_torch.dsp.kernels.scatter import route_of as hist_route_of
 from emspec_torch.dsp.kernels.window import (
     windowed_frames, windowed_frames_plain)
@@ -1774,6 +1779,114 @@ def test_cuda_ring_form_bit_equal_to_cpu_plain(cuda, name):
             assert torch.equal(histogram_ring(rel, vals, base.clone(), t_dev,
                                               cluster=cluster, local=local),
                                got)
+
+
+SPLIT_CELLS = {      # live past one CTA: the ring form in windows or bands
+    "65536": dict(mode="enhanced", multires=False, fft_size=65536,
+                  sample_rate=96000),
+    "65536_16ch": dict(mode="enhanced", multires=False, fft_size=65536,
+                       sample_rate=96000, channels=16),
+    "131072": dict(mode="enhanced", multires=False, fft_size=131072,
+                   sample_rate=96000),
+    "262144": dict(mode="enhanced", multires=False, fft_size=262144,
+                   sample_rate=96000),
+    "wide_hop16": dict(mode="enhanced", multires=False, fft_size=8192,
+                       hop=16, raster_height=2048),
+    "north_hop64": dict(mode="enhanced", multires=False, fft_size=32768,
+                        hop=64, raster_height=2048),
+    "16384_hop16": dict(mode="enhanced", multires=False, fft_size=16384,
+                        hop=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPLIT_CELLS))
+def test_cuda_ring_form_in_windows_and_bands_bit_equal_to_cpu_plain(cuda,
+                                                                   name):
+    """B2's ring form where a hop's entries or a lane's ring outgrow one
+    CTA (above 32768 points: windows; a short hop or a tall raster: bands)
+    at a live hop's ids (a tenth dropped or out of range, NaN/Inf behind
+    them) into a ring of random values, t from 0 past the slot wrap: one
+    launch of the ring form in windows or bands, bit-equal to the CPU
+    plain sum of ``ring_ids``, finite, the same on a second run; at the
+    plan, at portable clusters of 8 and 4, and with a third of the plan's
+    window and three times its bands (launched at that plan through the
+    wrapper's private ``_ring_launch``)."""
+    from emspec_torch.dsp.kernels.scatter import _ring_launch
+
+    s = Settings(**SPLIT_CELLS[name])
+    rel, vals, pipe = _live_hop_ids(cuda, s, 3, seed=len(name))
+    P, C, k = 2 * pipe.reach + 1, pipe.rows, rel.shape[-1]
+    lanes = rel[..., 0].numel()
+    plan = ring_plan_on(cuda, k, P, C, lanes)
+    assert plan["fits"] and ring_form(plan) in ("windows", "bands"), plan
+    rng = np.random.default_rng(len(name))
+    pick = torch.from_numpy(rng.random(tuple(rel.shape)) < 0.1).to(cuda)
+    far = torch.from_numpy(rng.integers(P * C, 2 * P * C, tuple(rel.shape))
+                           .astype(np.int32)).to(cuda)
+    rel = torch.where(pick, torch.where(far % 2 == 0, -1, far), rel)
+    vals = torch.where(pick, torch.where(far % 3 == 0, float("inf"),
+                                         float("nan")), vals)
+    base = torch.rand((P,) + rel.shape[:-1] + (C,), device=cuda)
+    forced = [{}, dict(cluster=8), dict(cluster=4),
+              dict(cluster=plan["cluster"], local=plan["local"],
+                   window=max(1, plan["window"] // 3)),
+              dict(cluster=plan["cluster"], local=plan["local"],
+                   bands=min(3 * plan["bands"], P))]
+    for t in sorted({0, 1, pipe.reach, P - 1, P, P + 1, 977}):
+        want = histogram_ring_plain(ring_ids(rel.cpu(), t, P, C),
+                                    vals.cpu(), base.cpu().clone())
+        t_dev = torch.tensor(t, dtype=torch.int32, device=cuda)
+        for kw in forced:
+            at = (ring_plan(k, P, C, lanes=lanes, **kw) if "window" in kw
+                  or "bands" in kw else ring_plan_on(cuda, k, P, C, lanes,
+                                                     **kw))
+            assert at["fits"] and ring_form(at) in ("windows", "bands"), kw
+
+            def run(ring):          # a window or bands forced: its plan
+                if "window" in kw or "bands" in kw:
+                    return _ring_launch(rel, vals, ring, t_dev, at)
+                return histogram_ring(rel, vals, ring, t_dev, **kw)
+            before = dict(histogram.route_launches)
+            forms = dict(histogram.ring_form_launches)
+            got = run(base.clone())
+            rises = {k: histogram.route_launches[k] - before[k]
+                     for k in before}
+            assert rises == {k: int(k == SORTED_RING) for k in rises}
+            assert {f: histogram.ring_form_launches[f] - n
+                    for f, n in forms.items()} == {
+                        f: int(f == ring_form(at)) for f in forms}
+            assert torch.equal(got.cpu(), want), (t, kw)
+            assert torch.isfinite(got).all()
+            assert torch.equal(run(base.clone()), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,seconds", [("65536", 3.0),
+                                          ("wide_hop16", 0.3)])
+def test_cuda_graphed_stream_in_windows_or_bands_is_process(cuda, name,
+                                                            seconds):
+    """A graphed default ``Stream`` at 65536 (a hop of 32,769 deposits: the
+    ring form in windows) and at 8192, hop 16, 2,048 rows (a ring of 513 ×
+    2,048 cells: in bands), fed in 777-sample pushes: one capture, the
+    ring form in windows or bands once a hop, its columns the default
+    ``process``'s bit for bit in vis and rgba."""
+    s = Settings(**SPLIT_CELLS[name])
+    x = _tone_noise(int(seconds * s.sample_rate), 57)
+    st = Stream(s, cuda, ring_seconds=seconds + 1.0)
+    assert st.captures == 1
+    forms = dict(histogram.ring_form_launches)
+    cols = []
+    for i in range(0, x.shape[-1], 777):
+        cols += st.push(x[i:i + 777])
+    cols += st.flush()
+    assert st.captures == 1
+    split = sum(histogram.ring_form_launches[f] - forms[f]
+                for f in ("windows", "bands"))
+    assert split == len(cols) + st.reach        # the flush steps R more
+    vis_b, rgba_b, _ = Pipeline(s, cuda).process(x)
+    assert torch.equal(torch.stack([c.vis for c in cols]), vis_b)
+    assert torch.equal(torch.stack([c.rgba for c in cols]), rgba_b)
 
 
 def _stream_columns(s, x, dev, chunk=1024):

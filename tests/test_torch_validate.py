@@ -6,15 +6,18 @@ the same checks.
 * Coverage: the quick set reaches every kernel form a default path
   launches — B2's sorted route with its reach bound in the batch and
   the tiles form, forced and by shape; its ring form at a hop where
-  ``ring_plan`` takes the local kernel and at one where it takes the
-  clustered kernel; B1 with the display default's bin window and band
+  ``ring_plan`` takes the local kernel, at one where it takes the
+  clustered kernel, at one it stages in windows and at one whose ring it
+  cuts into bands; B1 with the display default's bin window and band
   weight — and B2's atomic routes, each forced.  The full set reaches
   the batch form's packed entries, row bands and 16 lanes, the ring form
   at 16 lanes and every bank of the display default.
 * The checks bite: inside ``validate.perturbed`` (one form a broken
   stand-in: its largest cell one ulp up, the sum in reverse deposit
   order, an output's old values dropped, a NaN behind a dropped id
-  landed; B1's ids moved a row or its band weight left out) the form's
+  landed; the ring's windows walked last to first, one band of the ring
+  left as it was; B1's ids moved a row or its band weight left out) the
+  form's
   validator raises ``AssertionError`` from that form's check; on the
   untouched kernels each validator passes.
 
@@ -40,15 +43,29 @@ KW = {"validate_sorted": dict(seconds=SECONDS), "validate_ring": {},
 # the check each broken stand-in must trip
 TRIPS = {"ulp": "deposit order", "reversed": "deposit order",
          "out": "added into an output", "nan": "NaN or Inf",
+         "order": "deposit order", "dropped": "deposit order",
          "moved": "ids equal", "unweighted": "ids equal"}
 # each new check's form, its validator and its broken stand-ins
 FORMS = {"sorted batch": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
          "sorted tiles": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
          "ring local": ("validate_ring", ("ulp", "reversed", "nan")),
          "ring cluster": ("validate_ring", ("ulp", "reversed", "nan")),
+         "ring windows": ("validate_ring", ("order",)),
+         "ring bands": ("validate_ring", ("dropped",)),
          "B1 windowed": ("validate_deposits_windowed", ("moved",
                                                         "unweighted"))}
 BITES = [(form, how) for form, (_, hows) in FORMS.items() for how in hows]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the ring-in-bands case's ring holds a million
+    cells, and a CPU op that starts every OpenMP thread on it waits long
+    under the suite's parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _record(calls: dict, module, name: str):
@@ -131,6 +148,25 @@ def test_the_quick_set_adds_a_hop_in_each_ring_kernel(quick_calls, local):
     assert any(c.startswith(f"B2 · ring {form} · ") for c in checked)
 
 
+@pytest.mark.parametrize("form", ["windows", "bands"])
+def test_the_quick_set_adds_a_hop_in_windows_and_in_bands(quick_calls, form):
+    """``histogram_ring`` at a hop that ``ring_plan`` stages in several
+    windows (131072 at 96 kHz) and at one whose ring it cuts into several
+    bands (8192 at hop 16, 2,048 rows): the plan the wrapper launches."""
+    calls, checked = quick_calls
+    plans = []
+    for (ids, _, ring, _), kw in calls["histogram_ring"]:
+        lanes = 1
+        for d in ids[:-1]:
+            lanes *= d
+        plans.append(scatter.ring_plan(ids[-1], ring[0], ring[-1],
+                                       lanes=lanes, **kw))
+    assert any(p["fits"] and scatter.ring_form(p) == form
+               and p[form] >= 2 for p in plans), plans
+    assert any(c.startswith(f"B2 · ring {form} · ") and f" {form} of " in c
+               for c in checked)
+
+
 def test_the_quick_set_runs_b1_windowed_at_the_display_default(quick_calls):
     """B1 with the 8192 bank's bin window and band weight of
     ``Settings()``, and over the whole spectrum."""
@@ -158,7 +194,8 @@ def test_the_checked_list_names_every_form(quick_calls):
     _, checked = quick_calls
     row = validate.forms_of(checked)
     assert row.startswith("B2 row, global, sorted batch, sorted tiles, "
-                          "ring local, ring cluster; ")
+                          "ring local, ring cluster, ring windows, "
+                          "ring bands; ")
     assert "B1 whole, windowed" in row
     assert all(len(c.split(" · ")) == 3 for c in checked)
 
