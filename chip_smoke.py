@@ -267,7 +267,12 @@ them.  Phases, in order, one line each; the first failure ends the run:
    while it drains: no save may raise or store other samples than
    ``[ring_total − kept, ring_total)``, no frame may drop, its columns
    and those of a fresh graphed ``Stream`` loaded from the last file
-   bit-equal (vis and rgba) to the default batch at every hop.
+   bit-equal (vis and rgba) to the default batch at every hop.  One save
+   once the ring is full waits, just before its read of the whole ring,
+   for the producer's next push: that read is lapped and the save keeps
+   the span from the stream's first unread sample (its second span); its
+   ``ring_data`` is exact and a fresh graphed ``Stream`` loaded from it
+   ≡ the default batch too.
 28. sparse_hop: hops at and past the largest frame (R = 0: the live
    window rolls min(hop, n_max) samples a hop) — the display default at
    hop 16384, enhanced 8192 at hop 12000 and at 8192, natural 2048 at
@@ -296,13 +301,28 @@ them.  Phases, in order, one line each; the first failure ends the run:
    the hop's real ids bit-equal to its plain version at t = 0, 1 and
    mid, with NaN/Inf behind dropped ids, its device ms, bound, plain and
    ``index_add_`` times.
-30. trace: ``utils.tracing.trace`` around one batch call; the trace it
+30. long_batch: the north star (32768, hop 800) on 37 minutes of seeded
+   48 kHz audio, 2^31 deposits and more a lane: ``Pipeline.process`` on
+   the card (B2's batch form, one launch) ≡ a graphed ``Stream`` of the
+   same audio bit for bit in vis and rgba; B2's sum at those ids
+   bit-equal to the plain sum in (frame, bin) order on the CPU, block by
+   block of columns (frames c0 − R … c1 + R for columns [c0, c1)); B2's
+   form, its device ms and bound, the card's peak reserved memory.
+   ``long_batch_phase(dev, "wide")`` runs wide (8192 at hop 64) at 11.8
+   minutes the same way, as a probe.
+31. fuzz: ``emspec_torch.probes.settings_fuzz``: its fixed cases and the
+   draws of ``FUZZ_SEEDS`` over the whole ``Settings`` surface, each
+   ``process`` and a graphed ``Stream`` on the card against the port's
+   CPU path (module docstring there); every case must pass, and each B1
+   route and form and B2 form the defaults launch must be reached; one
+   line of coverage (cases a form).
+32. trace: ``utils.tracing.trace`` around one batch call; the trace it
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
    call launches, read from the trace; and one live hop's kernels in
    launch order, on the default (B1 then B2's ring form at once: no
    ring-id launch between them) and on the atomic route.
-31. bench: ``python -m emspec_torch bench`` as a user runs it, each a
+33. bench: ``python -m emspec_torch bench`` as a user runs it, each a
    subprocess on the card that must exit 0 and print its JSON report:
    ``--soak --duration 30 --quick`` (while it runs, ``--sustained
    --duration 3`` and ``--trace DIR``), then ``--quick`` and ``--stages``
@@ -313,7 +333,7 @@ them.  Phases, in order, one line each; the first failure ends the run:
    sustained runs keep up (≥ 0.95); the soak's churn counts no error;
    the trace holds the card's kernels.  The primary metric is printed on
    its own line with the card's name and power limit.
-32. breakdown: per-stage device times of the enhanced stencil batch
+34. breakdown: per-stage device times of the enhanced stencil batch
    paths (batch, batch16, stress, wide, multires; CUDA events), the
    device's busy time per kernel and idle share of every batch cell and
    of a live hop of each path and each raster (torch.profiler busy time
@@ -428,8 +448,10 @@ from emspec_torch.render import raster
 from emspec_torch.render.apng import read_apng
 from emspec_torch.render.png import read_png
 from emspec_torch.tables import lut
+from emspec_torch.probes import settings_fuzz
 from emspec_torch.probes.scatter_ablation import (
     ROW_ONLY, VARIANTS, hist_variant, hist_variant_plain)
+from emspec_torch.probes.settings_fuzz import UNEXPLAINED_BELOW, settled_vis
 from emspec_torch.stream import Stream
 from emspec_torch.validate import compare_grids, compare_vis
 
@@ -604,6 +626,16 @@ PATH_KERNELS = {        # kernels each path must launch
     "sparse_stress_40000": CLUSTER_B1 + RING + ("lut_values",),
     "sparse_stress_40000_batch": CLUSTER_B1 + BATCH + ("lut_values",)
     + SCAN,
+    # the north star past 2^31 deposits a lane, batch (its live stream
+    # after it, uncounted)
+    "long_north": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
+    "long_wide": ("deposits_ids",) + BATCH + ("lut_values",) + SCAN,
+    # the settings fuzz: every B1 route, B2 form and kernel the defaults
+    # launch, across its cases
+    "fuzz": ("deposits_ids", "deposits_ids_window", "deposits_ids_cluster",
+             "deposits_ids_cluster_large", "histogram_sorted_tiles",
+             "histogram_sorted_batch", "histogram_sorted_ring",
+             "fft4_steps123", "windowed_frames", "lut_values") + SCAN,
 }
 
 
@@ -4126,12 +4158,43 @@ def checkpoint_live(dev, x: np.ndarray) -> None:
     each file's ``ring_data`` must be exactly ``x[ring_total − kept :
     ring_total]``.  A fresh graphed ``Stream`` loaded from the last file
     is fed the rest; the columns of both are the default batch's, bit for bit in
-    ``vis`` and ``rgba``, at every hop."""
+    ``vis`` and ``rgba``, at every hop.  The first save once the ring is
+    full is lapped (``lap_next_read``): it must keep the span from the
+    stream's first unread sample, exactly, and a fresh graphed ``Stream``
+    loaded from it must give the default batch's columns too."""
     from emspec_torch.utils.checkpoint import load_stream, save_stream
 
     n = int(CKPT_LIVE_SECONDS * SR)
     xs = x[:n]
     block = SR // 50
+
+    def lap_next_read(st, done) -> None:
+        """The ring's next read waits, before it reads, for the producer's
+        next push (at most 1 s): the whole-ring read a save starts with is
+        lapped by a real push, as a push during that read would, and the
+        save reads its second span."""
+        read = st.ring.window_at
+
+        def lapped(start, count):
+            st.ring.window_at = read
+            total, until = st.ring.total_written, time.perf_counter() + 1.0
+            while (st.ring.total_written == total and not done.is_set()
+                   and time.perf_counter() < until):
+                time.sleep(0.0002)
+            return read(start, count)
+        st.ring.window_at = lapped
+
+    def resume(z):
+        """A fresh graphed Stream loaded from the saved ``z``, fed the
+        rest of ``xs`` → (its columns, its stream)."""
+        b = Stream(MULTIRES, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            np.savez(Path(tmp) / "saved.npz", **z)
+            load_stream(Path(tmp) / "saved.npz", b)
+        total = int(z["ring_total"])
+        got = [c for i in range(total, n, block)
+               for c in b.push(xs[i:min(i + block, n)])]
+        return got + b._drain() + b.flush(), b
 
     def run():
         st = Stream(MULTIRES, dev)
@@ -4147,7 +4210,7 @@ def checkpoint_live(dev, x: np.ndarray) -> None:
                     time.sleep(delay)
             done.set()
 
-        cols, files, save_ms = [], [], []
+        cols, files, save_ms, lapped = [], [], [], []
         producer = threading.Thread(target=produce)
         with tempfile.TemporaryDirectory() as tmp:
             producer.start()
@@ -4158,6 +4221,10 @@ def checkpoint_live(dev, x: np.ndarray) -> None:
                     if (time.perf_counter() >= due
                             and st.ring.total_written <= n - SR):
                         path = Path(tmp) / f"s{len(files)}.npz"
+                        if not lapped and st.ring.total_written > \
+                                st.ring.capacity + block:
+                            lap_next_read(st, done)
+                            lapped.append(len(files))
                         t0 = time.perf_counter()
                         try:
                             save_stream(path, st)
@@ -4172,34 +4239,39 @@ def checkpoint_live(dev, x: np.ndarray) -> None:
             finally:
                 producer.join()
         cols += st._drain() + st.flush()
-        z = files[-1]
-        b = Stream(MULTIRES, dev)
-        with tempfile.TemporaryDirectory() as tmp:
-            np.savez(Path(tmp) / "last.npz", **z)
-            load_stream(Path(tmp) / "last.npz", b)
-        total = int(z["ring_total"])
-        resumed = [c for i in range(total, n, block)
-                   for c in b.push(xs[i:min(i + block, n)])]
-        resumed += b._drain() + b.flush()
-        return st, b, cols, resumed, files, save_ms
+        resumed, b = resume(files[-1])
+        check(len(lapped) == 1, "checkpoint_live: no save came after the "
+              "ring was full")
+        resumed_lap, b_lap = resume(files[lapped[0]])
+        return (st, b, b_lap, cols, resumed, resumed_lap, files, save_ms,
+                lapped[0])
 
-    st, b, cols, resumed, files, save_ms = drive("checkpoint_live", run)
+    (st, b, b_lap, cols, resumed, resumed_lap, files, save_ms,
+     lap) = drive("checkpoint_live", run)
     cap = st.ring.capacity
-    check(st.dropped_frames == 0 and len(files) >= 4 and b.captures == 1,
+    check(st.dropped_frames == 0 and len(files) >= 4 and b.captures == 1
+          and b_lap.captures == 1,
           f"checkpoint_live: {st.dropped_frames} frames dropped, "
-          f"{len(files)} saves, {b.captures} captures")
-    short = 0
+          f"{len(files)} saves, {b.captures}, {b_lap.captures} captures")
+    short = []
     for i, z in enumerate(files):
         total, kept = int(z["ring_total"]), z["ring_data"].shape[-1]
-        short += kept < min(total, cap)
+        if kept < min(total, cap):
+            short.append(i)
         check(0 < kept <= cap and np.array_equal(
             z["ring_data"][0], xs[total - kept:total]),
               f"checkpoint_live: save {i} stored other samples than "
               f"[{total} − {kept}, {total})")
+    check(lap in short, f"checkpoint_live: the lapped save {lap} kept the "
+          f"whole ring ({files[lap]['ring_data'].shape[-1]} of "
+          f"{int(files[lap]['ring_total'])} samples): no second span")
     vis_b, rgba_b, _ = Pipeline(MULTIRES, dev).process(xs)
     t0 = int(files[-1]["t"]) - b.reach
+    t_lap = int(files[lap]["t"]) - b.reach
     for label, got, first in (("the stream under the producer", cols, 0),
-                              ("the resumed stream", resumed, t0)):
+                              ("the resumed stream", resumed, t0),
+                              (f"the stream resumed from lapped save {lap}",
+                               resumed_lap, t_lap)):
         check([c.index for c in got] == list(range(first, vis_b.shape[0])),
               f"checkpoint_live: {label}'s columns are not "
               f"[{first}, {vis_b.shape[0]})")
@@ -4211,8 +4283,13 @@ def checkpoint_live(dev, x: np.ndarray) -> None:
     print(f"checkpoint_live: the display default's graphed Stream fed "
           f"{CKPT_LIVE_SECONDS:g} s at real-time pace in blocks of {block} "
           f"by a producer thread (ring {cap}), {len(files)} saves while "
-          f"draining, none raised, {short} kept the span from the first "
-          f"unread sample (a push lapped the whole-ring read), 0 dropped; "
+          f"draining, none raised, {len(short)} kept the span from the "
+          f"first unread sample (a push lapped the whole-ring read: saves "
+          f"{short}, save {lap} forced; kept "
+          f"{files[lap]['ring_data'].shape[-1]} of ring_total "
+          f"{int(files[lap]['ring_total'])}, exact, and a fresh graphed "
+          f"Stream loaded from it gave its {len(resumed_lap)} columns ≡ the "
+          f"batch), 0 dropped; "
           f"save ms min / median / max {min(save_ms):.2f} / "
           f"{median(save_ms):.2f} / {max(save_ms):.2f} (host clock); "
           f"its {len(cols)} columns and the {len(resumed)} of a fresh "
@@ -4378,58 +4455,6 @@ def sparse_hop_phase(dev) -> None:
 
 
 LIVE_LARGE_PUSH = 777
-# a deposit the card's B1 and the CPU path place apart that float64 plain
-# does not explain (``settled_vis``) must be this far below the loudest
-# deposit: near the power floor, where Δt/hop is ill-conditioned (60 dB)
-UNEXPLAINED_BELOW = 1e-6
-
-
-def settled_vis(cpu: Pipeline, x: np.ndarray, t_count: int, ik, ck):
-    """The CPU path's vis of ``x`` with its float32 deposits settled where
-    float64 plain places a deposit as the card's B1 (``ik``, ``ck``, on
-    the CPU) does, as ``kernels_multires`` settles B1 → (vis, deposits
-    placed apart, of them explained by float64, of them settled, the
-    loudest unexplained one's contrib over the loudest deposit's, the
-    first unexplained ones).  Float64 plain explains a deposit placed
-    apart where it sides with one path in its row and in its column
-    offset (each a rounding of its own: f̂, Δt/hop), or, where one path
-    drops it, drops it too or keeps it where the other path does."""
-    p = cpu.params()
-    inputs = cpu._bank_inputs(cpu.to_device(x), t_count)
-    ip, cp = cpu._deposit_ids_rel(inputs, p)
-    i64, c64 = deposits_ids_plain(
-        inputs[0].double(), p.logmap_a, p.logmap_b, p.power_floor,
-        n=cpu.n_max, hop=cpu.hop, sr=float(cpu.settings.sample_rate),
-        rows=cpu.rows, reach=cpu.reach)
-    vk, vp, v64 = ck > 0, cp > 0, c64 > 0
-    apart = ~(((ik == ip) & vk & vp) | (~vk & ~vp))
-    card64 = apart & (ik == i64) & (vk == v64)
-    C = cpu.rows
-
-    def sides(part):            # float64 with one path in one coordinate
-        return (part(i64) == part(ik)) | (part(i64) == part(ip))
-    explained = apart & torch.where(
-        vk == vp, v64 & sides(lambda i: i % C) & sides(lambda i: i // C),
-        ~v64 | (i64 == torch.where(vk, ik, ip)))
-    odd = apart & ~explained
-    loud = float(torch.where(odd, torch.maximum(ck, cp), 0.0).max()) / max(
-        float(ck.max()), float(cp.max()))
-    first = [dict(at=at, card=(int(ik[tuple(at)]), float(ck[tuple(at)])),
-                  cpu=(int(ip[tuple(at)]), float(cp[tuple(at)])),
-                  float64=(int(i64[tuple(at)]), float(c64[tuple(at)])))
-             for at in torch.nonzero(odd)[:6].tolist()]
-    ip = torch.where(card64, i64, ip)
-    cp = torch.where(card64, c64.float(), cp)
-    grid = cpu._scatter_absolute(cpu._absolute_ids(ip, t_count, cpu.reach),
-                                 cp, t_count, exact=True)
-    vis, _ = postprocess_batch(
-        grid.movedim(-2, 0).contiguous(),
-        PostState.init(grid.shape[:-2] + (cpu.rows,), "cpu"), p.post,
-        cpu.settings.agc_global)
-    return (vis, int(apart.sum()), int(explained.sum()), int(card64.sum()),
-            loud, first)
-
-
 def live_large_phase(dev) -> dict:
     """Each setting of ``LIVE_LARGE`` (B2's ring form in windows or bands)
     as a graph-captured ``Stream`` on the card's defaults, driven once
@@ -4599,6 +4624,140 @@ def ring_large_row(dev, name: str, pipe: Pipeline, x: np.ndarray) -> dict:
                 lambda: spare.index_add_(0, safe, v0), iters=10),
         **bound(8.0 * rel.numel() + 8.0 * touched, float(touched)),
         touched_cells=touched, plan=plan, checked_launches=checked)
+
+
+# past 2^31 deposits a lane (B2's batch form): name → (settings, minutes of
+# 48 kHz audio); wide runs as a probe (``long_batch_phase(dev, "wide")``)
+LONG_BATCH = {"north": (NORTH, 37.0), "wide": (WIDE, 11.8)}
+LONG_BLOCK = 4096       # columns a block of the CPU plain sum
+LONG_PUSH = SR          # samples a push of the long stream
+FUZZ_SEEDS = range(28)  # the fuzz phase's draws (beside its fixed cases)
+
+
+def long_batch_phase(dev, name: str = "north") -> dict:
+    """``LONG_BATCH[name]`` on the card: more than 2^31 deposits a lane.
+    ``Pipeline.process`` driven once (counters: B2's batch form once, no
+    other B2 form or route) ≡ a graphed ``Stream`` of the same audio in
+    ``LONG_PUSH``-sample pushes bit for bit in vis and rgba; B2's sum at
+    the process's ids (``histogram`` with the pipeline's bound, the form
+    ``sorted_form`` names) bit-equal to ``histogram_plain`` on the CPU in
+    blocks of ``LONG_BLOCK`` columns (frames c0 − R … c1 + R for columns
+    [c0, c1): every deposit that can land in them, in (frame, bin)
+    order); its device ms, bound and the card's peak reserved memory →
+    the row's dict."""
+    settings, minutes = LONG_BATCH[name]
+    t_start = time.perf_counter()
+    x = signal(minutes * 60.0, seed=37)
+    pipe = Pipeline(settings, dev)
+    t, K, R, rows = (pipe.num_columns(x.size), pipe.n_max // 2 + 1,
+                     pipe.reach, pipe.rows)
+    check(t * K >= 2**31, f"long_{name}: {t} frames of {K} deposits are "
+          f"below 2^31")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xg = pipe.to_device(x)
+    t0 = time.perf_counter()
+    vis, rgba, _ = drive(f"long_{name}", lambda: pipe.process(xg))
+    process_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_reserved(dev)
+    routes = ROUTE_LAUNCHES[f"long_{name}"]
+    form = sorted_form(t, K, R, rows)
+    check(form == "batch" and routes[SORTED_BATCH] == 1 and all(
+        n == 0 for r, n in routes.items() if r != SORTED_BATCH),
+          f"long_{name}: B2 launched {routes}, want its batch form once "
+          f"(sorted_form: {form})")
+    check(bool(torch.isfinite(vis).all()) and float(vis.max()) > 0,
+          f"long_{name}: vis not finite or all zero")
+    st = Stream(settings, dev)
+    t0 = time.perf_counter()
+    cols = stream_run(st, x, LONG_PUSH)
+    stream_s = time.perf_counter() - t0
+    check(st.captures == 1 and st.dropped_frames == 0,
+          f"long_{name}: {st.captures} captures, {st.dropped_frames} "
+          f"dropped")
+    st.close()
+    check([c.index for c in cols] == list(range(t))
+          and torch.equal(torch.stack([c.vis for c in cols]), vis)
+          and torch.equal(torch.stack([c.rgba for c in cols]), rgba),
+          f"long_{name}: the graphed Stream ≠ process bit for bit "
+          f"({len(cols)} columns, {t} in the batch)")
+    del cols, vis, rgba
+    torch.cuda.empty_cache()
+    p = pipe.params()
+    ids_rel, contrib = pipe._deposit_ids_rel(pipe._bank_inputs(xg, t), p)
+    ids = pipe._absolute_ids(ids_rel, t, R).reshape(-1)
+    del ids_rel
+    vals = contrib.reshape(-1)
+    kw = dict(route=SORTED, reach=R, frame_len=K, column_len=rows)
+    before = histogram.route_launches[SORTED_BATCH]
+    got = histogram(ids, vals, t * rows, **kw)
+    check(histogram.route_launches[SORTED_BATCH] == before + 1,
+          f"long_{name}: the sum did not launch B2's batch form")
+    ms = device_ms(lambda: histogram(ids, vals, t * rows, **kw), calls=3)
+    deposits = ids.numel()
+    ids_h, vals_h, got_h = ids.cpu(), vals.cpu(), got.cpu()
+    del ids, vals, contrib, got
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for c0 in range(0, t, LONG_BLOCK):
+        c1 = min(t, c0 + LONG_BLOCK)
+        s0, s1 = max(c0 - R, 0), min(c1 + R, t)
+        want = histogram_plain(ids_h[s0 * K:s1 * K] - c0 * rows,
+                               vals_h[s0 * K:s1 * K], (c1 - c0) * rows)
+        check(torch.equal(want, got_h[c0 * rows:c1 * rows]),
+              f"long_{name}: B2's sum ≠ the CPU plain sum in columns "
+              f"[{c0}, {c1})")
+    plain_s = time.perf_counter() - t0
+    row = dict(
+        at=f"{name}: {settings.fft_size} at hop {pipe.hop}, {minutes} min "
+           f"of {SR} Hz audio: {t} frames × {K} deposits = {deposits} "
+           f"(2^31 = {2**31}) → {t} × {rows} cells, R = {R}",
+        form=form, plan=batch_plan(t, K, R, rows), device_ms=ms,
+        **bound(8.0 * deposits + 4.0 * t * rows, float(deposits)),
+        peak_reserved_gb=peak / 2**30, process_s=process_s,
+        stream_s=stream_s, plain_blocks_s=plain_s)
+    print(f"long_batch {name} ({CARD[0]}): {row['at']}; process ≡ a graphed "
+          f"Stream ({LONG_PUSH}-sample pushes, one capture, 0 dropped) bit "
+          f"for bit in vis and rgba; B2's {form} form (one launch) "
+          f"bit-equal to the CPU plain sum in {-(-t // LONG_BLOCK)} blocks "
+          f"of {LONG_BLOCK} columns; the sum alone {ms:.3f} device ms (bound "
+          f"{row['bound_ms']:.3f} by {row['bound_by']}); peak reserved "
+          f"{row['peak_reserved_gb']:.2f} GiB; process {process_s:.1f} s, "
+          f"stream {stream_s:.1f} s, plain sums {plain_s:.1f} s, phase "
+          f"{time.perf_counter() - t_start:.1f} s; launches "
+          f"{LAUNCHES[f'long_{name}']}", flush=True)
+    return row
+
+
+def fuzz_phase(dev) -> dict:
+    """``settings_fuzz.sweep`` of its fixed cases and ``FUZZ_SEEDS``,
+    driven once (counters): every case must pass its checks, and every
+    form of ``settings_fuzz.REQUIRED`` (each B1 route and form and B2 form
+    the defaults launch) must be reached → the sweep's summary."""
+    lines: list = []
+    res = drive("fuzz", lambda: settings_fuzz.sweep(FUZZ_SEEDS, dev,
+                                                    log=lines.append))
+    check(not res["failed"], f"fuzz: {len(res['failed'])} cases failed: "
+          f"{res['failed'][:3]}")
+    missing = [f for f in settings_fuzz.REQUIRED if res["coverage"][f] == 0]
+    check(not missing, f"fuzz: no case reached {missing}")
+    slowest = max((json.loads(line) for line in lines),
+                  key=lambda r: r["seconds"])
+    print(f"fuzz ({CARD[0]}): {res['ran']} cases ({len(settings_fuzz.FIXED)} "
+          f"fixed, the draws of seeds {FUZZ_SEEDS.start}–"
+          f"{FUZZ_SEEDS.stop - 1}), {res['skipped']} draws skipped over the "
+          f"budget (ring {settings_fuzz.RING_BUDGET >> 20} MiB, batch "
+          f"{settings_fuzz.BATCH_BUDGET >> 20} MiB): {res['skipped_seeds']}; "
+          f"every case passed (process and a graphed Stream ≡ each other "
+          f"bit for bit, or within compare_vis where torch.fft computes "
+          f"spectra on the card — not bit-equal there: "
+          f"{res['library_spectra_not_bit_equal']}; vis within compare_vis "
+          f"of the CPU path, finite in [0, 1]); coverage (cases a form): "
+          + ", ".join(
+              f"{k} {v}" for k, v in res["coverage"].items())
+          + f"; slowest case {slowest['case']} {slowest['seconds']} s; "
+          f"{res['seconds']} s; launches {LAUNCHES['fuzz']}", flush=True)
+    return res
 
 
 def trace_phase(dev, x: np.ndarray) -> None:
@@ -4968,6 +5127,10 @@ def main() -> None:
     mark("sparse_hop")
     res.update(live_large_phase(dev))
     mark("live_large")
+    res["histogram_sorted_batch"]["long_batch"] = long_batch_phase(dev)
+    mark("long_batch")
+    res["histogram_sorted_batch"]["fuzz"] = fuzz_phase(dev)
+    mark("fuzz")
     trace_phase(dev, x)
     bench_phase(dev, x)
     mark("trace, bench")

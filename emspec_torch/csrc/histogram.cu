@@ -358,7 +358,10 @@ extern "C" int emspec_histogram_sorted(const void* keys, int key_bytes,
 // K deposits — out (rows, T·C) float32 — T columns of C cells — each cell
 // written once (add = 1: out's value first); reach R; TT columns and FF
 // cells a tile, pieces of fp frames (fp > 0) or of pc chunks of a frame,
-// pc chunks staged a piece (the wrapper's tile_plan).
+// pc chunks staged a piece (the wrapper's tile_plan).  A lane's deposits
+// T·K may pass 2^31 (every offset into them is 64-bit: a 37-minute
+// render at 32768 points, hop 800); its cells T·C may not (the ids are
+// int32).
 extern "C" int emspec_histogram_tiles(const int* ids, const float* vals,
                                       float* out, long long rows, int T,
                                       int K, int C, int R, int TT, int FF,
@@ -366,8 +369,7 @@ extern "C" int emspec_histogram_tiles(const int* ids, const float* vals,
   if (T <= 0 || K <= 0 || C <= 0 || R < 0 || TT <= 0 || FF <= 0 || FF > C
       || TT * FF > 0xffff || pc <= 0 || pc > kPieceChunks || fp < 0
       || (fp > 0 && (long long)fp * K > 32LL * pc)
-      || (fp == 0 && K <= 32 * pc)
-      || (long long)T * K >= (1LL << 31) || (long long)T * C >= (1LL << 31))
+      || (fp == 0 && K <= 32 * pc) || (long long)T * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const long long smem = 8LL * TT * FF + pc * (32 * 8 + 4);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;

@@ -379,7 +379,8 @@ __global__ void __launch_bounds__(kThreads) batch_kernel(BatchArgs a) {
 // out (lanes, T·C) float32, written whole (add = 1: added into); reach R;
 // TT columns a tile, 2^log_b row bands, row blocks of 2^shift rows, an
 // entry array of ``cap`` entries, packed or a raw chunk a chunk of entries
-// (the wrapper's batch_plan), on ``stream``.
+// (the wrapper's batch_plan), on ``stream``.  As the tiles form: T·K may
+// pass 2^31 (lo, hi and every deposit offset are 64-bit), T·C may not.
 extern "C" int emspec_histogram_batch(const int* ids, const float* vals,
                                       float* out, long long lanes, int T,
                                       int K, int C, int R, int TT, int log_b,
@@ -388,7 +389,7 @@ extern "C" int emspec_histogram_batch(const int* ids, const float* vals,
   if (lanes < 0 || T <= 0 || K <= 0 || C <= 0 || R < 0 || TT <= 0
       || log_b < 0 || (1 << log_b) > kMaxBands || shift < 0
       || shift > kMaxShift || cap < kRound || cap % 32 != 0
-      || (long long)T * K >= (1LL << 31) || (long long)T * C >= (1LL << 31))
+      || (long long)T * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   BatchArgs a;
   a.ids = ids, a.vals = vals, a.out = out;

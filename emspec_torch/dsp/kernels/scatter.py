@@ -218,7 +218,7 @@ def batch_plan(frames: int, k: int, reach: int, column: int | None = None,
                 fits=bands & (bands - 1) == 0 and bands <= BATCH_BANDS
                 and 0 <= shift <= BATCH_MAX_SHIFT and cells <= 0xffff
                 and cap >= BATCH_ROUND and smem <= SMEM_BYTES
-                and frames * c_len < 2**31 and frames * k < 2**31)
+                and frames * c_len < 2**31)
 
 
 def sorted_form(frames: int, k: int, reach: int,

@@ -315,11 +315,27 @@ class Pipeline:
                                            [self.reach] * len(self.sizes)))
         return _cat(list(ids)), _cat(list(contrib))
 
+    def check_grid(self, t_count: int) -> None:
+        """Raise a ValueError where the enhanced absolute grid of
+        ``t_count`` columns would hold 2^31 cells a lane or more: its ids
+        (t + δ)·rows + row are int32 (as in the JAX package), and would
+        wrap.  Wide (8192 at hop 64) with 4,096 rows reaches it at 11.7
+        minutes of 48 kHz audio."""
+        if self.settings.mode == MODE_ENHANCED \
+                and t_count * self.rows >= 2**31:
+            raise ValueError(
+                f"{t_count} columns of {self.rows} rows are "
+                f"{t_count * self.rows} cells a channel: the enhanced grid "
+                f"holds fewer than 2**31 (its ids are int32); render a "
+                f"shorter span or fewer rows")
+
     def _absolute_ids(self, ids_rel, t_count: int, R: int):
         """Relative ids (δ + R)·rows + row of frames 0 … t_count−1, (...,
         t, K) → absolute-grid ids (t + δ)·rows + row.  A negative relative
         id (B1's invalid deposit) stays −1; a column outside [0, t_count)
-        falls outside the grid, where the sum drops it."""
+        falls outside the grid, where the sum drops it.  Raises where the
+        grid has 2^31 cells or more (``check_grid``)."""
+        self.check_grid(t_count)
         base = ((torch.arange(t_count, dtype=torch.int32,
                               device=ids_rel.device) - R) * self.rows)
         return torch.where(ids_rel >= 0, ids_rel + base[:, None], -1)
@@ -451,12 +467,15 @@ class Pipeline:
         deposits in (frame, bin) order on every device (the absolute grid,
         B2's sorted route on the card), so two runs give the same bits and
         a stream's columns equal these bit for bit; False takes B2's
-        atomic routes on the card (another last bit each run)."""
-        x = self.to_device(x)
+        atomic routes on the card (another last bit each run).  Raises a
+        ValueError before any work where the enhanced grid would hold
+        2^31 cells a channel or more (``check_grid``)."""
         t_count = self.num_columns(x.shape[-1])
         if t_count <= 0:
             raise ValueError(
                 f"need at least {self.n_max} samples, got {x.shape[-1]}")
+        self.check_grid(t_count)
+        x = self.to_device(x)
         p = params or self.params()
         st = state or PostState.init(x.shape[:-1] + (self.rows,), self.device)
         return self._batch_vis(x, p, st, t_count, exact_sums=exact_sums)

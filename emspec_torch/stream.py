@@ -102,9 +102,16 @@ class Stream:
     (``exact_sums=True``, the default), each cell in bin order: the same
     columns on every run and however the audio is pushed, and the columns
     of ``Pipeline.process`` bit for bit — streaming ≡ batch, on the card
-    as on the CPU.  ``exact_sums=False`` takes B2's atomic routes (their
-    float atomics add in another order each run).  It is how the stream
-    is built, not part of its state (``state_dict``).
+    as on the CPU — wherever the port's kernels compute the spectra (B1
+    for the stencil method's banks of 512–262144 points, B4 under
+    ``fft_impl="fourstep"``).  Where the card computes them with
+    ``torch.fft`` (natural mode, the direct method or another bank under
+    ``fft_impl`` "auto" or "xla"), cuFFT gives a frame other bits by the
+    batch it is in, so a hop's columns can differ from the batch's by
+    float32 rounding of the spectra (a moved deposit in the direct
+    method).  ``exact_sums=False`` takes B2's atomic routes (their float
+    atomics add in another order each run).  It is how the stream is
+    built, not part of its state (``state_dict``).
     """
 
     def __init__(self, settings: Settings, device="cuda",

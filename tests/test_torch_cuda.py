@@ -1978,3 +1978,30 @@ def test_cuda_time_parallel_render_repeats(nccl_world_1, monkeypatch):
     assert histogram.route_launches[SORTED_TILES] == before + 1
     v2 = r.render(x)[0]
     assert torch.equal(grids[0], grids[1]) and torch.equal(v1, v2)
+
+
+@pytest.mark.cuda
+def test_cuda_north_star_37_minutes_process_is_the_graphed_stream(cuda):
+    """The north star (32768, hop 800) on 37 minutes of 48 kHz audio:
+    133,160 frames of 16,385 deposits, more than 2^31 a lane.  The batch
+    sums through B2's batch form in one launch (its launcher refused the
+    lane before), and a graphed default ``Stream`` of the same audio in
+    one-second pushes ≡ ``process`` bit for bit in vis and rgba."""
+    s = Settings(mode="enhanced", multires=False, fft_size=32768, hop=800)
+    x = _tone_noise(37 * 60 * 48000, 60)
+    pipe = Pipeline(s, cuda)
+    t = pipe.num_columns(x.size)
+    assert t * (pipe.n_max // 2 + 1) >= 2**31
+    before = dict(histogram.route_launches)
+    vis_b, rgba_b, _ = pipe.process(x)
+    assert {k: histogram.route_launches[k] - before[k] for k in before} \
+        == {k: int(k == SORTED_BATCH) for k in before}
+    st = Stream(s, cuda)
+    cols = []
+    for i in range(0, x.size, 48000):
+        cols += st.push(x[i:i + 48000])
+    cols += st.flush()
+    assert st.captures == 1 and st.dropped_frames == 0
+    assert [c.index for c in cols] == list(range(t))
+    assert torch.equal(torch.stack([c.vis for c in cols]), vis_b)
+    assert torch.equal(torch.stack([c.rgba for c in cols]), rgba_b)
