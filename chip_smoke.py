@@ -121,7 +121,15 @@ them.  Phases, in order, one line each; the first failure ends the run:
    turns with the atomic route the ``exact_sums=False`` hop takes
    (medians of three rounds) and by cluster size, beside ``index_add_``
    and ``index_put_(accumulate=True)``, and a default stream of 8
-   columns bit-equal to the default batch.
+   columns bit-equal to the default batch; the real FFT kernel
+   (``dsp.kernels.rfft``, where the JAX package calls XLA's rfft) at
+   every size it holds (256–262144) on 100 frames of the signal as a
+   strided framing view: within 2e-5·√(N/512)·peak of ``torch.fft.rfft``
+   as a spectrum and as Hann power (a NaN, +Inf and −Inf frame scrubbed
+   to 0), frame k of batches of 1, 2, 7 and 100 and alone bit-equal to
+   the view's, its max and rms error against numpy's complex128 at most
+   2× ``torch.fft.rfft``'s; timed at 372 × 8192, 688 × 32768, 184 × 65536
+   and 8 × 262144 (and b = 1) beside ``torch.fft.rfft`` and its bound.
 4. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise (its sum on B2's
    sorted batch form, the card's default); the result must match the
@@ -187,6 +195,13 @@ them.  Phases, in order, one line each; the first failure ends the run:
 18. multires_live: the same through ``Stream`` in 1024-sample pushes
    (5,937 hops of 128); must match its batch; p50/p99 per hop, and the
    p50 must be below the hop's 2.67 ms of audio.
+18b. default_engine: the default engine (``fft_impl="auto"``: the real
+   FFT kernel's spectra) at natural 4096 one bank (the CLI's default),
+   natural multires, direct 32768 and 65536 at 96 kHz, and the display
+   default with a 256 bank (8192/2048/256) — ``process`` (the kernel
+   must launch) against the CPU path, two calls bit-equal, and a graphed
+   ``Stream`` ≡ ``process`` bit for bit in vis and rgba, its p50 a hop
+   below the hop's audio; device ms a call, host p50/p99 a hop.
 19. raster: the single-bank raster (``render.raster.render_image``) on
    16 s mono, enhanced 8192 at hop 2048 (B5, B2's sorted route in its
    tiles form, the scan kernel and B3 must launch) and natural 2048 at
@@ -234,7 +249,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
    --fast on a 4 s WAV, presets add/show/delete, gui --duration 3
    --no-prewarm and doctor --kernels, each a subprocess exiting 0; walls.
    Doctor's kernels row must name B2's sorted batch, tiles and ring
-   (local and cluster) forms and B1's windowed form.  Then each new
+   (local and cluster) forms, B1's windowed form and the real FFT's power
+   and spectrum forms.  Then each new
    check of ``dsp/kernels/validate.py`` on the card with its form broken
    (``validate.perturbed``, the CPU tests' stand-ins) must raise.
 24. ring_ab: the display default live and north live through graphed
@@ -307,21 +323,25 @@ them.  Phases, in order, one line each; the first failure ends the run:
    same audio bit for bit in vis and rgba; B2's sum at those ids
    bit-equal to the plain sum in (frame, bin) order on the CPU, block by
    block of columns (frames c0 − R … c1 + R for columns [c0, c1)); B2's
-   form, its device ms and bound, the card's peak reserved memory.
+   form, its device ms, bound and ``index_add_``'s device ms at the same
+   ids, the card's peak reserved memory.
    ``long_batch_phase(dev, "wide")`` runs wide (8192 at hop 64) at 11.8
    minutes the same way, as a probe.
 31. fuzz: ``emspec_torch.probes.settings_fuzz``: its fixed cases and the
    draws of ``FUZZ_SEEDS`` over the whole ``Settings`` surface, each
    ``process`` and a graphed ``Stream`` on the card against the port's
-   CPU path (module docstring there); every case must pass, and each B1
-   route and form and B2 form the defaults launch must be reached; one
-   line of coverage (cases a form).
+   CPU path (module docstring there); every case must pass — its stream
+   ≡ its ``process`` bit for bit in every case — and each B1 route and
+   form, B2 form and kernel the defaults launch (the real FFT kernel
+   among them) must be reached; one line of coverage (cases a form).
 32. trace: ``utils.tracing.trace`` around one batch call; the trace it
    writes must name B1's, B2's and the post chain's kernels (``post_head``,
    both scans' speculate and repair passes); the kernels one post chain
    call launches, read from the trace; and one live hop's kernels in
    launch order, on the default (B1 then B2's ring form at once: no
-   ring-id launch between them) and on the atomic route.
+   ring-id launch between them) and on the atomic route; one default
+   call and hop of each default_engine cell under torch.profiler, which
+   must hold the real FFT kernel and no cuFFT kernel.
 33. bench: ``python -m emspec_torch bench`` as a user runs it, each a
    subprocess on the card that must exit 0 and print its JSON report:
    ``--soak --duration 30 --quick`` (while it runs, ``--sustained
@@ -371,7 +391,9 @@ every enhanced batch call to the next; B4 (either route) within
 2e-5·max|X| (the JAX package's four-step bound); natural power grids within 1e-4·peak per cell (not quantized; float32
 FFT rounding only); ``vis`` 3×3 max-filters within 2/255 on all but 1e-4
 of the cells; natural live vs batch within 1e-5 in ``vis`` (FFT batch
-shapes reorder sums only), enhanced live ≡ batch bit for bit.
+shapes reorder sums only), enhanced live ≡ batch bit for bit; the real
+FFT kernel within 2e-5·√(N/512)·peak of ``torch.fft.rfft`` and bit-equal
+across batches, the default engine's streams ≡ their batch bit for bit.
 """
 
 from __future__ import annotations
@@ -405,7 +427,7 @@ except ModuleNotFoundError as e:
 from emspec_torch import Settings, kernels_build
 from emspec_torch.bench.measure import cuda_ms, device_ms
 from emspec_torch.bench.roofline import (
-    b1_bound, b1_window_bound, bound, dft_ops, frame_bytes)
+    b1_bound, b1_window_bound, bound, dft_ops, frame_bytes, rfft_bound)
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import (
     frame_signal, frame_signal_np, signal_blocks)
@@ -424,6 +446,8 @@ from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
+from emspec_torch.dsp.kernels.rfft import rfft_frames, rfft_frames_plain
+from emspec_torch.dsp.kernels.rfft import route_of as rfft_route_of
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, SORTED, SORTED_BATCH, SORTED_RING, SORTED_TILES,
     batch_plan, ring_offsets, histogram, histogram_plain, histogram_ring,
@@ -432,7 +456,8 @@ from emspec_torch.dsp.kernels.scatter import (
 from emspec_torch.dsp.kernels.window import (
     w3_table, windowed_frames, windowed_frames_plain)
 from emspec_torch.dsp.stft import (
-    stft_triple_stencil_blocks, stft_triple_stencil_sliced, th_window)
+    hann_window, stft_triple_stencil_blocks, stft_triple_stencil_sliced,
+    th_window)
 from emspec_torch.dsp.reassign import (
     reassigned_bins, reassignment_corrections)
 from emspec_torch.dsp.stft import stft_triple
@@ -544,6 +569,11 @@ KERNELS = (
      "emspec/post/chain.py:131"),
     ("post_tail", post_tail, "emspec_torch/csrc/post_chain.cu",
      "emspec/post/chain.py:149"),
+    # XLA's jnp.fft.rfft (not Pallas): natural, the direct method, a 256
+    # bank, the natural raster — batch-invariant, as XLA's is and cuFFT
+    # is not
+    ("rfft", rfft_frames, "emspec_torch/csrc/rfft.cu",
+     "emspec/pipeline.py:311"),
 ) + tuple((row, histogram, "emspec_torch/csrc/histogram_ring.cu",
            "emspec/dsp/pallas/scatter.py:135") for row in ROW_PATH)
 # a kernel counted by another counter than its wrapper's ``launches``
@@ -593,9 +623,9 @@ PATH_KERNELS = {        # kernels each path must launch
     "wide_live": ("deposits_ids",) + RING + ("lut_values",),
     "multires": MULTIRES_B1 + TILES + ("lut_values",) + SCAN,
     "multires_live": MULTIRES_B1 + RING + ("lut_values",),
-    "raster": ("windowed_frames", "histogram_sorted_tiles",
+    "raster": ("windowed_frames", "rfft", "histogram_sorted_tiles",
                "lut_values") + SCAN,
-    "raster_natural": ("lut_values",) + SCAN,
+    "raster_natural": ("rfft", "lut_values") + SCAN,
     # the display default's file render: its sum on B2's sorted tiles
     "render_multires": MULTIRES_B1 + TILES + ("lut_values",) + SCAN,
     # the shell on the display default, then 4096 single-bank, then natural
@@ -619,8 +649,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "sparse_enhanced_8192": ("deposits_ids",) + RING + ("lut_values",),
     "sparse_enhanced_8192_batch": ("deposits_ids",) + BATCH
     + ("lut_values",) + SCAN,
-    "sparse_natural_4096": ("lut_values",),
-    "sparse_natural_4096_batch": ("lut_values",) + SCAN,
+    "sparse_natural_4096": ("rfft", "lut_values"),
+    "sparse_natural_4096_batch": ("rfft", "lut_values") + SCAN,
     "sparse_north_40000": CLUSTER_B1 + RING + ("lut_values",),
     "sparse_north_40000_batch": CLUSTER_B1 + BATCH + ("lut_values",) + SCAN,
     "sparse_stress_40000": CLUSTER_B1 + RING + ("lut_values",),
@@ -635,7 +665,8 @@ PATH_KERNELS = {        # kernels each path must launch
     "fuzz": ("deposits_ids", "deposits_ids_window", "deposits_ids_cluster",
              "deposits_ids_cluster_large", "histogram_sorted_tiles",
              "histogram_sorted_batch", "histogram_sorted_ring",
-             "fft4_steps123", "windowed_frames", "lut_values") + SCAN,
+             "fft4_steps123", "windowed_frames", "rfft", "lut_values")
+    + SCAN,
 }
 
 
@@ -645,6 +676,31 @@ def _b1_of(s: Settings) -> tuple:
             if s.fft_size == 32768 else ("deposits_ids_cluster_large",))
 
 
+# the default engine's cells (``fft_impl="auto"``): every spectrum of
+# natural mode, the direct method and a 256 bank through the real FFT
+# kernel — path, settings, seconds of the signal, its sample rate
+DEFAULT_ENGINE = (
+    ("natural_4096", Settings(mode="natural", multires=False,
+                              fft_size=4096), 16.0, SR),
+    ("natural_multires", Settings(mode="natural"), 16.0, SR),
+    ("direct_32768", Settings(mode="enhanced", multires=False,
+                              fft_size=32768, fft_method="direct",
+                              sample_rate=96000), 8.0, 96000),
+    ("direct_65536", Settings(mode="enhanced", multires=False,
+                              fft_size=65536, fft_method="direct",
+                              sample_rate=96000), 8.0, 96000),
+    ("stencil_256_bank", Settings(multires_sizes=(8192, 2048, 256)), 8.0,
+     SR))
+for _path, _s, _, _ in DEFAULT_ENGINE:
+    _b = (("rfft", "lut_values") if _s.mode == "natural"
+          else ("windowed_frames", "rfft", "histogram", "lut_values")
+          if _s.fft_method == "direct" else MULTIRES_B1
+          + ("rfft", "histogram", "lut_values"))
+    _large = ("fft4_steps123",) if _s.fft_size > 32768 else ()
+    PATH_KERNELS[_path] = _b + _large + SCAN
+    PATH_KERNELS[f"{_path}_live"] = tuple(
+        k for k in _b if k != "histogram") + _large + (
+        () if _s.mode == "natural" else ("histogram_sorted_ring",))
 for _path, _s, _ in LIVE_LARGE:     # live: the ring form in windows or bands
     PATH_KERNELS[_path] = _b1_of(_s) + RING + ("lut_values", ring_row(_path))
     PATH_KERNELS[f"{_path}_batch"] = _b1_of(_s) + BATCH + ("lut_values",) \
@@ -1424,6 +1480,136 @@ def kernels_b5(dev) -> dict:
           f"{mis_t['library_device_ms']:.4f}); bound "
           f"{res['windowed_frames']['bound_ms']:.4f} ms", flush=True)
     return res
+
+
+# the real FFT kernel: every size it holds (batch-invariance, plain and
+# complex128 errors on the script's signal) and the timed shapes (frames,
+# N): natural 16 s at 8192, the stress call, the bench's configurations
+# 5 and 7
+RFFT_SIZES = tuple(1 << b for b in range(8, 19))          # 256 … 262144
+RFFT_TIMED = ((372, 8192), (688, 32768), (184, 65536), (8, 262144))
+RFFT_BATCHES = (1, 2, 7, 100)
+RFFT_F64_FRAMES = 16    # frames of each size held to numpy's complex128
+RFFT_F64_RATIO = 2.0    # the kernel's error at most this × torch.fft's
+
+
+def rfft_tol(n: int) -> float:
+    """DESIGN.md §9's spectrum bound, a share of the peak."""
+    return 2e-5 * math.sqrt(n / 512)
+
+
+def rfft_signal_frames(dev, count: int, n: int, seed: int):
+    """``count`` frames of ``n`` points at hop n/4 of ``signal`` (chirp,
+    tones, 1% noise): a strided framing view."""
+    hop = n // 4
+    x = torch.from_numpy(signal(((count - 1) * hop + n) / SR,
+                                seed=seed)).to(dev)
+    return frame_signal(x, n, hop)
+
+
+def f64_errors(X: torch.Tensor, ref: np.ndarray) -> tuple:
+    """(max, rms) of |X − ref| over max and rms |ref|, ref complex128."""
+    d = np.abs(X.cpu().numpy().astype(np.complex128) - ref)
+    a = np.abs(ref)
+    return (float(d.max() / a.max()),
+            float(np.sqrt(np.mean(d * d)) / np.sqrt(np.mean(a * a))))
+
+
+def kernels_rfft(dev) -> dict:
+    """The real FFT kernel at every size it holds: 100 frames of the
+    signal as a strided framing view, against its plain version
+    (``torch.fft.rfft``) within ``rfft_tol``·peak as a spectrum and, with
+    Hann, as power (a NaN, +Inf and −Inf frame each scrubbed to 0); frame
+    k of batches of 1, 2, 7 and 100 at two offsets and of the frame alone
+    bit-equal to the view's; its max and rms error against numpy's
+    complex128 rfft beside ``torch.fft.rfft``'s, at most
+    ``RFFT_F64_RATIO`` × that.  Then at ``RFFT_TIMED`` its ms (spectrum),
+    at b = 1, as Hann power at 8192, beside the plain version and
+    ``torch.fft.rfft``, with the bound → the kernel's row."""
+    sizes, lines = {}, []
+    for n in RFFT_SIZES:
+        fr = rfft_signal_frames(dev, RFFT_BATCHES[-1], n, seed=n % 97)
+        hann = hann_window(n, dev)
+        got, want = rfft_frames(fr), rfft_frames_plain(fr)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        check(err <= rfft_tol(n), f"rfft n={n}: {err:.2e} of the peak off "
+              f"the plain version (> {rfft_tol(n):.2e})")
+        bad = fr[:5].clone()
+        for row, v in ((2, float("nan")), (3, float("inf")),
+                       (4, -float("inf"))):
+            bad[row, n // 3] = v
+        pk = rfft_frames(bad, hann, power=True)
+        pp = rfft_frames_plain(bad, hann, power=True)
+        perr = float((pk - pp).abs().max()) / float(pp.max())
+        check(bool(torch.isfinite(pk).all()) and not bool(pk[2:].any())
+              and perr <= rfft_tol(n), f"rfft n={n} power: {perr:.2e} of "
+              f"the peak, or a non-finite frame not scrubbed to 0")
+        for power in (False, True):
+            ref = rfft_frames(fr, hann, power=power)
+            for b in RFFT_BATCHES:
+                for k0 in sorted({0, min(3, 100 - b), 100 - b}):
+                    part = rfft_frames(fr[k0:k0 + b].contiguous(), hann,
+                                       power=power)
+                    check(torch.equal(part, ref[k0:k0 + b]),
+                          f"rfft n={n}: frames {k0}…{k0 + b - 1} as a "
+                          f"batch of {b} differ from the 100-frame view "
+                          f"({'power' if power else 'spectrum'})")
+            check(torch.equal(rfft_frames(fr[57], hann, power=power),
+                              ref[57]), f"rfft n={n}: frame 57 alone "
+                  f"differs from the batch")
+        ref64 = np.fft.rfft(fr[:RFFT_F64_FRAMES].cpu().numpy().astype(
+            np.float64), axis=-1)
+        e_k = f64_errors(got[:RFFT_F64_FRAMES], ref64)
+        e_t = f64_errors(torch.fft.rfft(fr[:RFFT_F64_FRAMES]), ref64)
+        check(e_k[0] <= RFFT_F64_RATIO * e_t[0]
+              and e_k[1] <= RFFT_F64_RATIO * e_t[1],
+              f"rfft n={n}: error against complex128 (max, rms) {e_k} over "
+              f"{RFFT_F64_RATIO}× torch.fft.rfft's {e_t}")
+        sizes[n] = dict(route=rfft_route_of(n), plain_err=err,
+                        power_plain_err=perr, f64_kernel=e_k,
+                        f64_torch_fft=e_t)
+        lines.append(f"{n} ({rfft_route_of(n)}) vs plain {err:.1e}, power "
+                     f"{perr:.1e}; vs complex128 max/rms kernel "
+                     f"{e_k[0]:.1e}/{e_k[1]:.1e}, torch.fft "
+                     f"{e_t[0]:.1e}/{e_t[1]:.1e}")
+    timed = {}
+    for frames, n in RFFT_TIMED:
+        fr = (stress_frames(dev)[1] if n == 32768
+              else rfft_signal_frames(dev, frames, n, seed=frames))
+        check(fr.numel() // n == frames, f"rfft: {fr.shape} is not "
+              f"{frames} frames of {n}")
+        one = fr.reshape(-1, n)[:1].contiguous()
+        row = dict(
+            at=f"{frames} × {n}", fft_route=rfft_route_of(n),
+            max_abs_err=float((rfft_frames(fr) - rfft_frames_plain(fr))
+                              .abs().max()),
+            **times(lambda: rfft_frames(fr), lambda: rfft_frames_plain(fr),
+                    lambda: torch.fft.rfft(fr), iters=10, warmup=2),
+            **rfft_bound(fr),
+            b1_device_ms=device_ms(lambda: rfft_frames(one)),
+            b1_library_device_ms=device_ms(lambda: torch.fft.rfft(one)))
+        row["share"] = row["bound_ms"] / row["device_ms"]
+        if n == 8192:
+            hann = hann_window(n, dev)
+            row["power"] = dict(
+                device_ms=device_ms(lambda: rfft_frames(fr, hann,
+                                                        power=True)),
+                plain_device_ms=device_ms(lambda: rfft_frames_plain(
+                    fr, hann, power=True)),
+                **rfft_bound(fr, power=True))
+        timed[n] = row
+        lines.append(f"{frames} × {n}: device {row['device_ms']:.4f} ms "
+                     f"(b = 1 {row['b1_device_ms']:.4f}), plain "
+                     f"{row['plain_ms']:.4f}, torch.fft.rfft device "
+                     f"{row['library_device_ms']:.4f} (b = 1 "
+                     f"{row['b1_library_device_ms']:.4f}), bound "
+                     f"{row['bound_ms']:.4f} {row['bound_by']} "
+                     f"({row['share']:.1%})")
+    print(f"kernels rfft ({CARD[0]}): every size within "
+          f"2e-5·√(N/512)·peak of torch.fft.rfft, power with the scrub, "
+          f"frames of batches {RFFT_BATCHES} and alone bit-equal to the "
+          f"100-frame view; " + "; ".join(lines), flush=True)
+    return {"rfft": dict(timed[8192], sizes=sizes, timed=timed)}
 
 
 # B1 above 16384: 32768 at the stress call (4 s of 16 channels at 96 kHz,
@@ -2607,6 +2793,7 @@ def phase_kernels(dev, pipe: Pipeline, p) -> dict:
     res["deposits_ids_window"] = kernels_multires(dev)
     res.update(kernels_b4(dev, np.random.default_rng(7)))
     res.update(kernels_b5(dev))
+    res.update(kernels_rfft(dev))
     res.update(kernels_large(dev))
     res.update(kernels_fused(dev, pipe, p))
     res["ema_scan"] = kernels_ema(dev)
@@ -3038,6 +3225,84 @@ def default_live(name: str, dev, settings: Settings, x: np.ndarray,
             f"({atomic}) p50 {med['atomic']['p50']:.3f} / p99 "
             f"{med['atomic']['p99']:.3f} ms, device "
             f"{med['atomic']['device_ms']:.4f} ms")
+
+
+def default_engine_phase(dev) -> dict:
+    """``DEFAULT_ENGINE``'s cells on the default engine, where the card's
+    spectra come from the real FFT kernel: ``Pipeline.process`` driven
+    once (counters: the kernel and the path's others must launch), held
+    to the port's CPU path (natural power within ``NATURAL_POWER_TOL``·
+    peak; ``vis`` within ``compare_vis``, for the enhanced cells once
+    float64 plain settles the deposits the two place apart where the raw
+    comparison fails), two calls bit-equal; a graphed ``Stream`` in
+    1024-sample pushes driven once, one capture, no frame dropped, its
+    columns ≡ ``process`` bit for bit in vis and rgba, its graphed p50 a
+    hop below the hop's audio time → per cell the device ms a call and
+    the host p50/p99 a hop."""
+    out = {}
+    for name, s, seconds, sr in DEFAULT_ENGINE:
+        x = signal(seconds, seed=41, sr=sr)
+        gpu = Pipeline(s, dev)
+        check(gpu.fft_impl == "xla" and s.fft_impl == "auto",
+              f"{name}: not the default engine ({gpu.fft_impl})")
+        p, xg = gpu.params(), gpu.to_device(x)
+        t = gpu.num_columns(x.shape[-1])
+        vis, rgba, _ = drive(name, lambda: gpu.process(xg, p))
+        vis2, rgba2, _ = gpu.process(xg, p)
+        check(torch.equal(vis, vis2) and torch.equal(rgba, rgba2),
+              f"{name}: two process calls differ")
+        check(bool(torch.isfinite(vis).all()), f"{name}: non-finite vis")
+        cpu = Pipeline(s, "cpu")
+        vis_c, _, _ = cpu.process(x)
+        grid = ""
+        if s.mode == "natural":
+            want = cpu._natural_power(cpu.to_device(x), t, cpu.params())
+            worst = float((gpu._natural_power(xg, t, p).cpu() - want)
+                          .abs().max()) / float(want.max())
+            check(worst <= NATURAL_POWER_TOL, f"{name}: GPU vs CPU power "
+                  f"{worst}·peak > {NATURAL_POWER_TOL}")
+            grid = f"power {worst:.2e}·peak, "
+        vis_ok, vd, vshare = compare_vis(vis_c, vis.cpu())
+        if not vis_ok and s.mode == "enhanced":
+            ik, ck = (a.cpu() for a in gpu._deposit_ids_rel(
+                gpu._bank_inputs(xg, t), p))
+            vis_s, apart, explained, _, loud, odd = settled_vis(
+                cpu, x, t, ik, ck)
+            check(loud <= UNEXPLAINED_BELOW, f"{name}: of {apart} deposits "
+                  f"placed apart float64 plain explains {explained}; one "
+                  f"other is {loud:.2e} of the loudest: {odd}")
+            vis_ok, vd, vshare = compare_vis(vis_s, vis.cpu())
+            grid += f"settled {explained} of {apart} apart, "
+        check(vis_ok, f"{name}: GPU vs CPU vis max-filter diff {vd} (share "
+              f"over 2/255: {vshare})")
+        st = Stream(s, dev)
+        lat: list = []
+        cols = drive(f"{name}_live", lambda: stream_run(st, x, 1024, lat))
+        check(st.captures == 1 and st.dropped_frames == 0,
+              f"{name}: {st.captures} captures, {st.dropped_frames} dropped")
+        st.close()
+        check([c.index for c in cols] == list(range(t))
+              and torch.equal(torch.stack([c.vis for c in cols]), vis)
+              and torch.equal(torch.stack([c.rgba for c in cols]), rgba),
+              f"{name}: the graphed Stream ≠ process bit for bit "
+              f"({len(cols)} columns, {t} in the batch)")
+        p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+        hop_ms = gpu.hop / s.sample_rate * 1e3
+        check(p50 < hop_ms, f"{name}: graphed p50 {p50:.3f} ms is not below "
+              f"the hop's {hop_ms:.3f} ms of audio")
+        ms = device_ms(lambda: gpu.process(xg, p), calls=3)
+        out[name] = dict(at=f"{gpu.sizes} at hop {gpu.hop}, {s.sample_rate} "
+                         f"Hz, {seconds} s: {t} columns", device_ms=ms,
+                         hop_p50_ms=p50, hop_p99_ms=p99, hop_audio_ms=hop_ms)
+        print(f"default_engine {name} ({CARD[0]}): {out[name]['at']}; "
+              f"process {ms:.4f} device ms a call, two calls bit-equal; vs "
+              f"CPU path: {grid}vis maxf {vd:.2e} (share over 2/255 "
+              f"{vshare:.2e}); graphed Stream ≡ process bit for bit in vis "
+              f"and rgba ({len(cols)} columns, one capture), host p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms a hop against its "
+              f"{hop_ms:.3f} ms of audio; launches {LAUNCHES[name]}",
+              flush=True)
+    return out
 
 
 def raster_phase(name: str, dev, settings: Settings, x: np.ndarray,
@@ -3771,7 +4036,8 @@ def live_cli_phase(x: np.ndarray) -> None:
 
 # the forms doctor --kernels must name: B2's ordered forms, B1's windowed
 DOCTOR_FORMS = ("sorted batch", "sorted tiles", "ring local", "ring cluster",
-                "ring windows", "ring bands", "B1 whole, windowed")
+                "ring windows", "ring bands", "B1 whole, windowed",
+                "rfft power, spectrum")
 
 
 def validate_bites(dev) -> None:
@@ -3785,7 +4051,7 @@ def validate_bites(dev) -> None:
     t0 = time.perf_counter()
     refused = []
     for form, (name, hows) in kernel_validate.PERTURBATIONS.items():
-        where = form if form.startswith("B1") else f"B2 {form}"
+        where = form if form.startswith(("B1", "rfft")) else f"B2 {form}"
         for how in hows:
             try:
                 with kernel_validate.perturbed(form, how):
@@ -4696,7 +4962,18 @@ def long_batch_phase(dev, name: str = "north") -> dict:
     ms = device_ms(lambda: histogram(ids, vals, t * rows, **kw), calls=3)
     deposits = ids.numel()
     ids_h, vals_h, got_h = ids.cpu(), vals.cpu(), got.cpu()
-    del ids, vals, contrib, got
+    del got
+    # the library call: index_add_ of the same deposits into the grid and
+    # one cell more that takes the dropped ids (its own order each run)
+    cells = t * rows
+    ids.masked_fill_((ids < 0) | (ids >= cells), cells)
+    grid = torch.zeros(cells + 1, device=dev)
+    try:
+        library_ms, library_error = device_ms(
+            lambda: grid.index_add_(0, ids, vals), calls=3), None
+    except RuntimeError as e:
+        library_ms, library_error = None, str(e)[:300]
+    del ids, vals, contrib, grid
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for c0 in range(0, t, LONG_BLOCK):
@@ -4713,6 +4990,7 @@ def long_batch_phase(dev, name: str = "north") -> dict:
            f"of {SR} Hz audio: {t} frames × {K} deposits = {deposits} "
            f"(2^31 = {2**31}) → {t} × {rows} cells, R = {R}",
         form=form, plan=batch_plan(t, K, R, rows), device_ms=ms,
+        library_device_ms=library_ms, library_error=library_error,
         **bound(8.0 * deposits + 4.0 * t * rows, float(deposits)),
         peak_reserved_gb=peak / 2**30, process_s=process_s,
         stream_s=stream_s, plain_blocks_s=plain_s)
@@ -4721,7 +4999,10 @@ def long_batch_phase(dev, name: str = "north") -> dict:
           f"for bit in vis and rgba; B2's {form} form (one launch) "
           f"bit-equal to the CPU plain sum in {-(-t // LONG_BLOCK)} blocks "
           f"of {LONG_BLOCK} columns; the sum alone {ms:.3f} device ms (bound "
-          f"{row['bound_ms']:.3f} by {row['bound_by']}); peak reserved "
+          f"{row['bound_ms']:.3f} by {row['bound_by']}; index_add_ at the "
+          f"same ids {library_ms} device ms"
+          f"{'' if library_error is None else ': ' + library_error}"
+          f"); peak reserved "
           f"{row['peak_reserved_gb']:.2f} GiB; process {process_s:.1f} s, "
           f"stream {stream_s:.1f} s, plain sums {plain_s:.1f} s, phase "
           f"{time.perf_counter() - t_start:.1f} s; launches "
@@ -4749,10 +5030,8 @@ def fuzz_phase(dev) -> dict:
           f"budget (ring {settings_fuzz.RING_BUDGET >> 20} MiB, batch "
           f"{settings_fuzz.BATCH_BUDGET >> 20} MiB): {res['skipped_seeds']}; "
           f"every case passed (process and a graphed Stream ≡ each other "
-          f"bit for bit, or within compare_vis where torch.fft computes "
-          f"spectra on the card — not bit-equal there: "
-          f"{res['library_spectra_not_bit_equal']}; vis within compare_vis "
-          f"of the CPU path, finite in [0, 1]); coverage (cases a form): "
+          f"bit for bit in every case; vis within compare_vis of the CPU "
+          f"path, finite in [0, 1]); coverage (cases a form): "
           + ", ".join(
               f"{k} {v}" for k, v in res["coverage"].items())
           + f"; slowest case {slowest['case']} {slowest['seconds']} s; "
@@ -4832,6 +5111,41 @@ def trace_phase(dev, x: np.ndarray) -> None:
           f"default (B1, the ring form at once, the post chain: "
           f"{[n[:30] for n in hops[True]]}) and {len(hops[False])} on the "
           f"atomic route ({[n[:30] for n in hops[False]]})", flush=True)
+    print("trace: " + no_cufft(dev), flush=True)
+
+
+def no_cufft(dev) -> str:
+    """One ``process`` call and one eager hop of each ``DEFAULT_ENGINE``
+    cell under torch.profiler: fail if a kernel whose name holds "fft"
+    (cuFFT's; no kernel of the port is named so) launched, or if the real
+    FFT kernel's (``real_dft_*``) are not in the trace → the line's
+    part."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = {}
+    for name, s, _, sr in DEFAULT_ENGINE:
+        pipe = Pipeline(s, dev)
+        x = pipe.to_device(signal((pipe.n_max + 20 * pipe.hop) / sr,
+                                  seed=43, sr=sr))
+        p, carry = pipe.params(), pipe.init_roll_carry()
+        block = x[pipe.n_max - pipe.roll:pipe.n_max].contiguous()
+        pipe.process(x, p)
+        carry, _ = pipe._stream_step_rolling(carry, block, p)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            pipe.process(x, p)
+            pipe._stream_step_rolling(carry, block, p)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type == cuda}
+        fft = sorted(n for n in names if "fft" in n.lower())
+        own = sorted(n for n in names if "real_dft_" in n)
+        check(own and not fft, f"trace {name}: a default call and hop "
+              f"launched cuFFT {fft} (the real FFT kernel's: {own})")
+        seen[name] = len(own)
+    return ("no cuFFT kernel in a default call and hop of " + ", ".join(
+        f"{k} (real FFT kernels {v})" for k, v in seen.items()))
 
 
 def launched_in(events: list, span_name: str) -> list:
@@ -5102,6 +5416,8 @@ def main() -> None:
     vis_m, ms_m = batch_phase("multires", dev, MULTIRES, x, iters=3)
     live_phase("multires_live", dev, MULTIRES, x, vis_m, keep_up=True)
     mark("stress, north, ext262144, wide, multires")
+    res["rfft"]["default_engine"] = default_engine_phase(dev)
+    mark("default_engine")
     rasters = {name: raster_phase(name, dev, s, x)
                for name, s in (("raster", RASTER),
                                ("raster_natural", RASTER_NATURAL))}

@@ -24,7 +24,8 @@ doctor|note``; a bare call opens ``gui``); checkpoints of a live stream
 (``utils.checkpoint``), tracing (``utils.tracing``), channel and time
 sharding on ``torch.distributed`` (``parallel``, ``render
 --time-parallel``); the stencil and direct methods, every frame size
-512–262144 on one bank, the ``xla`` (``torch.fft``) and ``fourstep`` FFT engines; through
+512–262144 on one bank, the ``xla`` (the port's real FFT kernel on the card,
+``torch.fft`` on the CPU) and ``fourstep`` FFT engines; through
 hand-written CUDA kernels (``emspec_torch/csrc``), one for each Pallas
 kernel of the JAX package and one for the batch post chain's EMA scan;
 the native ingest runtime (``native``: the C++ ring the live path reads

@@ -82,6 +82,16 @@ def frame_bytes(frames) -> float:
     return _distinct_bytes(f.shape[0], f.shape[1], f.stride(1), n)
 
 
+def rfft_bound(frames, power: bool = False) -> dict:
+    """The port's real FFT's roofline bound on these frames: the distinct
+    samples read once, 8·(N/2 + 1) bytes a frame written (4· as power),
+    and one complex (N/2)-point FFT a frame, 5·(N/2)·log2(N/2)."""
+    n = frames.shape[-1]
+    b = frames.numel() // n
+    return bound(frame_bytes(frames) + (4 if power else 8) * b * (n // 2 + 1),
+                 b * dft_ops(n // 2))
+
+
 def b1_counts(samples_bytes: float, b: int, n: int, width: int,
               band: bool) -> tuple:
     """(bytes, operations) of B1's function on ``b`` frames of ``n``

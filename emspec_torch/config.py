@@ -72,12 +72,14 @@ class Settings:
 
     # -------- analysis detail knobs (rebuild-specific, documented [INF]) --------
     freq_min: float = 20.0              # bottom of the log-frequency axis
-    fft_impl: str = "auto"              # FFT engine: "auto" (torch.fft in
+    fft_impl: str = "auto"              # FFT engine: "auto" (= "xla" in
                                         # the port, Pipeline.fft_impl),
                                         # "fourstep" (DFT-GEMM four-step,
                                         # kernel B4 on the card) or "xla"
-                                        # (torch.fft).  Streaming == batch is
-                                        # bit-exact on the CPU for "xla";
+                                        # (the port's direct real FFT: its
+                                        # kernel on the card, torch.fft on
+                                        # the CPU).  Streaming == batch is
+                                        # bit-exact for "xla" on both;
                                         # "fourstep" agrees to float32
                                         # rounding, tested.
     fft_method: str = "stencil"         # reassignment FFT formulation:

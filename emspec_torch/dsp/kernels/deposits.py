@@ -74,9 +74,10 @@ from emspec_torch.dsp.kernels import (
     counted, launch_stream, require, require_cuda)
 from emspec_torch.dsp.kernels.fourstep import (
     device_radix_tables, fft4_steps123)
+from emspec_torch.dsp.kernels.rfft import unpack_twiddles as _twiddles
 from emspec_torch.dsp.kernels.scatter import histogram_plain
 from emspec_torch.dsp.reassign import reassignment_corrections
-from emspec_torch.dsp.stft import stft_triple_stencil, th_window
+from emspec_torch.dsp.stft import stft_triple_stencil_plain, th_window
 
 MIN_N = 512
 SMALL_MAX_N = 16384    # block route: two (n1, n2 + 1) tiles in one block
@@ -197,11 +198,12 @@ def deposits_plain(frames, logmap_a, logmap_b, power_floor, *, n: int,
                    hop: int, sr: float, rows: int, k_lo: int = 0,
                    k_hi: int | None = None, band=None):
     """frames (..., n) → (row, delta, contrib), each (..., k_hi − k_lo):
-    the stencil spectra of the whole frame (two ``torch.fft.rfft``), the
-    window's bins sliced out after the stencils, corrections,
-    quantization with the band weight."""
+    the stencil spectra of the whole frame (two ``torch.fft.rfft`` on
+    every device: ``stft_triple_stencil_plain``), the window's bins sliced
+    out after the stencils, corrections, quantization with the band
+    weight."""
     win = slice(k_lo, k_hi)
-    spectra = tuple(a[..., win] for a in stft_triple_stencil(frames))
+    spectra = tuple(a[..., win] for a in stft_triple_stencil_plain(frames))
     return quantize_deposits(
         *reassignment_corrections(*spectra), logmap_a, logmap_b,
         power_floor, n=n, hop=hop, sr=sr, rows=rows, band=band, k_lo=k_lo)
@@ -227,14 +229,6 @@ def deposits_hist_plain(frames, logmap_a, logmap_b, power_floor, min_id: int,
         rows=rows, reach=reach)
     return histogram_plain(torch.where(ids >= min_id, ids, -1), contrib,
                            (2 * reach + 1) * rows)
-
-
-@functools.lru_cache(maxsize=None)
-def _twiddles(n: int, device: str) -> torch.Tensor:
-    """e^{-2πij/n}, j < n/2, built in float64, stored as float32 pairs."""
-    ang = -2.0 * np.pi * np.arange(n // 2) / n
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
 
 
 def _window(frames: torch.Tensor, n: int, k_lo: int, k_hi, band,

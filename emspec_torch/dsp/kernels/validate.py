@@ -37,16 +37,24 @@ one ``"kernel · form · shape"`` line to the report's ``"checked"``):
 * B5 at (16, 2048), then (90, 2048) and (32768,); B4 at 8192, then
   32768; B3 at (640, 512) in both forms; the EMA scan, ``post_head`` and
   ``post_tail`` at 1024 × 512 (smoothing 0 and 0.6; forced repair too).
+* The real FFT kernel (``validate_rfft``, ``RFFT_CASES``) at the
+  natural and direct paths' frames: natural 4096 (the CLI's default,
+  Hann, the power form) and the direct method's triple at 8192, then the
+  natural display default's 512 bank, direct 32768 and direct 65536 at
+  96 kHz (the large route): against its plain version (``torch.fft``),
+  frame 1 of the batch bit-equal to frame 1 transformed alone, and in
+  the power form a NaN, +Inf and −Inf frame each stored as 0.
 
 Tolerances: B2's ordered forms bit-equal to the plain sum computed on the
 CPU (on the card ``histogram_plain`` is ``index_add_``'s atomics, no
 order), the same on a second run, added into a nonzero output, and finite
 with NaN and Inf behind dropped ids; B2's atomic routes rtol 5e-5, atol
 1e-4 (float32 sums in another order); B5, B3 and the post chain's kernels
-bit-equal; B4 2e-5·max|X|; B1 as grids (energy and 3×3 max-filters,
-``validate.compare_grids``) and ≥ 99.99% equal ids — the windowed form
-on the absolute (t, rows) grid the display sums, float64 plain deciding
-where float32 plain's rounding flipped a deposit.
+bit-equal; B4 2e-5·max|X|; the real FFT 2e-5·√(N/512) of the peak
+(DESIGN.md §9), batch-invariant bit for bit; B1 as grids (energy and 3×3
+max-filters, ``validate.compare_grids``) and ≥ 99.99% equal ids — the
+windowed form on the absolute (t, rows) grid the display sums, float64
+plain deciding where float32 plain's rounding flipped a deposit.
 
 ``perturbed`` swaps one form for a broken stand-in, which each of these
 checks must refuse (``PERTURBATIONS``; the CPU tests, ``chip_smoke.py``).
@@ -94,6 +102,19 @@ RING_CASES = (
 RING_QUICK = 4              # the quick set's ring cases: every form
 RING_FRAMES = 9             # a ring case's signal: its frames, a stream's hops
 WINDOW_SECONDS = 16.0       # B1's windowed form: the display default's batch
+# the real FFT kernel's checks: label, Settings fields, the bank, power
+# form (natural, Hann on load) or the spectra of B5's triple (direct)
+RFFT_CASES = (
+    ("natural 4096", dict(mode="natural", multires=False, fft_size=4096), 0,
+     True),
+    ("direct 8192", dict(mode="enhanced", multires=False, fft_size=8192,
+                         fft_method="direct"), 0, False),
+    ("natural 512 bank", dict(mode="natural"), 2, True),
+    ("direct 32768", dict(mode="enhanced", multires=False, fft_size=32768,
+                          fft_method="direct"), 0, False),
+    ("direct 65536", dict(mode="enhanced", multires=False, fft_size=65536,
+                          fft_method="direct", sample_rate=96000), 0, False))
+RFFT_QUICK = 2              # the quick set: one power form, one spectrum
 # each new check's broken stand-ins (``perturbed``): form → its validator
 # and the ways to break it
 PERTURBATIONS = {
@@ -104,6 +125,7 @@ PERTURBATIONS = {
     "ring windows": ("validate_ring", ("order",)),
     "ring bands": ("validate_ring", ("dropped",)),
     "B1 windowed": ("validate_deposits_windowed", ("moved", "unweighted")),
+    "rfft": ("validate_rfft", ("batch", "unscrubbed")),
 }
 
 
@@ -356,6 +378,58 @@ def validate_fft4(dev, ns=(8192, 32768), rtol: float = 2e-5) -> list:
     return [f"B4 · four-step · 3 × {n}" for n in ns]
 
 
+def validate_rfft(dev, quick: bool = True,
+                  seconds: float | None = None) -> list:
+    """The real FFT kernel (``rfft_frames``) at ``RFFT_CASES``' frames of
+    ``WINDOW_SECONDS`` (or ``seconds``) of signal, as the path frames
+    them: against its plain version within 2e-5·√(N/512) of the peak;
+    frame 1 of the batch bit-equal to frame 1 transformed alone (a live
+    hop's batch); in the power form three frames given a NaN, +Inf and
+    −Inf sample stored as 0, every bin finite."""
+    from emspec_torch.dsp.frame import frame_signal
+    from emspec_torch.dsp.kernels import rfft
+    from emspec_torch.dsp.kernels.window import windowed_frames
+    from emspec_torch.dsp.stft import hann_window
+
+    checked = []
+    for label, fields, bank, power in RFFT_CASES[:RFFT_QUICK if quick
+                                                 else None]:
+        pipe = _pipeline(dev, fields, 1)
+        sr = pipe.settings.sample_rate
+        samples = max(int((seconds or WINDOW_SECONDS) * sr),
+                      pipe.n_max + 2 * pipe.hop)
+        x = pipe.to_device(_signal(samples / sr, 1, 60, sr))
+        n = pipe.sizes[bank]
+        frames = frame_signal(x, n, pipe.hop)
+        window = hann_window(n, dev) if power else None
+        if not power:                      # the direct method's triple
+            frames = windowed_frames(frames)
+        got = rfft.rfft_frames(frames, window, power=power)
+        want = rfft.rfft_frames_plain(frames, window, power=power)
+        tol = 2e-5 * math.sqrt(n / 512)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        _assert(err <= tol, f"rfft {label}: {err:.2e} of the peak off the "
+                f"plain version (> {tol:.2e})")
+        flat = frames.reshape(-1, n)
+        alone = rfft.rfft_frames(flat[1].contiguous(), window, power=power)
+        _assert(torch.equal(alone, got.reshape(-1, n // 2 + 1)[1]),
+                f"rfft {label}: frame 1 of the batch differs from the "
+                f"frame alone")
+        shape = f"{tuple(frames.shape)}"
+        if power:
+            bad = flat[:5].clone()
+            for row, v in ((2, float("nan")), (3, float("inf")),
+                           (4, -float("inf"))):
+                bad[row, n // 3] = v
+            p = rfft.rfft_frames(bad, window, power=True)
+            _assert(bool(torch.isfinite(p).all())
+                    and not bool(p[2:].any()),
+                    f"rfft {label}: non-finite power not scrubbed to 0")
+        checked.append(f"rfft · {'power' if power else 'spectrum'} · "
+                       f"{label}: {shape}")
+    return checked
+
+
 def _b1_agree(where: str, ik, ck, ip, cp, grids) -> None:
     """B1 against plain: ``grids`` (ids, contrib) → the two grids as
     ``compare_grids`` takes them; ≥ 99.99% of the ids equal (a deposit
@@ -533,6 +607,7 @@ def validate_kernels(quick: bool = False, device="cuda") -> dict:
     checked += validate_windowing(dev, ((16, 2048),) if quick
                                   else ((90, 2048), (32768,)))
     checked += validate_fft4(dev, (8192,) if quick else (8192, 32768))
+    checked += validate_rfft(dev, quick)
     for n, b in ((8192, 3),) if quick else ((8192, 3), (32768, 3),
                                             (131072, 2), (262144, 2)):
         checked += validate_deposits(dev, n, b)
@@ -569,14 +644,35 @@ def perturbed(form: str, how: str):
     last to first (``"order"``), in bands with the band of the frame's own
     column left as it was (``"dropped"``); B1's windowed form with one
     valid id in 1,000 moved a row (``"moved"``) or its band weight left
-    out (``"unweighted"``).  Calls of
-    the other forms pass through.  The form's validator must raise
+    out (``"unweighted"``); the real FFT with one ulp on the largest bin
+    of frame 1 of any batch of two frames or more (``"batch"``: a frame
+    transformed at another batch's bits) or its power form without the
+    non-finite scrub (``"unscrubbed"``).  Calls of the other forms pass
+    through.  The form's validator must raise
     ``AssertionError`` inside."""
-    from emspec_torch.dsp.kernels import deposits, scatter
+    from emspec_torch.dsp.kernels import deposits, rfft, scatter
 
     if how not in PERTURBATIONS[form][1]:
         raise ValueError(f"{form} has no perturbation {how!r}")
-    if form.startswith("sorted"):
+    if form == "rfft":
+        module, name = rfft, "rfft_frames"
+        real = rfft.rfft_frames
+
+        def stand_in(frames, window=None, *, power=False):
+            if how == "unscrubbed" and power:
+                X = real(frames, window)
+                return X.real * X.real + X.imag * X.imag
+            got = real(frames, window, power=power)
+            rows = got.reshape(-1, got.shape[-1])
+            if how == "batch" and rows.shape[0] >= 2:
+                row = torch.view_as_real(rows[1]) if got.is_complex() \
+                    else rows[1]
+                flat = row.reshape(-1)
+                i = int(flat.abs().argmax())
+                flat[i] = torch.nextafter(flat[i],
+                                          flat.new_tensor(float("inf")))
+            return got
+    elif form.startswith("sorted"):
         module, name = scatter, "histogram"
         real = scatter.histogram
 

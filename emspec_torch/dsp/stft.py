@@ -1,21 +1,28 @@
 """Short-time Fourier transforms (``emspec.dsp.stft``).
 
-``stft``, ``power_spectrogram`` and ``stft_triple`` take a signal: frames
-(``dsp.frame``) → window → ``torch.fft.rfft`` (the JAX package leaves its
-FFT to XLA, so the library FFT stays).  ``stft_triple``'s direct method
-windows the frames three ways with kernel B5 on the card
-(``dsp.kernels.window``), its plain version on the CPU.
+``stft``, ``power_spectrogram`` and ``stft_triple`` take a signal:
+frames (``dsp.frame``) → window → the real FFT ``rfft_frames``.  The JAX
+package leaves that FFT to XLA's ``jnp.fft.rfft``, whose bits do not
+depend on the batch (``emspec/dsp/stft.py:191``); the port keeps that
+property on every device: on the card it is the port's own kernel
+(``dsp.kernels.rfft``: a frame's arithmetic depends on N alone, never on
+the batch), on the CPU ``torch.fft.rfft`` row by row.  So a frame
+transformed alone (a live hop) and the same frame in a batch get the
+same bits, and streaming ≡ batch holds bit for bit at every frame size.
+cuFFT is never called on a card's path: its bits depend on the batch.
+``stft_triple``'s direct method windows the frames three ways with kernel
+B5 on the card (``dsp.kernels.window``), its plain version on the CPU.
 
-Stencil-method reassignment spectra, plain PyTorch:
+Stencil-method reassignment spectra:
 
 Two real transforms per frame — raw and time-weighted (t·h) — as two
-``torch.fft.rfft`` calls on the ``xla`` engine (``stft.py:213-215``).  The
-``fourstep`` engine packs them into one complex four-step FFT, as the JAX
-package does (``stft.py:210-212``): at N = 8192 the t·h spectrum carries
-~N/7 times the raw one's energy, so that pack costs the raw spectrum
-~10 bits — it is the reference's numeric spec of that engine, kept.
-``X_h`` and ``X_dh`` then follow exactly from 3-point periodic-Hann
-stencils on the raw spectrum.
+``rfft_frames`` calls on the ``xla`` engine (``stft.py:213-215``; the
+card's kernel).  The ``fourstep`` engine packs them into one complex
+four-step FFT, as the JAX package does (``stft.py:210-212``): at N =
+8192 the t·h spectrum carries ~N/7 times the raw one's energy, so that
+pack costs the raw spectrum ~10 bits — it is the reference's numeric
+spec of that engine, kept.  ``X_h`` and ``X_dh`` then follow exactly from
+3-point periodic-Hann stencils on the raw spectrum.
 
 The pruned DFT (``stft_triple_stencil_sliced``/``_blocks``) computes
 only the bins ``[k_lo, k_hi)`` of a band-sliced multires bank, as a
@@ -23,10 +30,10 @@ float32 matrix product (``torch.matmul``, TF32 off: ``device.py``)
 against a DFT matrix built in float64 — the JAX package's formulation
 (``stft.py:93-185``), which it runs outside any Pallas kernel.
 
-The ``xla`` branch feeds the deposits kernel's plain reference
-(``emspec_torch.dsp.kernels.deposits``) and the CPU path.  Its real FFT
-is ``rfft``: batch-shape stable on the CPU (see there), so streaming ≡
-batch holds bit for bit at every frame size.
+``stft_triple_stencil_plain`` is the plain reference of the stencil
+spectra (``torch.fft.rfft``, ``dsp.kernels.rfft.rfft_frames_plain``):
+kernel B1's plain version calls it, so a card comparison of B1 against
+its plain version holds B1 to the library FFT, never to another kernel.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 
 from emspec_torch.dsp.fourstep import packed_pair_fft
 from emspec_torch.dsp.frame import frame_signal
+from emspec_torch.dsp.kernels.rfft import rfft_frames, rfft_frames_plain
 from emspec_torch.dsp.kernels.window import windowed_frames
 from emspec_torch.dsp.windows import hann, time_weighted_hann
 
@@ -63,24 +71,10 @@ def hann_window(n: int, device) -> torch.Tensor:
     return _hann_table(n, str(torch.device(device)))
 
 
-def rfft(x: torch.Tensor) -> torch.Tensor:
-    """``torch.fft.rfft`` over the last axis.  On the CPU each row is
-    transformed alone: MKL's batched real FFT rounds differently from its
-    one-row transform at n ≥ 16384 (the live step transforms one window,
-    the batch path a stack of frames), and a row-by-row transform gives
-    each frame the same bits in either.  A CUDA tensor is transformed in
-    one call."""
-    if x.device.type != "cpu" or x.dim() == 1 or x.numel() == 0:
-        return torch.fft.rfft(x, dim=-1)
-    rows = x.reshape(-1, x.shape[-1])
-    return torch.stack([torch.fft.rfft(r) for r in rows]).reshape(
-        x.shape[:-1] + (-1,))
-
-
 def stft(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
     """(..., samples) → complex STFT (..., frames, n//2+1), Hann window."""
     frames = frame_signal(x, n, hop)
-    return rfft(frames * hann_window(n, frames.device))
+    return rfft_frames(frames, hann_window(n, frames.device))
 
 
 def power_spectrogram(x: torch.Tensor, n: int, hop: int) -> torch.Tensor:
@@ -97,7 +91,7 @@ def stft_triple(x: torch.Tensor, n: int, hop: int, method: str = "stencil"):
     rounding only."""
     frames = frame_signal(x, n, hop)
     if method == "direct":
-        X = rfft(windowed_frames(frames))
+        X = rfft_frames(windowed_frames(frames))
         return X[0], X[1], X[2]
     return stft_triple_stencil(frames)
 
@@ -111,7 +105,7 @@ def stft_raw_pair(frames: torch.Tensor, fft_impl: str = "xla"
     th = th_window(n, frames.device)
     if fft_impl == "fourstep":
         return packed_pair_fft(frames, frames * th)
-    F = rfft(torch.stack([frames, frames * th]))
+    F = rfft_frames(torch.stack([frames, frames * th]))
     return F[0], F[1]
 
 
@@ -138,6 +132,15 @@ def stft_triple_stencil(frames: torch.Tensor, fft_impl: str = "xla"):
     n = frames.shape[-1]
     X, X_th = stft_raw_pair(frames, fft_impl)
     return stencil_from_raw(X, X_th, n)
+
+
+def stft_triple_stencil_plain(frames: torch.Tensor):
+    """``stft_triple_stencil`` through ``torch.fft.rfft`` on every device
+    (``rfft_frames_plain``): the plain reference's spectra."""
+    n = frames.shape[-1]
+    F = rfft_frames_plain(torch.stack([frames,
+                                       frames * th_window(n, frames.device)]))
+    return stencil_from_raw(F[0], F[1], n)
 
 
 def _dft_columns(n: int, k_lo: int, k_hi: int) -> np.ndarray:

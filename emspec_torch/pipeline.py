@@ -12,20 +12,24 @@ Ported paths, in batch (``process``) and per hop (``_stream_step``):
   (t, rows) grid (absolute); the live step rolls a relative histogram
   into its pending ring.
 * **enhanced, direct method**: frames → triple windowing (kernel B5,
-  ``dsp.kernels.window``) → three real FFTs (``torch.fft`` or the
-  four-step engine, kernel B4) → the bank's bins → corrections →
-  quantize → B2 → post → B3.
+  ``dsp.kernels.window``) → three real FFTs (the port's real FFT kernel,
+  ``dsp.kernels.rfft``, or the four-step engine, kernel B4) → the bank's
+  bins → corrections → quantize → B2 → post → B3.
 * **natural, one bank or the multires banks**: per-bank Hann |X|² with
-  the non-finite scrub (``torch.fft`` or the four-step engine, B4) →
-  gather/lerp merge onto the log rows (``dsp.multires``) → post → B3.
+  the non-finite scrub (the real FFT kernel's power form, Hann applied as
+  it loads, or the four-step engine, B4) → gather/lerp merge onto the log
+  rows (``dsp.multires``) → post → B3.
 
-``fft_impl="auto"`` resolves to ``"xla"`` (``torch.fft``) on every device
-(see ``Pipeline.fft_impl``).  Kernel wrappers route by tensor device: on
-the CPU the same calls run their plain PyTorch versions.  With the
-stencil method the card takes the fused kernel B1 for every bank it
-holds (512–262144 points), whatever ``fft_impl`` says, as the JAX
-package's ``_use_fused_deposits`` does on its accelerator; a bank of
-256 points runs the unfused chain (routing by size only).  The JAX
+``fft_impl="auto"`` resolves to ``"xla"`` on every device (see
+``Pipeline.fft_impl``): the port's direct real FFT — the kernel
+``dsp.kernels.rfft`` on the card, ``torch.fft.rfft`` row by row on the
+CPU — never cuFFT, whose bits depend on the batch.  Kernel wrappers
+route by tensor device: on the CPU the same calls run their plain
+PyTorch versions.  With the stencil method the card takes the fused
+kernel B1 for every bank it holds (512–262144 points), whatever
+``fft_impl`` says, as the JAX package's ``_use_fused_deposits`` does on
+its accelerator; a bank of 256 points runs the unfused chain (routing by
+size only), its two spectra through the real FFT kernel.  The JAX
 package's pruned-DFT product for long banks (``_use_pruned_dft``) is
 not routed: on an H100 it lost to B1's windowed form at every default
 bank (PERF.md §6); ``dsp.stft`` keeps it.  The CPU runs the engine's
@@ -46,10 +50,13 @@ deposits in (frame, bin) order, the CPU's order: the batch sums into the
 absolute grid through B2's sorted route bounded by the reach (its batch
 form for crowded columns or its tiles form, by shape:
 ``scatter.sorted_form``), the live step adds each hop into its ring
-through B2's ring form.  So two runs give the same bits, and the stream's columns are the
-batch's bit for bit, on the card as on the CPU (the JAX package's
-streaming ≡ batch).  ``exact_sums=False`` takes the atomic routes, whose
-float atomics add a cell's deposits in another order each run.
+through B2's ring form.  So two runs give the same bits, and the stream's
+columns are the batch's bit for bit, on the card as on the CPU, at every
+``fft_impl`` and in every mode (the JAX package's streaming ≡ batch):
+every spectrum comes from a kernel whose arithmetic for a frame depends
+on its size alone (B1, the real FFT kernel, B4).  ``exact_sums=False``
+takes the atomic routes, whose float atomics add a cell's deposits in
+another order each run.
 
 ``prewarm`` warms the live app's structural variants ahead of a swap
 (a ``WarmHandle`` over the queued jobs, one worker thread).
@@ -70,7 +77,9 @@ from emspec_torch.device import CARD_LOCK, DTYPE, as_device
 from emspec_torch.dsp import fourstep
 from emspec_torch.dsp.frame import frame_signal, num_frames
 from emspec_torch.dsp.kernels import deposits
+from emspec_torch.dsp.kernels import rfft as rfft_kernel
 from emspec_torch.dsp.kernels.deposits import deposits_ids, quantize_deposits
+from emspec_torch.dsp.kernels.rfft import rfft_frames, scrubbed_power
 from emspec_torch.dsp.kernels.scatter import (
     SORTED, histogram, histogram_ring, sorted_form)
 from emspec_torch.dsp.kernels.window import windowed_frames
@@ -78,7 +87,7 @@ from emspec_torch.dsp.multires import (
     MergeTables, band_support_hz, band_weight_at, bank_offsets,
     build_merge_tables, log_freq_axis, merge_columns)
 from emspec_torch.dsp.reassign import reassignment_corrections
-from emspec_torch.dsp.stft import hann_window, rfft, stft_triple_stencil
+from emspec_torch.dsp.stft import hann_window, stft_triple_stencil
 from emspec_torch.post.chain import (
     PostParams, PostState, postprocess_batch, postprocess_column)
 from emspec_torch.post.colormap import apply_lut
@@ -143,17 +152,28 @@ class Pipeline:
             self.k_slices.append(
                 (max(int(np.floor(lo_hz / bin_hz)) - 1, 0),
                  min(int(np.ceil(hi_hz / bin_hz)) + 2, k_count)))
-        self.fft_impl                      # raises on an unsupported size
+        if self.fft_impl == "xla" and self.device.type == "cuda":
+            # the card's real FFT kernel holds 256–262144 points: refuse
+            # here, not at the first spectrum (no fallback to cuFFT)
+            rfft_kernel.require_sizes(self.sizes, "Pipeline")
 
     @property
     def fft_impl(self) -> str:
-        """Resolved FFT engine, ``"fourstep"`` or ``"xla"`` (``torch.fft``).
+        """Resolved FFT engine, ``"fourstep"`` or ``"xla"``.
 
+        ``"xla"`` is the port's direct real FFT: ``torch.fft.rfft`` row by
+        row on the CPU, the real FFT kernel (``dsp.kernels.rfft``) on the
+        card — the JAX package's batch-shape-stable ``jnp.fft.rfft``.
         ``"auto"`` resolves to ``"xla"`` on every device: the JAX
         package's auto policy (four-step for enhanced single-bank on its
         accelerator, ``pipeline.py:195-223``) is a TPU measurement and is
         not carried over.  So kernel B4 runs where the caller selects
-        ``fft_impl="fourstep"``, as on the TPU."""
+        ``fft_impl="fourstep"``, as on the TPU.  On every engine a
+        frame's spectrum depends on its size alone, never on the batch:
+        the stream's columns are ``process``'s bit for bit on the card as
+        on the CPU.  A bank the card's kernels do not hold (above 262144
+        points) is refused with a ValueError when the pipeline is
+        built."""
         s = self.settings.fft_impl
         if s == "auto":
             return "xla"
@@ -245,18 +265,20 @@ class Pipeline:
     def _rfft(self, x):
         if self.fft_impl == "fourstep":
             return fourstep.rfft_fourstep(x)
-        return rfft(x)
+        return rfft_frames(x)
 
     def _bank_power(self, frames, n: int):
         """Hann |X|² of one bank's frames or window — shared by the batch
         and streaming natural paths.  Non-finite power is zeroed: one
         NaN/Inf sample would otherwise NaN its frame's spectrum and, via
         ``peak_db``, poison the AGC reference for good; for finite input
-        the ``where`` is an exact identity (``pipeline.py:288-313``)."""
-        X = self._rfft(frames * hann_window(n, frames.device))
-        power = X.real * X.real + X.imag * X.imag
-        return torch.where(torch.isfinite(power), power,
-                           torch.zeros_like(power))
+        the ``where`` is an exact identity (``pipeline.py:288-313``).  On
+        the ``xla`` engine one call of the real FFT kernel's power form
+        (Hann applied as the samples load, the scrub in its store)."""
+        hann = hann_window(n, frames.device)
+        if self.fft_impl == "fourstep":
+            return scrubbed_power(fourstep.rfft_fourstep(frames * hann))
+        return rfft_frames(frames, hann, power=True)
 
     def _merge(self, specs, p: PipelineParams):
         return merge_columns(specs, MergeTables(
@@ -668,7 +690,7 @@ def prewarm(base: Settings, sizes: tuple | None = None,
     the kernel library (on the card), builds its ``Pipeline`` (tables on
     the device, kept by ``get_pipeline``'s cache) and runs one eager
     ``_stream_step_rolling`` on a throwaway carry, which loads the kernel
-    modules, plans cuFFT and fills the cached tables.  A graph cannot be
+    modules and fills the cached tables.  A graph cannot be
     captured ahead: it binds the static tensors of a ``Stream`` that does
     not exist yet, so the ``Stream`` a swap builds still runs its warm-up
     hops and captures.  Each job holds ``device.CARD_LOCK`` and runs on a

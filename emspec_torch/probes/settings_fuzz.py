@@ -31,10 +31,11 @@ quarter of the cases, and checks, on the card:
    coordinate; at hops of ``MIN_HOP`` and more each deposit it does not
    explain ``UNEXPLAINED_BELOW`` below the loudest);
 3. the graphed ``Stream`` in random pushes ≡ the card's ``process`` bit
-   for bit in ``vis`` and ``rgba`` — within ``compare_vis`` where the
-   card computes spectra with ``torch.fft`` (``library_spectra``: cuFFT's
-   bits depend on the batch), counted — one capture, no frame dropped;
-   two ``process`` calls bit-equal;
+   for bit in ``vis`` and ``rgba`` in every case — every spectrum on the
+   card comes from a kernel of the port's own whose arithmetic for a
+   frame depends on its size alone (B1, the real FFT kernel, B4), never
+   from cuFFT — one capture, no frame dropped; two ``process`` calls
+   bit-equal;
 4. ``vis`` finite and in [0, 1] (a non-finite input included).
 
 ``coverage`` counts the cases that reached each kernel form and route by
@@ -78,6 +79,7 @@ from emspec_torch.dsp.kernels.ema import ema_scan  # noqa: E402
 from emspec_torch.dsp.kernels.fourstep import fft4_steps123  # noqa: E402
 from emspec_torch.dsp.kernels.lut import lut_values  # noqa: E402
 from emspec_torch.dsp.kernels.post import post_head, post_tail  # noqa
+from emspec_torch.dsp.kernels.rfft import rfft_frames  # noqa: E402
 from emspec_torch.dsp.kernels.scatter import (  # noqa: E402
     SORTED_BATCH, SORTED_TILES, histogram)
 from emspec_torch.dsp.kernels.window import windowed_frames  # noqa: E402
@@ -106,14 +108,15 @@ FORMS = ("B1 block whole", "B1 block windowed", "B1 cluster whole",
          "B1 cluster windowed", "B1 cluster_large whole",
          "B1 cluster_large windowed", "B1 unfused", "B2 tiles", "B2 batch",
          "B2 ring local", "B2 ring cluster", "B2 ring windows",
-         "B2 ring bands", "B3", "B4", "B5", "scan", "post_head",
+         "B2 ring bands", "B3", "B4", "B5", "rfft", "scan", "post_head",
          "post_tail")
 # the forms the card's defaults launch: each must be reached
 REQUIRED = tuple(f for f in FORMS if f != "B1 unfused")
 _B1_COUNTER = {"block": deposits_ids, "cluster": deposits_ids_cluster,
                "cluster_large": deposits_ids_cluster_large}
 _KERNEL_COUNTER = {"B3": lut_values, "B4": fft4_steps123,
-                   "B5": windowed_frames, "scan": ema_scan,
+                   "B5": windowed_frames, "rfft": rfft_frames,
+                   "scan": ema_scan,
                    "post_head": post_head, "post_tail": post_tail}
 
 _ENHANCED_1 = dict(mode="enhanced", multires=False)
@@ -365,21 +368,6 @@ def reference_settings(s: Settings) -> Settings:
     return s
 
 
-def library_spectra(pipe: Pipeline) -> bool:
-    """Whether the card computes some of ``pipe``'s spectra with
-    ``torch.fft`` (cuFFT): natural mode, the direct method or a bank B1
-    does not take, under ``fft_impl`` "auto" or "xla".  cuFFT gives a
-    frame other bits by batch count (1–100 frames against 1,024 at 4096,
-    32768 and 65536 points on the H100), so there a stream's hops (a
-    batch of lanes) and the batch (t × lanes) differ in the last bits:
-    ROADMAP §3 "Open"."""
-    own = pipe.fft_impl == "fourstep" or (
-        pipe.settings.mode == "enhanced"
-        and pipe.settings.fft_method == "stencil"
-        and all(pipe._use_fused_deposits(n) for n in pipe.sizes))
-    return not own
-
-
 def run_case(s: Settings, x: np.ndarray, dev, rng: np.random.Generator
              ) -> dict:
     """One case's checks (module docstring) on the card ``dev`` → a dict
@@ -432,8 +420,6 @@ def run_case(s: Settings, x: np.ndarray, dev, rng: np.random.Generator
         cols, captures, dropped = [], 0, 0
     if cols:
         same = [c.index for c in cols] == list(range(t_count))
-        library = library_spectra(gpu)
-        out["library_spectra"] = library
         if same:
             sv = torch.stack([c.vis for c in cols])
             sr = torch.stack([c.rgba for c in cols])
@@ -442,15 +428,10 @@ def run_case(s: Settings, x: np.ndarray, dev, rng: np.random.Generator
                        stream_cells_differ=int((sv != vis).sum()),
                        stream_vis_max=float((sv - vis).abs().max()),
                        stream_px_differ=int((sr != rgba).any(-1).sum()))
-            if library:        # cuFFT's bits by batch: held as the CPU is
-                same = compare_vis(vis.cpu(), sv.cpu())[0]
-            else:
-                same = out["stream_bit_equal"]
+            same = out["stream_bit_equal"]
         if not same:
             faults.append(f"the graphed Stream ({len(cols)} columns) ≠ "
-                          f"process ({t_count}) "
-                          + ("within compare_vis" if library
-                             else "bit for bit"))
+                          f"process ({t_count}) bit for bit")
         if captures != 1 or dropped:
             faults.append(f"the Stream captured {captures} graphs, dropped "
                           f"{dropped} frames")
@@ -504,12 +485,10 @@ def fixed_case(kw: dict, hops: int, seed: int = 0):
 def sweep(seeds, dev, fixed: bool = True, log=print) -> dict:
     """The ``FIXED`` cases (where ``fixed``) and the draws of ``seeds`` →
     the summary: cases run, skipped (over the budget), failed (seed or
-    name, settings and faults), the coverage by form, the cases whose
-    stream held only within ``compare_vis`` (``library_spectra``),
-    seconds."""
+    name, settings and faults), the coverage by form, seconds."""
     t0 = time.perf_counter()
     cov = dict.fromkeys(FORMS, 0)
-    ran, skipped, failed, library = 0, [], [], []
+    ran, skipped, failed = 0, [], []
     cases = [(name, lambda kw=kw, h=h: fixed_case(kw, h))
              for name, kw, h in FIXED] if fixed else []
     cases += [(seed, lambda seed=seed: case_of(seed)) for seed in seeds]
@@ -528,13 +507,10 @@ def sweep(seeds, dev, fixed: bool = True, log=print) -> dict:
         if res["faults"]:
             failed.append(dict(case=who, settings=res["settings"],
                                faults=res["faults"]))
-        if res.get("library_spectra") and not res.get("stream_bit_equal"):
-            library.append(who)
         log(json.dumps(res, default=str))
         torch.cuda.empty_cache()
     return dict(ran=ran, skipped=len(skipped), skipped_seeds=skipped,
                 failed=failed, coverage=cov,
-                library_spectra_not_bit_equal=library,
                 seconds=round(time.perf_counter() - t0, 1))
 
 

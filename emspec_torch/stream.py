@@ -15,7 +15,7 @@ On the card a hop is one CUDA graph replay.  The ``Stream`` owns static
 tensors — the carry (window, hop counter ``t``, pending ring, post
 state), the params, the hop's input block — runs the eager step a few
 hops on cloned carries to warm up (kernel library, CUDA modules, kernel
-attributes, cuFFT plans, cached tables), then captures one step on the
+attributes, cached tables), then captures one step on the
 static tensors with ``torch.cuda.graph``.  A hop then copies its samples
 through a small ring of pinned host buffers into the static block
 (``non_blocking``), replays, and clones the graph's two outputs into the
@@ -102,16 +102,15 @@ class Stream:
     (``exact_sums=True``, the default), each cell in bin order: the same
     columns on every run and however the audio is pushed, and the columns
     of ``Pipeline.process`` bit for bit — streaming ≡ batch, on the card
-    as on the CPU — wherever the port's kernels compute the spectra (B1
-    for the stencil method's banks of 512–262144 points, B4 under
-    ``fft_impl="fourstep"``).  Where the card computes them with
-    ``torch.fft`` (natural mode, the direct method or another bank under
-    ``fft_impl`` "auto" or "xla"), cuFFT gives a frame other bits by the
-    batch it is in, so a hop's columns can differ from the batch's by
-    float32 rounding of the spectra (a moved deposit in the direct
-    method).  ``exact_sums=False`` takes B2's atomic routes (their float
-    atomics add in another order each run).  It is how the stream is
-    built, not part of its state (``state_dict``).
+    as on the CPU, in every mode and at every ``fft_impl``: the card
+    computes every spectrum with a kernel of the port's own whose
+    arithmetic for a frame depends on its size alone (B1 for the stencil
+    method's banks of 512–262144 points; the real FFT kernel,
+    ``dsp.kernels.rfft``, for natural mode, the direct method and a 256
+    bank under ``fft_impl`` "auto" or "xla"; B4 under "fourstep"), never
+    cuFFT, whose bits depend on the batch.  ``exact_sums=False`` takes B2's
+    atomic routes (their float atomics add in another order each run).  It
+    is how the stream is built, not part of its state (``state_dict``).
     """
 
     def __init__(self, settings: Settings, device="cuda",

@@ -2005,3 +2005,90 @@ def test_cuda_north_star_37_minutes_process_is_the_graphed_stream(cuda):
     assert [c.index for c in cols] == list(range(t))
     assert torch.equal(torch.stack([c.vis for c in cols]), vis_b)
     assert torch.equal(torch.stack([c.rgba for c in cols]), rgba_b)
+
+
+# ------------------------------------------------------------ real FFT
+RFFT_SIZES = [1 << b for b in range(8, 19)]          # 256 … 262144
+
+
+def _rfft_tol(n: int) -> float:
+    """DESIGN.md §9's spectrum bound: 2e-5·√(N/512) of the peak."""
+    return 2e-5 * math.sqrt(n / 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RFFT_SIZES)
+def test_cuda_rfft_matches_plain(cuda, n):
+    """The real FFT kernel against ``torch.fft.rfft`` (its plain version
+    on the card) on 5 frames: the spectrum with no window and with Hann
+    within 2e-5·√(N/512)·max|X|, the power form within the same share of
+    the peak power, one NaN, +Inf and −Inf frame each scrubbed to 0."""
+    from emspec_torch.dsp.kernels.rfft import rfft_frames, rfft_frames_plain
+    from emspec_torch.dsp.stft import hann_window
+
+    rng = np.random.default_rng(n)
+    fr = torch.from_numpy(rng.standard_normal((5, n)).astype(
+        np.float32)).to(cuda)
+    hann = hann_window(n, cuda)
+    for window in (None, hann):
+        got, want = rfft_frames(fr, window), rfft_frames_plain(fr, window)
+        assert got.shape == want.shape == (5, n // 2 + 1)
+        assert got.dtype == torch.complex64
+        assert float((got - want).abs().max()) \
+            <= _rfft_tol(n) * float(want.abs().max())
+    bad = fr.clone()
+    for row, v in ((1, float("nan")), (2, float("inf")), (3, -float("inf"))):
+        bad[row, n // 3] = v
+    got = rfft_frames(bad, hann, power=True)
+    want = rfft_frames_plain(bad, hann, power=True)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1:4], torch.zeros_like(got[1:4]))
+    assert float((got - want).abs().max()) <= _rfft_tol(n) * float(want.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RFFT_SIZES)
+def test_cuda_rfft_frame_bits_do_not_depend_on_the_batch(cuda, n):
+    """Frame k of a strided ``unfold`` view of 1,024 frames, of contiguous
+    batches of 1, 2, 7 and 100 at several offsets, and transformed alone
+    (1-D): bit-equal, as spectrum and as power."""
+    from emspec_torch.dsp.kernels.rfft import rfft_frames
+    from emspec_torch.dsp.stft import hann_window
+
+    hop = n // 4
+    x = torch.from_numpy(np.random.default_rng(n + 1).standard_normal(
+        1023 * hop + n).astype(np.float32)).to(cuda)
+    fr = frame_signal(x, n, hop)                        # (1024, n) view
+    hann = hann_window(n, cuda)
+    for power in (False, True):
+        ref = rfft_frames(fr, hann, power=power)
+        for b in (1, 2, 7, 100):
+            for k0 in (0, 5, 1024 - b):
+                got = rfft_frames(fr[k0:k0 + b].contiguous(), hann,
+                                  power=power)
+                assert torch.equal(got, ref[k0:k0 + b]), (b, k0)
+        for k in (0, 1, 511, 1023):
+            assert torch.equal(rfft_frames(fr[k], hann, power=power), ref[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["natural", "direct"])
+@pytest.mark.parametrize("n", [4096, 32768, 65536])
+def test_cuda_default_engine_stream_is_process(cuda, mode, n):
+    """Natural mode and the direct method on the default engine, one bank
+    at the sizes where cuFFT's bits moved with the batch (4096, 32768,
+    65536): a graphed ``Stream`` ≡ ``process`` bit for bit in ``vis`` and
+    ``rgba``, through the real FFT kernel and never cuFFT."""
+    from emspec_torch.dsp.kernels.rfft import rfft_frames
+
+    kw = (dict(mode="natural") if mode == "natural"
+          else dict(mode="enhanced", fft_method="direct"))
+    s = Settings(multires=False, fft_size=n, sample_rate=96000, **kw)
+    pipe = Pipeline(s, cuda)
+    x = _tone_noise(n + 60 * pipe.hop, 70)
+    before = rfft_frames.launches
+    vis_b, rgba_b, _ = pipe.process(x)
+    assert rfft_frames.launches > before
+    vis_s, rgba_s = stream_signal(x, s, cuda, chunk=777)
+    np.testing.assert_array_equal(vis_s, vis_b.cpu().numpy())
+    np.testing.assert_array_equal(rgba_s, rgba_b.cpu().numpy())

@@ -16,8 +16,9 @@ the same checks.
   stand-in: its largest cell one ulp up, the sum in reverse deposit
   order, an output's old values dropped, a NaN behind a dropped id
   landed; the ring's windows walked last to first, one band of the ring
-  left as it was; B1's ids moved a row or its band weight left out) the
-  form's
+  left as it was; B1's ids moved a row or its band weight left out; the
+  real FFT with one ulp on frame 1 of a batch, or its power form without
+  the non-finite scrub) the form's
   validator raises ``AssertionError`` from that form's check; on the
   untouched kernels each validator passes.
 
@@ -32,19 +33,21 @@ import pytest
 import torch
 
 from emspec_torch.config import Settings
-from emspec_torch.dsp.kernels import deposits, scatter, validate
+from emspec_torch.dsp.kernels import deposits, rfft, scatter, validate
 from emspec_torch.pipeline import Pipeline
 
 CPU = torch.device("cpu")
 SECONDS = 2.0
 FULL_SECONDS = 3.0      # ext262144 needs 262,144 samples at 96 kHz
 KW = {"validate_sorted": dict(seconds=SECONDS), "validate_ring": {},
-      "validate_deposits_windowed": dict(seconds=SECONDS)}
+      "validate_deposits_windowed": dict(seconds=SECONDS),
+      "validate_rfft": dict(seconds=SECONDS)}
 # the check each broken stand-in must trip
 TRIPS = {"ulp": "deposit order", "reversed": "deposit order",
          "out": "added into an output", "nan": "NaN or Inf",
          "order": "deposit order", "dropped": "deposit order",
-         "moved": "ids equal", "unweighted": "ids equal"}
+         "moved": "ids equal", "unweighted": "ids equal",
+         "batch": "frame alone", "unscrubbed": "not scrubbed"}
 # each new check's form, its validator and its broken stand-ins
 FORMS = {"sorted batch": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
          "sorted tiles": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
@@ -53,7 +56,8 @@ FORMS = {"sorted batch": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
          "ring windows": ("validate_ring", ("order",)),
          "ring bands": ("validate_ring", ("dropped",)),
          "B1 windowed": ("validate_deposits_windowed", ("moved",
-                                                        "unweighted"))}
+                                                        "unweighted")),
+         "rfft": ("validate_rfft", ("batch", "unscrubbed"))}
 BITES = [(form, how) for form, (_, hows) in FORMS.items() for how in hows]
 
 
@@ -183,6 +187,19 @@ def test_the_quick_set_runs_b1_windowed_at_the_display_default(quick_calls):
     assert any(c.startswith("B1 · windowed · ") for c in checked)
 
 
+def test_the_quick_set_checks_the_real_fft():
+    """The real FFT's quick set: natural 4096's power form with Hann and
+    the direct method's triple at 8192, each a line of ``"checked"``."""
+    checked = validate.validate_rfft(CPU, True, SECONDS)
+    assert [c.split(" · ")[:2] for c in checked] == [
+        ["rfft", "power"], ["rfft", "spectrum"]]
+    assert checked[0].split(" · ")[2].startswith("natural 4096: (")
+    assert checked[1].split(" · ")[2].startswith("direct 8192: (3, ")
+    full = validate.validate_rfft(CPU, False, SECONDS)
+    assert [c.split(" · ")[2].split(":")[0] for c in full] == [
+        label for label, *_ in validate.RFFT_CASES]
+
+
 @pytest.mark.parametrize("route", scatter.ROUTES)
 def test_the_quick_set_forces_each_atomic_route(quick_calls, route):
     calls, _ = quick_calls
@@ -228,7 +245,7 @@ def test_each_validator_passes_the_untouched_kernels(name):
                          ids=[f"{f}-{h}".replace(" ", "_") for f, h in BITES])
 def test_each_check_refuses_a_broken_form(form, how):
     name = FORMS[form][0]
-    where = form if form.startswith("B1") else f"B2 {form}"
+    where = form if form.startswith(("B1", "rfft")) else f"B2 {form}"
     with validate.perturbed(form, how):
         with pytest.raises(AssertionError, match=rf"^{where} .*"
                            rf"{TRIPS[how]}"):
@@ -237,13 +254,14 @@ def test_each_check_refuses_a_broken_form(form, how):
 
 def test_perturbed_puts_the_real_kernels_back():
     assert validate.PERTURBATIONS == FORMS
-    real = (scatter.histogram, scatter.histogram_ring, deposits.deposits_ids)
+    def kernels():
+        return (scatter.histogram, scatter.histogram_ring,
+                deposits.deposits_ids, rfft.rfft_frames)
+    real = kernels()
     for form, how in BITES:
         with validate.perturbed(form, how):
-            assert (scatter.histogram, scatter.histogram_ring,
-                    deposits.deposits_ids) != real
-        assert (scatter.histogram, scatter.histogram_ring,
-                deposits.deposits_ids) == real
+            assert kernels() != real
+        assert kernels() == real
     with pytest.raises(ValueError, match="no perturbation"):
         with validate.perturbed("ring local", "out"):
             pass
