@@ -128,8 +128,16 @@ them.  Phases, in order, one line each; the first failure ends the run:
    as a spectrum and as Hann power (a NaN, +Inf and −Inf frame scrubbed
    to 0), frame k of batches of 1, 2, 7 and 100 and alone bit-equal to
    the view's, its max and rms error against numpy's complex128 at most
-   2× ``torch.fft.rfft``'s; timed at 372 × 8192, 688 × 32768, 184 × 65536
-   and 8 × 262144 (and b = 1) beside ``torch.fft.rfft`` and its bound.
+   2× ``torch.fft.rfft``'s, every route that holds a size bit-equal to
+   the default (16384–262144: route "cluster", a frame a thread-block
+   cluster, against the block route below 65536 and the three-launch
+   route above, forced); timed at 372 × 8192, 688 × 32768, 184 × 65536
+   and 8 × 262144 (and b = 1) beside ``torch.fft.rfft`` and its bound;
+   those shapes and b = 1 at every size timed in turns — the default
+   route, each forced route, ``torch.fft.rfft``, medians of three rounds,
+   failing where the default is the slower beyond 5% — and the kernels'
+   phase split (``probes/rfft_phases.py``: ``clock64`` stamps a phase in
+   a second build of the real FFT's sources).
 4. batch: ``Pipeline.process`` on 16 s of mono audio, enhanced 8192
    (stencil) — the kernel launch counters must rise (its sum on B2's
    sorted batch form, the card's default); the result must match the
@@ -341,7 +349,8 @@ them.  Phases, in order, one line each; the first failure ends the run:
    launch order, on the default (B1 then B2's ring form at once: no
    ring-id launch between them) and on the atomic route; one default
    call and hop of each default_engine cell under torch.profiler, which
-   must hold the real FFT kernel and no cuFFT kernel.
+   must hold the real FFT kernel and no cuFFT kernel, no kernel of B4
+   and no pack or unpack of the three-launch route.
 33. bench: ``python -m emspec_torch bench`` as a user runs it, each a
    subprocess on the card that must exit 0 and print its JSON report:
    ``--soak --duration 30 --quick`` (while it runs, ``--sustained
@@ -398,10 +407,12 @@ across batches, the default engine's streams ≡ their batch bit for bit.
 
 from __future__ import annotations
 
+import atexit
 import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -446,8 +457,12 @@ from emspec_torch.dsp.kernels.fourstep import (
     SMALL_MAX, device_radix_tables, fft4_steps123, fft4_steps123_plain)
 from emspec_torch.dsp.kernels.lut import (
     lut_lookup, lut_lookup_plain, lut_values, lut_values_plain)
-from emspec_torch.dsp.kernels.rfft import rfft_frames, rfft_frames_plain
+from emspec_torch.dsp.kernels.rfft import (
+    CLUSTER_MIN_N as RFFT_CLUSTER_MIN_N, cluster_occupancy as
+    rfft_cluster_occupancy, cluster_plan as rfft_cluster_plan, rfft_frames,
+    rfft_frames_plain)
 from emspec_torch.dsp.kernels.rfft import route_of as rfft_route_of
+from emspec_torch.dsp.kernels.rfft import routes_of as rfft_routes_of
 from emspec_torch.dsp.kernels.scatter import (
     ROUTES, SMEM_BINS, SORTED, SORTED_BATCH, SORTED_RING, SORTED_TILES,
     batch_plan, ring_offsets, histogram, histogram_plain, histogram_ring,
@@ -473,7 +488,7 @@ from emspec_torch.render import raster
 from emspec_torch.render.apng import read_apng
 from emspec_torch.render.png import read_png
 from emspec_torch.tables import lut
-from emspec_torch.probes import settings_fuzz
+from emspec_torch.probes import rfft_phases, settings_fuzz
 from emspec_torch.probes.scatter_ablation import (
     ROW_ONLY, VARIANTS, hist_variant, hist_variant_plain)
 from emspec_torch.probes.settings_fuzz import UNEXPLAINED_BELOW, settled_vis
@@ -574,6 +589,9 @@ KERNELS = (
     # is not
     ("rfft", rfft_frames, "emspec_torch/csrc/rfft.cu",
      "emspec/pipeline.py:311"),
+    # its route "cluster" (16384–262144): a frame a thread-block cluster
+    ("rfft_cluster", rfft_frames, "emspec_torch/csrc/rfft_cluster.cu",
+     "emspec/pipeline.py:311"),
 ) + tuple((row, histogram, "emspec_torch/csrc/histogram_ring.cu",
            "emspec/dsp/pallas/scatter.py:135") for row in ROW_PATH)
 # a kernel counted by another counter than its wrapper's ``launches``
@@ -589,6 +607,7 @@ COUNTS = {"deposits_ids_window": lambda: deposits_ids.form_launches["window"],
               lambda: deposits_hist.route_launches["cluster"],
           "deposits_hist_cluster_large":
               lambda: deposits_hist.route_launches["cluster_large"],
+          "rfft_cluster": lambda: rfft_frames.route_launches["cluster"],
           # the ring form in windows or bands (``ring_form``)
           **{row: lambda: histogram.ring_form_launches["windows"]
              + histogram.ring_form_launches["bands"] for row in ROW_PATH}}
@@ -696,10 +715,10 @@ for _path, _s, _, _ in DEFAULT_ENGINE:
           else ("windowed_frames", "rfft", "histogram", "lut_values")
           if _s.fft_method == "direct" else MULTIRES_B1
           + ("rfft", "histogram", "lut_values"))
-    _large = ("fft4_steps123",) if _s.fft_size > 32768 else ()
-    PATH_KERNELS[_path] = _b + _large + SCAN
+    _cluster = ("rfft_cluster",) if _s.fft_size >= RFFT_CLUSTER_MIN_N else ()
+    PATH_KERNELS[_path] = _b + _cluster + SCAN
     PATH_KERNELS[f"{_path}_live"] = tuple(
-        k for k in _b if k != "histogram") + _large + (
+        k for k in _b if k != "histogram") + _cluster + (
         () if _s.mode == "natural" else ("histogram_sorted_ring",))
 for _path, _s, _ in LIVE_LARGE:     # live: the ring form in windows or bands
     PATH_KERNELS[_path] = _b1_of(_s) + RING + ("lut_values", ring_row(_path))
@@ -817,6 +836,9 @@ def phase_device():
     SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
     CARD[0] = smi
     t0 = time.perf_counter()
+    # the real FFT's stamped build (its phase split) beside the kernels'
+    RFFT_STAMPED[0] = rfft_phases.StampedBuild(kernels_build)
+    atexit.register(RFFT_STAMPED[0].close)
     kernels_build.library()
     build_s = time.perf_counter() - t0
     print(smi, flush=True)
@@ -1565,9 +1587,19 @@ def kernels_rfft(dev) -> dict:
               and e_k[1] <= RFFT_F64_RATIO * e_t[1],
               f"rfft n={n}: error against complex128 (max, rms) {e_k} over "
               f"{RFFT_F64_RATIO}× torch.fft.rfft's {e_t}")
+        for other in rfft_routes_of(n)[1:]:       # the forced routes
+            for power in (False, True):
+                check(torch.equal(rfft_frames(fr, hann, power=power,
+                                              route=other),
+                                  rfft_frames(fr, hann, power=power)),
+                      f"rfft n={n}: route {rfft_route_of(n)} differs from "
+                      f"route {other} ({'power' if power else 'spectrum'})")
         sizes[n] = dict(route=rfft_route_of(n), plain_err=err,
                         power_plain_err=perr, f64_kernel=e_k,
-                        f64_torch_fft=e_t)
+                        f64_torch_fft=e_t, routes=rfft_routes_of(n),
+                        clusters_at_once=(rfft_cluster_occupancy(n, dev)
+                                          if "cluster" in rfft_routes_of(n)
+                                          else None))
         lines.append(f"{n} ({rfft_route_of(n)}) vs plain {err:.1e}, power "
                      f"{perr:.1e}; vs complex128 max/rms kernel "
                      f"{e_k[0]:.1e}/{e_k[1]:.1e}, torch.fft "
@@ -1608,8 +1640,90 @@ def kernels_rfft(dev) -> dict:
     print(f"kernels rfft ({CARD[0]}): every size within "
           f"2e-5·√(N/512)·peak of torch.fft.rfft, power with the scrub, "
           f"frames of batches {RFFT_BATCHES} and alone bit-equal to the "
-          f"100-frame view; " + "; ".join(lines), flush=True)
-    return {"rfft": dict(timed[8192], sizes=sizes, timed=timed)}
+          f"100-frame view, every route that holds a size bit-equal to "
+          f"its default; " + "; ".join(lines), flush=True)
+    turns = rfft_turns(dev)
+    phases = rfft_phase_split()
+    cluster = {n: dict(rfft_cluster_plan(n), b1=turns[f"1 × {n}"])
+               for n in RFFT_SIZES if n >= RFFT_CLUSTER_MIN_N}
+    return {"rfft": dict(timed[8192], sizes=sizes, timed=timed, turns=turns,
+                         phases=phases),
+            "rfft_cluster": dict(timed[65536], plans=cluster,
+                                 turns=turns["184 × 65536"])}
+
+
+RFFT_TURN_ROUNDS = 3
+RFFT_TURN_SLACK = 1.05   # the default route no slower than a forced one
+
+
+def rfft_turns(dev) -> dict:
+    """``RFFT_TIMED``'s shapes and b = 1 at every size: the route
+    ``route_of`` takes, every other that holds the size (``routes_of``:
+    the cluster's parent routes, forced) and ``torch.fft.rfft``, device ms
+    in turns (the order reversed every other round), medians of
+    ``RFFT_TURN_ROUNDS`` rounds in this process; fails where the default
+    route is slower than a forced one beyond ``RFFT_TURN_SLACK``."""
+    out, lines = {}, []
+    for b, n in [(1, n) for n in RFFT_SIZES] + list(RFFT_TIMED):
+        fr = (stress_frames(dev)[1] if (b, n) == (688, 32768)
+              else rfft_signal_frames(dev, b, n, seed=b + n % 97))
+        if b == 1:
+            fr = fr.reshape(-1, n)[0]               # one frame, 1-D
+        forms = {r: (lambda r=r: rfft_frames(fr, route=r))
+                 for r in rfft_routes_of(n)}
+        forms["torch.fft.rfft"] = lambda: torch.fft.rfft(fr)
+        got: dict = {}
+        for i in range(RFFT_TURN_ROUNDS):
+            for k in (list(forms) if i % 2 == 0 else list(forms)[::-1]):
+                got.setdefault(k, []).append(device_ms(forms[k]))
+        med = {k: float(np.median(v)) for k, v in got.items()}
+        own = rfft_route_of(n)
+        for other in rfft_routes_of(n)[1:]:
+            check(med[own] <= RFFT_TURN_SLACK * med[other],
+                  f"rfft {b} × {n}: route {own} {med[own]:.4f} ms is slower "
+                  f"than the forced route {other} {med[other]:.4f} ms")
+        out[f"{b} × {n}"] = dict(route=own, median_device_ms=med,
+                                 turns_device_ms=got, **rfft_bound(fr))
+        lines.append(f"{b} × {n} " + ", ".join(
+            f"{k} {v:.4f}" for k, v in med.items()))
+    print(f"kernels rfft in turns ({CARD[0]}; device ms, medians of "
+          f"{RFFT_TURN_ROUNDS} rounds, the route_of route first): "
+          + "; ".join(lines), flush=True)
+    return out
+
+
+# the phase split's shapes (probes/rfft_phases.py): b = 1 on each route,
+# and the timed shapes
+RFFT_PHASE_SHAPES = ((1, 512), (1, 2048), (1, 8192), (1, 16384),
+                     (1, 32768), (1, 65536), (1, 262144)) + RFFT_TIMED
+
+
+RFFT_STAMPED = [None]     # rfft_phases.StampedBuild, started by phase_device
+
+
+def rfft_phase_split() -> list:
+    """The real FFT's phases (``probes/rfft_phases.py``: its one-launch
+    kernels rebuilt with ``clock64`` stamps, the three-launch route launch
+    by launch) at ``RFFT_PHASE_SHAPES``, every route that holds each
+    size → the cases, each printed."""
+    cases = rfft_phases.split(RFFT_PHASE_SHAPES, with_routes=True,
+                              build=RFFT_STAMPED[0])
+    lines = []
+    for c in cases:
+        if "phases" in c:
+            parts = ", ".join(f"{k} {v['us']:.2f}"
+                              for k, v in c["phases"].items())
+            lines.append(f"{c['at']} {c['route']} (device "
+                         f"{c['device_ms'] * 1e3:.2f} µs, block span "
+                         f"{c['span_us']:.2f}): {parts}")
+        elif "launches" in c:
+            lines.append(f"{c['at']} {c['route']} (device "
+                         f"{c['device_ms'] * 1e3:.2f} µs): " + ", ".join(
+                             f"{k} {v * 1e3:.2f}"
+                             for k, v in c["launches"].items()))
+    print(f"kernels rfft phases ({CARD[0]}; µs, medians over blocks at the "
+          f"measured SM clock): " + "; ".join(lines), flush=True)
+    return cases
 
 
 # B1 above 16384: 32768 at the stress call (4 s of 16 channels at 96 kHz,
@@ -3248,6 +3362,8 @@ def default_engine_phase(dev) -> dict:
         p, xg = gpu.params(), gpu.to_device(x)
         t = gpu.num_columns(x.shape[-1])
         vis, rgba, _ = drive(name, lambda: gpu.process(xg, p))
+        check(LAUNCHES[name]["fft4_steps123"] == 0, f"{name}: kernel B4 "
+              f"launched on the default engine ({LAUNCHES[name]})")
         vis2, rgba2, _ = gpu.process(xg, p)
         check(torch.equal(vis, vis2) and torch.equal(rgba, rgba2),
               f"{name}: two process calls differ")
@@ -3278,6 +3394,8 @@ def default_engine_phase(dev) -> dict:
         st = Stream(s, dev)
         lat: list = []
         cols = drive(f"{name}_live", lambda: stream_run(st, x, 1024, lat))
+        check(LAUNCHES[f"{name}_live"]["fft4_steps123"] == 0, f"{name}: "
+              f"kernel B4 launched on the default engine's stream")
         check(st.captures == 1 and st.dropped_frames == 0,
               f"{name}: {st.captures} captures, {st.dropped_frames} dropped")
         st.close()
@@ -5117,9 +5235,10 @@ def trace_phase(dev, x: np.ndarray) -> None:
 def no_cufft(dev) -> str:
     """One ``process`` call and one eager hop of each ``DEFAULT_ENGINE``
     cell under torch.profiler: fail if a kernel whose name holds "fft"
-    (cuFFT's; no kernel of the port is named so) launched, or if the real
-    FFT kernel's (``real_dft_*``) are not in the trace → the line's
-    part."""
+    (cuFFT's; no kernel of the port is named so) launched, or one of B4's
+    or the three-launch route's pack and unpack (at 65536 the real FFT is
+    one launch of its cluster kernel), or if the real FFT kernel's
+    (``real_dft_*``) are not in the trace → the line's part."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -5143,6 +5262,12 @@ def no_cufft(dev) -> str:
         own = sorted(n for n in names if "real_dft_" in n)
         check(own and not fft, f"trace {name}: a default call and hop "
               f"launched cuFFT {fft} (the real FFT kernel's: {own})")
+        # B4 and the three-launch route's pack and unpack: on no default
+        # path since the cluster route
+        b4 = sorted(n for n in names if re.search(
+            r"\b(small|cols|rows)_kernel\b|real_dft_(pack|unpack)", n))
+        check(not b4, f"trace {name}: a default call and hop launched "
+              f"B4 or the three-launch route {b4}")
         seen[name] = len(own)
     return ("no cuFFT kernel in a default call and hop of " + ", ".join(
         f"{k} (real FFT kernels {v})" for k, v in seen.items()))

@@ -27,26 +27,44 @@
 // W_512 and step-2 tables and the unpack's e^{−2πij/N}, each built in
 // float64 on the host and rounded once (dsp/kernels/rfft.py).
 //
-// Routes, by N alone (dsp/kernels/rfft.py route_of):
+// Routes, by N alone (dsp/kernels/rfft.py route_of; the wrapper forces
+// another for timing and comparison only, route=):
 //   * "full", N = 256: m = 128 has no B4 factorization, so the block runs
 //     the 256-point complex transform of x + 0i at 16 × 16 and reads the
 //     bins 0 … 128 as they are (dsp/fourstep.py rfft_fourstep does the
 //     same);
-//   * "block", N = 512 … 32768: F frames a block (F·m >= 2048, so >= 128
-//     threads), each frame's tile loaded straight from the frame through
-//     its strides (the framing unfold view and the stream's window slices
-//     go in uncopied), steps 1–3 in shared memory, then each bin unpacked
-//     from Z[k] and Z[m − k] and stored in natural order: one launch, no
-//     scratch.  One tile is 132 KB at m = 16384, inside a block's 227 KB;
-//   * "large", N = 65536 … 262144: a tile is over a block's shared memory,
-//     so three launches (kernel B1's route "large" with one signal): pack
-//     (this file: each frame read once through its strides into two
-//     contiguous (b, m) planes), B4's large route on the planes (two
-//     launches through its scratch; the wrapper calls it), unpack (this
-//     file: thread q reads Z at address q, so a warp reads consecutive
-//     addresses of Z and of its mirror Z[m − k] in reverse, and stores bin
-//     k = q div n2 + n1·(q mod n2); the bin N/2 is the extra thread q = m).
-//     Scratch comes from the wrapper's torch.empty.
+//   * "block", N = 512 … 8192 (this file; 16384 and 32768 forced only,
+//     the route there before the cluster's): F frames a block (F·m >=
+//     2048, so >= 128 threads), each frame's tile loaded straight from the
+//     frame through its strides (the framing unfold view and the stream's
+//     window slices go in uncopied), steps 1–3 in shared memory, then each
+//     bin unpacked from Z[k] and Z[m − k] and stored in natural order: one
+//     launch, no scratch.  One tile is 132 KB at m = 16384, inside a
+//     block's 227 KB;
+//   * "cluster", N = 16384 … 262144 (rfft_cluster.cu): a frame a
+//     thread-block cluster, its four-step transform across the cluster's
+//     shared memory, one launch;
+//   * "large", N = 65536 … 262144: three launches (kernel B1's route
+//     "large" with one signal): pack (this file: each frame read once
+//     through its strides into two contiguous (b, m) planes), B4's large
+//     route on the planes (two launches through its scratch; the wrapper
+//     calls it), unpack (this file: thread q reads Z at address q, so a
+//     warp reads consecutive addresses of Z and of its mirror Z[m − k] in
+//     reverse, and stores bin k = q div n2 + n1·(q mod n2); the bin N/2 is
+//     the extra thread q = m).  Scratch comes from the wrapper's
+//     torch.empty.  The route before the cluster's, kept for timing and
+//     comparison.
+// Every route runs the same lines through the same passes (a line's
+// arithmetic depends on its length, the radix sequence and the two
+// tables, not on who runs it) and the same unpack, so a frame gets the
+// same bits on each (tests/test_torch_cuda.py holds them equal).
+//
+// The block route's load: each thread starts all of its frames' sample
+// loads, 16 bytes at a time where the frames' address and strides allow
+// (8, else 4; rfft_common.cuh's load_groups), with B4's table loads in
+// flight beside them, before it waits for any; its unpack starts a batch
+// of twiddle loads before it unpacks any bin, and finds frame and bin by
+// shift and mask.
 //
 // The power form stores fl(fl(Re²) + fl(Im²)) with __fmul_rn/__fadd_rn, so
 // nvcc does not contract it into an FMA: the kernel's power is bit for
@@ -61,77 +79,108 @@
 // power); an FFT's 5·(N/2)·log2(N/2) operations a frame are far below the
 // float32 rate at that traffic.  On the block route the pace is set on
 // chip by the shared-memory passes (one or two blocks an SM, whose load,
-// passes and unpack run one after another); the large route moves ~40·N
-// bytes a frame through its planes and B4's scratch.
+// passes and unpack run one after another) and, at b = 1, by the latency
+// of one block's passes; the large route moves ~40·N bytes a frame
+// through its planes and B4's scratch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, never
 // --use_fast_math.
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
-
-#include "deposits_common.cuh"
-#include "radix_common.cuh"
+#include "rfft_common.cuh"
 
 namespace {
-
-using namespace emspec::radix;
 
 constexpr int kMaxThreads = 512;
 constexpr int kLog2BlockPoints = 11;       // block route: F·m >= 2048
 constexpr int kBlockMaxLog2M = 14;         // block route: m <= 16384
 constexpr int kFullN = 256;                // route "full": 16 × 16
 constexpr int kLargeThreads = 256;
+constexpr int kBinBatch = 4;               // twiddle loads in flight a thread
 constexpr int kBlockSmem =                 // the table and a 128 × 129 tile
     (int)sizeof(float2) * (kTable + 128 * 129);
 
-// The frames of a launch: frame f starts at
-// x + (f div frames_per_lead)·lead_stride
-//   + (f mod frames_per_lead)·frame_stride.
-struct Frames {
-  const float* x;
-  long long frames_per_lead, lead_stride, frame_stride;
-  const float* window;            // N floats, or null (none)
-};
-
-__device__ __forceinline__ const float* frame_at(const Frames& a,
-                                                 long long f) {
-  return a.x + (f / a.frames_per_lead) * a.lead_stride
-         + (f % a.frames_per_lead) * a.frame_stride;
+// The block route's load: B4's table and the block's F frames' samples
+// (group g of 4 samples: frame g >> lg, samples 4·(g mod 2^lg) on, the
+// points (g mod 2^lg)·2 (packed) or ·4 on), `groups` a thread, only the
+// block's frames' walked.  A ragged last block (or a batch of fewer than
+// F frames) leaves its missing frames' tiles unread: their lines run on
+// whatever the shared memory holds and are never stored.  Not inlined,
+// so that its loads in flight take registers apart from the passes'.
+__device__ __noinline__ void block_load(float2* w, float2* tile,
+                                        const Frames a,
+                                        const float2* __restrict__ w512,
+                                        long long f0, int frames, int groups,
+                                        int lg, int log2n2, int fs,
+                                        int packed) {
+  float2 tv[kTableLoads];
+  table_fetch(tv, w512);
+  const float* fr0 = frame_at(a, f0);
+  const int n2 = 1 << log2n2;
+  const int live = ((frames << lg) + blockDim.x - 1) / blockDim.x;
+  load_groups(tile, a, live < groups ? live : groups, packed,
+              [=](int g, const float** fr, int* off) {
+                const int j = g >> lg, e = g & ((1 << lg) - 1);
+                if (j >= frames) return -1;
+                *fr = j == 0 ? fr0 : frame_at(a, f0 + j);
+                *off = e << 2;
+                const int i = packed ? e << 1 : e << 2;
+                return j * fs + (i >> log2n2) * (n2 + 1) + (i & (n2 - 1));
+              });
+  table_put(w, tv);
 }
 
-// Sample i of a frame, the window multiplied in.
-__device__ __forceinline__ float sample(const Frames& a, const float* fr,
-                                        int i) {
-  const float s = __ldg(fr + i);
-  return a.window == nullptr ? s : __fmul_rn(s, __ldg(a.window + i));
-}
-
-// Bin `at` of the output: the spectrum, or its power with the scrub.
+// The block route's bins: bins 0 … 2^lb − 1 of each frame, `per` a
+// thread at g = t + q·T (frame g >> lb; only the block's frames'
+// slots walked), kBinBatch twiddle loads started before any bin is
+// unpacked; then the last bin 2^lb of each frame.  Z[k] at
+// (k mod n1)·(n2 + 1) + k div n1.
 template <bool kPower>
-__device__ __forceinline__ void store_bin(float2 X, float2* __restrict__ spec,
-                                          float* __restrict__ power,
-                                          long long at) {
-  if (kPower) {
-    const float p = __fadd_rn(__fmul_rn(X.x, X.x), __fmul_rn(X.y, X.y));
-    power[at] = p <= FLT_MAX ? p : 0.0f;        // NaN and +Inf: false
-  } else {
-    spec[at] = X;
+__device__ __forceinline__ void block_store(const float2* tile,
+                                         const float2* __restrict__ tw,
+                                         float2* __restrict__ spec,
+                                         float* __restrict__ power,
+                                         long long f0, int frames, int per,
+                                         int log2n1, int log2n2, int packed) {
+  const int log2m = log2n1 + log2n2;
+  const int m = 1 << log2m, n1 = 1 << log2n1, n2 = 1 << log2n2;
+  const int fs = n1 * (n2 + 1);
+  const int lb = packed ? log2m : log2m - 1;
+  const long long bins = (1LL << lb) + 1;
+  auto bin = [&](int j, int k, float2 wk) {
+    const float2* Z = tile + j * fs;
+    float2 X;
+    if (packed) {
+      const int kl = k > (m >> 1) ? m - k : k;
+      const int km = kl == 0 ? 0 : m - kl;
+      X = unpack_at(k, m, Z[(kl & (n1 - 1)) * (n2 + 1) + (kl >> log2n1)],
+                    Z[(km & (n1 - 1)) * (n2 + 1) + (km >> log2n1)], wk);
+    } else {
+      X = Z[(k & (n1 - 1)) * (n2 + 1) + (k >> log2n1)];
+    }
+    store_bin<kPower>(X, spec, power, (f0 + j) * bins + k);
+  };
+  const int live = (int)((((long long)frames << lb) + blockDim.x - 1)
+                         / blockDim.x);
+  if (live < per) per = live;
+  for (int q0 = 0; q0 < per; q0 += kBinBatch) {
+    float2 wv[kBinBatch] = {};
+#pragma unroll
+    for (int q = 0; q < kBinBatch; ++q) {
+      const int g = threadIdx.x + (q0 + q) * blockDim.x;
+      const int k = g & ((1 << lb) - 1);
+      if (packed && (g >> lb) < frames)
+        wv[q] = __ldg(tw + (k > (m >> 1) ? m - k : k));
+    }
+#pragma unroll
+    for (int q = 0; q < kBinBatch; ++q) {
+      const int g = threadIdx.x + (q0 + q) * blockDim.x;
+      if ((g >> lb) < frames) bin(g >> lb, g & ((1 << lb) - 1), wv[q]);
+    }
   }
-}
-
-// X[k], 0 <= k <= m, of a real frame from its packed spectrum: the pair
-// (k', m − k'), k' = min(k, m − k), unpacked with e^{−2πik'/N}; the upper
-// half takes the pair's conjugate side (k = 0 and m: both from Z[0]).
-// zk, zmk: Z[k'] and Z[(m − k') mod m].
-__device__ __forceinline__ float2 unpack_at(int k, int m, float2 zk,
-                                            float2 zmk,
-                                            const float2* __restrict__ tw) {
-  const bool upper = k > (m >> 1);
-  float2 lo, hi;
-  emspec::unpack_pair(zk, zmk, __ldg(tw + (upper ? m - k : k)), &lo, &hi);
-  return upper ? hi : lo;
+  for (int j = threadIdx.x; j < frames; j += blockDim.x)
+    bin(j, 1 << lb, packed ? __ldg(tw) : make_float2(0.0f, 0.0f));
 }
 
 // Routes "full" and "block": F = 2^log2f frames a block, T = F·m'/P
@@ -151,44 +200,25 @@ __global__ void __launch_bounds__(kMaxThreads, P == 16 ? 2 : 1)
   float2* w = sm;
   float2* tile = sm + kTable;                 // F tiles of (n1, n2 + 1)
   const int log2m = log2n1 + log2n2;
-  const int m = 1 << log2m;
-  const int n1 = 1 << log2n1, n2 = 1 << log2n2;
-  const int fs = n1 * (n2 + 1);
+  const int fs = (1 << log2n1) * ((1 << log2n2) + 1);
   const long long f0 = (long long)blockIdx.x << log2f;
   const int frames = b - f0 < (1 << log2f) ? (int)(b - f0) : 1 << log2f;
-  load_table(w, w512);
-  // a ragged last block leaves its missing frames' tiles unread: their
-  // lines run on whatever the shared memory holds and are never stored
-  for (int j = 0; j < frames; ++j) {
-    const float* fr = frame_at(a, f0 + j);
-    for (int i = threadIdx.x; i < m; i += blockDim.x)
-      tile[j * fs + (i >> log2n2) * (n2 + 1) + (i & (n2 - 1))] =
-          packed ? make_float2(sample(a, fr, 2 * i), sample(a, fr, 2 * i + 1))
-                 : make_float2(sample(a, fr, i), 0.0f);
-  }
+  int slot = 0;
+  RFFT_STAMP(slot++);
+  block_load(w, tile, a, w512, f0, frames, packed ? P / 2 : P / 4,
+             packed ? log2m - 1 : log2m - 2, log2n2, fs, packed);
   __syncthreads();
+  RFFT_STAMP(slot++);
   // steps 1+2: n1-point FFTs down the F·n2 columns, TW on the last pass
-  line_fft<P>(tile, w, Lines{log2f + log2n2, log2n2, fs, 1, n2 + 1}, log2n1,
-              Step2{tw4, log2n2, 0});
+  lines_fft<P>(tile, w, Lines{log2f + log2n2, log2n2, fs, 1,
+                              (1 << log2n2) + 1},
+               log2n1, Step2{tw4, log2n2, 0}, &slot);
   // step 3: n2-point FFTs along the F·n1 rows
-  line_fft<P>(tile, w, Lines{log2f + log2n1, 0, n2 + 1, 0, 1}, log2n2,
-              Step2{nullptr, 0, 0});
-  // Z[k] at (k mod n1)·(n2 + 1) + k div n1
-  const int bins = packed ? m + 1 : (m >> 1) + 1;
-  for (int g = threadIdx.x; g < frames * bins; g += blockDim.x) {
-    const int j = g / bins, k = g - j * bins;
-    const float2* Z = tile + j * fs;
-    float2 X;
-    if (packed) {
-      const int kl = k > (m >> 1) ? m - k : k;
-      const int km = kl == 0 ? 0 : m - kl;
-      X = unpack_at(k, m, Z[(kl & (n1 - 1)) * (n2 + 1) + (kl >> log2n1)],
-                    Z[(km & (n1 - 1)) * (n2 + 1) + (km >> log2n1)], tw);
-    } else {
-      X = Z[(k & (n1 - 1)) * (n2 + 1) + (k >> log2n1)];
-    }
-    store_bin<kPower>(X, spec, power, (f0 + j) * bins + k);
-  }
+  lines_fft<P>(tile, w, Lines{log2f + log2n1, 0, (1 << log2n2) + 1, 0, 1},
+               log2n2, Step2{nullptr, 0, 0}, &slot);
+  block_store<kPower>(tile, tw, spec, power, f0, frames, packed ? P : P / 2,
+                      log2n1, log2n2, packed);
+  RFFT_STAMP(slot++);
 }
 
 // Route "large", launch 1: frame f's packed z into the planes zr, zi at
@@ -229,20 +259,9 @@ __global__ void __launch_bounds__(kLargeThreads) real_dft_unpack_kernel(
   const long long a1 = base + ((long long)(km & ((1 << log2n1) - 1)) << log2n2)
                        + (km >> log2n1);
   const float2 X = unpack_at(k, m, make_float2(__ldg(xr + a0), __ldg(xi + a0)),
-                             make_float2(__ldg(xr + a1), __ldg(xi + a1)), tw);
+                             make_float2(__ldg(xr + a1), __ldg(xi + a1)),
+                             __ldg(tw + kl));
   store_bin<kPower>(X, spec, power, f * (m + 1) + k);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-int log2_of(long long v) {
-  int l = 0;
-  while (l < 40 && (1LL << l) < v) ++l;
-  return (1LL << l) == v ? l : -1;
 }
 
 template <bool kPower>
@@ -292,7 +311,9 @@ extern "C" int emspec_rfft(
     return (int)cudaErrorInvalidValue;
   const long long b = num_lead * frames_per_lead;
   if (b == 0) return 0;
-  const Frames a{x, frames_per_lead, lead_stride, frame_stride, window};
+  const Frames a{x, frames_per_lead, lead_stride, frame_stride, window,
+                 load_width(x, num_lead, frames_per_lead, lead_stride,
+                            frame_stride, window)};
   const float2* w = static_cast<const float2*>(w512);
   const float2* t4 = static_cast<const float2*>(tw4);
   const float2* t = static_cast<const float2*>(tw);
@@ -303,6 +324,14 @@ extern "C" int emspec_rfft(
              : launch_block<false>(a, b, w, t4, t, static_cast<float2*>(spec),
                                    nullptr, l1, l2, packed, st);
 }
+
+#ifdef EMSPEC_RFFT_STAMPS
+// The stamped build's stamp rows of this file's block kernel: (blocks,
+// kStampSlots) int64, or null.
+extern "C" int emspec_rfft_stamps(void* rows) {
+  return (int)cudaMemcpyToSymbol(g_stamps, &rows, sizeof(rows));
+}
+#endif
 
 // Route "large", launch 1: zr, zi (frames, N/2) float32 planes, written
 // whole.
@@ -315,7 +344,7 @@ extern "C" int emspec_rfft_pack(
   const long long b = num_lead * frames_per_lead;
   if (b == 0) return 0;
   const int chunks = ((1 << log2m) + kLargeThreads - 1) / kLargeThreads;
-  const Frames a{x, frames_per_lead, lead_stride, frame_stride, window};
+  const Frames a{x, frames_per_lead, lead_stride, frame_stride, window, 1};
   real_dft_pack_kernel<<<(unsigned)(b * chunks), kLargeThreads, 0,
                 (cudaStream_t)stream>>>(a, zr, zi, log2m, chunks);
   return (int)cudaGetLastError();

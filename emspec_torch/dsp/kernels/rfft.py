@@ -13,13 +13,21 @@ arithmetic for a frame depends on N alone (``route_of``), never on the
 batch or on the frame's place in it, so b = 1 gives frame f of any batch
 bit for bit, and a live hop's spectra are the batch's.
 
-Routes, by N alone: "full" (N = 256: the 256-point complex transform of
-x + 0i, as ``dsp.fourstep.rfft_fourstep`` does where N/2 has no
-factorization), "block" (N = 512 … 32768: one launch, each frame's
-even/odd-packed N/2-point FFT in shared memory, kernel B4's radix body,
-and the real-input unpack) and "large" (N = 65536 … 262144: pack, kernel
-B4's steps 1–3 through ``fft4_steps123``, which counts its own launches,
-then unpack).  ``rfft_frames.launches`` counts every call that launches,
+Routes, by N alone (``route_of``): "full" (N = 256: the 256-point
+complex transform of x + 0i, as ``dsp.fourstep.rfft_fourstep`` does
+where N/2 has no factorization), "block" (N = 512 … ``CLUSTER_MIN_N``/2:
+one launch, each frame's even/odd-packed N/2-point FFT in one block's
+shared memory, kernel B4's radix body, and the real-input unpack) and
+"cluster" (``CLUSTER_MIN_N`` … 262144: one launch, a frame a
+thread-block cluster of ``cluster_plan``'s CTAs, ``csrc/rfft_cluster.cu``;
+``cluster_occupancy`` asks the card first, and a size it cannot hold is
+refused).  Kept for timing and comparison, reached only by the keyword
+``route=`` (``routes_of``): "block" up to 32768 and "large" at 65536 …
+262144 (pack, kernel B4's steps 1–3 through ``fft4_steps123``, which
+counts its own launches, then unpack: the route before the cluster's).
+Every route runs the same lines through the same passes and the same
+unpack, so a frame gets the same bits on each.
+``rfft_frames.launches`` counts every call that launches,
 ``rfft_frames.route_launches`` by route.
 
 Frames are read through their strides (each frame contiguous), so the
@@ -40,6 +48,7 @@ nothing on a card's main path calls it.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -55,7 +64,15 @@ from emspec_torch.dsp.kernels.fourstep import (
 MIN_N, MAX_N = 256, 262144
 FULL_N = 256             # route "full": 16 × 16, the transform of x + 0i
 BLOCK_MAX_N = 32768      # route "block": one (n1, n2 + 1) tile in a block
-ROUTES = ("full", "block", "large")
+CLUSTER_MIN_N = 16384    # route "cluster" from here on (route_of)
+LARGE_MIN_N = 65536      # route "large": three launches, forced only
+ROUTES = ("full", "block", "cluster", "large")
+# route "cluster": log2 of the CTAs a cluster, by N alone (the exchange
+# needs >= 16 rows and columns a CTA, >= 128 threads, m/C points a CTA)
+CLUSTER_LOG2C = {16384: 2, 32768: 3, 65536: 3, 131072: 4, 262144: 4}
+MAX_SMEM = 232448        # a block's shared memory on the H100
+TABLE = 512              # B4's W_512 table, float2 a point
+CLUSTER_POINTS = 16      # FFT points a thread of the cluster kernel
 
 
 def supported(n: int) -> bool:
@@ -66,8 +83,35 @@ def supported(n: int) -> bool:
 def route_of(n: int) -> str:
     """The kernel's route for frames of n points: by size only, never by
     batch."""
-    return ("full" if n == FULL_N else "block" if n <= BLOCK_MAX_N
-            else "large")
+    return ("full" if n == FULL_N else "block" if n < CLUSTER_MIN_N
+            else "cluster")
+
+
+def routes_of(n: int) -> tuple:
+    """Every route that holds frames of n points, ``route_of``'s first:
+    the others are reached only by ``route=``."""
+    held = [r for r, ok in (
+        ("full", n == FULL_N),
+        ("block", FULL_N < n <= BLOCK_MAX_N),
+        ("cluster", n in CLUSTER_LOG2C),
+        ("large", LARGE_MIN_N <= n <= MAX_N)) if ok and supported(n)]
+    return tuple(sorted(held, key=lambda r: r != route_of(n)))
+
+
+def cluster_plan(n: int, log2c: int | None = None) -> dict:
+    """Route "cluster"'s plan at n points (``csrc/rfft_cluster.cu``
+    cplan): C = 2^log2c CTAs a cluster (``CLUSTER_LOG2C`` by N alone),
+    W = n2/C columns before the exchange and A = n1/C rows after it, the
+    padded strides W' and Q (A·W' = W·Q), threads and shared bytes a
+    CTA."""
+    log2c = CLUSTER_LOG2C[n] if log2c is None else log2c
+    n1, n2 = factors(n)
+    c = 1 << log2c
+    w, a = n2 // c, n1 // c
+    wp, q = (w + w // a, a + 1) if w % a == 0 else (w + 1, a + a // w)
+    return dict(log2c=log2c, ctas=c, w=w, a=a, wp=wp, q=q,
+                threads=n1 * n2 // c // CLUSTER_POINTS,
+                smem=8 * (TABLE + n1 * wp))
 
 
 def require_sizes(sizes, what: str) -> None:
@@ -75,6 +119,37 @@ def require_sizes(sizes, what: str) -> None:
     bad = [n for n in sizes if not supported(n)]
     require(not bad, what, f"frame sizes {bad} outside the card's real FFT "
             f"(powers of two in [{MIN_N}, {MAX_N}])")
+
+
+def require_card(sizes, device, what: str) -> None:
+    """Raise a ValueError naming the sizes whose cluster the card cannot
+    hold (``cluster_occupancy`` 0): never a quiet fall back to another
+    route."""
+    if not torch.cuda.is_available():
+        return          # no card to ask: a launch there raises on its own
+    bad = [n for n in sizes if supported(n) and route_of(n) == "cluster"
+           and cluster_occupancy(n, device) == 0]
+    require(not bad, what, f"frame sizes {bad}: the card holds no cluster "
+            f"of {[cluster_plan(n)['ctas'] for n in bad]} CTAs for the real "
+            f"FFT's route \"cluster\"")
+
+
+def cluster_occupancy(n: int, device, log2c: int | None = None) -> int:
+    """How many clusters of route "cluster" at n points the card holds at
+    once (``cudaOccupancyMaxActiveClusters``); 0 where it refuses the
+    cluster size."""
+    plan = cluster_plan(n, log2c)
+    return _cluster_occupancy(n, str(torch.device(device)), plan["log2c"])
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_occupancy(n: int, device: str, log2c: int) -> int:
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = kernels_build.library().emspec_rfft_cluster_occupancy(
+            *factors(n), log2c, ctypes.byref(got))
+    kernels_build.check(rc, "cluster_occupancy")
+    return got.value
 
 
 def scrubbed_power(X: torch.Tensor) -> torch.Tensor:
@@ -113,13 +188,17 @@ def factors(n: int) -> tuple:
     return _FACTORS[n] if n == FULL_N else _FACTORS[n // 2]
 
 
-def _checked(frames: torch.Tensor, window, what: str) -> torch.Tensor:
+def _checked(frames: torch.Tensor, window, what: str,
+             route: str | None = None) -> torch.Tensor:
     """Check a kernel call → the frames as a (lead, frames_per_lead, n)
-    view read through its strides.  The size, type and layout checks come
-    before the device's, so each refusal reads the same on any device."""
+    view read through its strides.  The size, route, type and layout
+    checks come before the device's, so each refusal reads the same on
+    any device."""
     n = frames.shape[-1] if frames.dim() else 0
     require(supported(n), what, f"n={n}: the kernel takes powers of two in "
             f"[{MIN_N}, {MAX_N}]")
+    require(route is None or route in routes_of(n), what,
+            f"route={route!r} does not hold n={n} (routes {routes_of(n)})")
     require(frames.dtype == torch.float32 and frames.stride(-1) == 1, what,
             f"frames must be float32 (..., {n}) with unit last stride, got "
             f"{frames.dtype}")
@@ -135,9 +214,12 @@ def _checked(frames: torch.Tensor, window, what: str) -> torch.Tensor:
 
 
 def _launch(frames: torch.Tensor, window, power: bool,
-            what: str = "rfft_frames") -> torch.Tensor:
-    """The kernel's call (a CUDA tensor only: anything else raises)."""
-    f3 = _checked(frames, window, what)
+            what: str = "rfft_frames", route: str | None = None,
+            log2c: int | None = None) -> torch.Tensor:
+    """The kernel's call (a CUDA tensor only: anything else raises) on
+    ``route_of``'s route, or ``route``; ``log2c`` sets route "cluster"'s
+    CTAs a cluster (timing only: the bits do not depend on it)."""
+    f3 = _checked(frames, window, what, route)
     n = frames.shape[-1]
     out = torch.empty(frames.shape[:-1] + (n // 2 + 1,),
                       dtype=torch.float32 if power else torch.complex64,
@@ -145,7 +227,7 @@ def _launch(frames: torch.Tensor, window, power: bool,
     b = f3.shape[0] * f3.shape[1]
     if b == 0:
         return out
-    route = route_of(n)
+    route = route or route_of(n)
     n1, n2 = factors(n)
     lib = kernels_build.library()
     tw = unpack_twiddles(n, str(frames.device))
@@ -165,6 +247,16 @@ def _launch(frames: torch.Tensor, window, power: bool,
             rc = lib.emspec_rfft_unpack(xr.data_ptr(), xi.data_ptr(),
                                         tw.data_ptr(), *sink, b, n, n1, n2,
                                         launch_stream(frames))
+        elif route == "cluster":
+            plan = cluster_plan(n, log2c)
+            require(cluster_occupancy(n, frames.device, plan["log2c"]) > 0,
+                    what, f"the card holds no cluster of {plan['ctas']} "
+                    f"CTAs")
+            w512, tw4 = device_radix_tables(n1, n2, frames.device)
+            rc = lib.emspec_rfft_cluster(*lead, w512.data_ptr(),
+                                         tw4.data_ptr(), tw.data_ptr(),
+                                         *sink, n, n1, n2, plan["log2c"],
+                                         launch_stream(frames))
         else:
             w512, tw4 = device_radix_tables(n1, n2, frames.device)
             rc = lib.emspec_rfft(*lead, w512.data_ptr(), tw4.data_ptr(),
@@ -177,16 +269,21 @@ def _launch(frames: torch.Tensor, window, power: bool,
 
 
 @counted
-def rfft_frames(frames: torch.Tensor, window=None, *,
-                power: bool = False) -> torch.Tensor:
+def rfft_frames(frames: torch.Tensor, window=None, *, power: bool = False,
+                route: str | None = None) -> torch.Tensor:
     """frames (..., N) float32 → complex64 (..., N/2 + 1), or float32
     power with the scrub (``power``); ``window`` (N,) float32 or None.  A
-    CPU tensor takes ``rfft_frames_plain``; a CUDA tensor the kernel, or
-    the call raises (a size, type or layout it does not take)."""
+    CPU tensor takes ``rfft_frames_plain``; a CUDA tensor the kernel on
+    ``route_of``'s route, or the call raises (a size, type or layout it
+    does not take).  ``route`` forces another of ``routes_of(N)``, for
+    timing and comparison (the same bits)."""
     if frames.device.type == "cpu":
+        n = frames.shape[-1] if frames.dim() else 0
+        require(route is None or route in routes_of(n), "rfft_frames",
+                f"route={route!r} does not hold n={n} (routes "
+                f"{routes_of(n)})")
         return rfft_frames_plain(frames, window, power=power)
-    return _launch(frames, window, power)
+    return _launch(frames, window, power, route=route)
 
 
 rfft_frames.route_launches = dict.fromkeys(ROUTES, 0)
-

@@ -39,11 +39,13 @@ one ``"kernel · form · shape"`` line to the report's ``"checked"``):
   ``post_tail`` at 1024 × 512 (smoothing 0 and 0.6; forced repair too).
 * The real FFT kernel (``validate_rfft``, ``RFFT_CASES``) at the
   natural and direct paths' frames: natural 4096 (the CLI's default,
-  Hann, the power form) and the direct method's triple at 8192, then the
-  natural display default's 512 bank, direct 32768 and direct 65536 at
-  96 kHz (the large route): against its plain version (``torch.fft``),
-  frame 1 of the batch bit-equal to frame 1 transformed alone, and in
-  the power form a NaN, +Inf and −Inf frame each stored as 0.
+  Hann, the power form), the direct method's triple at 8192 and direct
+  65536 at 96 kHz (route "cluster"), then the natural display default's
+  512 bank and direct 32768: against its plain version (``torch.fft``),
+  bit-equal to every other route that holds the size (``routes_of``:
+  the cluster against the three-launch route it replaced), frame 1 of
+  the batch bit-equal to frame 1 transformed alone, and in the power
+  form a NaN, +Inf and −Inf frame each stored as 0.
 
 Tolerances: B2's ordered forms bit-equal to the plain sum computed on the
 CPU (on the card ``histogram_plain`` is ``index_add_``'s atomics, no
@@ -109,12 +111,13 @@ RFFT_CASES = (
      True),
     ("direct 8192", dict(mode="enhanced", multires=False, fft_size=8192,
                          fft_method="direct"), 0, False),
+    ("direct 65536", dict(mode="enhanced", multires=False, fft_size=65536,
+                          fft_method="direct", sample_rate=96000), 0, False),
     ("natural 512 bank", dict(mode="natural"), 2, True),
     ("direct 32768", dict(mode="enhanced", multires=False, fft_size=32768,
-                          fft_method="direct"), 0, False),
-    ("direct 65536", dict(mode="enhanced", multires=False, fft_size=65536,
-                          fft_method="direct", sample_rate=96000), 0, False))
-RFFT_QUICK = 2              # the quick set: one power form, one spectrum
+                          fft_method="direct"), 0, False))
+RFFT_QUICK = 3              # the quick set: one power form, the block and
+                            # the cluster route's spectra
 # each new check's broken stand-ins (``perturbed``): form → its validator
 # and the ways to break it
 PERTURBATIONS = {
@@ -126,6 +129,7 @@ PERTURBATIONS = {
     "ring bands": ("validate_ring", ("dropped",)),
     "B1 windowed": ("validate_deposits_windowed", ("moved", "unweighted")),
     "rfft": ("validate_rfft", ("batch", "unscrubbed")),
+    "rfft cluster": ("validate_rfft", ("mirror",)),
 }
 
 
@@ -383,9 +387,11 @@ def validate_rfft(dev, quick: bool = True,
     """The real FFT kernel (``rfft_frames``) at ``RFFT_CASES``' frames of
     ``WINDOW_SECONDS`` (or ``seconds``) of signal, as the path frames
     them: against its plain version within 2e-5·√(N/512) of the peak;
-    frame 1 of the batch bit-equal to frame 1 transformed alone (a live
-    hop's batch); in the power form three frames given a NaN, +Inf and
-    −Inf sample stored as 0, every bin finite."""
+    bit-equal to each other route that holds N, forced (``routes_of``:
+    the cluster's own form against its parent route); frame 1 of the
+    batch bit-equal to frame 1 transformed alone (a live hop's batch); in
+    the power form three frames given a NaN, +Inf and −Inf sample stored
+    as 0, every bin finite."""
     from emspec_torch.dsp.frame import frame_signal
     from emspec_torch.dsp.kernels import rfft
     from emspec_torch.dsp.kernels.window import windowed_frames
@@ -410,6 +416,12 @@ def validate_rfft(dev, quick: bool = True,
         err = float((got - want).abs().max()) / float(want.abs().max())
         _assert(err <= tol, f"rfft {label}: {err:.2e} of the peak off the "
                 f"plain version (> {tol:.2e})")
+        route = rfft.route_of(n)
+        for other in rfft.routes_of(n)[1:]:
+            _assert(torch.equal(rfft.rfft_frames(frames, window, power=power,
+                                                 route=other), got),
+                    f"rfft {route} {label}: its frames differ from route "
+                    f"{other!r}'s (forced) bit for bit")
         flat = frames.reshape(-1, n)
         alone = rfft.rfft_frames(flat[1].contiguous(), window, power=power)
         _assert(torch.equal(alone, got.reshape(-1, n // 2 + 1)[1]),
@@ -426,7 +438,8 @@ def validate_rfft(dev, quick: bool = True,
                     and not bool(p[2:].any()),
                     f"rfft {label}: non-finite power not scrubbed to 0")
         checked.append(f"rfft · {'power' if power else 'spectrum'} · "
-                       f"{label}: {shape}")
+                       f"{label}: {shape}, route "
+                       f"{' ≡ '.join(rfft.routes_of(n))}")
     return checked
 
 
@@ -647,22 +660,34 @@ def perturbed(form: str, how: str):
     out (``"unweighted"``); the real FFT with one ulp on the largest bin
     of frame 1 of any batch of two frames or more (``"batch"``: a frame
     transformed at another batch's bits) or its power form without the
-    non-finite scrub (``"unscrubbed"``).  Calls of the other forms pass
+    non-finite scrub (``"unscrubbed"``); route "cluster" with one ulp on
+    bin 1 of every frame, whose pair reads its mirror Z[m − 1] from the
+    last rank (``"mirror"``).  Calls of the other forms pass
     through.  The form's validator must raise
     ``AssertionError`` inside."""
     from emspec_torch.dsp.kernels import deposits, rfft, scatter
 
     if how not in PERTURBATIONS[form][1]:
         raise ValueError(f"{form} has no perturbation {how!r}")
-    if form == "rfft":
+    if form.startswith("rfft"):
         module, name = rfft, "rfft_frames"
         real = rfft.rfft_frames
 
-        def stand_in(frames, window=None, *, power=False):
+        def stand_in(frames, window=None, *, power=False, route=None):
+            n = frames.shape[-1]
+            if how == "mirror":
+                got = real(frames, window, power=power, route=route)
+                if (route or rfft.route_of(n)) == "cluster":
+                    bin1 = got[..., 1:2]
+                    bump = torch.view_as_real(bin1) if got.is_complex() \
+                        else bin1
+                    bump.copy_(torch.nextafter(
+                        bump, bump.new_tensor(float("inf"))))
+                return got
             if how == "unscrubbed" and power:
-                X = real(frames, window)
+                X = real(frames, window, route=route)
                 return X.real * X.real + X.imag * X.imag
-            got = real(frames, window, power=power)
+            got = real(frames, window, power=power, route=route)
             rows = got.reshape(-1, got.shape[-1])
             if how == "batch" and rows.shape[0] >= 2:
                 row = torch.view_as_real(rows[1]) if got.is_complex() \

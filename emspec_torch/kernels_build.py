@@ -81,6 +81,9 @@ _SIGNATURES = {
     "emspec_fourstep": [_P] * 8 + [_LL, _I, _I, _I, _P],
     "emspec_window": [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P],
     "emspec_rfft": [_P, _LL, _LL, _LL, _LL] + [_P] * 6 + [_I, _I, _I, _P],
+    "emspec_rfft_cluster": [_P, _LL, _LL, _LL, _LL] + [_P] * 6
+                           + [_I, _I, _I, _I, _P],
+    "emspec_rfft_cluster_occupancy": [_I, _I, _I, _P],
     "emspec_rfft_pack": [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P],
     "emspec_rfft_unpack": [_P] * 5 + [_LL, _I, _I, _I, _P],
 }

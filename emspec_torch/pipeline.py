@@ -153,9 +153,11 @@ class Pipeline:
                 (max(int(np.floor(lo_hz / bin_hz)) - 1, 0),
                  min(int(np.ceil(hi_hz / bin_hz)) + 2, k_count)))
         if self.fft_impl == "xla" and self.device.type == "cuda":
-            # the card's real FFT kernel holds 256–262144 points: refuse
-            # here, not at the first spectrum (no fallback to cuFFT)
+            # the card's real FFT kernel holds 256–262144 points, and from
+            # 65536 up a cluster the card must hold: refuse here, not at
+            # the first spectrum (no fallback to cuFFT or another route)
             rfft_kernel.require_sizes(self.sizes, "Pipeline")
+            rfft_kernel.require_card(self.sizes, self.device, "Pipeline")
 
     @property
     def fft_impl(self) -> str:

@@ -2092,3 +2092,111 @@ def test_cuda_default_engine_stream_is_process(cuda, mode, n):
     vis_s, rgba_s = stream_signal(x, s, cuda, chunk=777)
     np.testing.assert_array_equal(vis_s, vis_b.cpu().numpy())
     np.testing.assert_array_equal(rgba_s, rgba_b.cpu().numpy())
+
+
+# the real FFT's route "cluster" (csrc/rfft_cluster.cu) against the route
+# it replaced at each size: "large" (pack → B4 → unpack) at 65536–262144,
+# "block" at 16384 and 32768
+RFFT_CLUSTER_SIZES = [16384, 32768, 65536, 131072, 262144]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RFFT_CLUSTER_SIZES)
+def test_cuda_rfft_cluster_is_the_parent_route_bit_for_bit(cuda, n):
+    """Route "cluster" bit-equal to the parent route at the same N, as a
+    spectrum and as Hann power: a strided view of 1,024 frames, its
+    contiguous batches of 1, 2, 7 and 100 at three offsets, a frame
+    alone, the spectrum without a window; a NaN, +Inf and −Inf frame each
+    stored as power 0."""
+    from emspec_torch.dsp.kernels.rfft import rfft_frames, route_of
+    from emspec_torch.dsp.stft import hann_window
+
+    parent = "large" if n >= 65536 else "block"
+    hop = n // 4
+    x = torch.from_numpy(np.random.default_rng(n + 2).standard_normal(
+        1023 * hop + n).astype(np.float32)).to(cuda)
+    fr = frame_signal(x, n, hop)                        # (1024, n) view
+    hann = hann_window(n, cuda)
+    for window, power in ((None, False), (hann, False), (hann, True)):
+        ref = rfft_frames(fr, window, power=power, route=parent)
+        got = rfft_frames(fr, window, power=power, route="cluster")
+        assert torch.equal(got, ref), (window is None, power)
+        if route_of(n) == "cluster":
+            assert torch.equal(rfft_frames(fr, window, power=power), ref)
+        for b in (1, 2, 7, 100):
+            for k0 in (0, 5, 1024 - b):
+                part = fr[k0:k0 + b].contiguous()
+                assert torch.equal(rfft_frames(part, window, power=power,
+                                               route="cluster"),
+                                   ref[k0:k0 + b]), (b, k0, power)
+        assert torch.equal(rfft_frames(fr[511], window, power=power,
+                                       route="cluster"), ref[511])
+    bad = fr[:5].clone()
+    for row, v in ((1, float("nan")), (2, float("inf")), (3, -float("inf"))):
+        bad[row, n // 3] = v
+    got = rfft_frames(bad, hann, power=True, route="cluster")
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1:4], torch.zeros_like(got[1:4]))
+    assert torch.equal(got, rfft_frames(bad, hann, power=True, route=parent))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [512, 8192, 32768, 65536, 262144])
+def test_cuda_rfft_narrow_loads_give_the_same_bits(cuda, n, offset):
+    """Frames whose start lies off 16 bytes (4- and 8-byte sample loads
+    in place of 16-byte ones) and a window off 16 bytes: bit-equal to the
+    same frames copied to an aligned tensor, on the default route."""
+    from emspec_torch.dsp.kernels.rfft import rfft_frames
+    from emspec_torch.dsp.stft import hann_window
+
+    x = torch.from_numpy(np.random.default_rng(n + offset).standard_normal(
+        offset + 6 * n).astype(np.float32)).to(cuda)
+    fr = frame_signal(x[offset:], n, n // 2)            # 11 frames, off 16 B
+    hann = hann_window(n, cuda)
+    win = torch.empty(n + offset, device=cuda)[offset:].copy_(hann)
+    for window in (None, hann, win):
+        for power in (False, True):
+            if power and window is None:
+                continue
+            got = rfft_frames(fr, window, power=power)
+            want = rfft_frames(fr.contiguous(), hann if window is not None
+                               else None, power=power)
+            assert torch.equal(got, want), (window is win, power)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 131072, 262144])
+def test_cuda_rfft_default_is_one_launch_of_its_own(cuda, n):
+    """At 65536–262144 a default call is one launch of the port's own
+    cluster kernel: no pack, no B4, no unpack (counters and the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emspec_torch.dsp.kernels.rfft import rfft_frames
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        7 * (n // 4) + n).astype(np.float32)).to(cuda)
+    fr = frame_signal(x, n, n // 4)
+    rfft_frames(fr)
+    torch.cuda.synchronize()
+    b4, own = fft4_steps123.launches, dict(rfft_frames.route_launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rfft_frames(fr)
+        torch.cuda.synchronize()
+    assert fft4_steps123.launches == b4
+    assert rfft_frames.route_launches["cluster"] == own["cluster"] + 1
+    assert rfft_frames.route_launches["large"] == own["large"]
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.count > 0]
+    assert len(names) == 1 and "real_dft_cluster_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RFFT_CLUSTER_SIZES)
+def test_cuda_rfft_cluster_occupancy(cuda, n):
+    """The card holds at least one cluster of route "cluster"'s plan at
+    each size (16 CTAs are non-portable: asked, not assumed)."""
+    from emspec_torch.dsp.kernels.rfft import cluster_occupancy
+
+    assert cluster_occupancy(n, cuda) >= 1

@@ -123,7 +123,7 @@ def test_plain_references_never_reach_the_wrapper(monkeypatch):
 # ------------------------------------------------------------ routing
 def test_routes_by_size_alone():
     assert [route_of(1 << b) for b in range(8, 19)] == (
-        ["full"] + ["block"] * 7 + ["large"] * 3)
+        ["full"] + ["block"] * 5 + ["cluster"] * 5)
     assert all(supported(1 << b) for b in range(8, 19))
     assert not any(supported(n) for n in (0, 128, 384, 1000, 524288))
 

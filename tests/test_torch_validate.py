@@ -47,7 +47,8 @@ TRIPS = {"ulp": "deposit order", "reversed": "deposit order",
          "out": "added into an output", "nan": "NaN or Inf",
          "order": "deposit order", "dropped": "deposit order",
          "moved": "ids equal", "unweighted": "ids equal",
-         "batch": "frame alone", "unscrubbed": "not scrubbed"}
+         "batch": "frame alone", "unscrubbed": "not scrubbed",
+         "mirror": "differ from route"}
 # each new check's form, its validator and its broken stand-ins
 FORMS = {"sorted batch": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
          "sorted tiles": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
@@ -57,7 +58,8 @@ FORMS = {"sorted batch": ("validate_sorted", ("ulp", "reversed", "out", "nan")),
          "ring bands": ("validate_ring", ("dropped",)),
          "B1 windowed": ("validate_deposits_windowed", ("moved",
                                                         "unweighted")),
-         "rfft": ("validate_rfft", ("batch", "unscrubbed"))}
+         "rfft": ("validate_rfft", ("batch", "unscrubbed")),
+         "rfft cluster": ("validate_rfft", ("mirror",))}
 BITES = [(form, how) for form, (_, hows) in FORMS.items() for how in hows]
 
 
@@ -188,13 +190,16 @@ def test_the_quick_set_runs_b1_windowed_at_the_display_default(quick_calls):
 
 
 def test_the_quick_set_checks_the_real_fft():
-    """The real FFT's quick set: natural 4096's power form with Hann and
-    the direct method's triple at 8192, each a line of ``"checked"``."""
+    """The real FFT's quick set: natural 4096's power form with Hann, the
+    direct method's triple at 8192 and at 65536 (route "cluster", held to
+    the three-launch route), each a line of ``"checked"``."""
     checked = validate.validate_rfft(CPU, True, SECONDS)
     assert [c.split(" · ")[:2] for c in checked] == [
-        ["rfft", "power"], ["rfft", "spectrum"]]
+        ["rfft", "power"], ["rfft", "spectrum"], ["rfft", "spectrum"]]
     assert checked[0].split(" · ")[2].startswith("natural 4096: (")
     assert checked[1].split(" · ")[2].startswith("direct 8192: (3, ")
+    assert checked[2].split(" · ")[2].startswith("direct 65536: (3, ")
+    assert checked[2].endswith("route cluster ≡ large")
     full = validate.validate_rfft(CPU, False, SECONDS)
     assert [c.split(" · ")[2].split(":")[0] for c in full] == [
         label for label, *_ in validate.RFFT_CASES]
